@@ -1,0 +1,405 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and prints no result line:
+
+  1. device   the card's name and power limit (nvidia-smi)
+  2. build    every kernel of the port from `src/repro_torch/kernels/*/csrc`
+  3. flash    the flash-attention kernel against its plain version at the
+              DiT-XL shape (f32 and bf16), a causal GQA shape with a window,
+              a ragged shape and a q-at-the-tail shape; kernel, plain and
+              scaled_dot_product_attention (yardstick only) times
+  4. forecast the forecast kernel against its plain version, batched over
+              serving slots and unbatched at a block-sized shape, f32 and
+              bf16, taylor and hermite coefficients
+  5. serve    full-width DiT-XL (28 layers, bf16 params, random weights from
+              a seed, AdaLN gates perturbed) behind DiffusionServingEngine
+              with TaylorSeer, 4 slots, 8 requests of 8 and 16 steps, two
+              guided; every x0 finite, every request's computed steps equal
+              its static schedule, both kernels launched on this path
+  6. check    a reduced DiT served on the card (kernels) and on the CPU
+              (plain versions) from the same weights and noise must agree
+
+It then prints a `kernels` JSON line, the card's name and power limit, and
+as the last line {"ok": true, "device": {...}}.  Needs one CUDA card; it
+imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # flash: max |kernel - plain|
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean device milliseconds of fn() over `reps` back-to-back calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _self_device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def profile(torch, fn):
+    """Run fn() under torch.profiler; returns (key averages, wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return prof.key_averages(), wall
+
+
+def device_ms(torch, fn, kernel: str, reps: int = 20):
+    """Mean device time of the CUDA kernel whose name contains `kernel`,
+    per launch, from a profiled run of `reps` calls (None if the profiler
+    saw no device time)."""
+    evts, _ = profile(torch, lambda: [fn() for _ in range(reps)])
+    hits = [e for e in evts if kernel in e.key and _self_device_us(e) > 0
+            and str(e.device_type).endswith("CUDA")]
+    if not hits:
+        return None
+    return sum(_self_device_us(e) for e in hits) / 1e3 / sum(
+        e.count for e in hits)
+
+
+def bound(nbytes: float, flops: float, peak_flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash(torch, F):
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    cases = [  # name, B, Sq, Sk, H, KH, D, causal, window, dtype
+        ("dit-xl f32", 8, 256, 256, 16, 16, 72, False, 0, "float32"),
+        ("dit-xl bf16", 8, 256, 256, 16, 16, 72, False, 0, "bfloat16"),
+        ("causal gqa window", 2, 512, 512, 8, 2, 64, True, 128, "float32"),
+        ("ragged 77", 2, 77, 77, 4, 4, 72, True, 0, "float32"),
+        ("q tail of k, d128", 1, 128, 256, 4, 1, 128, True, 64, "bfloat16"),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    report = None
+    for name, B, Sq, Sk, H, KH, D, causal, window, dt in cases:
+        dtype = getattr(torch, dt)
+        q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, Sk, KH, D), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, Sk, KH, D), generator=gen, device="cuda").to(dtype)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref = attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if out.dtype != dtype or out.shape != q.shape:
+            fail(f"flash {name}: got {out.dtype} {tuple(out.shape)}")
+        err = float((out.float() - ref.float()).abs().max())
+        ok = err <= TOL[dt]
+        ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=causal,
+                                                    window=window))
+        dev_ms = device_ms(torch, lambda: flash_attention(
+            q, k, v, causal=causal, window=window), "flash_fwd")
+        plain_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal=causal,
+                                                        window=window), reps=5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if causal or window:
+            qp = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
+            kp = torch.arange(Sk, device="cuda")[None, :]
+            mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+            if causal:
+                mask &= kp <= qp
+            if window:
+                mask &= qp - kp < window
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=KH != H))
+        log(f"flash {name}: B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} D={D} "
+            f"causal={causal} window={window} {dt}: max_abs_err={err:.3e} "
+            f"(tol {TOL[dt]}) ms={ms:.4f} device_ms={dev_ms} "
+            f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f}")
+        if not ok:
+            fail(f"flash {name}: max_abs_err {err} > {TOL[dt]}")
+        if report is None:       # the main path's shape and type
+            itemsize = q.element_size()
+            nbytes = 2 * (B * Sq * H * D + B * Sk * KH * D) * itemsize
+            b_ms, by = bound(nbytes, 4.0 * B * H * Sq * Sk * D, F32_FLOPS)
+            report = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                      "device_ms": dev_ms, "shape": name}
+    return report
+
+
+def phase_forecast(torch, slots: int):
+    from repro_torch.kernels.forecast import basis_coeffs, forecast, forecast_ref
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [  # name, batch (None = unbatched), m+1, N
+        ("serving main path", slots, 3, 256 * 16),
+        ("serving 8 slots", 8, 3, 256 * 16),
+        ("block-sized", None, 3, 256 * 1152),
+    ]
+    report = None
+    for name, batch, m1, n in cases:
+        for dt in ("float32", "bfloat16"):
+            for basis in ("taylor", "hermite"):
+                dtype = getattr(torch, dt)
+                lead = (m1,) if batch is None else (batch, m1)
+                d = torch.randn(lead + (n,), generator=gen,
+                                device="cuda").to(dtype)
+                u = (torch.tensor(0.75) if batch is None else
+                     torch.linspace(0.25, 1.75, batch))
+                nv = (torch.tensor(2) if batch is None else
+                      torch.arange(batch) % (m1 + 1))
+                c = basis_coeffs(m1 - 1, u.cuda(), basis, n_valid=nv.cuda())
+                out = forecast(d, c)
+                ref = forecast_ref(d, c)
+                torch.cuda.synchronize()
+                scale = float(ref.float().abs().max())
+                err = float((out.float() - ref.float()).abs().max())
+                tol = 2e-6 * max(scale, 1.0) if dt == "float32" \
+                    else 2 ** -7 * max(scale, 1.0)
+                ms = cuda_ms(torch, lambda: forecast(d, c), reps=50)
+                dev_ms = device_ms(torch, lambda: forecast(d, c),
+                                   "forecast_kernel")
+                plain_ms = cuda_ms(torch, lambda: forecast_ref(d, c), reps=50)
+                rows = 1 if batch is None else batch
+                nbytes = (rows * (m1 + 1) * n) * d.element_size() + c.numel() * 4
+                b_ms, by = bound(nbytes, 2.0 * rows * m1 * n, F32_FLOPS)
+                lib_ms = None
+                if dt == "float32":
+                    c3 = c.view(rows, 1, m1)
+                    d3 = d.view(rows, m1, n)
+                    lib_ms = cuda_ms(torch, lambda: torch.bmm(c3, d3), reps=50)
+                log(f"forecast {name} {tuple(d.shape)} {dt} {basis}: "
+                    f"max_abs_err={err:.3e} (tol {tol:.3e}) ms={ms:.4f} "
+                    f"device_ms={dev_ms} "
+                    f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({by}) "
+                    f"library_ms={lib_ms}")
+                if err > tol:
+                    fail(f"forecast {name} {dt} {basis}: err {err} > {tol}")
+                if report is None:
+                    report = {"max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": by, "library_ms": lib_ms,
+                              "device_ms": dev_ms,
+                              "shape": f"{name} {tuple(d.shape)} {dt}"}
+    return report
+
+
+def phase_serve(torch, kernels):
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_policy
+    from repro_torch.models import init_params, perturb_zero_init
+    from repro_torch.serving.diffusion import (DiffusionRequest,
+                                               DiffusionServingEngine)
+    cfg = get_config("dit-xl")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = perturb_zero_init(init_params(gen, cfg, device="cuda"), gen)
+    n_params = sum(t.numel() for t in _leaves(params))
+    eng = DiffusionServingEngine(params, cfg, "taylorseer", slots=4,
+                                 max_steps=16, device="cuda")
+    buckets = eng.warmup()
+    torch.cuda.synchronize()
+    log(f"serve: dit-xl {cfg.num_layers} layers d_model={cfg.d_model} "
+        f"params={n_params} ({cfg.dtype}) init+warmup "
+        f"{time.perf_counter() - t0:.2f}s buckets={buckets}")
+    reqs = [DiffusionRequest(i, num_steps=(8, 16)[i % 2], seed=i,
+                             class_label=(37 * i) % cfg.dit_num_classes,
+                             cfg_scale=4.0 if i in (1, 4) else 0.0)
+            for i in range(8)]
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    pol = make_policy("taylorseer")
+    if len(res) != len(reqs):
+        fail(f"serve: {len(res)} of {len(reqs)} requests finished")
+    for r, req in zip(res, reqs):
+        if r.x0.shape != (cfg.dit_tokens, cfg.dit_in_dim):
+            fail(f"serve: request {r.request_id} x0 shape {r.x0.shape}")
+        if not math.isfinite(float(abs(r.x0).max())):
+            fail(f"serve: request {r.request_id} x0 not finite")
+        want = sum(pol.static_schedule(req.num_steps))
+        if r.record.computed_steps != want:
+            fail(f"serve: request {r.request_id} computed "
+                 f"{r.record.computed_steps} steps, schedule says {want}")
+        want_u = req.num_steps if req.guided else 0
+        if r.record.uncond_computed_steps != want_u:
+            fail(f"serve: request {r.request_id} uncond computed "
+                 f"{r.record.uncond_computed_steps}, want {want_u}")
+    s = eng.telemetry.summary()
+    rows = s["backbone_rows_computed"] + s["backbone_rows_padding"]
+    log(f"serve: {s['requests']} requests in {wall:.3f}s wall, "
+        f"throughput_rps={s['throughput_rps']:.4f} "
+        f"ticks={s['ticks']} (full {eng.telemetry.ticks_full}, cond "
+        f"{eng.telemetry.ticks_cond}, skip {eng.telemetry.ticks_skip}) "
+        f"tick_ms_backbone_mean={s['tick_ms_backbone_mean']:.3f} "
+        f"tick_ms_skip_mean={s['tick_ms_skip_mean']:.3f} "
+        f"backbone_rows_computed={s['backbone_rows_computed']} "
+        f"backbone_rows_padding={s['backbone_rows_padding']} "
+        f"latency_p50_s={s['latency_p50_s']:.3f} "
+        f"latency_p95_s={s['latency_p95_s']:.3f} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    log(f"serve: launches {launches} (flash: {cfg.num_layers} per backbone "
+        f"pass; {eng.telemetry.ticks_backbone} backbone ticks, {rows} rows)")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"serve: kernel {name} was not launched on the main path")
+    # the same traffic again under the profiler: where the device time goes
+    evts, pwall = profile(torch, lambda: eng.serve(reqs))
+    kern = sorted((e for e in evts if _self_device_us(e) > 0
+                   and str(e.device_type).endswith("CUDA")),
+                  key=_self_device_us, reverse=True)
+    busy_ms = sum(_self_device_us(e) for e in kern) / 1e3
+    log(f"profile: serve wall {pwall * 1e3:.1f} ms (profiled), device "
+        f"kernels {busy_ms:.1f} ms, idle share {1 - busy_ms / (pwall * 1e3):.3f}")
+    for e in kern[:12]:
+        log(f"profile: {_self_device_us(e) / 1e3:9.3f} ms "
+            f"{100 * _self_device_us(e) / 1e3 / busy_ms:5.1f}% "
+            f"x{e.count:<5d} {e.key[:90]}")
+    del params, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def phase_check(torch):
+    """A reduced DiT served on the card (kernels) and on the CPU (plain
+    versions) from the same weights and the same noise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, perturb_zero_init
+    from repro_torch.serving.diffusion import (DiffusionRequest,
+                                               DiffusionServingEngine)
+    cfg = get_config("dit-xl").reduced(num_layers=3, d_model=128, num_heads=4,
+                                       num_kv_heads=4, d_ff=256,
+                                       dit_patch_tokens=64, dit_in_dim=8,
+                                       dit_num_classes=10)
+    gen = torch.Generator().manual_seed(3)
+    cpu_params = perturb_zero_init(init_params(gen, cfg, device="cpu"), gen)
+    gpu_params = _to(cpu_params, "cuda")
+
+    def noise(req):
+        g = torch.Generator().manual_seed(1000 + req.request_id)
+        return torch.randn((cfg.dit_tokens, cfg.dit_in_dim), generator=g)
+
+    reqs = [DiffusionRequest(i, num_steps=(8, 12)[i % 2], class_label=i,
+                             cfg_scale=3.0 if i == 1 else 0.0)
+            for i in range(3)]
+    out = {}
+    for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
+        eng = DiffusionServingEngine(p, cfg, "taylorseer", slots=2,
+                                     max_steps=12, noise_fn=noise, device=dev)
+        out[dev] = [r.x0 for r in eng.serve(reqs)]
+    worst = 0.0
+    for a, b in zip(out["cuda"], out["cpu"]):
+        rel = float(abs(a - b).max() / max(abs(b).max(), 1e-6))
+        worst = max(worst, rel)
+    log(f"check: reduced DiT served on the card vs the CPU: max rel err "
+        f"{worst:.3e} (tol 1e-3)")
+    if not worst <= 1e-3:
+        fail(f"check: card and CPU disagree (rel err {worst})")
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def main() -> int:
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        fail("no CUDA device (torch.cuda.is_available() is false)")
+    if not (SRC / "repro_torch" / "kernels").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 references
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"device: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    from repro_torch.kernels import KERNELS, _build
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.load()
+    log(f"build: {lib.name} in {time.perf_counter() - t0:.2f}s")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            log(f"build: {line.strip()}")
+
+    flash = phase_flash(torch, F)
+    fc = phase_forecast(torch, slots=4)
+    launches = phase_serve(torch, KERNELS)
+    phase_check(torch)
+
+    rows = []
+    for name, src, replaces, rep in (
+            ("flash_attention",
+             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:75", flash),
+            ("forecast", "src/repro_torch/kernels/forecast/csrc/forecast.cu",
+             "src/repro/kernels/forecast/forecast.py:32", fc)):
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
+                     "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+                     "bound_by": rep["bound_by"],
+                     "library_ms": rep["library_ms"],
+                     "device_ms": rep["device_ms"], "shape": rep["shape"]})
+    log(json.dumps({"kernels": rows}))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,17 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+  flash_attention — online-softmax attention (every DiT self-attention)
+  forecast        — fused weighted sum over a finite-difference stack (every
+                    forecast step of the predictive cache policies)
+
+Each subpackage holds `csrc/*.cu` (the CUDA kernel, built for sm_90a by
+`_build`), `ops.py` (the wrapper: plain version for CPU tensors, kernel or
+an error for CUDA tensors, launch counter) and `ref.py` (plain PyTorch).
+Nothing is compiled at import time.
+"""
+from .flash_attention import flash_attention
+from .forecast import forecast
+
+KERNELS = (flash_attention, forecast)
+
+__all__ = ["flash_attention", "forecast", "KERNELS"]

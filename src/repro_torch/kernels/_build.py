@@ -1,0 +1,126 @@
+"""Build the port's CUDA kernels and load them with ctypes.
+
+Every `kernels/*/csrc/*.cu` compiles, one `nvcc` process per source all
+started together, for Hopper (`sm_90a`) into one shared library with a
+plain C interface.  The library lands in `build/repro_torch_kernels/<hash>/`
+at the repository root (listed in `.gitignore`), keyed by a hash of the
+sources and flags, so an unchanged tree builds once.  A failed build
+raises; nothing falls back.
+
+Each C entry point returns `cudaGetLastError()` after its launch; the
+Python wrappers raise when it is not 0.  Pointers and the stream travel as
+`c_void_p` (a bare Python int would be cut to 32 bits).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import List
+
+_KERNELS = Path(__file__).resolve().parent
+BUILD_ROOT = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+LIB_NAME = "librepro_torch_kernels.so"
+
+_lock = threading.Lock()
+_lib = None            # the loaded library, shared by every wrapper
+
+
+def sources() -> List[Path]:
+    return sorted(_KERNELS.glob("*/csrc/*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (looked on PATH and in "
+                           f"{path}); the CUDA kernels cannot be built")
+    return str(path)
+
+
+def _digest(srcs: List[Path]) -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile (if needed) and return the path of the shared library."""
+    srcs = sources()
+    out_dir = BUILD_ROOT / _digest(srcs)
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-"))
+    try:
+        objs = [work / (s.stem + ".o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *FLAGS, "-c", str(s), "-o", str(o)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(f"== {s.name}\n{text}" for s, text in zip(srcs, logs))
+        failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(work / LIB_NAME), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking {LIB_NAME} failed:\n{link.stdout}")
+        (work / "build.log").write_text(log + link.stdout)
+        try:
+            work.rename(out_dir)
+        except OSError:        # another process finished the same build
+            if not lib.exists():
+                raise
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib
+
+
+def build_log() -> str:
+    """The compiler's report (ptxas registers, shared memory, spills)."""
+    path = BUILD_ROOT / _digest(sources()) / "build.log"
+    return path.read_text() if path.exists() else ""
+
+
+def _declare(lib) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
+                                        I, F, P]
+    lib.flash_attention_fwd.restype = I
+    lib.forecast_fwd.argtypes = [P, P, P, I, I, I, ctypes.c_longlong, I, P]
+    lib.forecast_fwd.restype = I
+
+
+def load():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            _declare(lib)
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,54 @@
+"""Public wrapper for the flash-attention kernel.
+
+CPU tensors take the plain version (`attention_ref`).  CUDA tensors launch
+`csrc/flash_attention.cu` or raise: there is no fallback on the card.
+`flash_attention.launches` counts kernel launches (a plain integer)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import _build
+from .ref import attention_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
+    """q: (B, Sq, H, D); k/v: (B, Sk, KH, D), KH divides H -> (B, Sq, H, D)
+    in q's dtype.  q sits at the tail of the key sequence."""
+    B, Sq, H, D = q.shape
+    Bk, Sk, KH, Dk = k.shape
+    if v.shape != k.shape or Bk != B or Dk != D or H % KH != 0:
+        raise ValueError(f"flash_attention: incompatible shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    devices = {t.device.type for t in (q, k, v)}
+    if devices == {"cpu"}:
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    if devices != {"cuda"} or len({t.device for t in (q, k, v)}) != 1:
+        raise ValueError(f"flash_attention: q, k, v must share one CUDA "
+                         f"device (got {[str(t.device) for t in (q, k, v)]})")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must all be float32 or "
+                        f"bfloat16 (got {q.dtype}, {k.dtype}, {v.dtype})")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k, v must be contiguous")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
+    o = torch.empty_like(q)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            _DTYPES[q.dtype], B, Sq, Sk, H, KH, D, int(bool(causal)),
+            int(window), float(scale), stream)
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

@@ -1,0 +1,47 @@
+"""Model zoo of the port: so far the class-conditioned image DiT."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+
+from . import dit, encdec, layers
+
+
+def init_params(generator: torch.Generator, cfg, dtype=None, device=None):
+    """Random params for `cfg`, drawn from `generator` on `device` (the GPU
+    unless the caller passes device="cpu"); the generator must live on the
+    same device type."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator is on {generator.device}, params go to "
+                         f"{dev}: make the generator on the params' device")
+    if not cfg.is_dit or cfg.dit_num_frames > 0 or cfg.dit_text_len > 0:
+        raise NotImplementedError(
+            f"repro_torch ports only the class-conditioned image DiT so far "
+            f"('{cfg.name}' needs more); see ROADMAP.md §A")
+    return dit.init_dit(generator, cfg, dtype, dev)
+
+
+def perturb_zero_init(params, generator: torch.Generator, scale: float = 0.05):
+    """Replace all-zero leaves (AdaLN-zero gates, patch_out) with small random
+    values.  An untrained AdaLN-zero DiT outputs exactly 0, which makes any
+    cache-vs-exact comparison trivial.  Returns a new dict; leaves are
+    visited in sorted key order, as JAX flattens a dict."""
+    def walk(tree):
+        out = {}
+        for key in sorted(tree):
+            leaf = tree[key]
+            if isinstance(leaf, dict):
+                out[key] = walk(leaf)
+            elif bool((leaf == 0).all()):
+                rnd = torch.randn(leaf.shape, generator=generator,
+                                  device=leaf.device) * scale
+                out[key] = rnd.to(leaf.dtype)
+            else:
+                out[key] = leaf
+        return out
+    return walk(params)
+
+
+__all__ = ["dit", "encdec", "layers", "init_params", "perturb_zero_init"]
