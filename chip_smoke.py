@@ -9,22 +9,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
   2. build    every kernel of the port from `src/repro_torch/kernels/*/csrc`
   3. flash    the flash-attention kernel against its plain version at the
               DiT-XL shape (f32 and bf16), a causal GQA shape with a window,
-              a ragged shape and a q-at-the-tail shape; kernel, plain and
+              a ragged shape, a q-at-the-tail shape and the zamba2-2.7b
+              prefill shape (bf16, head dim 80); kernel, plain and
               scaled_dot_product_attention (yardstick only) times
   4. forecast the forecast kernel against its plain version, batched over
               serving slots and unbatched at a block-sized shape, f32 and
               bf16, taylor and hermite coefficients
-  5. serve    full-width DiT-XL (28 layers, bf16 params, random weights from
+  5. ssd      the SSD scan kernel against its plain version at the zamba2
+              prefill shape (b 4, s 512, h 80, p 64, n 64) and at b 1 with a
+              ragged s = 500; kernel, device and plain times
+  6. serve    full-width DiT-XL (28 layers, bf16 params, random weights from
               a seed, AdaLN gates perturbed) behind DiffusionServingEngine
               with TaylorSeer, 4 slots, 8 requests of 8 and 16 steps, two
               guided; every x0 finite, every request's computed steps equal
-              its static schedule, both kernels launched on this path
-  6. check    a reduced DiT served on the card (kernels) and on the CPU
+              its static schedule, flash and forecast launched on this path
+  7. check    a reduced DiT served on the card (kernels) and on the CPU
               (plain versions) from the same weights and noise must agree
+  8. serve-llm full-width zamba2-2.7b (54 Mamba2 layers, 9 shared attention
+              applications, bf16 params, random weights from a seed) behind
+              ServingEngine, 4 slots, 8 greedy requests of 64-500 prompt
+              tokens, 32 new tokens each; every logit finite, SSD launched
+              54 times and flash 9 times per prefill; tok/s, prefill ms,
+              decode ms per step, peak memory, device time by kernel
+  9. check-llm the zamba2 SMOKE config served on the card (kernels) and on
+              the CPU (plain versions) from the same weights and prompts
+              must give the same tokens and close logits
 
-It then prints a `kernels` JSON line, the card's name and power limit, and
-as the last line {"ok": true, "device": {...}}.  Needs one CUDA card; it
-imports nothing of JAX.
+Each served phase sets every launch count to 0 just before it and reads the
+counts just after.  It then prints a `kernels` JSON line, the card's name
+and power limit, and as the last line {"ok": true, "device": {...}}.  Needs
+one CUDA card; it imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -38,9 +52,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, dense peaks:
+PEAK_FLOPS = {"float32": 67e12,  # f32 outside the tensor cores
+              "bfloat16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # flash: max |kernel - plain|
+SSD_TOL = dict(atol=2e-4, rtol=1e-3)       # ssd: chunk invariance
+LLM_LOGIT_TOL = 1e-4                       # check-llm: f32 logits, card vs CPU
 
 
 def fail(msg: str) -> None:
@@ -112,6 +129,7 @@ def phase_flash(torch, F):
         ("causal gqa window", 2, 512, 512, 8, 2, 64, True, 128, "float32"),
         ("ragged 77", 2, 77, 77, 4, 4, 72, True, 0, "float32"),
         ("q tail of k, d128", 1, 128, 256, 4, 1, 128, True, 64, "bfloat16"),
+        ("zamba2 prefill", 4, 512, 512, 32, 32, 80, True, 0, "bfloat16"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = None
@@ -145,19 +163,22 @@ def phase_flash(torch, F):
                 mask &= qp - kp < window
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=KH != H))
+        # the work these inputs need: the unmasked (query, key) pairs only
+        pairs = Sq * Sk if mask is None else int(mask.sum())
+        nbytes = 2 * (B * Sq * H * D + B * Sk * KH * D) * q.element_size()
+        b_ms, by = bound(nbytes, 4.0 * B * H * pairs * D, PEAK_FLOPS[dt])
         log(f"flash {name}: B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} D={D} "
             f"causal={causal} window={window} {dt}: max_abs_err={err:.3e} "
             f"(tol {TOL[dt]}) ms={ms:.4f} device_ms={dev_ms} "
-            f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f}")
+            f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({by})")
         if not ok:
             fail(f"flash {name}: max_abs_err {err} > {TOL[dt]}")
-        if report is None:       # the main path's shape and type
-            itemsize = q.element_size()
-            nbytes = 2 * (B * Sq * H * D + B * Sk * KH * D) * itemsize
-            b_ms, by = bound(nbytes, 4.0 * B * H * Sq * Sk * D, F32_FLOPS)
+        if report is None:       # the DiT main path's shape and type
             report = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
-                      "device_ms": dev_ms, "shape": name}
+                      "device_ms": dev_ms, "shape": name,
+                      "tolerance": f"{TOL[dt]} abs"}
     return report
 
 
@@ -195,7 +216,7 @@ def phase_forecast(torch, slots: int):
                 plain_ms = cuda_ms(torch, lambda: forecast_ref(d, c), reps=50)
                 rows = 1 if batch is None else batch
                 nbytes = (rows * (m1 + 1) * n) * d.element_size() + c.numel() * 4
-                b_ms, by = bound(nbytes, 2.0 * rows * m1 * n, F32_FLOPS)
+                b_ms, by = bound(nbytes, 2.0 * rows * m1 * n, PEAK_FLOPS[dt])
                 lib_ms = None
                 if dt == "float32":
                     c3 = c.view(rows, 1, m1)
@@ -213,11 +234,83 @@ def phase_forecast(torch, slots: int):
                               "plain_ms": plain_ms, "bound_ms": b_ms,
                               "bound_by": by, "library_ms": lib_ms,
                               "device_ms": dev_ms,
-                              "shape": f"{name} {tuple(d.shape)} {dt}"}
+                              "shape": f"{name} {tuple(d.shape)} {dt}",
+                              "tolerance": f"{tol:.3e} abs"}
     return report
 
 
-def phase_serve(torch, kernels):
+def phase_ssd(torch):
+    from repro_torch.kernels.ssd import ssd_chunked, ssd_ref, ssd_scan
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    report = None
+    for name, b, s, h, p, n in (("zamba2 prefill", 4, 512, 80, 64, 64),
+                                ("ragged 500", 1, 500, 80, 64, 64)):
+        x = torch.randn((b, s, h, p), generator=gen, device="cuda")
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, s, h), generator=gen, device="cuda"))
+        A = -torch.exp(torch.rand((h,), generator=gen, device="cuda"))
+        B_ = torch.randn((b, s, n), generator=gen, device="cuda")
+        C_ = torch.randn((b, s, n), generator=gen, device="cuda")
+        args = (x, dt, A, B_, C_)
+        y, hf = ssd_scan(*args)
+        # the plain version at the longest chunk of at most 64 that divides
+        # s: 64 as the path runs it; at s = 500 the path's plain version
+        # takes one 500-token chunk (JAX's chunk = s rule) and rounds its
+        # cumsums near -700 by more than the tolerance.
+        chunk = max(c for c in range(1, 65) if s % c == 0)
+        yr, hr = ssd_chunked(*args, chunk)
+        torch.cuda.synchronize()
+        if y.shape != x.shape or hf.shape != (b, h, p, n):
+            fail(f"ssd {name}: got {tuple(y.shape)} {tuple(hf.shape)}")
+
+        def excess(out, ref):      # > 0 where |out - ref| > atol + rtol |ref|
+            return float(((out - ref).abs()
+                          - SSD_TOL["rtol"] * ref.abs()).max())
+
+        err = max(float((y - yr).abs().max()), float((hf - hr).abs().max()))
+        worst = max(excess(y, yr), excess(hf, hr))
+        ms = cuda_ms(torch, lambda: ssd_scan(*args))
+        dev_ms = device_ms(torch, lambda: ssd_scan(*args), "ssd_fwd_kernel")
+        plain_ms = cuda_ms(torch, lambda: ssd_ref(*args), reps=5)
+        # C B^T once per (b, 64-token tile), shared by the heads; per
+        # (b, h, tile) S x over the tile (L = 64), C h^T and the state
+        # update over (p, n)
+        L = 64
+        flops = 2.0 * b * s * L * n + 2.0 * b * h * s * (L * p + 2 * n * p)
+        nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
+                      + b * h * p * n)
+        b_ms, by = bound(nbytes, flops, PEAK_FLOPS["float32"])
+        log(f"ssd {name}: b={b} s={s} h={h} p={p} n={n} f32: "
+            f"max_abs_err={err:.3e} vs plain at chunk {chunk} "
+            f"(tol {SSD_TOL['atol']} abs + {SSD_TOL['rtol']} rel, worst "
+            f"excess {worst:.3e}) ms={ms:.4f} device_ms={dev_ms} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({by}, "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        if not worst <= SSD_TOL["atol"]:
+            fail(f"ssd {name}: off by {worst} beyond {SSD_TOL}")
+        if report is None:
+            report = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                      "device_ms": dev_ms, "shape": name,
+                      "tolerance": f"{SSD_TOL['atol']} abs + "
+                                   f"{SSD_TOL['rtol']} rel"}
+    return report
+
+
+def _count_launches(kernels, path, phase, run):
+    """Set every count to 0, run, read the counts; fail if a kernel of
+    `path` was not launched."""
+    for k in kernels:
+        k.launches = 0
+    out = run()
+    launches = {k.__name__: k.launches for k in kernels}
+    for k in path:
+        if launches[k.__name__] <= 0:
+            fail(f"{phase}: kernel {k.__name__} was not launched on this path")
+    return out, launches
+
+
+def phase_serve(torch, kernels, path):
     from repro_torch.configs import get_config
     from repro_torch.core import make_policy
     from repro_torch.models import init_params, perturb_zero_init
@@ -239,14 +332,12 @@ def phase_serve(torch, kernels):
                              class_label=(37 * i) % cfg.dit_num_classes,
                              cfg_scale=4.0 if i in (1, 4) else 0.0)
             for i in range(8)]
-    for k in kernels:
-        k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = eng.serve(reqs)
+    res, launches = _count_launches(kernels, path, "serve",
+                                    lambda: eng.serve(reqs))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
     pol = make_policy("taylorseer")
     if len(res) != len(reqs):
         fail(f"serve: {len(res)} of {len(reqs)} requests finished")
@@ -278,24 +369,27 @@ def phase_serve(torch, kernels):
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
     log(f"serve: launches {launches} (flash: {cfg.num_layers} per backbone "
         f"pass; {eng.telemetry.ticks_backbone} backbone ticks, {rows} rows)")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"serve: kernel {name} was not launched on the main path")
     # the same traffic again under the profiler: where the device time goes
-    evts, pwall = profile(torch, lambda: eng.serve(reqs))
+    log_profile(torch, "serve", lambda: eng.serve(reqs))
+    del params, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def log_profile(torch, label, fn):
+    """Run fn() under the profiler; log the device's idle share and the
+    twelve kernels that took the most device time."""
+    evts, pwall = profile(torch, fn)
     kern = sorted((e for e in evts if _self_device_us(e) > 0
                    and str(e.device_type).endswith("CUDA")),
                   key=_self_device_us, reverse=True)
     busy_ms = sum(_self_device_us(e) for e in kern) / 1e3
-    log(f"profile: serve wall {pwall * 1e3:.1f} ms (profiled), device "
+    log(f"profile: {label} wall {pwall * 1e3:.1f} ms (profiled), device "
         f"kernels {busy_ms:.1f} ms, idle share {1 - busy_ms / (pwall * 1e3):.3f}")
     for e in kern[:12]:
         log(f"profile: {_self_device_us(e) / 1e3:9.3f} ms "
             f"{100 * _self_device_us(e) / 1e3 / busy_ms:5.1f}% "
             f"x{e.count:<5d} {e.key[:90]}")
-    del params, eng
-    torch.cuda.empty_cache()
-    return launches
 
 
 def _leaves(tree):
@@ -348,6 +442,147 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
+def _watch_logits(eng):
+    """Wrap the engine's token pick so every logit row it sees is checked
+    for finiteness on the device; returns the list of device flags."""
+    flags, pick = [], eng._pick
+
+    def checked(logits, gen):
+        flags.append(logits.isfinite().all())
+        return pick(logits, gen)
+
+    eng._pick = checked
+    return flags
+
+
+def phase_serve_llm(torch, kernels, path):
+    """Full-width zamba2-2.7b behind ServingEngine, random bf16 weights."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("zamba2-2.7b")
+    slots, max_prompt, cache_len, new = 4, 512, 1024, 32
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    eng = ServingEngine(params, cfg, slots=slots, max_prompt=max_prompt,
+                        cache_len=cache_len, device="cuda")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 501, size=8)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in lens]
+    eng.generate(prompts[:slots], max_new_tokens=2)         # warm-up
+    torch.cuda.synchronize()
+    log(f"serve-llm: zamba2-2.7b {cfg.num_layers} Mamba2 layers + "
+        f"{cfg.num_layers // cfg.hybrid_attn_every} shared attention "
+        f"applications, d_model={cfg.d_model}, params={n_params} "
+        f"({cfg.dtype}), init+warm-up {time.perf_counter() - t0:.2f}s; "
+        f"prompt lengths {lens.tolist()}")
+    flags = _watch_logits(eng)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, launches = _count_launches(
+        kernels, path, "serve-llm",
+        lambda: eng.generate(prompts, max_new_tokens=new))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(res) != len(prompts):
+        fail(f"serve-llm: {len(res)} of {len(prompts)} requests finished")
+    for r in res:
+        if len(r.tokens) != new or not all(0 <= t < cfg.vocab_size
+                                           for t in r.tokens):
+            fail(f"serve-llm: request {r.request_id} got {len(r.tokens)} "
+                 f"tokens {r.tokens[:8]}")
+    if not bool(torch.stack(flags).all()):
+        fail("serve-llm: a logit was not finite")
+    chunks = -(-len(prompts) // slots)
+    want = {"ssd_scan": cfg.num_layers * chunks,
+            "flash_attention": cfg.num_layers // cfg.hybrid_attn_every * chunks}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"serve-llm: {name} launched {launches[name]} times, want {n}")
+    ntok = sum(len(r.tokens) for r in res)
+    log(f"serve-llm: {len(res)} requests x {new} tokens in {wall:.3f}s wall, "
+        f"{ntok / wall:.1f} tok/s, {len(flags)} logit rows all finite, "
+        f"peak_mem_gb={peak:.2f}, launches {launches}")
+
+    # one prefill and 16 decode steps on their own, host clock around a sync
+    toks = torch.from_numpy(np.stack([np.resize(p, max_prompt)
+                                      for p in prompts[:slots]])).cuda()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, toks, cfg, cache_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok = logits[:, -1].argmax(-1)
+        del logits
+        pos = torch.full((slots,), max_prompt, device="cuda")
+        steps = 16
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = decode_step(params, tok, pos, cache, cfg)
+            tok, pos = logits.argmax(-1), pos + 1
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    log(f"serve-llm: prefill {slots}x{max_prompt} tokens {prefill_ms:.2f} ms; "
+        f"decode {decode_ms:.2f} ms per step ({slots} slots, cache_len "
+        f"{cache_len})")
+    with torch.no_grad():
+        log_profile(torch, "serve-llm prefill",
+                    lambda: prefill(params, toks, cfg, cache_len))
+        log_profile(torch, "serve-llm decode x8", lambda: [
+            decode_step(params, tok, pos, cache, cfg) for _ in range(8)])
+    del params, eng, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_check_llm(torch):
+    """The zamba2 SMOKE config served on the card (kernels) and on the CPU
+    (plain versions) from the same weights and prompts."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServingEngine
+    cfg = get_smoke_config("zamba2-2.7b")
+    cpu_params = init_params(torch.Generator().manual_seed(5), cfg,
+                             device="cpu")
+    gpu_params = _to(cpu_params, "cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in rng.integers(3, 91, size=6)]
+    # max_prompt 100: two SSD tiles, the second ragged
+    tokens, logits = {}, {}
+    toks = torch.from_numpy(np.stack([np.resize(p, 100) for p in prompts[:4]]))
+    for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
+        eng = ServingEngine(p, cfg, slots=4, max_prompt=100, cache_len=128,
+                            device=dev)
+        tokens[dev] = [r.tokens for r in eng.generate(prompts,
+                                                      max_new_tokens=12)]
+        with torch.no_grad():
+            lg, cache = prefill(p, toks.to(dev), cfg, 128)
+            rows = [lg[:, -1]]
+            tok, pos = lg[:, -1].argmax(-1), torch.full((4,), 100, device=dev)
+            for _ in range(4):
+                lg, cache = decode_step(p, tok, pos, cache, cfg)
+                rows.append(lg)
+                tok, pos = lg.argmax(-1), pos + 1
+        logits[dev] = torch.stack(rows).cpu()
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    same = tokens["cuda"] == tokens["cpu"]
+    log(f"check-llm: zamba2 SMOKE served on the card vs the CPU: tokens "
+        f"{'identical' if same else 'DIFFER'} (6 requests x 12), logits "
+        f"max_abs_err {err:.3e} over a prefill and 4 decode steps "
+        f"(tol {LLM_LOGIT_TOL})")
+    if not same:
+        fail(f"check-llm: tokens differ: {tokens}")
+    if not err <= LLM_LOGIT_TOL:
+        fail(f"check-llm: logits differ by {err}")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -374,25 +609,37 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"build: {line.strip()}")
 
+    flash_attention, forecast, ssd_scan = KERNELS
     flash = phase_flash(torch, F)
     fc = phase_forecast(torch, slots=4)
-    launches = phase_serve(torch, KERNELS)
+    ssd = phase_ssd(torch)
+    by_path = {"serve": phase_serve(torch, KERNELS, (flash_attention, forecast))}
     phase_check(torch)
+    by_path["serve-llm"] = phase_serve_llm(torch, KERNELS,
+                                           (flash_attention, ssd_scan))
+    phase_check_llm(torch)
 
     rows = []
-    for name, src, replaces, rep in (
-            ("flash_attention",
+    for name, fn, src, replaces, rep in (
+            ("flash_attention", flash_attention,
              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:75", flash),
-            ("forecast", "src/repro_torch/kernels/forecast/csrc/forecast.cu",
-             "src/repro/kernels/forecast/forecast.py:32", fc)):
+            ("forecast", forecast,
+             "src/repro_torch/kernels/forecast/csrc/forecast.cu",
+             "src/repro/kernels/forecast/forecast.py:32", fc),
+            ("ssd", ssd_scan, "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+             "src/repro/kernels/ssd/ssd.py:73", ssd)):
+        per_path = {path: n[fn.__name__] for path, n in by_path.items()
+                    if n[fn.__name__] > 0}
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": sum(per_path.values()),
+                     "launches_by_path": per_path,
                      "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
                      "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
                      "bound_by": rep["bound_by"],
                      "library_ms": rep["library_ms"],
-                     "device_ms": rep["device_ms"], "shape": rep["shape"]})
+                     "device_ms": rep["device_ms"], "shape": rep["shape"],
+                     "tolerance": rep["tolerance"]})
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

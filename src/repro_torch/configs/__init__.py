@@ -1,8 +1,8 @@
 """Config registry of the port: only the architectures ported so far."""
-from . import dit_xl
+from . import dit_xl, zamba2_2p7b
 from .base import ArchConfig
 
-_MODULES = {"dit-xl": dit_xl}
+_MODULES = {"dit-xl": dit_xl, "zamba2-2.7b": zamba2_2p7b}
 ALL_ARCH_IDS = list(_MODULES)
 
 

@@ -81,6 +81,14 @@ class ArchConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
     @property
+    def is_ssm_only(self) -> bool:
+        return self.mamba_version > 0 and self.hybrid_attn_every == 0
+
+    @property
+    def is_hybrid(self) -> bool:
+        return self.mamba_version > 0 and self.hybrid_attn_every > 0
+
+    @property
     def dit_tokens(self) -> int:
         """Total latent tokens per sample: per-frame patches x frames."""
         return self.dit_patch_tokens * max(self.dit_num_frames, 1)

@@ -1,8 +1,11 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-  flash_attention — online-softmax attention (every DiT self-attention)
+  flash_attention — online-softmax attention (every DiT self-attention and
+                    every LLM prefill attention)
   forecast        — fused weighted sum over a finite-difference stack (every
                     forecast step of the predictive cache policies)
+  ssd             — the Mamba2 chunked SSD scan (every Mamba2 layer's
+                    prefill)
 
 Each subpackage holds `csrc/*.cu` (the CUDA kernel, built for sm_90a by
 `_build`), `ops.py` (the wrapper: plain version for CPU tensors, kernel or
@@ -11,7 +14,8 @@ Nothing is compiled at import time.
 """
 from .flash_attention import flash_attention
 from .forecast import forecast
+from .ssd import ssd_scan
 
-KERNELS = (flash_attention, forecast)
+KERNELS = (flash_attention, forecast, ssd_scan)
 
-__all__ = ["flash_attention", "forecast", "KERNELS"]
+__all__ = ["flash_attention", "forecast", "ssd_scan", "KERNELS"]

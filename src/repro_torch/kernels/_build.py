@@ -102,12 +102,16 @@ def build_log() -> str:
 
 
 def _declare(lib) -> None:
+    """Argument and result types of every C entry point: flash_attention_fwd,
+    forecast_fwd and ssd_fwd."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
                                         I, F, P]
     lib.flash_attention_fwd.restype = I
     lib.forecast_fwd.argtypes = [P, P, P, I, I, I, ctypes.c_longlong, I, P]
     lib.forecast_fwd.restype = I
+    lib.ssd_fwd.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
+    lib.ssd_fwd.restype = I
 
 
 def load():

@@ -1,11 +1,13 @@
-"""Model zoo of the port: so far the class-conditioned image DiT."""
+"""Model zoo of the port: so far the class-conditioned image DiT and the
+hybrid (Mamba2 + shared attention) decoder LM."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import resolve_device
 
-from . import dit, encdec, layers
+from . import dit, encdec, layers, ssm, transformer
+from .transformer import decode_step, forward, prefill
 
 
 def init_params(generator: torch.Generator, cfg, dtype=None, device=None):
@@ -16,10 +18,12 @@ def init_params(generator: torch.Generator, cfg, dtype=None, device=None):
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, params go to "
                          f"{dev}: make the generator on the params' device")
+    if cfg.family == "hybrid":
+        return transformer.init_lm(generator, cfg, dtype, dev)
     if not cfg.is_dit or cfg.dit_num_frames > 0 or cfg.dit_text_len > 0:
         raise NotImplementedError(
-            f"repro_torch ports only the class-conditioned image DiT so far "
-            f"('{cfg.name}' needs more); see ROADMAP.md §A")
+            f"repro_torch ports only the class-conditioned image DiT and the "
+            f"hybrid LLM so far ('{cfg.name}' needs more); see ROADMAP.md §A")
     return dit.init_dit(generator, cfg, dtype, dev)
 
 
@@ -44,4 +48,5 @@ def perturb_zero_init(params, generator: torch.Generator, scale: float = 0.05):
     return walk(params)
 
 
-__all__ = ["dit", "encdec", "layers", "init_params", "perturb_zero_init"]
+__all__ = ["dit", "encdec", "layers", "ssm", "transformer", "init_params",
+           "perturb_zero_init", "forward", "prefill", "decode_step"]

@@ -40,7 +40,7 @@ def _init_dit_block(gen, cfg, dtype, device):
         "attn": {"wq": wq, "wk": wq.clone(),
                  "wv": (raw_vo / d ** 0.5).to(dtype),
                  "wo": (raw_vo.reshape(H * hd, d) / (H * hd) ** 0.5).to(dtype)},
-        "mlp": init_mlp(gen, d, cfg.d_ff, dtype, device=device),
+        "mlp": init_mlp(gen, d, cfg.d_ff, dtype, gated=False, device=device),
         "ada_w": torch.zeros((d, 6 * d), dtype=dtype, device=device),
         "ada_b": torch.zeros((6 * d,), dtype=dtype, device=device),
     }

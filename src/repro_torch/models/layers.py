@@ -2,8 +2,11 @@
 
 Plain functions on tensors over a params dict with the JAX key names and
 the `(in, out)` matrix layout.  `blocked_attention` is the plain chunked
-reference the flash kernel is checked against; the DiT calls
-`repro_torch.kernels.flash_attention` instead.
+reference the flash kernel is checked against; the DiT and the LLM prefill
+(`attention_forward`) call `repro_torch.kernels.flash_attention` instead,
+the drop-in the JAX package names for it.  One-token decode
+(`attention_decode`) keeps `blocked_attention`, as JAX computes it outside
+any kernel.
 
 Mixed dtypes follow JAX's promotion: `dot(x, w)` of f32 activations and
 bf16 weights runs in f32, as `x @ w` does in JAX (torch.matmul would
@@ -15,6 +18,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import flash_attention
 
 
 def dot(x, w):
@@ -28,6 +33,34 @@ def dense_init(generator, in_dim, out_dim, dtype=torch.float32, scale=None,
     scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
     w = torch.randn((in_dim, out_dim), generator=generator, device=device)
     return (w * scale).to(dtype)
+
+
+def embed_init(generator, vocab, dim, dtype=torch.float32, device=None):
+    w = torch.randn((vocab, dim), generator=generator, device=device)
+    return (w * 0.02).to(dtype)
+
+
+def rms_norm(x, weight, eps=1e-5):
+    """f32 statistics, result in x's dtype."""
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    idx = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (idx / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 10_000.0):
+    """x: (..., S, H, D); positions: (..., S) integer."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)              # (D/2,)
+    ang = positions[..., None].float() * inv                    # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]                          # (..., S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
 
 
 def layer_norm(x, weight=None, bias=None, eps=1e-5):
@@ -90,11 +123,73 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_positions=None,
     return out.reshape(B, Sq, H, Dv)
 
 
-def init_mlp(generator, d_model, d_ff, dtype=torch.float32, device=None):
-    """The DiT's GELU MLP (the gated SwiGLU init comes with the LLM stack)."""
-    return {"w_up": dense_init(generator, d_model, d_ff, dtype, device=device),
-            "w_down": dense_init(generator, d_ff, d_model, dtype,
-                                 device=device)}
+def init_attention(generator, cfg, dtype=torch.float32, device=None):
+    d, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {"wq": dense_init(generator, d, H * hd, dtype, device=device),
+         "wk": dense_init(generator, d, KH * hd, dtype, device=device),
+         "wv": dense_init(generator, d, KH * hd, dtype, device=device),
+         "wo": dense_init(generator, H * hd, d, dtype, device=device)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", KH * hd), ("bv", KH * hd)):
+            p[name] = torch.zeros((width,), dtype=dtype, device=device)
+    return p
+
+
+def attention_qkv(p, x, cfg):
+    B, S, _ = x.shape
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = dot(x, p["wq"]), dot(x, p["wk"]), dot(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, KH, hd),
+            v.reshape(B, S, KH, hd))
+
+
+def attention_forward(p, x, cfg):
+    """Full-sequence (prefill) causal self-attention at positions 0..S-1,
+    windowed when cfg.sliding_window > 0, through the flash kernel.
+    Returns (out, (k, v)), k roped."""
+    B, S, _ = x.shape
+    q, k, v = attention_qkv(p, x, cfg)
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal=True, window=cfg.sliding_window)
+    return dot(o.reshape(B, S, -1), p["wo"]), (k, v)
+
+
+def attention_decode(p, x, cfg, cache_k, cache_v, cache_pos, pos):
+    """One-token decode against a rolling KV cache, updated in place.
+
+    x: (B, 1, d); cache_k/v: (B, W, KH, hd); cache_pos: (B, W) absolute
+    positions (-1 = empty); pos: (B,) current absolute position.  The new
+    K/V land in slot pos % W; returns the attention output (B, 1, d)."""
+    B = x.shape[0]
+    W = cache_k.shape[1]
+    q, k, v = attention_qkv(p, x, cfg)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    slot = pos % W
+    bidx = torch.arange(B, device=x.device)
+    cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
+    cache_pos[bidx, slot] = pos.to(cache_pos.dtype)
+    o = blocked_attention(q, cache_k, cache_v, causal=True,
+                          window=cfg.sliding_window,
+                          q_positions=pos[:, None], k_positions=cache_pos)
+    return dot(o.reshape(B, 1, -1), p["wo"])
+
+
+def init_mlp(generator, d_model, d_ff, dtype=torch.float32, gated=True,
+             device=None):
+    """SwiGLU MLP (`w_gate` too) when gated, else the DiT's GELU MLP."""
+    p = {"w_up": dense_init(generator, d_model, d_ff, dtype, device=device),
+         "w_down": dense_init(generator, d_ff, d_model, dtype, device=device)}
+    if gated:
+        p["w_gate"] = dense_init(generator, d_model, d_ff, dtype,
+                                 device=device)
+    return p
 
 
 def mlp_forward(p, x):

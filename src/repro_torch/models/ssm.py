@@ -1,0 +1,122 @@
+"""Mamba2 (SSD) block of the port (counterpart of the Mamba2 half of the
+JAX `models/ssm.py`; Mamba1 is not ported yet, ROADMAP.md §A).
+
+Plain functions over a params dict with the JAX key names and the
+`(in, out)` layout.  The full-sequence scan goes through
+`repro_torch.kernels.ssd_scan` (the CUDA kernel on the card, the plain
+`ssd_chunked` on the CPU), the drop-in JAX names for its own plain scan.
+One-token decode is elementwise, as in JAX.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ssd_scan
+
+from .layers import dense_init, dot, rms_norm
+
+
+def causal_conv(x, w, b):
+    """Depthwise causal conv.  x: (B, S, C); w: (W, C); b: (C,)."""
+    W, C = w.shape
+    lhs = F.pad(x.transpose(1, 2), (W - 1, 0))                   # (B, C, S+W-1)
+    out = F.conv1d(lhs, w.t()[:, None, :], groups=C)
+    return out.transpose(1, 2) + b
+
+
+def conv_step(buf, x_t, w, b):
+    """Single-token conv against a rolling buffer.  buf: (B, W, C) holding
+    the last W inputs (oldest first); x_t: (B, C).  Returns (y_t, new_buf)."""
+    buf = torch.cat([buf[:, 1:], x_t[:, None]], dim=1)
+    return torch.einsum("bwc,wc->bc", buf, w) + b, buf
+
+
+def _conv_tail(raw, width):
+    """Last `width` pre-conv inputs, left-padded with zeros (decode buffer)."""
+    S = raw.shape[1]
+    if S >= width:
+        return raw[:, S - width:]
+    return F.pad(raw, (0, 0, width - S, 0))
+
+
+def init_mamba2(generator, cfg, dtype=torch.float32, device=None):
+    d = cfg.d_model
+    din = cfg.ssm_expand * d
+    n = cfg.ssm_state
+    nh = din // cfg.ssm_head_dim
+
+    def uniform(lo, hi):
+        return torch.rand((nh,), generator=generator, device=device) \
+            * (hi - lo) + lo
+
+    dt = torch.exp(uniform(math.log(1e-3), math.log(1e-1)))
+    return {
+        # order: [z (din), x (din), B (n), C (n), dt (nh)]
+        "in_proj": dense_init(generator, d, 2 * din + 2 * n + nh, dtype,
+                              device=device),
+        "conv_w": (torch.randn((cfg.ssm_conv, din + 2 * n), generator=generator,
+                               device=device) * 0.1).to(dtype),
+        "conv_b": torch.zeros((din + 2 * n,), dtype=dtype, device=device),
+        "A_log": torch.log(uniform(1.0, 16.0)).to(dtype),
+        "D": torch.ones((nh,), dtype=dtype, device=device),
+        "dt_bias": torch.log(torch.expm1(dt)).to(dtype),
+        "norm_w": torch.ones((din,), dtype=dtype, device=device),
+        "out_proj": dense_init(generator, din, d, dtype, device=device),
+    }
+
+
+def _mamba2_inputs(p, u, cfg):
+    din = p["norm_w"].shape[0]
+    n = cfg.ssm_state
+    nh = p["A_log"].shape[0]
+    proj = dot(u, p["in_proj"])
+    z = proj[..., :din]
+    xBC = proj[..., din:2 * din + 2 * n]
+    dt_raw = proj[..., 2 * din + 2 * n:]
+    return z, xBC, dt_raw, din, n, nh
+
+
+def mamba2_forward(p, u, cfg):
+    """Full-sequence Mamba2.  u: (B, S, d).  Returns (y, cache) with cache =
+    {"state", "conv"} ready for decode."""
+    B, S, _ = u.shape
+    z, xBC_raw, dt_raw, din, n, nh = _mamba2_inputs(p, u, cfg)
+    xBC = F.silu(causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
+    x = xBC[..., :din].reshape(B, S, nh, din // nh)
+    B_ = xBC[..., din:din + n]
+    C_ = xBC[..., din + n:]
+    dt = F.softplus(dt_raw + p["dt_bias"]).float()
+    A = -torch.exp(p["A_log"].float())
+    xf = x.float()
+    y, h_fin = ssd_scan(xf.contiguous(), dt.contiguous(), A.contiguous(),
+                        B_.float().contiguous(), C_.float().contiguous())
+    y = y + p["D"][None, None, :, None] * xf
+    y = y.reshape(B, S, din).to(u.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    cache = {"state": h_fin, "conv": _conv_tail(xBC_raw, cfg.ssm_conv)}
+    return dot(y, p["out_proj"]), cache
+
+
+def mamba2_decode(p, u_t, cfg, conv_buf, h):
+    """One-token step.  u_t: (B, 1, d); conv_buf: (B, W, din+2n); h: (B, nh,
+    hd, n) f32.  Returns (y (B, 1, d), new conv_buf, new h)."""
+    B = u_t.shape[0]
+    z, xBC, dt_raw, din, n, nh = _mamba2_inputs(p, u_t[:, 0], cfg)
+    xBC, conv_buf = conv_step(conv_buf, xBC, p["conv_w"], p["conv_b"])
+    xBC = F.silu(xBC)
+    x = xBC[..., :din].reshape(B, nh, din // nh).float()
+    B_ = xBC[..., din:din + n].float()
+    C_ = xBC[..., din + n:].float()
+    dt = F.softplus(dt_raw + p["dt_bias"]).float()               # (B, nh)
+    A = -torch.exp(p["A_log"].float())
+    dA = torch.exp(dt * A)
+    h = h * dA[..., None, None] + (dt[..., None, None] * x[..., None]
+                                   * B_[:, None, None, :])
+    y = torch.einsum("bhpn,bn->bhp", h, C_)
+    y = y + p["D"][None, :, None] * x
+    y = y.reshape(B, din).to(u_t.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    return dot(y, p["out_proj"])[:, None], conv_buf, h

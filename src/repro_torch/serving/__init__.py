@@ -1,4 +1,12 @@
-"""repro_torch.serving — serving engines of the port (diffusion so far)."""
-from .common import RequestQueue
+"""repro_torch.serving — serving engines of the port.
 
-__all__ = ["RequestQueue"]
+  engine    — ServingEngine: LLM prefill + rolling-KV continuous decode
+  diffusion — DiffusionServingEngine: step-interleaved continuous batching
+              of denoising trajectories (import `repro_torch.serving.diffusion`)
+  common    — request-queue machinery shared by both engines
+"""
+from .common import RequestQueue
+from .engine import GenerationResult, ServingEngine, greedy_generate
+
+__all__ = ["RequestQueue", "ServingEngine", "GenerationResult",
+           "greedy_generate"]

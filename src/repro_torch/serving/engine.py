@@ -1,0 +1,121 @@
+"""Batched LLM serving engine (counterpart of the JAX `serving/engine.py`).
+
+A fixed batch of `slots`, each slot running one request: prompt prefill,
+then greedy or temperature decode against the rolling KV cache and SSM
+state of `repro_torch.models`.  Requests are taken from a queue `slots` at
+a time.  Prompts are right-aligned into a `max_prompt` window with token 0
+on the left and no mask, exactly as JAX does: the SSM state sees those
+zeros, and parity with JAX depends on it.
+
+Tokens and the done mask stay on the device: the host probes the mask once
+every `sync_every` decode steps (only when an EOS id is set) and copies the
+tokens back once per chunk of requests.  Greedy picks the first maximum,
+as `jnp.argmax` does.  Temperature sampling draws from a `torch.Generator`
+seeded from `seed`; its draws differ from `jax.random.categorical`.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device, tree_device
+from repro_torch.models import decode_step, prefill
+from repro_torch.serving.common import RequestQueue
+
+
+@dataclass
+class GenerationResult:
+    request_id: int
+    prompt: List[int]
+    tokens: List[int] = field(default_factory=list)
+
+
+class ServingEngine:
+    """Fixed-slot batched generation over one architecture.  Runs on the
+    GPU unless the caller passes device="cpu"; params must live there."""
+
+    def __init__(self, params, cfg, *, slots: int = 8, cache_len: int = 1024,
+                 max_prompt: int = 256, temperature: float = 0.0,
+                 eos_id: Optional[int] = None, sync_every: int = 8,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if tree_device(params) != self.device:
+            raise ValueError(f"params live on {tree_device(params)}, the "
+                             f"engine runs on {self.device}")
+        self.params, self.cfg = params, cfg
+        self.slots, self.cache_len = slots, cache_len
+        self.max_prompt = max_prompt
+        self.temperature = temperature
+        self.eos_id = eos_id
+        #: decode steps between early-exit probes; each probe is a scalar
+        #: host sync, so probing every step would serialize the decode loop
+        self.sync_every = max(1, sync_every)
+
+    def _pick(self, logits, gen):
+        if self.temperature > 0.0:
+            probs = torch.softmax(logits.float() / self.temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=gen)[:, 0]
+        return torch.argmax(logits, dim=-1)
+
+    @torch.no_grad()
+    def generate(self, prompts: List[List[int]], max_new_tokens: int = 32,
+                 seed: int = 0) -> List[GenerationResult]:
+        """Generate for every prompt, `slots` at a time."""
+        results = [GenerationResult(i, p) for i, p in enumerate(prompts)]
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        queue = RequestQueue(range(len(prompts)))
+        while queue:
+            chunk = queue.pop_many(self.slots)
+            toks = np.zeros((self.slots, self.max_prompt), np.int64)
+            for row, ridx in enumerate(chunk):
+                p = prompts[ridx][-self.max_prompt:]
+                toks[row, -len(p):] = p       # right-aligned
+            logits, cache = prefill(self.params,
+                                    torch.from_numpy(toks).to(self.device),
+                                    self.cfg, self.cache_len)
+            tok = self._pick(logits[:, -1, :], gen)
+            del logits
+            pos = torch.full((self.slots,), self.max_prompt, dtype=torch.long,
+                             device=self.device)
+            done = torch.from_numpy(np.arange(self.slots) >= len(chunk)).to(
+                self.device)
+            emitted = []
+            since_probe = 0
+            for step in range(max_new_tokens):
+                emitted.append(tok)
+                if self.eos_id is not None:
+                    done = done | (tok == self.eos_id)
+                    since_probe += 1
+                    if (since_probe >= self.sync_every
+                            and step + 1 < max_new_tokens):
+                        since_probe = 0
+                        if bool(done.all()):  # one scalar sync per sync_every steps
+                            break
+                if step + 1 < max_new_tokens:
+                    logits, cache = decode_step(self.params, tok, pos, cache,
+                                                self.cfg)
+                    tok = self._pick(logits, gen)
+                    pos = pos + 1
+            if emitted:
+                # one bulk transfer per chunk, outside the per-token loop
+                toks_host = torch.stack(emitted, dim=1).cpu().numpy()
+                for row, ridx in enumerate(chunk):
+                    row_toks = toks_host[row]
+                    if self.eos_id is not None:
+                        hits = np.nonzero(row_toks == self.eos_id)[0]
+                        if hits.size:          # keep through the first EOS
+                            row_toks = row_toks[:hits[0] + 1]
+                    results[ridx].tokens.extend(int(t) for t in row_toks)
+            del cache
+        return results
+
+
+def greedy_generate(params, cfg, prompt_tokens, max_new_tokens: int = 16,
+                    cache_len: int = 256, device: DeviceLike = None):
+    """Single-sequence convenience wrapper used by tests and examples."""
+    eng = ServingEngine(params, cfg, slots=1, cache_len=cache_len,
+                        max_prompt=len(prompt_tokens), device=device)
+    return eng.generate([list(prompt_tokens)], max_new_tokens)[0].tokens

@@ -9,9 +9,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import flash_attention, forecast  # noqa: E402
+from repro_torch.kernels import flash_attention, forecast, ssd_scan  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref  # noqa: E402
 from repro_torch.kernels.forecast import basis_coeffs, forecast_ref  # noqa: E402
+from repro_torch.kernels.ssd import ssd_chunked  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -30,6 +31,7 @@ def cuda():
     (1, 128, 128, 4, 4, 64), (2, 256, 256, 8, 2, 64), (1, 128, 256, 4, 1, 32),
     (1, 512, 512, 4, 2, 128), (3, 256, 256, 16, 16, 72), (2, 77, 77, 4, 4, 72),
     (1, 64, 32, 2, 2, 16),      # q longer than k: fully masked causal rows
+    (2, 512, 512, 4, 4, 80),    # zamba2-2.7b attention head dim
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
@@ -84,3 +86,47 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     d = torch.zeros((3, 64), device=cuda)
     with pytest.raises(ValueError):
         forecast(d, torch.zeros((3,)))          # coeffs on the CPU
+
+
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (1, 64, 2, 16, 8), (2, 128, 4, 16, 8), (1, 96, 2, 8, 4),
+    (1, 7, 2, 5, 3),            # shorter than one tile, odd widths
+    (2, 130, 3, 64, 64),        # ragged tail, widest p and n
+    (4, 512, 80, 64, 64),       # zamba2-2.7b prefill (4 slots x 512)
+    (1, 500, 80, 64, 64),       # ragged: the plain version takes one chunk
+])
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n):
+    """Tolerance 2e-4 abs / 1e-3 rel (chunk invariance), against the plain
+    version at the longest chunk of at most 64 that divides s (64, as the
+    path runs it, when 64 divides s): for a ragged s the path's plain
+    version takes one chunk of s, whose cumsums (near -700 at s = 500) it
+    rounds by more than that tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((b, s, h, p), generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g,
+                                                  device=cuda))
+    A = -torch.exp(torch.rand((h,), generator=g, device=cuda))
+    B_ = torch.randn((b, s, n), generator=g, device=cuda)
+    C_ = torch.randn((b, s, n), generator=g, device=cuda)
+    before = ssd_scan.launches
+    y, hf = ssd_scan(x, dt, A, B_, C_)
+    chunk = max(c for c in range(1, 65) if s % c == 0)
+    yr, hr = ssd_chunked(x, dt, A, B_, C_, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == hf.dtype == torch.float32
+    torch.testing.assert_close(y, yr, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(hf, hr, atol=2e-4, rtol=1e-3)
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((1, 8, 2, 16), device=cuda)
+    dt = torch.zeros((1, 8, 2), device=cuda)
+    A = torch.zeros((2,), device=cuda)
+    s = torch.zeros((1, 8, 4), device=cuda)
+    with pytest.raises(TypeError):
+        ssd_scan(x.bfloat16(), dt, A, s, s)
+    with pytest.raises(ValueError):
+        ssd_scan(torch.zeros((1, 8, 2, 80), device=cuda), dt, A, s, s)
+    with pytest.raises(ValueError):
+        ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, s, s)

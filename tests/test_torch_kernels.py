@@ -29,7 +29,7 @@ from repro.kernels.forecast.ref import basis_coeffs as jax_basis_coeffs  # noqa:
 from repro.kernels.forecast.ref import forecast_ref as jax_forecast_ref  # noqa: E402
 from repro.models.layers import blocked_attention as jax_blocked_attention  # noqa: E402
 from repro_torch.core import forecast_from_diffs  # noqa: E402
-from repro_torch.kernels import flash_attention, forecast  # noqa: E402
+from repro_torch.kernels import flash_attention, forecast, ssd_scan  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref  # noqa: E402
 from repro_torch.kernels.forecast import basis_coeffs, forecast_ref  # noqa: E402
 from repro_torch.models.layers import blocked_attention  # noqa: E402
@@ -125,7 +125,15 @@ def test_wrappers_never_fall_back_off_the_cpu():
     d = torch.empty((3, 64), device="meta")
     with pytest.raises(ValueError):
         forecast(d, torch.empty((3,), device="meta"))
-    assert flash_attention.launches == 0 and forecast.launches == 0
+    x = torch.empty((1, 8, 2, 4), device="meta")
+    s = torch.empty((1, 8, 3), device="meta")
+    with pytest.raises(ValueError):
+        ssd_scan(x, torch.empty((1, 8, 2), device="meta"),
+                 torch.empty((2,), device="meta"), s, s)
+    with pytest.raises(ValueError):       # one input on the CPU, one not
+        ssd_scan(x, torch.empty((1, 8, 2)), torch.empty((2,)), s, s)
+    assert (flash_attention.launches, forecast.launches,
+            ssd_scan.launches) == (0, 0, 0)
 
 
 # ----------------------------------------------------------------------
@@ -215,7 +223,9 @@ def test_port_imports_no_jax_and_no_repro():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serving.diffusion, "
-            "repro_torch.bridge, repro_torch.diffusion, repro_torch.kernels; "
+            "repro_torch.bridge, repro_torch.diffusion, repro_torch.kernels, "
+            "repro_torch.serving, repro_torch.launch.serve, "
+            "repro_torch.models.transformer; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad")
