@@ -6,12 +6,17 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    every kernel of the port from `src/repro_torch/kernels/*/csrc`
+  2. build    every kernel of the port from `src/repro_torch/kernels/*/csrc`;
+              ptxas registers and spills per kernel, and the tensor-core
+              (HMMA) instructions cuobjdump finds in the flash kernels where
+              the toolkit has cuobjdump
   3. flash    the flash-attention kernel against its plain version at the
               DiT-XL shape (f32 and bf16), a causal GQA shape with a window,
-              a ragged shape, a q-at-the-tail shape and the zamba2-2.7b
-              prefill shape (bf16, head dim 80); kernel, plain and
-              scaled_dot_product_attention (yardstick only) times
+              a ragged shape, a q-at-the-tail shape, the zamba2-2.7b
+              prefill shape (bf16, head dim 80) and an odd head dim at a
+              misaligned storage offset; kernel, plain and
+              scaled_dot_product_attention (yardstick only) times, and the
+              CUDA kernels SDPA runs at each shape with their device time
   4. forecast the forecast kernel against its plain version, batched over
               serving slots and unbatched at a block-sized shape, f32 and
               bf16, taylor and hermite coefficients
@@ -39,11 +44,17 @@ Each served phase sets every launch count to 0 just before it and reads the
 counts just after.  It then prints a `kernels` JSON line, the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Needs
 one CUDA card; it imports nothing of JAX.
+
+    python3 chip_smoke.py --flash-only
+
+runs phases 1-3 alone and prints no result line (a quick check of the
+flash kernel).
 """
 from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -54,7 +65,12 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, dense peaks:
 PEAK_FLOPS = {"float32": 67e12,  # f32 outside the tensor cores
-              "bfloat16": 989e12}
+              "bfloat16": 989e12,
+              # f32-accurate products on the tensor cores: 3xTF32 (big*big +
+              # big*small + small*big) is three TF32 products at 495 TFLOP/s.
+              # The flash kernel runs its f32 products so, and the SSD
+              # scan's f32 products could, so both are priced at this rate.
+              "float32_3xtf32": 495e12 / 3}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # flash: max |kernel - plain|
 SSD_TOL = dict(atol=2e-4, rtol=1e-3)       # ssd: chunk invariance
 LLM_LOGIT_TOL = 1e-4                       # check-llm: f32 logits, card vs CPU
@@ -123,21 +139,29 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 
 def phase_flash(torch, F):
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
-    cases = [  # name, B, Sq, Sk, H, KH, D, causal, window, dtype
-        ("dit-xl f32", 8, 256, 256, 16, 16, 72, False, 0, "float32"),
-        ("dit-xl bf16", 8, 256, 256, 16, 16, 72, False, 0, "bfloat16"),
-        ("causal gqa window", 2, 512, 512, 8, 2, 64, True, 128, "float32"),
-        ("ragged 77", 2, 77, 77, 4, 4, 72, True, 0, "float32"),
-        ("q tail of k, d128", 1, 128, 256, 4, 1, 128, True, 64, "bfloat16"),
-        ("zamba2 prefill", 4, 512, 512, 32, 32, 80, True, 0, "bfloat16"),
+    cases = [  # name, B, Sq, Sk, H, KH, D, causal, window, dtype, offset
+        ("dit-xl f32", 8, 256, 256, 16, 16, 72, False, 0, "float32", 0),
+        ("dit-xl bf16", 8, 256, 256, 16, 16, 72, False, 0, "bfloat16", 0),
+        ("causal gqa window", 2, 512, 512, 8, 2, 64, True, 128, "float32", 0),
+        ("ragged 77", 2, 77, 77, 4, 4, 72, True, 0, "float32", 0),
+        ("q tail of k, d128", 1, 128, 256, 4, 1, 128, True, 64, "bfloat16", 0),
+        ("zamba2 prefill", 4, 512, 512, 32, 32, 80, True, 0, "bfloat16", 0),
+        # 72-byte rows at a 4-byte storage offset: element-by-element staging
+        ("odd d, misaligned", 2, 100, 160, 4, 2, 18, True, 48, "float32", 1),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(shape, dtype, offset):
+        flat = torch.randn((math.prod(shape) + offset,), generator=gen,
+                           device="cuda").to(dtype)
+        return flat[offset:].view(shape)
+
     report = None
-    for name, B, Sq, Sk, H, KH, D, causal, window, dt in cases:
+    for name, B, Sq, Sk, H, KH, D, causal, window, dt, offset in cases:
         dtype = getattr(torch, dt)
-        q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
-        k = torch.randn((B, Sk, KH, D), generator=gen, device="cuda").to(dtype)
-        v = torch.randn((B, Sk, KH, D), generator=gen, device="cuda").to(dtype)
+        q = randn((B, Sq, H, D), dtype, offset)
+        k = randn((B, Sk, KH, D), dtype, offset)
+        v = randn((B, Sk, KH, D), dtype, offset)
         out = flash_attention(q, k, v, causal=causal, window=window)
         ref = attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -161,17 +185,22 @@ def phase_flash(torch, F):
                 mask &= kp <= qp
             if window:
                 mask &= qp - kp < window
-        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=KH != H))
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=KH != H)
+        lib_ms = cuda_ms(torch, sdpa)
         # the work these inputs need: the unmasked (query, key) pairs only
         pairs = Sq * Sk if mask is None else int(mask.sum())
         nbytes = 2 * (B * Sq * H * D + B * Sk * KH * D) * q.element_size()
-        b_ms, by = bound(nbytes, 4.0 * B * H * pairs * D, PEAK_FLOPS[dt])
+        peak = PEAK_FLOPS["float32_3xtf32" if dt == "float32" else dt]
+        b_ms, by = bound(nbytes, 4.0 * B * H * pairs * D, peak)
         log(f"flash {name}: B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} D={D} "
             f"causal={causal} window={window} {dt}: max_abs_err={err:.3e} "
             f"(tol {TOL[dt]}) ms={ms:.4f} device_ms={dev_ms} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({by})")
+        kernels, sdpa_dev_ms = sdpa_kernels(torch, sdpa)
+        log(f"flash {name}: sdpa device_ms={sdpa_dev_ms:.4f} runs {kernels}")
         if not ok:
             fail(f"flash {name}: max_abs_err {err} > {TOL[dt]}")
         if report is None:       # the DiT main path's shape and type
@@ -180,6 +209,17 @@ def phase_flash(torch, F):
                       "device_ms": dev_ms, "shape": name,
                       "tolerance": f"{TOL[dt]} abs"}
     return report
+
+
+def sdpa_kernels(torch, fn, reps: int = 3):
+    """The two CUDA kernels that take most of fn()'s device time, from the
+    profiler, and the device milliseconds of all its kernels per call."""
+    evts, _ = profile(torch, lambda: [fn() for _ in range(reps)])
+    kern = sorted((e for e in evts if _self_device_us(e) > 0
+                   and str(e.device_type).endswith("CUDA")),
+                  key=_self_device_us, reverse=True)
+    dev_ms = sum(_self_device_us(e) for e in kern) / 1e3 / reps
+    return "; ".join(f"{e.key[:120]} x{e.count}" for e in kern[:2]), dev_ms
 
 
 def phase_forecast(torch, slots: int):
@@ -279,7 +319,7 @@ def phase_ssd(torch):
         flops = 2.0 * b * s * L * n + 2.0 * b * h * s * (L * p + 2 * n * p)
         nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
                       + b * h * p * n)
-        b_ms, by = bound(nbytes, flops, PEAK_FLOPS["float32"])
+        b_ms, by = bound(nbytes, flops, PEAK_FLOPS["float32_3xtf32"])
         log(f"ssd {name}: b={b} s={s} h={h} p={p} n={n} f32: "
             f"max_abs_err={err:.3e} vs plain at chunk {chunk} "
             f"(tol {SSD_TOL['atol']} abs + {SSD_TOL['rtol']} rel, worst "
@@ -583,6 +623,31 @@ def phase_check_llm(torch):
         fail(f"check-llm: logits differ by {err}")
 
 
+def log_hmma(lib: Path) -> None:
+    """Count the tensor-core instructions (HMMA) of each flash kernel in
+    the built library's SASS, where the toolkit has cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("build: cuobjdump not found; HMMA count not taken")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    flash = {f: n for f, n in counts.items() if "flash_fwd" in f}
+    log(f"build: sass: {sum(n > 0 for n in flash.values())} of {len(flash)} "
+        f"flash_fwd kernels use HMMA; "
+        f"{sum(flash.values())} HMMA instructions in all")
+    for tag in ("flash_fwdIfLi72ELb1E", "flash_fwdI13__nv_bfloat16Li80ELb1E"):
+        hits = [n for f, n in flash.items() if tag in f]
+        log(f"build: sass: {tag}: HMMA {hits}")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -606,11 +671,16 @@ def main() -> int:
     _build.load()
     log(f"build: {lib.name} in {time.perf_counter() - t0:.2f}s")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(w in line for w in ("entry function", "registers", "spill")) \
+                or line.startswith("=="):
             log(f"build: {line.strip()}")
+    log_hmma(lib)
 
     flash_attention, forecast, ssd_scan = KERNELS
     flash = phase_flash(torch, F)
+    if "--flash-only" in sys.argv[1:]:
+        log(card)
+        return 0
     fc = phase_forecast(torch, slots=4)
     ssd = phase_ssd(torch)
     by_path = {"serve": phase_serve(torch, KERNELS, (flash_attention, forecast))}

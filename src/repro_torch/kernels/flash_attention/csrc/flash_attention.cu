@@ -1,210 +1,521 @@
-// Flash attention forward for Hopper (sm_90a), plain C interface.
+// Flash attention forward for Hopper (sm_90a) on the tensor cores, plain C
+// interface.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py
 // ::flash_attention_pallas (body _fa_kernel): softmax(q k^T * scale + mask) v
 // with an online softmax whose running max, sum and accumulator stay in f32,
 // output in q's dtype, optional causal and sliding-window masks taken from
-// absolute positions with q at the tail of k (q_offset = Sk - Sq), and GQA
-// (kv head = h / (H / KH)).
+// absolute positions with q at the tail of k (q_offset = Sk - Sq), GQA
+// (kv head = h / (H / KH)), ragged Sq and Sk, head dim 1 <= D <= 128, f32 and
+// bf16 inputs.
 //
-// Bound on an H100 SXM: 4 * B * H * Sq * Sk * D operations against the bytes
-// of q, k, v and o read or written once.  At the DiT-XL shape (S = 256,
-// D = 72) that is about 37 operations per byte in f32, so the operations
-// bound it.  This first version runs them as f32 FMAs on the CUDA cores
-// (67 TFLOP/s peak), not on the tensor cores: it is simple and exact, and
-// wgmma/TMA tiles are later work.  What the design does about the bound:
-// every K/V tile is staged once in shared memory and reused by all 32 query
-// rows of the block, each lane keeps 8 rows' scores and accumulators in
-// registers, and only the output is written back, once.
+// Bound on an H100 SXM: 4 * B * H * (unmasked query-key pairs) * D
+// operations against the bytes of q, k, v and o moved once.  In bf16 the
+// tensor cores (989 TFLOP/s) make the bytes the bound (zamba2 prefill,
+// B 4, S 512, H 32, D 80, causal: 41.9 MB, 0.0125 ms).  In f32 the products
+// run as 3xTF32 (below), three TF32 products at 495 TFLOP/s, so 165 TFLOP/s
+// of f32-accurate work: at the DiT-XL shape (B 8, S 256, H 16, D 72) 2.42
+// GFLOP take 0.0146 ms against 0.0113 ms of bytes, so the operations bound.
 //
-// Layout: one block of 4 warps per (Q tile of 32 rows, head, batch).  Each
-// warp owns 8 query rows.  The block walks K/V in tiles of 32 keys; in a
-// tile lane j scores key j against the warp's 8 rows, the warp reduces max
-// and sum with shuffles, then each lane accumulates P @ V for head-dim
-// columns lane, lane+32, lane+64 and lane+96.  The head dim is a runtime
-// value up to 128 and need not be a multiple of anything; Sq and Sk need not
-// divide the tiles (ragged tails are masked).  Keys past Sk score -inf and
-// weigh nothing; keys excluded by the causal or window mask score -1e30, as
-// in the reference, so a row whose keys are all masked averages all Sk keys
-// just like attention_ref.  When q_offset >= 0 every row keeps its diagonal
-// key, and tiles that are masked for every row of the block are skipped.
+// What the design does about it (FlashAttention-2 on mma.sync):
+// - One block of 4 warps per (64-query tile, head, batch); each warp owns 16
+//   query rows, and its Q fragments stay in registers for the whole walk.
+//   K/V are walked in 64-key tiles through a 2-stage cp.async ring (16-byte
+//   cp.async.cg copies with zero fill past Sk and past D), so the next tile's
+//   copy overlaps this tile's products; one barrier a tile.  The output goes
+//   out through shared memory in 16-byte rows.
+// - bf16: S = Q K^T and O += P V through mma.sync m16n8k16 (bf16 in, f32
+//   accumulate); K and V fragments come from ldmatrix (.trans for V).  The
+//   softmax runs on the accumulator fragments (a row lives in a quad: two
+//   shuffles for its max), P is rounded to bf16 in registers and fed back as
+//   the A operand, since the m16n8k16 accumulator layout is its A layout.
+//   The head dim is padded to a multiple of 16 with zero columns.
+// - f32: the same walk through mma.sync m16n8k8 tf32.  Plain TF32 keeps 10
+//   mantissa bits and misses the 1e-4 f32 tolerance, so every operand splits
+//   into big = tf32(x) and small = tf32(x - big) and a product accumulates
+//   small*big + big*small + big*big in f32 (3xTF32), P included; the split
+//   is two integer operations a half.  The
+//   m16n8k8 accumulator layout differs from its A layout; instead of a
+//   shuffle the P V product permutes its reduction axis (k slot t <-> key 2t,
+//   k slot t + 4 <-> key 2t + 1), which makes the accumulator fragment the A
+//   fragment, and reads V's rows in the same order.  Head dim padded to 8.
+// - Shared rows are padded (by 16 bytes in bf16, 4 floats in f32) so that
+//   ldmatrix and the f32 fragment loads hit distinct banks.
+// - exp2 on the special function unit (ex2.approx, log2(e) folded into the
+//   scale); the row max and sum reduce as trees.
+// - Masks cost only on tiles that straddle a mask edge or Sk, per warp;
+//   causal tiles above a warp's rows are skipped (as are the block's, by
+//   the tile range).  Keys excluded by the causal or window mask score
+//   -1e30 as in the reference, so a row whose keys are all masked averages
+//   all Sk keys; keys past Sk score -inf and weigh nothing.
+// - Where D * element size is not a multiple of 16 bytes or a pointer is not
+//   16-byte aligned, the same kernel stages element by element (template
+//   flag kVec = false) at the widest padding, 128.
+// Where the time goes (tools/flash_ablate.py) and what is left to gain are
+// in PERF.md.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kRows = 8;                 // query rows per warp
-constexpr int kBQ = kWarps * kRows;      // query rows per block
-constexpr int kBK = 32;                  // keys per tile: one per lane
+constexpr int kThreads = kWarps * 32;
+constexpr int kBQ = 16 * kWarps;      // query rows per block, 16 per warp
+constexpr int kBK = 64;               // keys per tile
+constexpr int kStages = 2;            // K/V tiles in the cp.async ring
+static_assert(kBQ <= 2 * kBK, "Q is staged in one stage of the ring");
 constexpr int kDMax = 128;
-constexpr int kDC = kDMax / 32;          // head-dim columns per lane
 constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Head-dim padding (the mma's reduction depth) and shared row padding.
+template <typename T> struct Traits;
+template <> struct Traits<__nv_bfloat16> { static constexpr int kPadTo = 16, kRowPad = 8; };
+template <> struct Traits<float> { static constexpr int kPadTo = 8, kRowPad = 4; };
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = big + small, each a TF32 value (10 explicit mantissa bits, the low 13
+// bits zero): big rounds x to nearest with ties away from zero, as
+// cvt.rna.tf32.f32 does for finite x, and small truncates the exact rest.
+// Two integer operations each instead of cvt's longer sequence.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
+}
+// c += a b in 3xTF32: the small terms first, then big * big
+__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ab[4],
+                                           const uint32_t as[4], uint32_t bb0,
+                                           uint32_t bb1, uint32_t bs0, uint32_t bs1) {
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special function unit (relative error about 2^-22)
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// Copy rows row0 .. row0 + kRows - 1 (columns 0 .. DP - 1) of a (rows, stride)
+// slice into a shared tile of row stride LD; rows >= n_rows and columns
+// >= D become 0.  kVec: 16-byte cp.async (D * sizeof(T) is a multiple of 16
+// and src is 16-byte aligned); otherwise element by element, synchronously.
+template <typename T, int DP, int LD, bool kVec, int kRows = kBK>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long stride, int row0,
+                                           int n_rows, int D) {
+  if constexpr (kVec) {
+    constexpr int kE = 16 / sizeof(T);
+    constexpr int kChunks = DP / kE;
+    constexpr int kStep = kThreads / kChunks;   // rows per pass; a thread keeps its column
+    const int r0 = threadIdx.x / kChunks, c = (threadIdx.x % kChunks) * kE;
+    if (r0 >= kStep) return;
+    const bool col_ok = c < D;
+    const long long g_step = kStep * stride;
+    const T* g = src + (row0 + r0) * stride + c;
+    for (int r = r0; r < kRows; r += kStep, g += g_step) {
+      const bool valid = col_ok && row0 + r < n_rows;
+      cp_async16(dst + r * LD + c, valid ? g : src, valid);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * DP; i += kThreads) {
+      const int r = i / DP, c = i % DP;
+      const int s = row0 + r;
+      dst[r * LD + c] = (s < n_rows && c < D) ? src[s * stride + c] : T(0.f);
+    }
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+// An explicit minimum of one block an SM: ptxas then gives the bf16 kernel
+// the registers it asks for (153 at D 80, against 130 without it), which
+// measured 5-12 % faster (tools/flash_ablate.py, PERF.md).
+template <typename T, int DP, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int Sq, int Sk, int H, int KH, int D, int causal,
-          int window, float scale, int q_offset) {
-  extern __shared__ float smem[];
-  float* sq = smem;                      // kBQ x D, pre-scaled queries
-  float* sk = sq + kBQ * D;              // kBK x (D + 1): padded rows, no bank conflicts
-  float* sv = sk + kBK * (D + 1);        // kBK x D
+          T* __restrict__ o, int Sq, int Sk, int H, int KH, int D, int causal, int window,
+          float scale_log2, int q_offset) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int LD = DP + Traits<T>::kRowPad;   // shared row stride, elements
+  constexpr int kTile = kBK * LD;
+  constexpr int kNT = DP / 8;                    // 8-column tiles of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);      // [kStages][K, V][kBK][LD]
+  T* sQ = ring + (kStages - 1) * 2 * kTile;      // Q, staged in the last stage
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (H / KH);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long q_stride = (long long)H * D;     // between sequence positions
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;         // fragment row group, thread in quad
+  const long long q_stride = (long long)H * D;   // between sequence positions
   const long long k_stride = (long long)KH * D;
   const T* qb = q + ((long long)b * Sq * H + h) * D;
   const T* kb = k + ((long long)b * Sk * KH + kh) * D;
   const T* vb = v + ((long long)b * Sk * KH + kh) * D;
 
-  for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D;
-    const int s = q0 + r;
-    sq[i] = s < Sq ? to_f32(qb[s * q_stride + d]) * scale : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][kDC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = -CUDART_INF_F;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kDC; ++c) acc[r][c] = 0.f;
-  }
-
   int kt_lo = 0, kt_hi = (Sk + kBK - 1) / kBK;
-  if (q_offset >= 0) {
+  if (q_offset >= 0) {   // every row keeps its diagonal key
     const int q_first = q0 + q_offset;
     const int q_last = min(q0 + kBQ, Sq) - 1 + q_offset;
     if (causal) kt_hi = min(kt_hi, q_last / kBK + 1);
     if (window > 0) kt_lo = max(0, (q_first - window + 1) / kBK);
   }
 
-  const float* qw = sq + warp * kRows * D;
-  const int row0 = q0 + warp * kRows;
+  // the ring: tile kt_lo + i goes to stage i % kStages, one commit group a
+  // tile (empty past kt_hi); while a tile is in use the next kStages - 1 are
+  // in flight
+  auto stage_kv = [&](int kt) {
+    if (kt < kt_hi) {
+      T* dst = ring + ((kt - kt_lo) % kStages) * 2 * kTile;
+      stage_tile<T, DP, LD, kVec>(dst, kb, k_stride, kt * kBK, Sk, D);
+      stage_tile<T, DP, LD, kVec>(dst + kTile, vb, k_stride, kt * kBK, Sk, D);
+    }
+    cp_async_commit();
+  };
+  stage_tile<T, DP, LD, kVec, kBQ>(sQ, qb, q_stride, q0, Sq, D);
+  cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) stage_kv(kt_lo + i);
+  cp_async_wait<kStages - 1>();
+  __syncthreads();
+
+  // Q fragments, kept for the whole walk: rows w0 + g and w0 + g + 8.
+  const int w0 = warp * 16;
+  constexpr int kQK = kBf16 ? DP / 16 : DP / 8;  // reduction steps of Q K^T
+  uint32_t qf[kBf16 ? kQK : 1][4];
+  float qr[kBf16 ? 1 : kQK][4];
+  if constexpr (kBf16) {
+    const int r = (lane & 7) + 8 * ((lane >> 3) & 1), c = 8 * (lane >> 4);
+#pragma unroll
+    for (int kk = 0; kk < kQK; ++kk) ldsm_x4(qf[kk], sQ + (w0 + r) * LD + 16 * kk + c);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kQK; ++kk) {
+      const float* p = reinterpret_cast<const float*>(sQ) + (w0 + g) * LD + 8 * kk + t;
+      qr[kk][0] = p[0];
+      qr[kk][1] = p[8 * LD];
+      qr[kk][2] = p[4];
+      qr[kk][3] = p[8 * LD + 4];
+    }
+  }
+  __syncthreads();   // the last stage is free for the ring
+
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};   // running max, log2 domain
+  float l[2] = {0.f, 0.f};                       // this thread's part of the row sum
+  float acc[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int wq_first = q0 + w0;                  // the warp's first query row
+  const int wq_last = min(q0 + w0 + 15, Sq - 1);
+  const int qpos_g = q0 + w0 + g + q_offset;     // positions of rows g, g + 8
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();                     // the previous tile is consumed
-    for (int i = threadIdx.x; i < kBK * D; i += blockDim.x) {
-      const int j = i / D, d = i - j * D;
-      const int s = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (s < Sk) {
-        kx = to_f32(kb[s * k_stride + d]);
-        vx = to_f32(vb[s * k_stride + d]);
-      }
-      sk[j * (D + 1) + d] = kx;
-      sv[j * D + d] = vx;
-    }
+    // one barrier a tile: it publishes tile kt, and every warp is past tile
+    // kt - 1, whose stage the next copy reuses
+    cp_async_wait<kStages - 2>();
     __syncthreads();
+    stage_kv(kt + kStages - 1);
 
-    // scores: lane owns key k0 + lane, for the warp's kRows query rows
-    float p[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) p[r] = 0.f;
-    const float* krow = sk + lane * (D + 1);
-    for (int d = 0; d < D; ++d) {
-      const float kd = krow[d];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) p[r] = fmaf(qw[r * D + d], kd, p[r]);
+    const int k0 = kt * kBK;
+    const T* tK = ring + ((kt - kt_lo) % kStages) * 2 * kTile;
+    const T* tV = tK + kTile;
+    // a tile masked for every row of the warp adds nothing once each row has
+    // its own diagonal key (q_offset >= 0); rows past Sq are never stored
+    bool live = wq_first < Sq;
+    if (q_offset >= 0 && live) {
+      if (causal && k0 > wq_last + q_offset) live = false;
+      if (window > 0 && wq_first + q_offset - (k0 + kBK - 1) >= window) live = false;
     }
+    if (live) {
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 
-    const int key = k0 + lane;
+      // S = Q K^T: 16 rows x 64 keys, 8 accumulator tiles of 8 keys
+      if constexpr (kBf16) {
+        // ldmatrix x4: keys 16 jp + (0..7 | 8..15) x columns 16 kk + (0..7 | 8..15)
+        const int key = (lane & 7) + 8 * (lane >> 4), c = 8 * ((lane >> 3) & 1);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = row0 + r + q_offset;
-      bool ok = true;
-      if (causal) ok = ok && key <= qpos;
-      if (window > 0) ok = ok && qpos - key < window;
-      const float s = key < Sk ? (ok ? p[r] : kMasked) : -CUDART_INF_F;
-      const float m_new = fmaxf(m[r], warp_max(s));
-      const float e = expf(s - m_new);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(e);
-      m[r] = m_new;
-      p[r] = e;
+        for (int kk = 0; kk < kQK; ++kk) {
 #pragma unroll
-      for (int c = 0; c < kDC; ++c) acc[r][c] *= alpha;
-    }
+          for (int jp = 0; jp < 4; ++jp) {
+            uint32_t r[4];
+            ldsm_x4(r, tK + (16 * jp + key) * LD + 16 * kk + c);
+            mma_bf16(s[2 * jp], qf[kk], r[0], r[1]);
+            mma_bf16(s[2 * jp + 1], qf[kk], r[2], r[3]);
+          }
+        }
+      } else {
+        const float* fK = reinterpret_cast<const float*>(tK);
+#pragma unroll
+        for (int kk = 0; kk < kQK; ++kk) {
+          uint32_t ab[4], as[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split(qr[kk][i], ab[i], as[i]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float* p = fK + (8 * j + g) * LD + 8 * kk + t;
+            uint32_t bb0, bs0, bb1, bs1;
+            split(p[0], bb0, bs0);
+            split(p[4], bb1, bs1);
+            mma_3xtf32(s[j], ab, as, bb0, bb1, bs0, bs1);
+          }
+        }
+      }
 
-    // P @ V: broadcast key j's weight from lane j, columns lane + 32 c
-    for (int j = 0; j < kBK; ++j) {
-      float vj[kDC];
+      // scale into the log2 domain; masks only where the tile straddles an edge
+      const bool clear = k0 + kBK <= Sk &&
+                         (!causal || k0 + kBK - 1 <= wq_first + q_offset) &&
+                         (window <= 0 || wq_last + q_offset - k0 < window);
 #pragma unroll
-      for (int c = 0; c < kDC; ++c) {
-        const int d = lane + 32 * c;
-        vj[c] = d < D ? sv[j * D + d] : 0.f;
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale_log2;
+          if (!clear) {   // selects, not branches
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            const int qpos = qpos_g + 8 * (e >> 1);
+            const bool masked = (causal & (key > qpos)) | ((window > 0) & (qpos - key >= window));
+            x = key >= Sk ? -CUDART_INF_F : masked ? kMasked : x;
+          }
+          s[j][e] = x;
+        }
+      }
+
+      // online softmax on the fragments: row g holds e = 0, 1; row g + 8 e = 2, 3
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float t8[8];   // pairwise: a tree, not a chain
+#pragma unroll
+        for (int j = 0; j < 8; ++j) t8[j] = fmaxf(s[j][2 * r], s[j][2 * r + 1]);
+#pragma unroll
+        for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+          for (int j = 0; j < w; ++j) t8[j] = fmaxf(t8[j], t8[j + w]);
+        const float mx = quad_max(fmaxf(m[r], t8[0]));
+        const float m_use = mx == -CUDART_INF_F ? 0.f : mx;   // no -inf - -inf
+        alpha[r] = ex2(m[r] - m_use);
+        m[r] = mx;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[j][2 * r] = ex2(s[j][2 * r] - m_use);
+          s[j][2 * r + 1] = ex2(s[j][2 * r + 1] - m_use);
+          t8[j] = s[j][2 * r] + s[j][2 * r + 1];
+        }
+#pragma unroll
+        for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+          for (int j = 0; j < w; ++j) t8[j] += t8[j + w];
+        l[r] = l[r] * alpha[r] + t8[0];
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, p[r], j);
+      for (int n = 0; n < kNT; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+
+      // O += P V
+      if constexpr (kBf16) {
+        // ldmatrix.trans x4: keys 16 kk + (0..7 | 8..15) x columns 16 np + (0..7 | 8..15)
+        const int key = (lane & 7) + 8 * ((lane >> 3) & 1), c = 8 * (lane >> 4);
 #pragma unroll
-        for (int c = 0; c < kDC; ++c) acc[r][c] = fmaf(pj, vj[c], acc[r][c]);
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                 pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                 pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                 pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+          for (int np = 0; np < DP / 16; ++np) {
+            uint32_t r[4];
+            ldsm_x4_trans(r, tV + (16 * kk + key) * LD + 16 * np + c);
+            mma_bf16(acc[2 * np], a, r[0], r[1]);
+            mma_bf16(acc[2 * np + 1], a, r[2], r[3]);
+          }
+        }
+      } else {
+        // k slot t <-> key 2t, k slot t + 4 <-> key 2t + 1 of each 8-key step
+        const float* fV = reinterpret_cast<const float*>(tV);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          uint32_t ab[4], as[4];
+          split(s[kk][0], ab[0], as[0]);
+          split(s[kk][2], ab[1], as[1]);
+          split(s[kk][1], ab[2], as[2]);
+          split(s[kk][3], ab[3], as[3]);
+          const float* p = fV + (8 * kk + 2 * t) * LD + g;
+#pragma unroll
+          for (int n = 0; n < kNT; ++n) {
+            uint32_t bb0, bs0, bb1, bs1;
+            split(p[8 * n], bb0, bs0);
+            split(p[LD + 8 * n], bb1, bs1);
+            mma_3xtf32(acc[n], ab, as, bb0, bb1, bs0, bs1);
+          }
+        }
       }
     }
   }
 
+  // O = acc / l.  kVec: through shared memory (the first kBQ rows of the
+  // ring), so that each thread writes 16 contiguous bytes of a row
+  float inv[2];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int s = row0 + r;
-    if (s >= Sq) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    T* orow = o + ((long long)b * Sq * H + (long long)s * H + h) * D;
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    inv[r] = lr > 0.f ? 1.f / lr : 0.f;
+  }
+  T* ob = o + ((long long)b * Sq * H + h) * D;
+  if constexpr (kVec) {
+    __syncthreads();   // every warp is done with the ring
 #pragma unroll
-    for (int c = 0; c < kDC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) store(orow + d, acc[r][c] * inv);
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+        store2(ring + (w0 + g + 8 * r) * LD + 8 * n + 2 * t, acc[n][2 * r] * inv[r],
+               acc[n][2 * r + 1] * inv[r]);
+    __syncthreads();
+    constexpr int kE = 16 / sizeof(T);
+    constexpr int kChunks = DP / kE;
+    for (int i = threadIdx.x; i < kBQ * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * kE;
+      if (q0 + r < Sq && c < D)
+        *reinterpret_cast<uint4*>(ob + (q0 + r) * q_stride + c) =
+            *reinterpret_cast<const uint4*>(ring + r * LD + c);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = q0 + w0 + g + 8 * r;
+      if (s >= Sq) continue;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const int c = 8 * n + 2 * t;
+        if (c < D) store(ob + s * q_stride + c, acc[n][2 * r] * inv[r]);
+        if (c + 1 < D) store(ob + s * q_stride + c + 1, acc[n][2 * r + 1] * inv[r]);
+      }
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                   int Sk, int H, int KH, int D, int causal, int window, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(kBQ * D + kBK * (D + 1) + kBK * D);
+template <typename T, int DP, bool kVec>
+cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                      int Sk, int H, int KH, int D, int causal, int window, float scale,
+                      cudaStream_t stream) {
+  constexpr int LD = DP + Traits<T>::kRowPad;
+  constexpr size_t smem = sizeof(T) * kStages * 2 * kBK * LD;   // the ring
+  static_assert(smem <= 232448, "a block has 227 KB of shared memory");
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+    static bool raised = false;
+    if (!raised) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          flash_fwd<T, DP, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      raised = true;
+    }
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd<T><<<grid, kWarps * 32, smem, stream>>>(
+  flash_fwd<T, DP, kVec><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, KH, D, causal, window, scale, Sk - Sq);
+      static_cast<T*>(o), Sq, Sk, H, KH, D, causal, window, scale * kLog2e, Sk - Sq);
   return cudaGetLastError();
 }
+
+// The head dim rounds up to the next instantiated width: a multiple of the
+// mma's depth (16 in bf16, 8 in f32); the element-by-element path takes 128.
+template <typename T, int DP = Traits<T>::kPadTo>
+cudaError_t launch(bool vec, const void* q, const void* k, const void* v, void* o, int B,
+                   int Sq, int Sk, int H, int KH, int D, int causal, int window, float scale,
+                   cudaStream_t s) {
+  if (!vec)
+    return launch_dp<T, kDMax, false>(q, k, v, o, B, Sq, Sk, H, KH, D, causal, window,
+                                      scale, s);
+  if constexpr (DP < kDMax) {
+    if (D > DP)
+      return launch<T, DP + Traits<T>::kPadTo>(vec, q, k, v, o, B, Sq, Sk, H, KH, D, causal,
+                                               window, scale, s);
+  }
+  return launch_dp<T, DP, true>(q, k, v, o, B, Sq, Sk, H, KH, D, causal, window, scale, s);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  All four
 // tensors are contiguous: q and o (B, Sq, H, D), k and v (B, Sk, KH, D).
+// 16-byte copies need 16-byte rows and pointers; anything else stages
+// element by element in the same kernel.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int B, int Sq, int Sk, int H, int KH, int D,
                                    int causal, int window, float scale, void* stream) {
@@ -212,10 +523,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int elem = dtype == 0 ? 4 : 2;
+  const bool vec = (D * elem) % 16 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                   aligned16(o);
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, o, B, Sq, Sk, H, KH, D, causal, window, scale, s);
+    return (int)launch<float>(vec, q, k, v, o, B, Sq, Sk, H, KH, D, causal, window, scale, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KH, D, causal, window,
+    return (int)launch<__nv_bfloat16>(vec, q, k, v, o, B, Sq, Sk, H, KH, D, causal, window,
                                       scale, s);
   return (int)cudaErrorInvalidValue;
 }

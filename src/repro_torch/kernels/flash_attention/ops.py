@@ -1,8 +1,12 @@
 """Public wrapper for the flash-attention kernel.
 
 CPU tensors take the plain version (`attention_ref`).  CUDA tensors launch
-`csrc/flash_attention.cu` or raise: there is no fallback on the card.
-`flash_attention.launches` counts kernel launches (a plain integer)."""
+`csrc/flash_attention.cu` or raise: there is no fallback on the card.  The
+kernel runs bf16 inputs on bf16 tensor-core products (P rounded to bf16
+before P V, as `blocked_attention` does) and f32 inputs as 3xTF32; its C
+entry point picks 16-byte or element-by-element staging from D and the
+pointers' alignment.  `flash_attention.launches` counts kernel launches (a
+plain integer)."""
 from __future__ import annotations
 
 import math

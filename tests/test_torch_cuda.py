@@ -53,6 +53,47 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D, causal, window,
     assert float((out.float() - ref.float()).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal,window,dtype,offset", [
+    (2, 100, 100, 4, 2, 40, True, 0, "bfloat16", 0),    # D pads 40 -> 48
+    (2, 130, 130, 4, 4, 72, False, 0, "bfloat16", 0),   # D pads 72 -> 80
+    (1, 96, 96, 4, 2, 12, True, 0, "bfloat16", 0),      # 24-byte rows
+    (2, 70, 90, 4, 1, 18, True, 0, "float32", 0),       # 72-byte rows
+    (1, 128, 128, 4, 4, 64, True, 0, "float32", 1),     # 4-byte offset
+    (1, 128, 128, 4, 4, 64, False, 0, "bfloat16", 1),   # 2-byte offset
+    (2, 40, 40, 2, 2, 64, True, 0, "float32", 0),       # Sk below one tile
+    (2, 40, 40, 2, 2, 80, False, 0, "bfloat16", 0),
+    (1, 200, 200, 4, 2, 64, True, 40, "float32", 0),    # window edge mid-tile
+    (1, 200, 200, 4, 2, 80, True, 40, "bfloat16", 0),
+    (2, 1, 300, 4, 2, 72, True, 0, "float32", 0),       # one query, Sk 300
+    (2, 1, 300, 4, 2, 80, True, 0, "bfloat16", 0),
+])
+def test_flash_kernel_edge_cases(cuda, B, Sq, Sk, H, KH, D, causal, window,
+                                 dtype, offset):
+    """Head dims the kernel pads, rows that are not 16-byte multiples and
+    views at a storage offset that is not 16-byte aligned (both staged
+    element by element), a key sequence shorter than one 64-key tile, a
+    window edge inside a tile, one query row.  Tolerance as above: 1e-4
+    abs in f32, 2e-2 abs in bf16."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        n = B * shape[0] * shape[1] * D
+        flat = torch.randn((n + offset,), generator=g, device=cuda).to(dt)
+        return flat[offset:].view(B, *shape, D)
+
+    q, k, v = randn(Sq, H), randn(Sk, KH), randn(Sk, KH)
+    assert q.is_contiguous() and (q.data_ptr() % 16 != 0) == bool(offset)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
 @pytest.mark.parametrize("shape", [(3, 1), (3, 127), (4, 3, 4096),
                                    (5, 3, 4097), (3, 294912)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
