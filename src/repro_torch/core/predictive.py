@@ -7,15 +7,17 @@ The state is a finite-difference stack over the features computed at the
 last full steps (d[0] <- F, d[i] <- d[i-1] - d_old[i-1]), plus `n_valid`
 (computes seen, masking unwarmed orders) and `last_step`.  A forecast
 evaluates sum_i c_i(u) d[i] at u = (step - last_step) / interval through
-the forecast kernel; under serving it is ONE launch over every slot, with
-an (S, order+1) coefficient batch since each slot has its own u and
-n_valid.
+the forecast kernel's fused entry `forecast_basis`, which computes each
+slot's weights (its own u and n_valid) in the kernel: under serving a skip
+tick's forecast is ONE launch over every slot, as XLA fuses JAX's
+`forecast_from_diffs` under jit.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.forecast import basis_coeffs, forecast
+from repro_torch.kernels.forecast import (basis_coeffs, forecast,
+                                          forecast_basis)
 
 from .policy import CachePolicy, interval_pred, slot_mask
 
@@ -80,9 +82,9 @@ class PredictivePolicy(CachePolicy):
                 "n_valid": state["n_valid"] + 1,
                 "last_step": torch.full_like(state["last_step"], step),
             }
-        u = (step - state["last_step"]).float() / float(self.interval)
-        y = forecast_from_diffs(state["diffs"], u, state["n_valid"],
-                                self.basis, self.sigma)
+        y = forecast_basis(state["diffs"], step, state["last_step"],
+                           state["n_valid"], self.interval, self.basis,
+                           self.sigma)
         return y.to(x.dtype), state
 
     def apply_slots(self, states, steps, xs, ys):
@@ -91,11 +93,8 @@ class PredictivePolicy(CachePolicy):
                                 states["last_step"])
         y = ys
         if not want.all():
-            steps_t = torch.as_tensor(steps, dtype=torch.int32,
-                                      device=diffs.device)
-            u = (steps_t - last).float() / float(self.interval)
-            fc = forecast_from_diffs(diffs, u, n_valid, self.basis,
-                                     self.sigma).to(xs.dtype)
+            fc = forecast_basis(diffs, steps, last, n_valid, self.interval,
+                                self.basis, self.sigma).to(xs.dtype)
             y = fc if not want.any() else torch.where(slot_mask(want, fc),
                                                       ys, fc)
         if not want.any():

@@ -2,14 +2,18 @@
 
 Every `kernels/*/csrc/*.cu` compiles, one `nvcc` process per source all
 started together, for Hopper (`sm_90a`) into one shared library with a
-plain C interface.  The library lands in `build/repro_torch_kernels/<hash>/`
+plain C interface; `kernels/*.cuh` holds device helpers that several
+sources include.  The library lands in `build/repro_torch_kernels/<hash>/`
 at the repository root (listed in `.gitignore`), keyed by a hash of the
 sources and flags, so an unchanged tree builds once.  A failed build
 raises; nothing falls back.
 
 Each C entry point returns `cudaGetLastError()` after its launch; the
 Python wrappers raise when it is not 0.  Pointers and the stream travel as
-`c_void_p` (a bare Python int would be cut to 32 bits).
+`c_void_p` (a bare Python int would be cut to 32 bits).  `launch` is the
+one host path of every wrapper: the library handle without a lock once it
+is loaded, no device switch when the tensor's device is already current,
+the raw current stream, one ctypes call.
 """
 from __future__ import annotations
 
@@ -23,10 +27,12 @@ import threading
 from pathlib import Path
 from typing import List
 
+import torch
+
 _KERNELS = Path(__file__).resolve().parent
 BUILD_ROOT = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+         "-Xcompiler", "-fPIC", "-Xptxas=-v", f"-I{_KERNELS}"]
 LIB_NAME = "librepro_torch_kernels.so"
 
 _lock = threading.Lock()
@@ -52,7 +58,7 @@ def _nvcc() -> str:
 
 def _digest(srcs: List[Path]) -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *sorted(_KERNELS.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -103,20 +109,26 @@ def build_log() -> str:
 
 def _declare(lib) -> None:
     """Argument and result types of every C entry point: flash_attention_fwd,
-    forecast_fwd and ssd_fwd."""
+    forecast_fwd, forecast_basis_fwd and ssd_fwd."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    L = ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
                                         I, F, P]
-    lib.flash_attention_fwd.restype = I
-    lib.forecast_fwd.argtypes = [P, P, P, I, I, I, ctypes.c_longlong, I, P]
-    lib.forecast_fwd.restype = I
-    lib.ssd_fwd.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
-    lib.ssd_fwd.restype = I
+    lib.forecast_fwd.argtypes = [P, P, P, I, I, I, L, I, P]
+    lib.forecast_basis_fwd.argtypes = [P, ctypes.c_char_p, P, P, P, I, I, I,
+                                       L, I, I, I, ctypes.c_double, P]
+    lib.ssd_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                            L, L, L, L, L, L, L, P]
+    for fn in (lib.flash_attention_fwd, lib.forecast_fwd,
+               lib.forecast_basis_fwd, lib.ssd_fwd):
+        fn.restype = I
 
 
 def load():
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use; no lock after)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -125,6 +137,15 @@ def load():
     return _lib
 
 
-def check(err: int, name: str) -> None:
+def launch(entry: str, idx: int, *args) -> None:
+    """Call the C entry point `entry` with `args` and the current stream of
+    CUDA device `idx`, switching the current device only if it is another
+    one; raise if the launch failed."""
+    fn = getattr(_lib if _lib is not None else load(), entry)
+    if idx == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")

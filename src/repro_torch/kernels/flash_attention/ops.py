@@ -43,14 +43,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
     o = torch.empty_like(q)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPES[q.dtype], B, Sq, Sk, H, KH, D, int(bool(causal)),
-            int(window), float(scale), stream)
-    _build.check(err, "flash_attention")
+    _build.launch("flash_attention_fwd", q.get_device(), q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
+                  B, Sq, Sk, H, KH, D, int(bool(causal)), int(window),
+                  float(scale))
     flash_attention.launches += 1
     return o
 

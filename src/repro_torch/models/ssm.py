@@ -20,11 +20,16 @@ from .layers import dense_init, dot, rms_norm
 
 
 def causal_conv(x, w, b):
-    """Depthwise causal conv.  x: (B, S, C); w: (W, C); b: (C,)."""
+    """Depthwise causal conv.  x: (B, S, C); w: (W, C); b: (C,).  Returns
+    (B, S, C) contiguous: the bias add writes the conv's (B, C, S) output
+    back in token-major order, so that the SSD scan reads x, B and C as
+    views with a unit last stride."""
     W, C = w.shape
     lhs = F.pad(x.transpose(1, 2), (W - 1, 0))                   # (B, C, S+W-1)
     out = F.conv1d(lhs, w.t()[:, None, :], groups=C)
-    return out.transpose(1, 2) + b
+    res = torch.empty(x.shape[:2] + (C,), dtype=torch.result_type(out, b),
+                      device=out.device)
+    return torch.add(out.transpose(1, 2), b, out=res)
 
 
 def conv_step(buf, x_t, w, b):
@@ -90,10 +95,10 @@ def mamba2_forward(p, u, cfg):
     C_ = xBC[..., din + n:]
     dt = F.softplus(dt_raw + p["dt_bias"]).float()
     A = -torch.exp(p["A_log"].float())
-    xf = x.float()
-    y, h_fin = ssd_scan(xf.contiguous(), dt.contiguous(), A.contiguous(),
-                        B_.float().contiguous(), C_.float().contiguous())
-    y = y + p["D"][None, None, :, None] * xf
+    # x, B_, C_: views of xBC, read by the scan in place and in xBC's dtype
+    y, h_fin = ssd_scan(x, dt, A, B_, C_)
+    # D x in f32, as D (bf16 params) times the f32 cast of x gives it
+    y = y + p["D"].float()[None, None, :, None] * x
     y = y.reshape(B, S, din).to(u.dtype)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
     cache = {"state": h_fin, "conv": _conv_tail(xBC_raw, cfg.ssm_conv)}

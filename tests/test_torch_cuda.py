@@ -11,7 +11,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention, forecast, ssd_scan  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref  # noqa: E402
-from repro_torch.kernels.forecast import basis_coeffs, forecast_ref  # noqa: E402
+from repro_torch.kernels.forecast import (basis_coeffs, forecast_basis,  # noqa: E402
+                                          forecast_ref)
 from repro_torch.kernels.ssd import ssd_chunked  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -117,6 +118,59 @@ def test_forecast_kernel_matches_plain(cuda, shape, dtype):
     assert float((out.float() - ref.float()).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("basis", ["taylor", "newton", "hermite", "ab"])
+@pytest.mark.parametrize("slots", [1, 4, 8])
+@pytest.mark.parametrize("n", [4096, 4097])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forecast_basis_matches_plain(cuda, basis, slots, n, dtype):
+    """The fused entry point (weights evaluated in the kernel) against
+    basis_coeffs + forecast_ref on the card, with each slot's own step,
+    last_step and n_valid (0 .. m+1); exactly one launch a call.  N = 4097
+    takes the scalar path.  Tolerance as for `forecast`."""
+    g = torch.Generator(device=cuda).manual_seed(slots)
+    m1 = 3
+    d = torch.randn((slots, m1, n), generator=g, device=cuda).to(
+        getattr(torch, dtype))
+    steps = [3 * i + 1 + i % 3 for i in range(slots)]
+    last = torch.tensor([3 * i for i in range(slots)], dtype=torch.int32,
+                        device=cuda)
+    nv = torch.arange(slots, dtype=torch.int32, device=cuda) % (m1 + 1)
+    before = forecast.launches
+    out = forecast_basis(d, steps, last, nv, 3, basis, 0.5)
+    assert forecast.launches == before + 1
+    u = (torch.tensor(steps, dtype=torch.int32, device=cuda) - last).float() / 3.0
+    ref = forecast_ref(d, basis_coeffs(m1 - 1, u, basis, 0.5, nv))
+    torch.cuda.synchronize()
+    scale = max(float(ref.float().abs().max()), 1.0)
+    tol = 2e-6 * scale if dtype == "float32" else 2 ** -7 * scale
+    assert out.shape == ref.shape and out.dtype == d.dtype
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+def test_forecast_basis_unbatched_and_policy_skip_tick(cuda):
+    """A 0-d last_step and n_valid forecasts one stack; a skip tick of
+    `PredictivePolicy.apply_slots` is one launch."""
+    from repro_torch.core import PredictivePolicy
+    g = torch.Generator(device=cuda).manual_seed(9)
+    d = torch.randn((3, 1000), generator=g, device=cuda)
+    out = forecast_basis(d, 7, torch.tensor(4, dtype=torch.int32, device=cuda),
+                         torch.tensor(2, dtype=torch.int32, device=cuda), 4,
+                         "hermite")
+    ref = forecast_ref(d, basis_coeffs(2, torch.tensor(0.75, device=cuda),
+                                       "hermite", n_valid=2))
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 2e-6 * max(
+        float(ref.abs().max()), 1.0)
+    pol = PredictivePolicy(4, 2, "taylor")
+    states = {"diffs": torch.randn((4, 3, 8, 8), generator=g, device=cuda),
+              "n_valid": torch.full((4,), 3, dtype=torch.int32, device=cuda),
+              "last_step": torch.zeros((4,), dtype=torch.int32, device=cuda)}
+    xs = torch.zeros((4, 8, 8), device=cuda)
+    before = forecast.launches
+    y, _ = pol.apply_slots(states, [1, 2, 3, 5], xs, xs)
+    assert forecast.launches == before + 1 and y.shape == xs.shape
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -160,14 +214,54 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n):
     torch.testing.assert_close(hf, hr, atol=2e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (4, 512, 80, 64, 64),       # zamba2-2.7b prefill, as the path passes it
+    (1, 512, 80, 64, 64),       # b 1
+    (2, 130, 3, 64, 64),        # a ragged tail
+    (1, 40, 2, 16, 8),          # shorter than a tile; p, n below a group
+    (2, 100, 4, 48, 24),        # p across two groups, the second partial
+    (1, 70, 2, 5, 3),           # odd widths: element-by-element staging
+])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_kernel_reads_views_of_xbc(cuda, b, s, h, p, n, dtype):
+    """x, B and C as strided views (unit last stride) of one (b, s, h p +
+    2 n) conv output in bf16 or f32, as `mamba2_forward` passes them,
+    against the plain version on the same values.  Tolerance 2e-4 abs /
+    1e-3 rel, at the longest chunk of at most 64 that divides s."""
+    g = torch.Generator(device=cuda).manual_seed(s + p)
+    w = h * p
+    xbc = torch.randn((b, s, w + 2 * n), generator=g, device=cuda).to(
+        getattr(torch, dtype))
+    x = xbc[..., :w].view(b, s, h, p)
+    B_, C_ = xbc[..., w:w + n], xbc[..., w + n:]
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g,
+                                                  device=cuda))
+    A = -torch.exp(torch.rand((h,), generator=g, device=cuda))
+    assert not x.is_contiguous() and x.stride(-1) == 1
+    before = ssd_scan.launches
+    y, hf = ssd_scan(x, dt, A, B_, C_)
+    chunk = max(c for c in range(1, 65) if s % c == 0)
+    yr, hr = ssd_chunked(x, dt, A, B_, C_, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == hf.dtype == torch.float32
+    torch.testing.assert_close(y, yr, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(hf, hr, atol=2e-4, rtol=1e-3)
+
+
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """f16 inputs, a head dim above 64 and a last axis that is not unit
+    stride."""
     x = torch.zeros((1, 8, 2, 16), device=cuda)
     dt = torch.zeros((1, 8, 2), device=cuda)
     A = torch.zeros((2,), device=cuda)
     s = torch.zeros((1, 8, 4), device=cuda)
     with pytest.raises(TypeError):
-        ssd_scan(x.bfloat16(), dt, A, s, s)
+        ssd_scan(x.half(), dt, A, s.half(), s.half())
     with pytest.raises(ValueError):
         ssd_scan(torch.zeros((1, 8, 2, 80), device=cuda), dt, A, s, s)
     with pytest.raises(ValueError):
-        ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, s, s)
+        ssd_scan(torch.zeros((1, 16, 2, 8), device=cuda).transpose(1, 3),
+                 torch.zeros((1, 8, 2), device=cuda), A, s, s)
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, A, s.transpose(1, 2).contiguous().transpose(1, 2), s)

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Where the flash kernel's time goes, on one CUDA card.
+"""Where the flash or SSD kernel's time goes, on one CUDA card.
 
-    python3 tools/flash_ablate.py [--reps N] [NAME=FLAGS ...]
+    python3 tools/flash_ablate.py [--kernel flash|ssd] [--reps N] [NAME=FLAGS ...]
 
-Builds a copy of
-`src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu` (into
-`build/flash_ablate/`) with switches that each skip one part of the work,
-once per variant: NAME=FLAGS names the variant and gives its nvcc defines,
-joined by commas, e.g. `noqk=-DABL_NO_QK`.  The switches:
+Builds a copy of the kernel's source (flash:
+`src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`, ssd:
+`src/repro_torch/kernels/ssd/csrc/ssd.cu`; into `build/flash_ablate/`)
+with switches that each skip one part of the work, once per variant:
+NAME=FLAGS names the variant and gives its nvcc defines, joined by commas,
+e.g. `noqk=-DABL_NO_QK`.  The flash switches:
 
   ABL_EMPTY     return at once: the launch alone
   ABL_NO_LOOP   no key tiles: Q and the first K/V tile in, O out
@@ -15,18 +16,30 @@ joined by commas, e.g. `noqk=-DABL_NO_QK`.  The switches:
   ABL_NO_QK     skip S = Q K^T
   ABL_NO_PV     skip O += P V
 
+The SSD switches (in the scan kernel; the C B^T pass always runs):
+
+  ABL_EMPTY     the scan returns at once: the C B^T pass and two launches
+  ABL_NO_LOADS  no copies of x, B, C, dt after the first tile
+  ABL_NO_SX     skip S and S x
+  ABL_NO_CH     skip C h^T
+  ABL_NO_STATE  skip the state product x^T (w B)
+  ABL_NO_YOUT   skip the stores of y
+
 A switch skips its part behind a test the compiler cannot fold, so code
 and registers stay those of the kernel; its results are wrong (FAIL).  The
 variant `base` (no switch) is always built: it is the kernel itself.  One
-nvcc per variant, all started together.  At the main paths' shapes (DiT-XL
-f32 and bf16, zamba2-2.7b prefill bf16) every variant is held against the
-plain version (1e-4 abs f32, 2e-2 abs bf16) and timed on the device: CUDA
-events around a CUDA graph of `reps` back-to-back calls, every variant in
-order and then in reverse, the mean of the two turns reported.
-`scaled_dot_product_attention` (with the boolean mask chip_smoke.py gives
-it, and with `is_causal` where it applies) is timed the same way.  Prints
-the card, ptxas registers and spills of the two main-path instantiations
-per variant, a line per shape and variant, and one JSON line.
+nvcc per variant, all started together.  At the main paths' shapes
+(flash: DiT-XL f32 and bf16, zamba2-2.7b prefill bf16; ssd: the zamba2
+prefill scan with bf16 views of the conv output as the path passes them,
+with f32 inputs, and at b 1) every variant is held against the plain
+version (flash 1e-4 abs f32, 2e-2 abs bf16; ssd 2e-4 abs + 1e-3 rel) and
+timed on the device: CUDA events around a CUDA graph of `reps`
+back-to-back calls, every variant in order and then in reverse, the mean
+of the two turns reported.  For flash, `scaled_dot_product_attention`
+(with the boolean mask chip_smoke.py gives it, and with `is_causal` where
+it applies) is timed the same way.  Prints the card, ptxas registers and
+spills of the main-path instantiations per variant, a line per shape and
+variant, and one JSON line.
 """
 from __future__ import annotations
 
@@ -41,7 +54,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
-CU = SRC / "repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 OUT = ROOT / "build" / "flash_ablate"
 SHAPES = [  # name, B, Sq, Sk, H, KH, D, causal, dtype
     ("dit-xl f32", 8, 256, 256, 16, 16, 72, False, "float32"),
@@ -51,7 +63,7 @@ SHAPES = [  # name, B, Sq, Sk, H, KH, D, causal, dtype
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 MAIN = {"f32 D72": "flash_fwdIfLi72ELb1E",
         "bf16 D80": "flash_fwdI13__nv_bfloat16Li80ELb1E"}
-ABLATIONS = [  # switch, anchor in the source, what goes before the anchor
+FLASH_ABLATIONS = [  # switch, anchor in the source, what goes before it
     ("ABL_EMPTY", "  const int q0 = blockIdx.x * kBQ;\n",
      "  if (scale_log2 != 12345.f) return;\n"),
     ("ABL_NO_LOOP", "  for (int kt = kt_lo; kt < kt_hi; ++kt) {\n",
@@ -63,28 +75,56 @@ ABLATIONS = [  # switch, anchor in the source, what goes before the anchor
     ("ABL_NO_PV", "      if constexpr (kBf16) {\n        // ldmatrix.trans x4",
      "      if (scale_log2 != 12345.f) {} else\n"),
 ]
+# a = A[head] < 0 in the scan kernel: a test the compiler cannot fold
+SSD_ABLATIONS = [
+    ("ABL_EMPTY", "  const int grp = blockIdx.x",
+     "  if (A[0] != 12345.f) return;\n"),
+    ("ABL_NO_LOADS", "    if (tile + 1 < nt) stage(tile + 1, st ^ 1);\n",
+     "    if (a != 12345.f) { cp_async_commit(); cp_async_commit(); } else\n"),
+    ("ABL_NO_SX", "      if (kk > 2 * warp + 1) break;\n",
+     "      if (a != 12345.f) break;\n"),
+    ("ABL_NO_CH", "    if (tile > 0) {\n", "    if (a != 12345.f) {} else\n"),
+    ("ABL_NO_STATE", "      const float w0 = w_w[j0], w1 = w_w[j1];\n",
+     "      if (a != 12345.f) break;\n"),
+    ("ABL_NO_YOUT", "        if (s >= S) continue;\n",
+     "        if (a != 12345.f) continue;\n"),
+]
+KERNELS = {
+    "flash": {"cu": SRC / "repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+              "ablations": FLASH_ABLATIONS, "main": MAIN},
+    "ssd": {"cu": SRC / "repro_torch/kernels/ssd/csrc/ssd.cu",
+            "ablations": SSD_ABLATIONS,
+            "main": {"bf16 scan": "ssd_scan_kernelI13__nv_bfloat16Lb1E",
+                     "f32 scan": "ssd_scan_kernelIfLb1E"}},
+}
+SSD_SHAPES = [  # name, b, s, h, p, n, bf16 views of xBC
+    ("zamba2 prefill bf16 xBC views", 4, 512, 80, 64, 64, True),
+    ("zamba2 prefill f32", 4, 512, 80, 64, 64, False),
+    ("b1 bf16 xBC views", 1, 512, 80, 64, 64, True),
+]
 
 
-def ablation_source() -> Path:
-    """A copy of the kernel with the ABLATIONS switches put in."""
-    text = CU.read_text()
-    for switch, anchor, skip in ABLATIONS:
+def ablation_source(kernel) -> Path:
+    """A copy of the kernel with its ablation switches put in."""
+    cu = KERNELS[kernel]["cu"]
+    text = cu.read_text()
+    for switch, anchor, skip in KERNELS[kernel]["ablations"]:
         if text.count(anchor) != 1:
-            sys.exit(f"flash_ablate: anchor of {switch} not found once in {CU}")
+            sys.exit(f"flash_ablate: anchor of {switch} not found once in {cu}")
         text = text.replace(anchor, f"#ifdef {switch}\n{skip}#endif\n{anchor}")
     OUT.mkdir(parents=True, exist_ok=True)
-    out = OUT / "ablate.cu"
+    out = OUT / f"ablate_{kernel}.cu"
     out.write_text(text)
     return out
 
 
-def build(variants, nvcc, flags):
+def build(kernel, variants, nvcc, flags):
     """One shared library per variant; returns the loaded libraries and
     the ptxas report of the main-path instantiations."""
-    source = ablation_source()
+    source = ablation_source(kernel)
     procs = {}
     for name, defs in variants:
-        d = OUT / name
+        d = OUT / kernel / name
         d.mkdir(parents=True, exist_ok=True)
         procs[name] = subprocess.Popen(
             [nvcc, *flags, *defs, "-shared", str(source), "-o",
@@ -96,16 +136,20 @@ def build(variants, nvcc, flags):
         if p.returncode != 0:
             sys.exit(f"flash_ablate: nvcc failed for {name}:\n{log}")
         ptxas[name] = {}
-        for tag, mangled in MAIN.items():
+        for tag, mangled in KERNELS[kernel]["main"].items():
             m = re.search(re.escape(mangled) + r".*?\n.*?(\d+) bytes spill stores"
                           r".*?\n.*?Used (\d+) registers", log)
             ptxas[name][tag] = (f"{m.group(2)} registers, {m.group(1)} B spilled"
                                 if m else "?")
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
-                                            I, F, P]
-        lib.flash_attention_fwd.restype = I
+        lib = ctypes.CDLL(str(OUT / kernel / name / "lib.so"))
+        P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        if kernel == "flash":
+            lib.flash_attention_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
+                                                I, I, F, P]
+            lib.flash_attention_fwd.restype = I
+        else:
+            lib.ssd_fwd.argtypes = [P] * 8 + [I] * 6 + [L] * 7 + [P]
+            lib.ssd_fwd.restype = I
         libs[name] = lib
     return libs, ptxas
 
@@ -113,6 +157,7 @@ def build(variants, nvcc, flags):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("variants", nargs="*")
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="flash")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     import torch
@@ -129,7 +174,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    libs, ptxas = build(variants, _build._nvcc(), _build.FLAGS)
+    libs, ptxas = build(args.kernel, variants, _build._nvcc(), _build.FLAGS)
     for name, defs in variants:
         print(f"variant {name} {' '.join(defs)}: {ptxas[name]}", flush=True)
 
@@ -155,6 +200,62 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
+
+    def timed(shape, run, error, ok):
+        """Check and time every variant: in order, then in reverse."""
+        errs, times = {}, {name: [] for name, _ in variants}
+        for name, _ in variants:
+            run(libs[name])
+            torch.cuda.synchronize()
+            errs[name] = error()
+        order = [name for name, _ in variants]
+        for turn in (order, order[::-1]):
+            for name in turn:
+                times[name].append(time_ms(lambda: run(libs[name])))
+        for name, _ in variants:
+            ms = sum(times[name]) / 2
+            good = ok(errs[name])
+            print(f"{shape}: {name} ms={ms:.4f} (turns "
+                  f"{times[name][0]:.4f} {times[name][1]:.4f}) err="
+                  f"{errs[name]:.3e} {'ok' if good else 'FAIL'}", flush=True)
+            rows.append({"shape": shape, "variant": name, "ms": ms,
+                         "err": errs[name], "ok": good})
+
+    if args.kernel == "ssd":
+        from repro_torch.kernels.ssd import ssd_chunked
+        for shape, b, s, h, p, n, xbc in SSD_SHAPES:
+            dt = torch.nn.functional.softplus(
+                torch.randn((b, s, h), generator=gen, device="cuda"))
+            A = -torch.exp(torch.rand((h,), generator=gen, device="cuda"))
+            buf = torch.randn((b, s, h * p + 2 * n), generator=gen,
+                              device="cuda")
+            buf = buf.to(torch.bfloat16) if xbc else buf
+            x = buf[..., :h * p].view(b, s, h, p)
+            B_, C_ = buf[..., h * p:h * p + n], buf[..., h * p + n:]
+            yr, hr = ssd_chunked(x, dt, A, B_, C_, 64)
+            y = torch.empty((b, s, h, p), device="cuda")
+            hf = torch.empty((b, h, p, n), device="cuda")
+            cb = torch.empty((b, -(-s // 64), 64, 64), device="cuda")
+
+            def run(lib):
+                err = lib.ssd_fwd(
+                    x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+                    C_.data_ptr(), cb.data_ptr(), y.data_ptr(), hf.data_ptr(),
+                    1 if xbc else 0, b, s, h, p, n, *x.stride()[:3],
+                    *B_.stride()[:2], *C_.stride()[:2],
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    sys.exit(f"flash_ablate: CUDA error {err}")
+
+            def excess():   # > 0 where |out - ref| > 2e-4 + 1e-3 |ref|
+                return max(float(((o - r).abs() - 1e-3 * r.abs()).max())
+                           for o, r in ((y, yr), (hf, hr)))
+
+            timed(shape, run, excess, lambda e: e <= 2e-4)
+        print(json.dumps({"card": card, "kernel": "ssd", "ptxas": ptxas,
+                          "rows": rows}))
+        return 0 if all(r["ok"] for r in rows if r["variant"] == "base") else 1
+
     for shape, B, Sq, Sk, H, KH, D, causal, dt in SHAPES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn((B, S, h, D), generator=gen, device="cuda")
@@ -170,15 +271,8 @@ def main() -> int:
             if err:
                 sys.exit(f"flash_ablate: CUDA error {err}")
 
-        errs, times = {}, {name: [] for name, _ in variants}
-        for name, _ in variants:
-            run(libs[name])
-            torch.cuda.synchronize()
-            errs[name] = float((o.float() - ref.float()).abs().max())
-        order = [name for name, _ in variants]
-        for turn in (order, order[::-1]):
-            for name in turn:
-                times[name].append(time_ms(lambda: run(libs[name])))
+        timed(shape, run, lambda: float((o.float() - ref.float()).abs().max()),
+              lambda e: e <= TOL[dt])
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         mask = None
         if causal:
@@ -188,14 +282,6 @@ def main() -> int:
             qt, kt, vt, attn_mask=mask))
         sdpa_causal = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)) if causal and Sq == Sk else None
-        for name, _ in variants:
-            ms = sum(times[name]) / 2
-            ok = errs[name] <= TOL[dt]
-            print(f"{shape}: {name} ms={ms:.4f} (turns "
-                  f"{times[name][0]:.4f} {times[name][1]:.4f}) max_abs_err="
-                  f"{errs[name]:.3e} {'ok' if ok else 'FAIL'}", flush=True)
-            rows.append({"shape": shape, "variant": name, "ms": ms,
-                         "max_abs_err": errs[name], "ok": ok})
         print(f"{shape}: sdpa (mask) ms={sdpa:.4f}"
               + (f", sdpa is_causal ms={sdpa_causal:.4f}" if sdpa_causal
                  else ""), flush=True)
