@@ -20,8 +20,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
               at the zamba2 shape also SDPA with is_causal
   4. forecast the forecast kernel against its plain version, batched over
               serving slots and unbatched at a block-sized shape, f32 and
-              bf16, taylor and hermite coefficients, through `forecast` and
-              through the fused `forecast_basis`; per-call times of
+              bf16, taylor, hermite and foca coefficients (n_valid 0-3),
+              through `forecast` and through the fused `forecast_basis`; per-call times of
               `forecast` beside torch.bmm and of `forecast_basis` beside
               basis_coeffs + forecast; one skip tick's operators and
               kernels under the profiler
@@ -35,15 +35,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
               with TaylorSeer, 4 slots, 8 requests of 8 and 16 steps, two
               guided; every x0 finite, every request's computed steps equal
               its static schedule, flash and forecast launched on this path
-  7. check    a reduced DiT served on the card (kernels) and on the CPU
-              (plain versions) from the same weights and noise must agree
-  8. serve-llm full-width zamba2-2.7b (54 Mamba2 layers, 9 shared attention
+  7. serve-adaptive  the same DiT-XL, weights, slots and requests as
+              serve, under TeaCache (planned by the device want pass: one
+              read a tick) and then FoCa (host plan; forecast kernel on its
+              skip ticks); every x0 finite, each request's first step
+              computes, its computed steps equal the ticks the plan gave its
+              row, TeaCache saves rows; req/s, ticks by kind, tick ms, the
+              plan's host ms and device-to-host copies per tick (profiler),
+              the device's idle share
+  8. check    a reduced DiT served on the card (kernels) and on the CPU
+              (plain versions) from the same weights and noise under each of
+              the 13 policies of slice 5 and TaylorSeer: the same computed
+              steps per request and tick kinds (every thresholded decision
+              of the CPU reference at least 1e-4 relative from its
+              threshold), x0 within 1e-3 relative
+  9. serve-llm full-width zamba2-2.7b (54 Mamba2 layers, 9 shared attention
               applications, bf16 params, random weights from a seed) behind
               ServingEngine, 4 slots, 8 greedy requests of 64-500 prompt
               tokens, 32 new tokens each; every logit finite, SSD launched
               54 times and flash 9 times per prefill; tok/s, prefill ms,
               decode ms per step, peak memory, device time by kernel
-  9. check-llm the zamba2 SMOKE config served on the card (kernels) and on
+  10. check-llm the zamba2 SMOKE config served on the card (kernels) and on
               the CPU (plain versions) from the same weights and prompts
               must give the same tokens and close logits
 
@@ -257,10 +269,10 @@ def phase_forecast(torch, slots: int):
         ("serving 8 slots", 8, 3, 256 * 16),
         ("block-sized", None, 3, 256 * 1152),
     ]
-    report = None
+    report, foca = None, []
     for name, batch, m1, n in cases:
         for dt in ("float32", "bfloat16"):
-            for basis in ("taylor", "hermite"):
+            for basis in ("taylor", "hermite", "foca"):
                 dtype = getattr(torch, dt)
                 lead = (m1,) if batch is None else (batch, m1)
                 d = torch.randn(lead + (n,), generator=gen,
@@ -325,6 +337,8 @@ def phase_forecast(torch, slots: int):
                 if not one_launch:
                     fail(f"forecast {name}: forecast_basis did not count one "
                          f"launch")
+                if basis == "foca":
+                    foca.append(err_f / tol)
                 if report is None:
                     report = {"max_abs_err": max(err, err_f), "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -335,6 +349,7 @@ def phase_forecast(torch, slots: int):
                               "shape": f"{name} {tuple(d.shape)} {dt}",
                               "tolerance": f"{tol:.3e} abs"}
 
+    report["foca_worst_err_over_tol"] = max(foca)
     # one skip tick of the policy (no slot computes) under the profiler
     pol = PredictivePolicy(interval, 2, "taylor")
     S = slots
@@ -458,8 +473,7 @@ def phase_serve(torch, kernels, path):
     from repro_torch.configs import get_config
     from repro_torch.core import make_policy
     from repro_torch.models import init_params, perturb_zero_init
-    from repro_torch.serving.diffusion import (DiffusionRequest,
-                                               DiffusionServingEngine)
+    from repro_torch.serving.diffusion import DiffusionServingEngine
     cfg = get_config("dit-xl")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -472,10 +486,7 @@ def phase_serve(torch, kernels, path):
     log(f"serve: dit-xl {cfg.num_layers} layers d_model={cfg.d_model} "
         f"params={n_params} ({cfg.dtype}) init+warmup "
         f"{time.perf_counter() - t0:.2f}s buckets={buckets}")
-    reqs = [DiffusionRequest(i, num_steps=(8, 16)[i % 2], seed=i,
-                             class_label=(37 * i) % cfg.dit_num_classes,
-                             cfg_scale=4.0 if i in (1, 4) else 0.0)
-            for i in range(8)]
+    reqs = serve_requests(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res, launches = _count_launches(kernels, path, "serve",
@@ -520,6 +531,16 @@ def phase_serve(torch, kernels, path):
     return launches, s["tick_ms_skip_mean"]
 
 
+def serve_requests(cfg):
+    """The served phases' traffic: 8 requests of 8 and 16 steps, two
+    guided."""
+    from repro_torch.serving.diffusion import DiffusionRequest
+    return [DiffusionRequest(i, num_steps=(8, 16)[i % 2], seed=i,
+                             class_label=(37 * i) % cfg.dit_num_classes,
+                             cfg_scale=4.0 if i in (1, 4) else 0.0)
+            for i in range(8)]
+
+
 def log_profile(torch, label, fn):
     """Run fn() under the profiler; log the device's idle share and the
     twelve kernels that took the most device time."""
@@ -544,10 +565,242 @@ def _leaves(tree):
             yield v
 
 
+# The reduced check's policies (phase 8): thresholds for its weights and
+# noise, each splitting the steps into computes and reuses; every
+# thresholded decision of the CPU reference lies at least 1e-4 relative from
+# them (the phase asserts it).  LazyDiT's gate comes from a seeded
+# generator, BlockCache's profile is fixed.
+CHECK_PROFILE = [0.0, 0.04, 0.07, 0.02, 0.09, 0.03, 0.05, 0.08, 0.01, 0.06,
+                 0.05, 0.02]
+CHECK_POLICIES = {
+    "taylorseer": {}, "delta_dit": {}, "pab": {}, "foca": {}, "freqca": {},
+    "teacache": {"delta": 0.3}, "magcache": {"delta": 0.05},
+    "easycache": {"tau": 35.0}, "foresight": {"gamma": 1.0},
+    "blockcache": {"profile": CHECK_PROFILE}, "lazydit": {"threshold": 0.56},
+    "toca": {}, "clusca": {}, "speca": {},
+}
+MARGIN = 1e-4      # least relative distance of a value from its threshold
+# serve-adaptive's TeaCache threshold at full width: the slots diverge (some
+# ticks gather fewer rows than there are active slots)
+TEACACHE_DELTA = 0.5
+
+
+def drive(eng, reqs, record: bool = False):
+    """Serve `reqs` tick by tick.  Returns (results, log): per request the
+    steps at which the plan gave it a backbone row (`rows`), each tick's
+    kind, the ticks whose cond rows were fewer than the active slots but
+    not none (`split`), the plan's host seconds per tick, and with `record`
+    every device plan (the active mask and the WantPlan read back)."""
+    import numpy as np
+    session = eng.start_session(reqs)
+    log = {"rows": {r.request_id: [] for r in reqs}, "kinds": [],
+           "split": 0, "plan_s": [], "plans": []}
+    plan, tick, want_all = eng._plan_all, eng._tick, eng._want_all
+
+    def timed_plan(*args):
+        t0 = time.perf_counter()
+        out = plan(*args)
+        log["plan_s"].append(time.perf_counter() - t0)
+        return out
+
+    def recorded_want(*args):
+        out = want_all(*args)
+        log["plans"].append((np.asarray(session.sched.active_mask()), out))
+        return out
+
+    def watched_tick(*args):
+        row_slot, row_uncond, row_dest = args[6:9]
+        real = row_dest < 2 * eng.slots
+        for slot in row_slot[real & ~row_uncond]:
+            sl = session.sched.slots[slot]
+            log["rows"][sl.request.request_id].append(sl.step)
+        n_u = int((real & row_uncond).sum())
+        n_c = int((real & ~row_uncond).sum())
+        log["split"] += 0 < n_c < sum(session.sched.active_mask())
+        log["kinds"].append("full" if n_u else "cond" if real.any()
+                            else "skip")
+        return tick(*args)
+
+    eng._plan_all, eng._tick = timed_plan, watched_tick
+    if record:
+        eng._want_all = recorded_want
+    try:
+        while not session.done:
+            session.tick()
+    finally:
+        eng._plan_all, eng._tick, eng._want_all = plan, tick, want_all
+    return session.finish(), log
+
+
+def check_rows(phase, res, reqs, log):
+    """Every request's first step computes; its computed steps lie in
+    [1, num_steps] and equal the ticks the plan gave its row."""
+    for r, req in zip(res, reqs):
+        rows = log["rows"][r.request_id]
+        if not rows or rows[0] != 0:
+            fail(f"{phase}: request {r.request_id}'s first step did not "
+                 f"compute (rows at steps {rows})")
+        if not 1 <= r.record.computed_steps <= req.num_steps \
+                or r.record.computed_steps != len(rows):
+            fail(f"{phase}: request {r.request_id} computed "
+                 f"{r.record.computed_steps} of {req.num_steps} steps, the "
+                 f"plan gave it {len(rows)} rows")
+
+
+def least_margin(log):
+    """The least relative distance from its threshold of any thresholded
+    decision of an active slot in the recorded plans (None if none)."""
+    import numpy as np
+    rel = [abs(p.value[s] - p.threshold[s]) / max(abs(p.threshold[s]), 1e-12)
+           for active, p in log["plans"]
+           for s in np.nonzero(active & ~p.forced)[0]]
+    return float(min(rel)) if rel else None
+
+
+def plan_readbacks(torch, eng, reqs):
+    """Serve `reqs` under the profiler with each plan call marked: the
+    device-to-host copies (the profiler's Memcpy DtoH events) issued inside
+    a plan call and in all, the plan calls, and the device's idle share of
+    the profiled wall time."""
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as prof_ctx
+    plan = eng._plan_all
+
+    def marked(*args):
+        with record_function("repro_plan"):
+            return plan(*args)
+
+    eng._plan_all = marked
+    try:
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.serve(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        eng._plan_all = plan
+    evts = prof.events()
+
+    def in_plan(e):
+        while e is not None and e.name != "repro_plan":
+            e = e.cpu_parent
+        return e is not None
+
+    # each device copy is linked to the operator that issued it (its
+    # `kernels`); the plan's are those under a `repro_plan` range
+    issued = [(e, sum("Memcpy DtoH" in k.name for k in e.kernels))
+              for e in evts if str(e.device_type).endswith("CPU")]
+    plan_calls = sum(e.name == "repro_plan" for e, _ in issued)
+    busy = sum(_self_device_us(e) for e in prof.key_averages()
+               if _self_device_us(e) > 0
+               and str(e.device_type).endswith("CUDA")) / 1e3
+    by_op = {}
+    for e, n in issued:
+        if n:
+            key = f"{e.name}{' in plan' if in_plan(e) else ''}"
+            by_op[key] = by_op.get(key, 0) + n
+    return {"dtoh_in_plan": sum(n for e, n in issued if n and in_plan(e)),
+            "dtoh_by_op": by_op,
+            "dtoh_total": sum(n for _, n in issued),
+            "dtoh_device_events": sum("Memcpy DtoH" in e.name for e in evts
+                                      if not str(e.device_type)
+                                      .endswith("CPU")),
+            "plan_calls": plan_calls,
+            "ticks": eng.telemetry.summary()["ticks"],
+            "idle_share": 1 - busy / (wall * 1e3), "busy_ms": busy,
+            "wall_ms": wall * 1e3}
+
+
+def phase_serve_adaptive(torch, kernels, flash, forecast):
+    """Full-width DiT-XL under TeaCache (device plan) and FoCa (host plan),
+    with serve's weights, slots and requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_policy
+    from repro_torch.models import init_params, perturb_zero_init
+    from repro_torch.serving.diffusion import DiffusionServingEngine
+    cfg = get_config("dit-xl")
+    gen = torch.Generator(device="cuda").manual_seed(0)     # serve's weights
+    params = perturb_zero_init(init_params(gen, cfg, device="cuda"), gen)
+    reqs = serve_requests(cfg)
+    out = {}
+    for name, kw, path in (("teacache", {"delta": TEACACHE_DELTA}, (flash,)),
+                           ("foca", {}, (flash, forecast))):
+        phase = f"serve-{name}"
+        eng = DiffusionServingEngine(params, cfg, make_policy(
+            name, num_steps=16, **kw), slots=4, max_steps=16, device="cuda")
+        eng.warmup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (res, trace), launches = _count_launches(
+            kernels, path, phase, lambda: drive(eng, reqs, record=True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(res) != len(reqs):
+            fail(f"{phase}: {len(res)} of {len(reqs)} requests finished")
+        for r in res:
+            if not math.isfinite(float(abs(r.x0).max())):
+                fail(f"{phase}: request {r.request_id} x0 not finite")
+        check_rows(phase, res, reqs, trace)
+        s = eng.telemetry.summary()
+        tel = eng.telemetry
+        if name == "teacache":
+            vals = sorted(float(p.value[i]) for a, p in trace["plans"]
+                          for i in range(len(a)) if a[i] and not p.forced[i])
+            log(f"{phase}: delta {TEACACHE_DELTA}: {trace['split']} ticks "
+                f"gathered fewer cond rows than active slots; thresholded "
+                f"values min {vals[0]:.4f} median {vals[len(vals) // 2]:.4f} "
+                f"max {vals[-1]:.4f}, least margin "
+                f"{least_margin(trace)}")
+            if s["backbone_rows_saved"] <= 0 or trace["split"] == 0:
+                fail(f"{phase}: at delta {TEACACHE_DELTA} no row saved or no "
+                     f"tick split the slots")
+        plan_ms = 1e3 * sum(trace["plan_s"]) / len(trace["plan_s"])
+        rb = plan_readbacks(torch, eng, reqs)
+        if rb["dtoh_total"] < len(reqs):
+            fail(f"{phase}: the profiler linked {rb['dtoh_total']} DtoH "
+                 f"copies to their operators, fewer than the {len(reqs)} "
+                 f"results' (by operator: {rb['dtoh_by_op']})")
+        per_tick = rb["dtoh_in_plan"] / rb["ticks"]
+        log(f"{phase}: {kw} "
+            f"{s['requests']} requests in {wall:.3f}s wall, "
+            f"throughput_rps={s['throughput_rps']:.4f} "
+            f"ticks={s['ticks']} (full {tel.ticks_full}, cond "
+            f"{tel.ticks_cond}, skip {tel.ticks_skip}) "
+            f"tick_ms_backbone_mean={s['tick_ms_backbone_mean']:.3f} "
+            f"tick_ms_skip_mean={s['tick_ms_skip_mean']:.3f} "
+            f"backbone_rows_computed={s['backbone_rows_computed']} "
+            f"backbone_rows_padding={s['backbone_rows_padding']} "
+            f"backbone_rows_saved={s['backbone_rows_saved']} "
+            f"computed_steps={[r.record.computed_steps for r in res]} "
+            f"plan_host_ms_per_tick={plan_ms:.4f} "
+            f"plan_dtoh_per_tick={per_tick:.3f} "
+            f"({rb['dtoh_in_plan']} in {rb['plan_calls']} plan calls, "
+            f"{rb['ticks']} ticks; {rb['dtoh_total']} DtoH issued in "
+            f"all, {len(reqs)} of them the results; "
+            f"{rb['dtoh_device_events']} DtoH device events; by "
+            f"operator {rb['dtoh_by_op']}) "
+            f"idle_share={rb['idle_share']:.3f} (profiled wall "
+            f"{rb['wall_ms']:.1f} ms, device kernels "
+            f"{rb['busy_ms']:.1f} ms) launches {launches}")
+        want = 1 if name == "teacache" else 0
+        if rb["dtoh_in_plan"] != want * rb["ticks"]:
+            fail(f"{phase}: {rb['dtoh_in_plan']} device-to-host copies in "
+                 f"the plan over {rb['ticks']} ticks, want {want} a tick")
+        out[phase] = launches
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_check(torch):
     """A reduced DiT served on the card (kernels) and on the CPU (plain
-    versions) from the same weights and the same noise."""
+    versions) from the same weights and the same noise, under each policy
+    of CHECK_POLICIES."""
     from repro_torch.configs import get_config
+    from repro_torch.core import init_gate, make_policy
     from repro_torch.models import init_params, perturb_zero_init
     from repro_torch.serving.diffusion import (DiffusionRequest,
                                                DiffusionServingEngine)
@@ -558,6 +811,7 @@ def phase_check(torch):
     gen = torch.Generator().manual_seed(3)
     cpu_params = perturb_zero_init(init_params(gen, cfg, device="cpu"), gen)
     gpu_params = _to(cpu_params, "cuda")
+    gate = init_gate(torch.Generator().manual_seed(11), cfg.dit_in_dim)
 
     def noise(req):
         g = torch.Generator().manual_seed(1000 + req.request_id)
@@ -566,19 +820,43 @@ def phase_check(torch):
     reqs = [DiffusionRequest(i, num_steps=(8, 12)[i % 2], class_label=i,
                              cfg_scale=3.0 if i == 1 else 0.0)
             for i in range(3)]
-    out = {}
-    for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
-        eng = DiffusionServingEngine(p, cfg, "taylorseer", slots=2,
-                                     max_steps=12, noise_fn=noise, device=dev)
-        out[dev] = [r.x0 for r in eng.serve(reqs)]
-    worst = 0.0
-    for a, b in zip(out["cuda"], out["cpu"]):
-        rel = float(abs(a - b).max() / max(abs(b).max(), 1e-6))
-        worst = max(worst, rel)
-    log(f"check: reduced DiT served on the card vs the CPU: max rel err "
-        f"{worst:.3e} (tol 1e-3)")
-    if not worst <= 1e-3:
-        fail(f"check: card and CPU disagree (rel err {worst})")
+    for name, kw in CHECK_POLICIES.items():
+        kw = dict(kw, gate=gate) if name == "lazydit" else kw
+        out = {}
+        for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
+            eng = DiffusionServingEngine(p, cfg, make_policy(
+                name, num_steps=12, **kw), slots=2, max_steps=12,
+                noise_fn=noise, device=dev)
+            out[dev] = drive(eng, reqs, record=True)
+        (gres, glog), (cres, clog) = out["cuda"], out["cpu"]
+        margin = least_margin(clog)
+        if margin is not None and margin < MARGIN:
+            fail(f"check {name}: a decision of the CPU reference lies "
+                 f"{margin:.3e} relative from its threshold (< {MARGIN}): "
+                 f"the exact comparison is not well posed")
+        steps = {d: [r.record.computed_steps for r in out[d][0]] for d in out}
+        if steps["cuda"] != steps["cpu"] or glog["kinds"] != clog["kinds"]:
+            for t, ((_, a), (_, b)) in enumerate(zip(glog["plans"],
+                                                     clog["plans"])):
+                if (a.want_cond != b.want_cond).any():
+                    log(f"check {name}: tick {t} decisions differ: card "
+                        f"{a.want_cond} metric {a.metric} value {a.value}; "
+                        f"CPU {b.want_cond} metric {b.metric} value "
+                        f"{b.value}; threshold {b.threshold}")
+                    break
+            fail(f"check {name}: card and CPU decide differently: computed "
+                 f"steps {steps}, tick kinds {glog['kinds']} vs "
+                 f"{clog['kinds']}")
+        worst = max(float(abs(a.x0 - b.x0).max() / max(abs(b.x0).max(), 1e-6))
+                    for a, b in zip(gres, cres))
+        kinds = clog["kinds"]
+        log(f"check {name}: reduced DiT served on the card vs the CPU: "
+            f"computed steps {steps['cpu']} identical, "
+            f"{len(kinds)} tick kinds identical (full {kinds.count('full')}, "
+            f"cond {kinds.count('cond')}, skip {kinds.count('skip')}), "
+            f"least margin {margin}, max rel err {worst:.3e} (tol 1e-3)")
+        if not worst <= 1e-3:
+            fail(f"check {name}: card and CPU disagree (rel err {worst})")
 
 
 def _to(tree, device):
@@ -795,6 +1073,8 @@ def main() -> int:
     by_path = {}
     by_path["serve"], fc["serve_skip_tick_ms"] = phase_serve(
         torch, KERNELS, (flash_attention, forecast))
+    by_path.update(phase_serve_adaptive(torch, KERNELS, flash_attention,
+                                        forecast))
     phase_check(torch)
     by_path["serve-llm"] = phase_serve_llm(torch, KERNELS,
                                            (flash_attention, ssd_scan))

@@ -1,38 +1,105 @@
 """repro_torch.core — the cache-policy library of the port.
 
-Ported so far: NoCachePolicy, FixedIntervalPolicy (FORA) and
-PredictivePolicy with the taylor, newton, hermite and ab bases.  The other
-names of the JAX registry raise KeyError pointing at ROADMAP.md.
+Taxonomy map (survey Fig. 2), as in the JAX `repro.core`:
+  Static            : FixedIntervalPolicy (FORA), DeltaCachePolicy (Δ-DiT),
+                      PABPolicy
+  Timestep-adaptive : TeaCachePolicy, MagCachePolicy, EasyCachePolicy
+  Layer-adaptive    : BlockCachePolicy, ForesightPolicy
+  Predictive        : PredictivePolicy (taylor, newton, hermite, ab, foca),
+                      FreqCaPolicy
+  Hybrid            : ClusCaPolicy, SpeCaPolicy
+  Token-wise        : ToCaPolicy
+  Learned           : LazyDiTPolicy (inference; gate training is §A.5)
+
+Not ported yet: teacache_video (ROADMAP.md §A.3), fastercache_cfg (§A.2)
+and the stack-structural methods; their names raise KeyError pointing at
+ROADMAP.md.
 """
+from .adaptive import (BlockCachePolicy, EasyCachePolicy, ForesightPolicy,
+                       GatedPolicy, MagCachePolicy, TeaCachePolicy)
 from .engine import (CachedModule, SlotBatchedPolicy, cache_state_bytes,
                      stack_slots)
-from .policy import CachePolicy, NoCachePolicy, interval_pred
-from .predictive import (BASES, PredictivePolicy, forecast_from_diffs,
-                         update_diff_stack)
-from .static_policies import FixedIntervalPolicy
+from .hybrid import ClusCaPolicy, SpeCaPolicy, kmeans
+from .learned import LazyDiTPolicy, gate_score, init_gate
+from .metrics import (cosine_sim, mag_ratio, psnr, rel_l1, rel_l1_block,
+                      rel_l2, transform_rate)
+from .policy import CachePolicy, NoCachePolicy, SlotWant, interval_pred
+from .predictive import (BASES, FreqCaPolicy, PredictivePolicy,
+                         forecast_from_diffs, update_diff_stack)
+from .static_policies import (DeltaCachePolicy, FixedIntervalPolicy,
+                              PABPolicy, lowpass)
+from .token import ToCaPolicy
+
+
+def _require_gate(gate):
+    if gate is None:
+        raise ValueError(
+            "make_policy('lazydit') needs trained gate params: pass "
+            "gate={'w': ..., 'b': ...} (repro_torch.core.init_gate, or a "
+            "trained gate)")
+    return gate
+
+
+def _require_profile(profile):
+    if profile is None:
+        raise ValueError(
+            "make_policy('blockcache') needs a calibration profile: pass "
+            "profile=[rel-L1 change per step]")
+    return profile
+
 
 POLICY_REGISTRY = {
     "none": lambda **kw: NoCachePolicy(),
     "fora": lambda interval=2, **kw: FixedIntervalPolicy(interval),
+    "delta_dit": lambda interval=2, **kw: DeltaCachePolicy(interval),
+    "teacache": lambda delta=0.1, **kw: TeaCachePolicy(delta),
+    "magcache": lambda delta=0.1, num_steps=50, **kw:
+        MagCachePolicy(delta, num_steps=num_steps),
+    "easycache": lambda tau=5.0, **kw: EasyCachePolicy(tau),
+    "foresight": lambda gamma=1.0, **kw: ForesightPolicy(gamma),
     "taylorseer": lambda interval=4, order=2, **kw: PredictivePolicy(interval, order, "taylor"),
     "newtonseer": lambda interval=4, order=2, **kw: PredictivePolicy(interval, order, "newton"),
     "hicache": lambda interval=4, order=2, sigma=0.5, **kw: PredictivePolicy(interval, order, "hermite", sigma),
     "abcache": lambda interval=4, **kw: PredictivePolicy(interval, 2, "ab"),
+    "foca": lambda interval=4, **kw: PredictivePolicy(interval, 2, "foca"),
+    "freqca": lambda interval=4, cutoff=0.25, **kw: FreqCaPolicy(interval, cutoff),
+    "toca": lambda interval=4, ratio=0.25, **kw: ToCaPolicy(interval, ratio),
+    "lazydit": lambda gate=None, threshold=0.5, **kw:
+        LazyDiTPolicy(_require_gate(gate), threshold),
+    "blockcache": lambda profile=None, delta=0.1, **kw:
+        BlockCachePolicy(_require_profile(profile), delta),
+    "pab": lambda module_type="spatial_attn", ranges=None, **kw:
+        PABPolicy(module_type, ranges),
+    "clusca": lambda interval=4, k=16, **kw: ClusCaPolicy(interval, k),
+    "speca": lambda interval=4, tau=0.1, **kw: SpeCaPolicy(interval, tau=tau),
 }
+
+#: names of the JAX registry that wait for a later slice of the port
+NOT_PORTED = {"teacache_video": "§A.3 (video)",
+              "fastercache_cfg": "§A.2 (CFG-branch reuse)"}
 
 
 def make_policy(name: str, **kwargs) -> CachePolicy:
-    if name not in POLICY_REGISTRY:
+    if name in NOT_PORTED:
         raise KeyError(f"cache policy '{name}' is not ported to repro_torch "
-                       f"yet (ported: {sorted(POLICY_REGISTRY)}); see "
-                       f"ROADMAP.md §A")
+                       f"yet; see ROADMAP.md {NOT_PORTED[name]}")
+    if name not in POLICY_REGISTRY:
+        raise KeyError(f"unknown cache policy '{name}'; available: "
+                       f"{sorted(POLICY_REGISTRY)} (the rest of the JAX "
+                       f"registry: ROADMAP.md §A)")
     return POLICY_REGISTRY[name](**kwargs)
 
 
 __all__ = [
-    "BASES", "CachePolicy", "CachedModule", "FixedIntervalPolicy",
-    "NoCachePolicy", "POLICY_REGISTRY", "PredictivePolicy",
-    "SlotBatchedPolicy", "cache_state_bytes",
-    "forecast_from_diffs", "interval_pred", "make_policy", "stack_slots",
-    "update_diff_stack",
+    "BASES", "BlockCachePolicy", "CachePolicy", "CachedModule",
+    "ClusCaPolicy", "DeltaCachePolicy", "EasyCachePolicy",
+    "FixedIntervalPolicy", "ForesightPolicy", "FreqCaPolicy", "GatedPolicy",
+    "LazyDiTPolicy", "MagCachePolicy", "NOT_PORTED", "NoCachePolicy",
+    "PABPolicy", "POLICY_REGISTRY", "PredictivePolicy", "SlotBatchedPolicy",
+    "SlotWant",
+    "SpeCaPolicy", "TeaCachePolicy", "ToCaPolicy", "cache_state_bytes",
+    "cosine_sim", "forecast_from_diffs", "gate_score", "init_gate",
+    "interval_pred", "kmeans", "lowpass", "mag_ratio", "make_policy",
+    "psnr", "rel_l1", "rel_l1_block", "rel_l2", "stack_slots",
+    "transform_rate", "update_diff_stack",
 ]

@@ -45,9 +45,19 @@ class SlotBatchedPolicy:
         self.policy = policy
         self.slots = slots
 
-    def init_slot_state(self, shape, dtype=torch.float32, *, device) -> State:
-        """One slot's fresh state (also the reset target)."""
+    def init_slot_state(self, shape, dtype=torch.float32, *,
+                        signal_shape=None, device) -> State:
+        """One slot's fresh state (also the reset target); a policy that
+        tracks an input signal (TeaCache) keeps it at `signal_shape`."""
+        if self.policy.uses_signal:
+            return self.policy.init_state(shape, dtype, device=device,
+                                          signal_shape=signal_shape)
         return self.policy.init_state(shape, dtype, device=device)
+
+    def want_compute(self, states: State, steps, xs, signal=None):
+        """Every slot's decision on the device (`SlotWant`: (S,) want and
+        metric, the thresholded value, its threshold, forced)."""
+        return self.policy.want_slots(states, steps, xs, signal)
 
     @staticmethod
     def reset_slot(states: State, slot: int, fresh: State) -> None:

@@ -5,28 +5,46 @@ A policy is a stateless object holding static hyper-parameters; the cache
 lives in a dict of tensors `state` threaded through the calls.  Two ways
 to drive it:
 
-    y, state = policy.apply(state, step, x, compute_fn)
+    y, state = policy.apply(state, step, x, compute_fn, **signals)
         one trajectory at a Python-int `step`: only the chosen branch runs
-        (the JAX package's static scheduling).
-    ys, states = policy.apply_slots(states, steps, xs, ys_computed)
+        (the JAX package's static scheduling).  `signals` ride along as in
+        JAX: `signal` (TeaCache's modulated input), `subset_fn`,
+        `verify_fn` (ClusCa / ToCa / SpeCa token paths).
+    ys, states = policy.apply_slots(states, steps, xs, ys_computed, *,
+                                    want=None, signal=None)
         many serving slots at once: every state leaf carries a leading slot
         axis, `steps` is a host (S,) int array, and `ys_computed` holds each
-        slot's fresh backbone output (zeros where none was gathered).  Each
-        slot keeps its own branch's output and state, selected by masks over
-        the slot axis — what `lax.cond` under `vmap` does in JAX, where both
-        branches are evaluated.  A branch that no slot takes is not run.
+        slot's fresh backbone output (zeros where none was gathered).
+        `want` is the plan's host (S,) compute decision per slot and
+        `signal` the (S, ...) signal the plan computed.  Each slot keeps its
+        own branch's output and state, selected by masks over the slot
+        axis — what `lax.cond` under `vmap` does in JAX, where both branches
+        are evaluated.  A branch that no slot takes is not run; that is
+        decided from the host `want`, so it costs no device round trip.
 
-The ported policies decide from the step alone, so `want_compute` is a
-host-side predicate and needs no device round trip.
+Planning.  A policy whose `want_compute(None, step, None)` answers for
+every step decides from the step alone: the engine plans it on the host.
+The others (TeaCache, MagCache, EasyCache, Foresight, LazyDiT) threshold a
+quantity of their state; `want_slots` computes every slot's decision and
+metric on the device, and the engine reads them back once a tick.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
 
 ComputeFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+class SlotWant(NamedTuple):
+    """Every slot's decision, as (S,) tensors on the slots' device."""
+    want: torch.Tensor       # bool: take the compute branch
+    metric: torch.Tensor     # f32: the JAX `want_metric`
+    value: torch.Tensor      # f32: the quantity the decision thresholds
+    threshold: torch.Tensor  # f32: its threshold
+    forced: torch.Tensor     # bool: decided without the threshold
 
 
 def interval_pred(step, interval: int):
@@ -37,10 +55,23 @@ def interval_pred(step, interval: int):
     return np.asarray(step) % interval == 0
 
 
-def slot_mask(mask: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """(S,) host bool mask -> device bool tensor broadcastable to `like`."""
-    m = torch.as_tensor(np.asarray(mask, bool), device=like.device)
+def slot_mask(mask, like: torch.Tensor) -> torch.Tensor:
+    """(S,) host bool mask (or device bool tensor) -> device bool tensor
+    broadcastable to `like`."""
+    m = torch.as_tensor(np.asarray(mask, bool) if not torch.is_tensor(mask)
+                        else mask, device=like.device)
     return m.view((-1,) + (1,) * (like.dim() - 1))
+
+
+def unsqueeze_state(state):
+    """One trajectory's state as a 1-slot batch."""
+    return {k: unsqueeze_state(v) if isinstance(v, dict) else v[None]
+            for k, v in state.items()}
+
+
+def squeeze_state(states):
+    return {k: squeeze_state(v) if isinstance(v, dict) else v[0]
+            for k, v in states.items()}
 
 
 class CachePolicy:
@@ -55,20 +86,53 @@ class CachePolicy:
                    device) -> Dict[str, Any]:
         raise NotImplementedError
 
-    def apply(self, state, step: int, x, compute_fn: ComputeFn):
+    def apply(self, state, step: int, x, compute_fn: ComputeFn, **signals):
         raise NotImplementedError
 
-    def apply_slots(self, states, steps: np.ndarray, xs, ys):
+    def apply_slots(self, states, steps, xs, ys, *, want=None, signal=None):
         raise NotImplementedError
 
-    def want_compute(self, state, step, x=None):
+    def want_compute(self, state, step, x=None, **signals):
         """Would `apply` take its compute branch at `step`?"""
         return True
 
-    def want_metric(self, state, step, x=None) -> float:
+    def want_metric(self, state, step, x=None, **signals):
         """The signal the refresh decision thresholds on (0 for
         schedule-only policies)."""
         return 0.0
+
+    def step_want(self, steps) -> np.ndarray:
+        """(S,) host compute decisions of a policy that decides from the
+        step alone (raises for one that needs its state)."""
+        return np.asarray([bool(self.want_compute(None, int(s), None))
+                           for s in np.asarray(steps).reshape(-1)], bool)
+
+    def want_slots(self, states, steps, xs, signal=None) -> SlotWant:
+        """Every slot's decision on xs' device; a schedule-only policy's
+        are all forced (no threshold: zeros)."""
+        want = torch.as_tensor(self.step_want(steps), device=xs.device)
+        z = torch.zeros(want.shape, dtype=torch.float32, device=xs.device)
+        return SlotWant(want, z, z, z, torch.ones_like(want))
+
+    def _slot_want(self, states, steps, xs, signal, want) -> np.ndarray:
+        """The plan's host decision, or, called without one, this policy's
+        own (one device read for a state-dependent policy)."""
+        if want is not None:
+            return np.asarray(want, bool).reshape(-1)
+        w = self.want_slots(states, steps, xs, signal).want
+        return w.cpu().numpy().astype(bool)
+
+    def _apply_as_slot(self, state, step, x, compute_fn, signal=None):
+        """`apply` through `apply_slots` on a batch of one slot: the branch
+        is decided first (a device read for a state-dependent policy), and
+        compute_fn runs only on the compute branch."""
+        st = unsqueeze_state(state)
+        sig = None if signal is None else signal[None]
+        want = self._slot_want(st, np.array([step]), x[None], sig, None)
+        y = compute_fn(x)[None] if want[0] else None
+        ys, st = self.apply_slots(st, np.array([step]), x[None], y,
+                                  want=want, signal=sig)
+        return ys[0], squeeze_state(st)
 
     def static_schedule(self, num_steps: int):
         """list[bool] (compute?) if statically schedulable, else None."""
@@ -86,10 +150,10 @@ class NoCachePolicy(CachePolicy):
     def init_state(self, shape, dtype=torch.float32, *, device):
         return {}
 
-    def apply(self, state, step, x, compute_fn):
+    def apply(self, state, step, x, compute_fn, **signals):
         return compute_fn(x), state
 
-    def apply_slots(self, states, steps, xs, ys):
+    def apply_slots(self, states, steps, xs, ys, *, want=None, signal=None):
         return ys, states
 
     def static_schedule(self, num_steps: int):

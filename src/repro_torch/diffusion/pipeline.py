@@ -5,7 +5,7 @@ negative-prompt vectors and text are not ported yet (ROADMAP.md §A).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,8 +42,10 @@ def backbone_fns(params, cfg):
 
 class CachedDenoiser:
     """eps_hat, state = denoiser(state, i, x, t); the cache policy gates the
-    whole backbone forward (MODEL granularity).  With cfg_scale > 0 the
-    unconditional branch runs every step (naive two-branch CFG)."""
+    whole backbone forward (MODEL granularity).  Every policy is handed
+    TeaCache's signal (the AdaLN-modulated first-block input, Eq. 22), as
+    in JAX.  With cfg_scale > 0 the unconditional branch runs every step
+    (naive two-branch CFG)."""
 
     def __init__(self, params, cfg, policy: Optional[CachePolicy] = None,
                  granularity: str = "model", cfg_scale: float = 0.0,
@@ -61,12 +63,15 @@ class CachedDenoiser:
         self.policy = policy or NoCachePolicy()
         self.cfg_scale = float(cfg_scale)
         self.class_label = class_label
-        self._forward, _ = backbone_fns(params, cfg)
+        self._forward, self._signal = backbone_fns(params, cfg)
 
     def init_state(self, batch: int):
-        eps_shape = (batch, self.cfg.dit_tokens, self.cfg.dit_in_dim)
-        return {"policy": self.policy.init_state(eps_shape,
-                                                 device=self.device)}
+        cfgm = self.cfg
+        eps_shape = (batch, cfgm.dit_tokens, cfgm.dit_in_dim)
+        kw = ({"signal_shape": (batch, cfgm.dit_tokens, cfgm.d_model)}
+              if self.policy.uses_signal else {})
+        return {"policy": self.policy.init_state(eps_shape, device=self.device,
+                                                 **kw)}
 
     def __call__(self, state, step: int, x_lat, t_vec):
         B = x_lat.shape[0]
@@ -75,7 +80,8 @@ class CachedDenoiser:
                             device=self.device)
         eps_c, pol_state = self.policy.apply(
             state["policy"], step, x_lat,
-            lambda lat: self._forward(lat, t_vec, y_cond))
+            lambda lat: self._forward(lat, t_vec, y_cond),
+            signal=self._signal(x_lat, t_vec, y_cond))
         if self.cfg_scale > 0.0:
             y_null = torch.full((B,), self.cfg.dit_num_classes,
                                 dtype=torch.long, device=self.device)
@@ -96,11 +102,14 @@ def slot_compact_denoise_fns(params, cfg, policy: CachePolicy,
           (cond row i -> i, uncond row i -> S + i, padding -> the dump row
           2S), split back into S-row y_c / y_u.  Rows not gathered are
           zeros, which only reach branches the per-slot select discards.
-      apply_fn(states, steps, xs, scales, y_c, y_u) -> (eps, states)
+      apply_fn(states, steps, xs, scales, y_c, y_u, want, signal)
+          -> (eps, states)
           the per-slot policy step over the whole slot axis (explicit slot
-          dimension in place of JAX's vmap).  The uncond branch recomputes
-          every step (naive two-branch CFG); a slot with scale <= 0 keeps
-          its cond output, never blended.
+          dimension in place of JAX's vmap), taking the plan's host `want`
+          (before active masking) and its signal, so the branch each slot
+          takes is exactly the decision the plan read back.  The uncond
+          branch recomputes every step (naive two-branch CFG); a slot with
+          scale <= 0 keeps its cond output, never blended.
     """
     if cfg_policy is not None:
         raise _not_ported("cfg_policy (FasterCacheCFG) in serving")
@@ -115,8 +124,10 @@ def slot_compact_denoise_fns(params, cfg, policy: CachePolicy,
         buf[row_dest] = eps
         return buf[:S], buf[S:2 * S]
 
-    def apply_fn(states, steps, xs, scales, y_c, y_u):
-        eps_c, pol_state = policy.apply_slots(states["policy"], steps, xs, y_c)
+    def apply_fn(states, steps, xs, scales, y_c, y_u, want=None,
+                 signal=None):
+        eps_c, pol_state = policy.apply_slots(states["policy"], steps, xs, y_c,
+                                              want=want, signal=signal)
         sc = scales.view(-1, 1, 1)
         eps = torch.where(sc > 0.0, y_u + sc * (eps_c - y_u), eps_c)
         return eps, {"policy": pol_state, "cfg": states["cfg"]}
@@ -124,35 +135,47 @@ def slot_compact_denoise_fns(params, cfg, policy: CachePolicy,
     return compact_backbone_fn, apply_fn
 
 
-def _slot(tree, s: int):
-    return {k: _slot(v, s) if isinstance(v, dict) else v[s]
-            for k, v in tree.items()}
+class WantPlan(NamedTuple):
+    """One tick's plan, before active masking: host (S,) arrays (see
+    `core.policy.SlotWant`), and the signal on the device (None when the
+    policy does not use one)."""
+    want_cond: np.ndarray
+    want_uncond: np.ndarray
+    metric: np.ndarray
+    value: np.ndarray
+    threshold: np.ndarray
+    forced: np.ndarray
+    signal: Optional[torch.Tensor]
 
 
 def slot_want_fns(params, cfg, policy: CachePolicy,
                   cfg_policy: Optional[CachePolicy] = None):
-    """The planner's per-slot want/metric pass.
+    """The planner's fused slot-batched want/metric pass.
 
-      want_all_fn(states, steps, xs, tvals, labels, guided)
-          -> (want_cond, want_uncond, metric), each an (S,) numpy array
+      want_all_fn(states, steps, xs, tvals, labels, guided) -> WantPlan
 
-    The ported policies decide from the step alone, so the pass runs on the
-    host and reads nothing back from the device; `want_uncond` is the
-    guided flag (the uncond branch recomputes every step)."""
+    TeaCache's signal is computed ONCE over the whole (S, T, D) slot batch
+    (only for a policy that uses it), then every slot's decision
+    (`SlotWant`: want, the JAX `want_metric`, the value the decision
+    thresholds, that threshold, and whether it was forced) comes out of
+    `policy.want_slots` on the device, packed into one tensor and read back
+    in ONE device-to-host copy.  `want_uncond` is the guided flag (the
+    uncond branch recomputes every step).  The signal stays on the device
+    for the tick's `apply_fn`."""
     if cfg_policy is not None:
         raise _not_ported("cfg_policy (FasterCacheCFG) in serving")
-    if policy.uses_signal:
-        raise _not_ported(f"signal-driven policy '{policy.name}' in serving")
+    _, signal_fn = backbone_fns(params, cfg)
 
     def want_all_fn(states, steps, xs, tvals, labels, guided):
-        S = len(steps)
-        wc = np.zeros((S,), bool)
-        metric = np.zeros((S,), np.float32)
-        for s in range(S):
-            st = _slot(states["policy"], s)
-            wc[s] = bool(policy.want_compute(st, int(steps[s]), xs[s]))
-            metric[s] = policy.want_metric(st, int(steps[s]), xs[s])
-        return wc, np.asarray(guided, bool).copy(), metric
+        dev = xs.device
+        sig = None
+        if policy.uses_signal:
+            sig = signal_fn(xs, torch.as_tensor(tvals, device=dev),
+                            torch.as_tensor(labels, device=dev))
+        w = policy.want_slots(states["policy"], steps, xs, sig)
+        packed = torch.stack([t.float() for t in w]).cpu().numpy()
+        return WantPlan(packed[0] > 0.5, np.asarray(guided, bool).copy(),
+                        packed[1], packed[2], packed[3], packed[4] > 0.5, sig)
 
     return want_all_fn
 

@@ -13,8 +13,8 @@
 //                       fuses JAX's forecast_from_diffs under jit: each
 //                       thread computes its slot's m1 weights at
 //                       u = (step - last_step) / interval, masked by
-//                       n_valid, for the taylor, newton, hermite and ab
-//                       bases, in the order of operations of the plain
+//                       n_valid, for the taylor, newton, hermite, ab and
+//                       foca bases, in the order of operations of the plain
 //                       basis_coeffs (round-to-nearest intrinsics keep the
 //                       compiler from contracting them into FMAs).  A skip
 //                       tick of the serving engine is then one launch.
@@ -46,7 +46,7 @@ constexpr int kThreads = 256;
 constexpr int kMaxM1 = 8;       // order + 1
 constexpr int kMaxSlots = 64;   // slots of one forecast_basis launch
 
-enum Basis { kGiven = -1, kTaylor = 0, kNewton = 1, kHermite = 2, kAb = 3 };
+enum Basis { kGiven = -1, kTaylor = 0, kNewton = 1, kHermite = 2, kAb = 3, kFoca = 4 };
 
 struct Steps {
   int v[kMaxSlots];
@@ -63,8 +63,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 
 // The weights of basis_coeffs (kernels/forecast/ref.py) at offset u, with
-// orders i >= n_valid weighing 0.  Unrolled over kMaxM1 so cf stays in
-// registers.
+// orders i >= n_valid weighing 0.  FoCa's d[0] weight is never masked: its
+// iterated BDF2 + Heun step reduces to d[0] + min(ceil(u), 64) d[1].
+// Unrolled over kMaxM1 so cf stays in registers.
 __device__ __forceinline__ void basis_weights(int basis, float u, int n_valid, int m1,
                                               double sigma, float cf[kMaxM1]) {
   float fact = 1.f;                  // i!, exact in f32 for i < kMaxM1
@@ -94,10 +95,13 @@ __device__ __forceinline__ void basis_weights(int basis, float u, int n_valid, i
         h_prev = h;
         h = nxt;
       }
-    } else {   // kAb
+    } else if (basis == kAb) {
       c = i == 0 ? 1.f : i == 1 ? u : i == 2 ? mul(0.5f, u) : 0.f;
+    } else {   // kFoca
+      c = i == 0 ? 1.f : i == 1 ? fminf(fmaxf(ceilf(u), 0.f), 64.f) : 0.f;
     }
-    cf[i] = i < m1 ? mul(c, n_valid > i ? 1.f : 0.f) : 0.f;
+    const bool valid = (basis == kFoca && i == 0) || n_valid > i;
+    cf[i] = i < m1 ? mul(c, valid ? 1.f : 0.f) : 0.f;
     upow = mul(upow, u);
   }
 }
@@ -192,14 +196,14 @@ extern "C" int forecast_fwd(const void* d, const void* c, void* o, int dtype, in
 }
 
 // As forecast_fwd, with the weights of `basis` (0 taylor, 1 newton, 2
-// hermite, 3 ab; sigma for hermite) at u = (steps[b] - last[b]) / interval,
-// masked by n_valid[b]: steps is a host array of `batch` int32 (at most
-// kMaxSlots), last and n_valid device arrays of `batch` int32.
+// hermite, 3 ab, 4 foca; sigma for hermite) at u = (steps[b] - last[b]) /
+// interval, masked by n_valid[b]: steps is a host array of `batch` int32
+// (at most kMaxSlots), last and n_valid device arrays of `batch` int32.
 extern "C" int forecast_basis_fwd(const void* d, const void* steps, const void* last,
                                   const void* n_valid, void* o, int dtype, int batch, int m1,
                                   long long n, int vec, int basis, int interval, double sigma,
                                   void* stream) {
-  if (batch > kMaxSlots || basis < kTaylor || basis > kAb || interval < 1)
+  if (batch > kMaxSlots || basis < kTaylor || basis > kFoca || interval < 1)
     return (int)cudaErrorInvalidValue;
   Steps st;
   const int* host = static_cast<const int*>(steps);

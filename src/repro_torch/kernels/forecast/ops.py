@@ -20,7 +20,7 @@ import torch
 from .. import _build
 from .ref import basis_coeffs, forecast_ref
 
-_BASES = {"taylor": 0, "newton": 1, "hermite": 2, "ab": 3}
+_BASES = {"taylor": 0, "newton": 1, "hermite": 2, "ab": 3, "foca": 4}
 MAX_ORDER1 = 8       # order + 1 the kernel takes
 MAX_SLOTS = 64       # slots of one forecast_basis launch
 

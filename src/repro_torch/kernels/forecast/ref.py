@@ -3,7 +3,7 @@
 The kernel computes `out = sum_i coeffs[i] * diffs[i]`, the basis-agnostic
 inner loop of every Cache-Then-Forecast policy; `basis_coeffs` gives the
 (order+1,) weights for Taylor (TaylorSeer Eq. 42), Newton, contracted
-Hermite (HiCache Eq. 47) and Adams-Bashforth.  A batch of offsets `u`
+Hermite (HiCache Eq. 47), Adams-Bashforth and FoCa (Eq. 48).  A batch of offsets `u`
 (one per serving slot) gives a (..., order+1) batch of weight vectors."""
 from __future__ import annotations
 
@@ -26,7 +26,14 @@ def basis_coeffs(order: int, u, basis: str = "taylor", sigma: float = 0.5,
                  n_valid=None, device=None):
     """u.shape + (order+1,) float32 basis weights at normalised offset u.
 
-    Orders at or beyond `n_valid` (the number of computes seen) weigh 0."""
+    Orders at or beyond `n_valid` (the number of computes seen) weigh 0.
+
+    FoCa iterates a BDF2 predictor and a Heun corrector ceil(u) unit steps
+    (at most 64) on the feature ODE.  Each step maps (f_k, f_k-1) to
+    (2 f_k - f_k-1, f_k): the slope d[1] is carried unchanged, so the whole
+    iteration is d[0] + min(ceil(u), 64) d[1] once two computes are seen
+    (and plain reuse of d[0] before): weights (1, n, 0, ...), d[0]'s never
+    masked."""
     u = torch.as_tensor(u, dtype=torch.float32, device=device)
     ones = torch.ones_like(u)
     cs = []
@@ -43,9 +50,12 @@ def basis_coeffs(order: int, u, basis: str = "taylor", sigma: float = 0.5,
                  (sigma**i) * hermite_poly(i, sigma * u) / math.factorial(i))
         elif basis == "ab":
             c = {0: ones, 1: u, 2: 0.5 * u}.get(i, torch.zeros_like(u))
+        elif basis == "foca":
+            c = {0: ones, 1: torch.ceil(u).clamp(0.0, 64.0)}.get(
+                i, torch.zeros_like(u))
         else:
             raise ValueError(f"unknown basis {basis}")
-        if n_valid is not None:
+        if n_valid is not None and not (basis == "foca" and i == 0):
             c = c * (torch.as_tensor(n_valid, device=u.device) > i).float()
         cs.append(c)
     return torch.stack(cs, dim=-1).float()

@@ -2,14 +2,23 @@
 generation with per-slot cache states; the port of the JAX
 `serving/diffusion/engine.py` in its row-compacted mode.
 
-Every tick gathers exactly the backbone rows the per-slot policies want
-(a slot's cond row iff its policy computes, its uncond row iff it is
-guided), pads them to a power-of-two bucket, runs the DiT over that batch,
-scatters the outputs back to the slot layout and takes each slot's policy
-step (compute / reuse / forecast selected per slot by masks over the slot
-axis), then the per-slot DDIM update.  A tick with no wanted rows runs no
-backbone at all.  The host-side SlotScheduler refills finished slots
-mid-flight and resets the slot's cache state (reset-on-refill).
+Every tick plans which backbone rows the per-slot policies want (a slot's
+cond row iff its policy computes, its uncond row iff it is guided), pads
+them to a power-of-two bucket, runs the DiT over that batch, scatters the
+outputs back to the slot layout and takes each slot's policy step
+(compute / reuse / forecast selected per slot by masks over the slot axis,
+on exactly the decision the plan made), then the per-slot DDIM update.  A
+tick with no wanted rows runs no backbone at all.  The host-side
+SlotScheduler refills finished slots mid-flight and resets the slot's
+cache state (reset-on-refill).
+
+The plan.  A policy that decides from the step alone (its
+`want_compute(None, step, None)` answers for every step: JAX's probe rule)
+is planned on the host from a table, with no device round trip.  Any other
+(TeaCache, MagCache, EasyCache, Foresight, LazyDiT) is planned by one
+batched pass over all slots on the device (`slot_want_fns`: TeaCache's
+signal over the slot batch, then every slot's want and metric), read back
+in ONE device-to-host copy a tick.
 
 The state lives on the engine's device; ticks update the latent batch and
 the cache state in place where that saves a copy (admission writes one
@@ -146,8 +155,9 @@ class ServeSession:
         ab_t = eng._ab[rows, idx]
         ab_n = eng._ab[rows, idx + 1]
 
-        want_c, want_u = eng._plan_all(self.states, idx, self.xs, tvals)
-        want_c = want_c & active
+        plan_c, want_u, _, signal = eng._plan_all(self.states, idx, self.xs,
+                                                  tvals)
+        want_c = plan_c & active
         want_u = want_u & active
         n_c, n_u = int(want_c.sum()), int(want_u.sum())
         kind = "full" if n_u else ("cond" if n_c else "skip")
@@ -158,7 +168,7 @@ class ServeSession:
         t0 = monotonic()
         self.xs, self.states = eng._tick(self.states, idx, self.xs, tvals,
                                          ab_t, ab_n, row_slot, row_uncond,
-                                         row_dest)
+                                         row_dest, plan_c, signal)
         eng._sync()
         tick_s = monotonic() - t0
         tele.record_tick(kind, tick_s, rows_computed=n_c + n_u,
@@ -244,9 +254,13 @@ class DiffusionServingEngine:
         self._want_all = slot_want_fns(params, cfg, self.policy)
         self._fresh = {
             "policy": self.batched.init_slot_state(
-                (self.tokens, self.in_dim), device=self.device),
+                (self.tokens, self.in_dim),
+                signal_shape=(self.tokens, cfg.d_model), device=self.device),
             "cfg": {},
         }
+        # host plan table when the policy decides from the step alone,
+        # else None: the device want pass plans every tick
+        self._static_plan = self._probe_static_plan(self.policy)
         self._noise_fn = noise_fn
         # host-side per-slot tables, padded to max_steps (+1 for the
         # terminal alpha-bar = 1.0 that closes the DDIM update)
@@ -279,9 +293,10 @@ class DiffusionServingEngine:
         return torch.randn(shape, generator=gen, device=self.device)
 
     def _tick(self, states, steps, xs, tvals, ab_t, ab_n, row_slot,
-              row_uncond, row_dest):
+              row_uncond, row_dest, want, signal):
         """One tick on the device: the bucket's backbone rows (none on a
-        skip tick), the per-slot policy step and the per-slot DDIM update."""
+        skip tick), the per-slot policy step on the plan's `want` and
+        `signal`, and the per-slot DDIM update."""
         dev = self.device
         if len(row_slot) == 0:
             y_c = y_u = torch.zeros_like(xs)
@@ -295,7 +310,7 @@ class DiffusionServingEngine:
                 torch.as_tensor(row_dest, device=dev).long())
         eps, states = self._apply(states, steps, xs,
                                   torch.as_tensor(self._scales, device=dev),
-                                  y_c, y_u)
+                                  y_c, y_u, want, signal)
         a_t = torch.as_tensor(ab_t, device=dev)[:, None, None]
         a_n = torch.as_tensor(ab_n, device=dev)[:, None, None]
         x0_hat = (xs - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
@@ -311,22 +326,24 @@ class DiffusionServingEngine:
                for n in range(1, 2 * S + 1)})
 
     def warmup(self) -> List[int]:
-        """Run every bucket's tick once on dummy operands (this builds the
-        CUDA kernels on first use and touches every batch shape), so the
-        first live ticks pay no set-up.  Returns the buckets run."""
+        """Run the plan and every bucket's tick once on dummy operands
+        (this builds the CUDA kernels on first use and touches every batch
+        shape), so the first live ticks pay no set-up.  Returns the buckets
+        run."""
         S = self.slots
         xs = torch.zeros((S, self.tokens, self.in_dim), device=self.device)
         states = stack_slots(self._fresh, S)
         steps = np.ones((S,), np.int32)   # forecast branch for interval > 1
         zf = np.zeros((S,), np.float32)
         ab = np.full((S,), 0.5, np.float32)
+        want, _, _, signal = self._plan_all(states, steps, xs, zf)
         buckets = self._warmup_buckets()
         for bucket in buckets:
             row_slot = np.zeros((bucket,), np.int32)
             row_uncond = np.zeros((bucket,), bool)
             row_dest = np.full((bucket,), 2 * S, np.int32)
             self._tick(states, steps, xs, zf, ab, ab, row_slot, row_uncond,
-                       row_dest)
+                       row_dest, want, signal)
         self._sync()
         return buckets
 
@@ -354,14 +371,26 @@ class DiffusionServingEngine:
         self._nsteps[slot] = req.num_steps
         self._guided[slot] = req.guided
 
+    def _probe_static_plan(self, policy: CachePolicy) -> Optional[np.ndarray]:
+        """want_compute(None, s, None) for every step, or None when the
+        policy needs its state (or x) to decide (JAX's probe rule)."""
+        try:
+            return np.asarray([bool(policy.want_compute(None, s, None))
+                               for s in range(self.max_steps)], bool)
+        except (AttributeError, TypeError):
+            return None
+
     def _plan_all(self, states, steps, xs, tvals):
-        """Per-slot (want_cond, want_uncond) before active masking; the
-        uncond mask is the guided flag (naive two-branch CFG).  Host-side:
-        the ported policies decide from the step alone, so planning reads
-        nothing back from the device."""
-        wc, wu, _ = self._want_all(states, steps, xs, tvals, self._labels,
-                                   self._guided)
-        return wc, wu
+        """Per-slot (want_cond, want_uncond, metric, signal) before active
+        masking; the uncond mask is the guided flag (naive two-branch CFG).
+        A step-only policy is planned from the host table: no device round
+        trip, metric None.  Any other runs the fused device pass, ONE
+        device-to-host copy; its signal stays on the device for the tick."""
+        if self._static_plan is not None:
+            return (self._static_plan[steps], self._guided.copy(), None, None)
+        plan = self._want_all(states, steps, xs, tvals, self._labels,
+                              self._guided)
+        return plan.want_cond, plan.want_uncond, plan.metric, plan.signal
 
     # ------------------------------------------------------------------
     def start_session(self, requests: Sequence[DiffusionRequest],

@@ -118,7 +118,8 @@ def test_forecast_kernel_matches_plain(cuda, shape, dtype):
     assert float((out.float() - ref.float()).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("basis", ["taylor", "newton", "hermite", "ab"])
+@pytest.mark.parametrize("basis", ["taylor", "newton", "hermite", "ab",
+                                   "foca"])
 @pytest.mark.parametrize("slots", [1, 4, 8])
 @pytest.mark.parametrize("n", [4096, 4097])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -169,6 +170,53 @@ def test_forecast_basis_unbatched_and_policy_skip_tick(cuda):
     before = forecast.launches
     y, _ = pol.apply_slots(states, [1, 2, 3, 5], xs, xs)
     assert forecast.launches == before + 1 and y.shape == xs.shape
+
+
+def test_teacache_served_on_the_card_matches_the_cpu(cuda):
+    """A reduced DiT under TeaCache (the device want pass plans each tick)
+    served on the card and on the CPU from the same weights and noise: the
+    same computed steps per request, x0 within 1e-3 relative.  Every
+    thresholded decision of the CPU reference lies at least 1e-4 relative
+    from delta, so the exact comparison is well posed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, perturb_zero_init
+    from repro_torch.serving.diffusion import (DiffusionRequest,
+                                               DiffusionServingEngine)
+    cfg = get_config("dit-xl").reduced(num_layers=2, d_model=128,
+                                       num_heads=4, num_kv_heads=4, d_ff=256,
+                                       dit_patch_tokens=64, dit_in_dim=8,
+                                       dit_num_classes=10)
+    gen = torch.Generator().manual_seed(3)
+    params = perturb_zero_init(init_params(gen, cfg, device="cpu"), gen)
+
+    def noise(req):
+        g = torch.Generator().manual_seed(100 + req.request_id)
+        return torch.randn((cfg.dit_tokens, cfg.dit_in_dim), generator=g)
+
+    reqs = [DiffusionRequest(i, num_steps=(8, 12)[i % 2], class_label=i,
+                             cfg_scale=3.0 if i == 1 else 0.0)
+            for i in range(3)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = _to_device(params, cuda) if dev == "cuda" else params
+        eng = DiffusionServingEngine(p, cfg, "teacache", slots=2,
+                                     max_steps=12, noise_fn=noise, device=dev)
+        assert eng._static_plan is None
+        plans, want_all = [], eng._want_all
+        eng._want_all = lambda *a: plans.append(want_all(*a)) or plans[-1]
+        out[dev] = eng.serve(reqs)
+    rel = [abs(p.value[s] - p.threshold[s]) / p.threshold[s]
+           for p in plans for s in range(2) if not p.forced[s]]
+    assert min(rel) >= 1e-4
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.record.computed_steps == b.record.computed_steps
+        rel = float(abs(a.x0 - b.x0).max() / max(abs(b.x0).max(), 1e-6))
+        assert rel <= 1e-3
+
+
+def _to_device(tree, device):
+    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

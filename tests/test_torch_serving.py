@@ -140,7 +140,7 @@ def test_unported_options_raise(setup):
         DiffusionServingEngine(tp, tcfg, "none", cfg_policy="fastercache_cfg",
                                device="cpu")
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        make_policy("teacache")
+        make_policy("teacache_video")
     eng = DiffusionServingEngine(tp, tcfg, "none", slots=1, device="cpu")
     vec = np.zeros((tcfg.d_model,), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
