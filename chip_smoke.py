@@ -49,13 +49,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
               steps per request and tick kinds (every thresholded decision
               of the CPU reference at least 1e-4 relative from its
               threshold), x0 within 1e-3 relative
-  9. serve-llm full-width zamba2-2.7b (54 Mamba2 layers, 9 shared attention
+  9. serve-cfg serve's DiT-XL under TaylorSeer with FasterCacheCFG(4) on
+              the uncond branch, 8 requests of 8 and 16 steps, four guided,
+              one with a negative-prompt vector: every x0 finite, each
+              request's cond and uncond computed steps equal the two
+              schedules, cond-only ticks and saved uncond rows, the vector
+              changes its request's x0; the dense engine
+              (row_compaction=False) decides the same and its x0 agree
+              within 1e-3 relative; with a MetricsRegistry and a TickEvent
+              hook the counters agree with the telemetry; req/s with and
+              without them; flash and forecast launched on this path
+  10. check-cfg the reduced DiT of phase 8 on the card and on the CPU under
+              FasterCacheCFG (extrapolate and lowfreq with TaylorSeer,
+              TeaCache, the dense engine), guided requests, one with a
+              vector: the same (cond, uncond) computed steps and tick
+              kinds, x0 within 1e-3 relative; the plan's device-to-host
+              copies per tick from the profiler (1 under TeaCache, 0 with
+              two step-only branches)
+  11. serve-diffusion  examples/torch_serve_diffusion.py's `run` on
+              serve's DiT-XL: the SLA autotuner per traffic class, the
+              per-class serving and the guided FasterCacheCFG pool; each
+              class's pick, PSNR (against the exact trajectory on random
+              weights: no quality measure), compute fraction, req/s and
+              latency p50/p95, the pool's tick mix and saved uncond rows
+  12. serve-llm full-width zamba2-2.7b (54 Mamba2 layers, 9 shared attention
               applications, bf16 params, random weights from a seed) behind
               ServingEngine, 4 slots, 8 greedy requests of 64-500 prompt
               tokens, 32 new tokens each; every logit finite, SSD launched
               54 times and flash 9 times per prefill; tok/s, prefill ms,
               decode ms per step, peak memory, device time by kernel
-  10. check-llm the zamba2 SMOKE config served on the card (kernels) and on
+  13. check-llm the zamba2 SMOKE config served on the card (kernels) and on
               the CPU (plain versions) from the same weights and prompts
               must give the same tokens and close logits
 
@@ -359,7 +382,11 @@ def phase_forecast(torch, slots: int):
               "last_step": torch.zeros((S,), dtype=torch.int32, device="cuda")}
     steps = np.array([1, 2, 3, 5, 6, 7, 9, 10][:S])
     xs = torch.zeros((S, 256, 16), device="cuda")
-    tick = lambda: pol.apply_slots(states, steps, xs, xs)   # noqa: E731
+    # with the plan's host decision (no slot computes), as the engine
+    # passes it: without one, apply_slots reads its own from the device
+    skip = np.zeros((S,), bool)
+    tick = lambda: pol.apply_slots(states, steps, xs, xs,  # noqa: E731
+                                   want=skip)
     tick()
     before = forecast.launches
     evts, _ = profile(torch, tick)
@@ -587,15 +614,19 @@ TEACACHE_DELTA = 0.5
 
 def drive(eng, reqs, record: bool = False):
     """Serve `reqs` tick by tick.  Returns (results, log): per request the
-    steps at which the plan gave it a backbone row (`rows`), each tick's
-    kind, the ticks whose cond rows were fewer than the active slots but
-    not none (`split`), the plan's host seconds per tick, and with `record`
-    every device plan (the active mask and the WantPlan read back)."""
+    steps at which the plan gave it a cond row (`rows`) and an uncond row
+    (`urows`), each tick's kind, the ticks whose cond rows were fewer than
+    the active slots but not none (`split`), the plan's host seconds per
+    tick from a wrapper around the plan (`plan_s`) and as the tick events
+    report them (`event_plan_s`), and with `record` every device plan (the
+    active mask and the WantPlan read back).  The per-tick entries come
+    from a TickEvent hook."""
     import numpy as np
-    session = eng.start_session(reqs)
-    log = {"rows": {r.request_id: [] for r in reqs}, "kinds": [],
-           "split": 0, "plan_s": [], "plans": []}
-    plan, tick, want_all = eng._plan_all, eng._tick, eng._want_all
+    log = {"rows": {r.request_id: [] for r in reqs},
+           "urows": {r.request_id: [] for r in reqs}, "kinds": [],
+           "split": 0, "plan_s": [], "event_plan_s": [], "plans": []}
+    plan, want_all = eng._plan_all, eng._want_all
+    session = None
 
     def timed_plan(*args):
         t0 = time.perf_counter()
@@ -608,27 +639,23 @@ def drive(eng, reqs, record: bool = False):
         log["plans"].append((np.asarray(session.sched.active_mask()), out))
         return out
 
-    def watched_tick(*args):
-        row_slot, row_uncond, row_dest = args[6:9]
-        real = row_dest < 2 * eng.slots
-        for slot in row_slot[real & ~row_uncond]:
-            sl = session.sched.slots[slot]
-            log["rows"][sl.request.request_id].append(sl.step)
-        n_u = int((real & row_uncond).sum())
-        n_c = int((real & ~row_uncond).sum())
-        log["split"] += 0 < n_c < sum(session.sched.active_mask())
-        log["kinds"].append("full" if n_u else "cond" if real.any()
-                            else "skip")
-        return tick(*args)
+    def on_tick(ev):
+        for key, want in (("rows", ev.want_cond), ("urows", ev.want_uncond)):
+            for s in np.nonzero(want)[0]:
+                log[key][int(ev.request_ids[s])].append(int(ev.steps[s]))
+        log["split"] += 0 < int(ev.want_cond.sum()) < int(ev.active.sum())
+        log["kinds"].append(ev.kind)
+        log["event_plan_s"].append(ev.plan_seconds)
 
-    eng._plan_all, eng._tick = timed_plan, watched_tick
+    eng._plan_all = timed_plan
     if record:
         eng._want_all = recorded_want
     try:
+        session = eng.start_session(reqs, hooks=[on_tick])
         while not session.done:
             session.tick()
     finally:
-        eng._plan_all, eng._tick, eng._want_all = plan, tick, want_all
+        eng._plan_all, eng._want_all = plan, want_all
     return session.finish(), log
 
 
@@ -847,8 +874,7 @@ def phase_check(torch):
             fail(f"check {name}: card and CPU decide differently: computed "
                  f"steps {steps}, tick kinds {glog['kinds']} vs "
                  f"{clog['kinds']}")
-        worst = max(float(abs(a.x0 - b.x0).max() / max(abs(b.x0).max(), 1e-6))
-                    for a, b in zip(gres, cres))
+        worst = rel_err(gres, cres)
         kinds = clog["kinds"]
         log(f"check {name}: reduced DiT served on the card vs the CPU: "
             f"computed steps {steps['cpu']} identical, "
@@ -857,6 +883,305 @@ def phase_check(torch):
             f"least margin {margin}, max rel err {worst:.3e} (tol 1e-3)")
         if not worst <= 1e-3:
             fail(f"check {name}: card and CPU disagree (rel err {worst})")
+
+
+# serve-cfg and check-cfg: TaylorSeer's cond branch, FasterCacheCFG's
+# uncond branch; both refresh every 4 steps at full width
+CFG_GUIDED = (0, 1, 4, 5)
+CFG_VECTOR = 5       # the request that carries a negative-prompt vector
+
+
+def cfg_requests(cfg, torch, vector: bool = True):
+    """serve-cfg's traffic: 8 requests of 8 and 16 steps, 0, 1, 4 and 5
+    guided at cfg_scale 4.0; request 5 carries a negative-prompt vector (a
+    seeded draw at the class embedding's scale, 0.02), or the class null
+    when `vector` is false."""
+    from repro_torch.serving.diffusion import DiffusionRequest
+    vec = (0.02 * torch.randn((cfg.d_model,), generator=torch.Generator()
+                              .manual_seed(5))).numpy()
+    return [DiffusionRequest(i, num_steps=(8, 16)[i % 2], seed=i,
+                             class_label=(37 * i) % cfg.dit_num_classes,
+                             cfg_scale=4.0 if i in CFG_GUIDED else 0.0,
+                             null_label=vec if vector and i == CFG_VECTOR
+                             else None)
+            for i in range(8)]
+
+
+def check_cfg_rows(phase, res, reqs, trace, cond_pol, cfg_pol):
+    """Each request's computed steps equal the cond policy's schedule, and
+    its uncond computed steps the CFG policy's (0 when unguided); the plan
+    gave it exactly those rows."""
+    for r, req in zip(res, reqs):
+        want = sum(cond_pol.static_schedule(req.num_steps))
+        want_u = (sum(cfg_pol.static_schedule(req.num_steps))
+                  if req.guided else 0)
+        got = (r.record.computed_steps, r.record.uncond_computed_steps)
+        rows = (len(trace["rows"][r.request_id]),
+                len(trace["urows"][r.request_id]))
+        if got != (want, want_u) or rows != got:
+            fail(f"{phase}: request {r.request_id} computed {got} (cond, "
+                 f"uncond) steps with {rows} rows, the schedules say "
+                 f"{(want, want_u)}")
+        if not math.isfinite(float(abs(r.x0).max())):
+            fail(f"{phase}: request {r.request_id} x0 not finite")
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b|, worst over the paired results."""
+    return max(float(abs(x.x0 - y.x0).max() / max(abs(y.x0).max(), 1e-6))
+               for x, y in zip(a, b))
+
+
+def full_dit(torch):
+    """serve's model: full-width DiT-XL, bf16 params, random weights from
+    seed 0 with the AdaLN gates perturbed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, perturb_zero_init
+    cfg = get_config("dit-xl")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, perturb_zero_init(init_params(gen, cfg, device="cuda"), gen)
+
+
+def phase_serve_cfg(torch, kernels, path, params, cfg):
+    """Full-width DiT-XL under TaylorSeer with FasterCacheCFG on the uncond
+    branch: compacted, with the class null in place of the vector, dense,
+    and with a metrics registry and a tick hook."""
+    from repro_torch.core import FasterCacheCFG, make_policy
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving.diffusion import DiffusionServingEngine
+    t_phase = time.perf_counter()
+
+    def engine(**kw):
+        eng = DiffusionServingEngine(
+            params, cfg, "taylorseer", slots=4, max_steps=16,
+            cfg_policy=FasterCacheCFG(interval=4, num_steps=16),
+            device="cuda", **kw)
+        eng.warmup()
+        torch.cuda.synchronize()
+        return eng
+
+    cond_pol, cfg_pol = make_policy("taylorseer"), FasterCacheCFG(4, 16)
+    reqs = cfg_requests(cfg, torch)
+    eng = engine()
+    t0 = time.perf_counter()
+    (res, trace), launches = _count_launches(
+        kernels, path, "serve-cfg", lambda: drive(eng, reqs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(res) != len(reqs):
+        fail(f"serve-cfg: {len(res)} of {len(reqs)} requests finished")
+    check_cfg_rows("serve-cfg", res, reqs, trace, cond_pol, cfg_pol)
+    s, tel = eng.telemetry.summary(), eng.telemetry
+    if tel.ticks_cond <= 0 or s["uncond_rows_saved"] <= 0:
+        fail(f"serve-cfg: no cond-only tick ({tel.ticks_cond}) or no uncond "
+             f"row saved ({s['uncond_rows_saved']})")
+    plan_ms = 1e3 * sum(trace["plan_s"]) / len(trace["plan_s"])
+    ev_ms = 1e3 * sum(trace["event_plan_s"]) / len(trace["event_plan_s"])
+    log(f"serve-cfg: taylorseer + FasterCacheCFG(4): {s['requests']} "
+        f"requests ({s['guided_requests']} guided) in {wall:.3f}s wall, "
+        f"throughput_rps={s['throughput_rps']:.4f} ticks={s['ticks']} (full "
+        f"{tel.ticks_full}, cond {tel.ticks_cond}, skip {tel.ticks_skip}) "
+        f"tick_ms_full_mean={s['tick_ms_full_mean']:.3f} "
+        f"tick_ms_cond_mean={s['tick_ms_cond_mean']:.3f} "
+        f"tick_ms_skip_mean={s['tick_ms_skip_mean']:.3f} "
+        f"backbone_rows_computed={s['backbone_rows_computed']} "
+        f"backbone_rows_padding={s['backbone_rows_padding']} "
+        f"backbone_rows_saved={s['backbone_rows_saved']} "
+        f"uncond_rows_computed={s['uncond_rows_computed']} "
+        f"uncond_rows_saved={s['uncond_rows_saved']} "
+        f"computed_steps={[r.record.computed_steps for r in res]} "
+        f"uncond_steps={[r.record.uncond_computed_steps for r in res]} "
+        f"latency_p50_s={s['latency_p50_s']:.3f} "
+        f"latency_p95_s={s['latency_p95_s']:.3f} "
+        f"plan_host_ms_per_tick={plan_ms:.4f} (wrapper) {ev_ms:.4f} "
+        f"(TickEvent.plan_seconds) launches {launches}")
+
+    # the same traffic with the class null on request 5: the vector must
+    # have reached its uncond rows
+    res_null = eng.serve(cfg_requests(cfg, torch, vector=False))
+    by_id = {r.request_id: r for r in res_null}
+    diff = float(abs(res[CFG_VECTOR].x0 - by_id[CFG_VECTOR].x0).max())
+    same = max(float(abs(res[i].x0 - by_id[i].x0).max())
+               for i in range(len(reqs)) if i != CFG_VECTOR
+               and reqs[i].guided)
+    log(f"serve-cfg: request {CFG_VECTOR} with its negative-prompt vector "
+        f"vs the class null: max |dx0| {diff:.4e}; the other guided "
+        f"requests {same:.4e}")
+    if not diff > 1e-3 * float(abs(by_id[CFG_VECTOR].x0).max()):
+        fail(f"serve-cfg: the vector null did not change request "
+             f"{CFG_VECTOR}'s x0 ({diff})")
+    del eng
+
+    # the dense engine: whole-pool full / cond / skip ticks
+    dense = engine(row_compaction=False)
+    t0 = time.perf_counter()
+    dres, dtrace = drive(dense, reqs)
+    torch.cuda.synchronize()
+    dwall = time.perf_counter() - t0
+    err = rel_err(dres, res)
+    dsteps = [(r.record.computed_steps, r.record.uncond_computed_steps)
+              for r in dres]
+    csteps = [(r.record.computed_steps, r.record.uncond_computed_steps)
+              for r in res]
+    ds = dense.telemetry.summary()
+    log(f"serve-cfg: dense engine: {dwall:.3f}s wall, throughput_rps="
+        f"{ds['throughput_rps']:.4f} tick_ms_full_mean="
+        f"{ds['tick_ms_full_mean']:.3f} tick_ms_cond_mean="
+        f"{ds['tick_ms_cond_mean']:.3f} backbone_rows_computed="
+        f"{ds['backbone_rows_computed']}; computed steps and tick kinds "
+        f"{'identical' if (dsteps, dtrace['kinds']) == (csteps, trace['kinds']) else 'DIFFER'}"
+        f", max rel err vs compacted {err:.3e} (tol 1e-3)")
+    if dsteps != csteps or dtrace["kinds"] != trace["kinds"]:
+        fail(f"serve-cfg: the dense engine decides differently: {dsteps} vs "
+             f"{csteps}, kinds {dtrace['kinds']} vs {trace['kinds']}")
+    if not err <= 1e-3:
+        fail(f"serve-cfg: dense and compacted x0 differ (rel err {err})")
+    del dense
+
+    # a metrics registry and a tick hook: the counters agree with the
+    # telemetry; what they cost in req/s
+    eng = engine()
+    reg, events = MetricsRegistry(), []
+    t0 = time.perf_counter()
+    eng.serve(reqs, metrics=reg, hooks=[events.append])
+    torch.cuda.synchronize()
+    mwall = time.perf_counter() - t0
+    ms, mtel = eng.telemetry.summary(), eng.telemetry
+    ticks = sum(reg.counter("repro_engine_ticks_total").values.values())
+    rows = reg.counter("repro_engine_rows_computed_total").value(
+        modality="image")
+    if ticks != ms["ticks"] or rows != mtel.backbone_rows_computed \
+            or len(events) != ms["ticks"]:
+        fail(f"serve-cfg: registry ticks {ticks} / rows {rows} / events "
+             f"{len(events)} disagree with the telemetry's {ms['ticks']} / "
+             f"{mtel.backbone_rows_computed}")
+    hook_ms = 1e3 * sum(e.plan_seconds for e in events) / len(events)
+    log(f"serve-cfg: with a MetricsRegistry and a TickEvent hook: "
+        f"{mwall:.3f}s wall, throughput_rps={ms['throughput_rps']:.4f} "
+        f"(without: {s['throughput_rps']:.4f}); registry ticks {ticks:g} = "
+        f"telemetry, rows {rows:g} = backbone_rows_computed; hook "
+        f"plan_seconds {hook_ms:.4f} ms a tick (wrapper {plan_ms:.4f})")
+    del eng
+    torch.cuda.empty_cache()
+    log(f"serve-cfg: phase wall {time.perf_counter() - t_phase:.2f}s")
+    return launches
+
+
+def phase_check_cfg(torch):
+    """The reduced DiT of phase 8 served on the card (kernels) and on the
+    CPU (plain versions) from the same weights and noise, guided requests
+    (one with a negative-prompt vector) under FasterCacheCFG: TaylorSeer
+    with both modes, TeaCache (one device-to-host copy a tick in the plan;
+    0 with two static branches), and the dense engine."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import FasterCacheCFG, make_policy
+    from repro_torch.models import init_params, perturb_zero_init
+    from repro_torch.serving.diffusion import (DiffusionRequest,
+                                               DiffusionServingEngine)
+    t_phase = time.perf_counter()
+    cfg = get_config("dit-xl").reduced(num_layers=3, d_model=128, num_heads=4,
+                                       num_kv_heads=4, d_ff=256,
+                                       dit_patch_tokens=64, dit_in_dim=8,
+                                       dit_num_classes=10)
+    gen = torch.Generator().manual_seed(3)
+    cpu_params = perturb_zero_init(init_params(gen, cfg, device="cpu"), gen)
+    gpu_params = _to(cpu_params, "cuda")
+    vec = 0.02 * np.random.default_rng(7).standard_normal(
+        cfg.d_model).astype(np.float32)
+
+    def noise(req):
+        g = torch.Generator().manual_seed(1000 + req.request_id)
+        return torch.randn((cfg.dit_tokens, cfg.dit_in_dim), generator=g)
+
+    reqs = [DiffusionRequest(i, num_steps=(8, 12)[i % 2], class_label=i,
+                             cfg_scale=3.0 if i in (0, 1, 3) else 0.0,
+                             null_label=vec if i == 3 else None)
+            for i in range(4)]
+    cases = [  # name, cond policy, its kwargs, cfg mode, compacted
+        ("taylorseer extrapolate", "taylorseer", {}, "extrapolate", True),
+        ("taylorseer lowfreq", "taylorseer", {}, "lowfreq", True),
+        ("teacache extrapolate", "teacache", CHECK_POLICIES["teacache"],
+         "extrapolate", True),
+        ("taylorseer extrapolate dense", "taylorseer", {}, "extrapolate",
+         False)]
+    for label, name, kw, mode, compact in cases:
+        out, engs = {}, {}
+        for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
+            engs[dev] = DiffusionServingEngine(
+                p, cfg, make_policy(name, num_steps=12, **kw), slots=2,
+                max_steps=12, cfg_policy=FasterCacheCFG(3, 12, mode=mode),
+                row_compaction=compact, noise_fn=noise, device=dev)
+            out[dev] = drive(engs[dev], reqs, record=True)
+        (gres, glog), (cres, clog) = out["cuda"], out["cpu"]
+        margin = least_margin(clog)
+        if margin is not None and margin < MARGIN:
+            fail(f"check-cfg {label}: a decision of the CPU reference lies "
+                 f"{margin:.3e} relative from its threshold (< {MARGIN})")
+        steps = {d: [(r.record.computed_steps,
+                      r.record.uncond_computed_steps) for r in out[d][0]]
+                 for d in out}
+        if steps["cuda"] != steps["cpu"] or glog["kinds"] != clog["kinds"]:
+            fail(f"check-cfg {label}: card and CPU decide differently: "
+                 f"(cond, uncond) steps {steps}, tick kinds {glog['kinds']} "
+                 f"vs {clog['kinds']}")
+        worst = rel_err(gres, cres)
+        kinds = clog["kinds"]
+        extra = ""
+        if compact:
+            rb = plan_readbacks(torch, engs["cuda"], reqs)
+            want = 1 if name == "teacache" else 0
+            extra = (f", plan DtoH copies {rb['dtoh_in_plan']} in "
+                     f"{rb['ticks']} ticks (want {want} a tick)")
+            if rb["dtoh_in_plan"] != want * rb["ticks"]:
+                fail(f"check-cfg {label}: {rb['dtoh_in_plan']} device-to-"
+                     f"host copies in the plan over {rb['ticks']} ticks, "
+                     f"want {want} a tick")
+        log(f"check-cfg {label}: reduced DiT served on the card vs the CPU: "
+            f"(cond, uncond) computed steps {steps['cpu']} identical, "
+            f"{len(kinds)} tick kinds identical (full {kinds.count('full')}, "
+            f"cond {kinds.count('cond')}, skip {kinds.count('skip')}), "
+            f"least margin {margin}, max rel err {worst:.3e} (tol 1e-3)"
+            f"{extra}")
+        if not worst <= 1e-3:
+            fail(f"check-cfg {label}: card and CPU disagree (rel err {worst})")
+    log(f"check-cfg: phase wall {time.perf_counter() - t_phase:.2f}s")
+
+
+def phase_serve_diffusion(torch, kernels, path, params, cfg):
+    """examples/torch_serve_diffusion.py's three steps (autotune per traffic
+    class, per-class serving, the guided FasterCacheCFG pool) on full-width
+    DiT-XL, through the example's own `run`."""
+    import importlib.util
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_diffusion", ROOT / "examples" / "torch_serve_diffusion.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out, launches = _count_launches(
+        kernels, path, "serve-diffusion",
+        lambda: example.run(params, cfg, "cuda",
+                            log=lambda m: log(f"serve-diffusion: {m}")))
+    for tc, t in out["tuned"].items():
+        s = out["served"][tc]
+        log(f"serve-diffusion: {tc}: picked {t.policy_name} {t.kwargs} "
+            f"psnr={t.psnr:.4f} dB (agreement with the exact trajectory on "
+            f"random weights, not image quality) "
+            f"compute_fraction={t.compute_fraction:.4f}; served "
+            f"throughput_rps={s['throughput_rps']:.4f} "
+            f"latency_p50_s={s['latency_p50_s']:.4f} "
+            f"latency_p95_s={s['latency_p95_s']:.4f} ticks={s['ticks']}")
+    g = out["guided"]
+    full, cond, skip = out["tick_mix"]
+    log(f"serve-diffusion: guided pool: throughput_rps="
+        f"{g['throughput_rps']:.4f} ticks full {full} cond {cond} skip "
+        f"{skip}, uncond_rows_computed={g['uncond_rows_computed']} "
+        f"uncond_rows_saved={g['uncond_rows_saved']}; autotune "
+        f"{out['autotune_s']:.2f}s wall; launches {launches}")
+    if g["uncond_rows_saved"] <= 0:
+        fail("serve-diffusion: the guided pool saved no uncond row")
+    log(f"serve-diffusion: phase wall {time.perf_counter() - t_phase:.2f}s")
+    return launches
 
 
 def _to(tree, device):
@@ -1076,6 +1401,14 @@ def main() -> int:
     by_path.update(phase_serve_adaptive(torch, KERNELS, flash_attention,
                                         forecast))
     phase_check(torch)
+    dit_cfg, dit_params = full_dit(torch)
+    by_path["serve-cfg"] = phase_serve_cfg(
+        torch, KERNELS, (flash_attention, forecast), dit_params, dit_cfg)
+    phase_check_cfg(torch)
+    by_path["serve-diffusion"] = phase_serve_diffusion(
+        torch, KERNELS, (flash_attention,), dit_params, dit_cfg)
+    del dit_params
+    torch.cuda.empty_cache()
     by_path["serve-llm"] = phase_serve_llm(torch, KERNELS,
                                            (flash_attention, ssd_scan))
     phase_check_llm(torch)

@@ -2,7 +2,7 @@
 
 Taxonomy map (survey Fig. 2), as in the JAX `repro.core`:
   Static            : FixedIntervalPolicy (FORA), DeltaCachePolicy (Δ-DiT),
-                      PABPolicy
+                      PABPolicy, FasterCacheCFG (CFG-branch reuse)
   Timestep-adaptive : TeaCachePolicy, MagCachePolicy, EasyCachePolicy
   Layer-adaptive    : BlockCachePolicy, ForesightPolicy
   Predictive        : PredictivePolicy (taylor, newton, hermite, ab, foca),
@@ -11,9 +11,8 @@ Taxonomy map (survey Fig. 2), as in the JAX `repro.core`:
   Token-wise        : ToCaPolicy
   Learned           : LazyDiTPolicy (inference; gate training is §A.5)
 
-Not ported yet: teacache_video (ROADMAP.md §A.3), fastercache_cfg (§A.2)
-and the stack-structural methods; their names raise KeyError pointing at
-ROADMAP.md.
+Not ported yet: teacache_video (ROADMAP.md §A.3) and the stack-structural
+methods; their names raise KeyError pointing at ROADMAP.md.
 """
 from .adaptive import (BlockCachePolicy, EasyCachePolicy, ForesightPolicy,
                        GatedPolicy, MagCachePolicy, TeaCachePolicy)
@@ -23,11 +22,12 @@ from .hybrid import ClusCaPolicy, SpeCaPolicy, kmeans
 from .learned import LazyDiTPolicy, gate_score, init_gate
 from .metrics import (cosine_sim, mag_ratio, psnr, rel_l1, rel_l1_block,
                       rel_l2, transform_rate)
-from .policy import CachePolicy, NoCachePolicy, SlotWant, interval_pred
+from .policy import (CachePolicy, NoCachePolicy, SlotWant, interval_pred,
+                     static_plan)
 from .predictive import (BASES, FreqCaPolicy, PredictivePolicy,
                          forecast_from_diffs, update_diff_stack)
-from .static_policies import (DeltaCachePolicy, FixedIntervalPolicy,
-                              PABPolicy, lowpass)
+from .static_policies import (DeltaCachePolicy, FasterCacheCFG,
+                              FixedIntervalPolicy, PABPolicy, lowpass)
 from .token import ToCaPolicy
 
 
@@ -72,11 +72,14 @@ POLICY_REGISTRY = {
         PABPolicy(module_type, ranges),
     "clusca": lambda interval=4, k=16, **kw: ClusCaPolicy(interval, k),
     "speca": lambda interval=4, tau=0.1, **kw: SpeCaPolicy(interval, tau=tau),
+    # CFG-branch reuse: gates the unconditional stream, so it belongs in
+    # CachedDenoiser's or DiffusionServingEngine's `cfg_policy`
+    "fastercache_cfg": lambda interval=4, num_steps=50, mode="extrapolate",
+        **kw: FasterCacheCFG(interval, num_steps, mode=mode),
 }
 
 #: names of the JAX registry that wait for a later slice of the port
-NOT_PORTED = {"teacache_video": "§A.3 (video)",
-              "fastercache_cfg": "§A.2 (CFG-branch reuse)"}
+NOT_PORTED = {"teacache_video": "§A.3 (video)"}
 
 
 def make_policy(name: str, **kwargs) -> CachePolicy:
@@ -92,7 +95,7 @@ def make_policy(name: str, **kwargs) -> CachePolicy:
 
 __all__ = [
     "BASES", "BlockCachePolicy", "CachePolicy", "CachedModule",
-    "ClusCaPolicy", "DeltaCachePolicy", "EasyCachePolicy",
+    "ClusCaPolicy", "DeltaCachePolicy", "EasyCachePolicy", "FasterCacheCFG",
     "FixedIntervalPolicy", "ForesightPolicy", "FreqCaPolicy", "GatedPolicy",
     "LazyDiTPolicy", "MagCachePolicy", "NOT_PORTED", "NoCachePolicy",
     "PABPolicy", "POLICY_REGISTRY", "PredictivePolicy", "SlotBatchedPolicy",
@@ -100,6 +103,6 @@ __all__ = [
     "SpeCaPolicy", "TeaCachePolicy", "ToCaPolicy", "cache_state_bytes",
     "cosine_sim", "forecast_from_diffs", "gate_score", "init_gate",
     "interval_pred", "kmeans", "lowpass", "mag_ratio", "make_policy",
-    "psnr", "rel_l1", "rel_l1_block", "rel_l2", "stack_slots",
+    "psnr", "rel_l1", "rel_l1_block", "rel_l2", "stack_slots", "static_plan",
     "transform_rate", "update_diff_stack",
 ]

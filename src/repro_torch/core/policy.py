@@ -30,7 +30,7 @@ metric on the device, and the engine reads them back once a tick.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,6 +53,18 @@ def interval_pred(step, interval: int):
     if isinstance(step, (int, np.integer)):
         return int(step) % interval == 0
     return np.asarray(step) % interval == 0
+
+
+def static_plan(policy, num_steps: int) -> Optional[np.ndarray]:
+    """`want_compute(None, s, None)` for every step s < num_steps, or None
+    when the policy cannot answer without its state or x (any exception
+    counts, as in JAX): the probe rule by which the serving engine plans a
+    policy on the host, with no device round trip."""
+    try:
+        return np.asarray([bool(policy.want_compute(None, s, None))
+                           for s in range(num_steps)], bool)
+    except Exception:
+        return None
 
 
 def slot_mask(mask, like: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """CachedDenoiser and the serving engine's slot functions — the port of the
 JAX `diffusion/pipeline.py` for class-conditioned image DiTs at MODEL
-granularity.  Block / deepcache / video granularity, FasterCacheCFG,
-negative-prompt vectors and text are not ported yet (ROADMAP.md §A).
+granularity, with classifier-free guidance (an optional cache policy on the
+unconditional branch, FasterCacheCFG) and negative-prompt vectors in place
+of the null-class embedding.  Block / deepcache / video granularity and
+text are not ported yet (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -10,7 +12,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import CachePolicy, NoCachePolicy
+from repro_torch.core import (CachePolicy, FasterCacheCFG, NoCachePolicy,
+                              static_plan)
 from repro_torch.device import DeviceLike, resolve_device, tree_device
 from repro_torch.models import dit
 
@@ -24,8 +27,9 @@ def backbone_fns(params, cfg):
     """(forward_fn, signal_fn) bound to params.
 
     forward_fn(xs, ts, labels, y_embed=None) -> eps for xs (B, T, D),
-    ts (B,) timesteps, labels (B,) class ids; signal_fn(xs, ts, labels) ->
-    TeaCache's modulated first-block input."""
+    ts (B,) timesteps, labels (B,) class ids, y_embed (B, d) an optional
+    conditioning-vector override (negative prompts); signal_fn(xs, ts,
+    labels) -> TeaCache's modulated first-block input."""
     if cfg.dit_num_frames > 0 or cfg.dit_text_len > 0:
         raise _not_ported(f"the backbone of '{cfg.name}'")
 
@@ -40,21 +44,37 @@ def backbone_fns(params, cfg):
     return forward_fn, signal_fn
 
 
+def _null_embed_rows(params, nulls, null_vecs, null_mask):
+    """Per-row unconditional conditioning: the null-class embedding,
+    replaced by the request's negative-prompt vector where `null_mask` is
+    set (the vector is cast to the embedding table's dtype, as in JAX)."""
+    ce = params["class_embed"][nulls.long()]
+    return torch.where(null_mask[:, None], null_vecs.to(ce.dtype), ce)
+
+
+def _cfg_kwargs(cfg_policy, cfg_w, cond_out):
+    """The signals FasterCacheCFG's slot step reads (no other policy takes
+    them)."""
+    if isinstance(cfg_policy, FasterCacheCFG):
+        return {"cfg_w": cfg_w, "cond_out": cond_out}
+    return {}
+
+
 class CachedDenoiser:
     """eps_hat, state = denoiser(state, i, x, t); the cache policy gates the
-    whole backbone forward (MODEL granularity).  Every policy is handed
-    TeaCache's signal (the AdaLN-modulated first-block input, Eq. 22), as
-    in JAX.  With cfg_scale > 0 the unconditional branch runs every step
-    (naive two-branch CFG)."""
+    whole backbone forward (MODEL granularity).  TeaCache's signal (the
+    AdaLN-modulated first-block input, Eq. 22) is computed only for a
+    policy that reads it.  With cfg_scale > 0 the unconditional branch runs
+    under `cfg_policy` (None: it recomputes every step), conditioned on the
+    null class or on `null_embed`, a (d_model,) negative-prompt vector."""
 
     def __init__(self, params, cfg, policy: Optional[CachePolicy] = None,
                  granularity: str = "model", cfg_scale: float = 0.0,
                  cfg_policy: Optional[CachePolicy] = None,
-                 class_label: int = 0, device: DeviceLike = None):
+                 class_label: int = 0, null_embed=None,
+                 device: DeviceLike = None):
         if granularity != "model":
             raise _not_ported(f"granularity '{granularity}'")
-        if cfg_policy is not None:
-            raise _not_ported("cfg_policy (FasterCacheCFG)")
         self.device = resolve_device(device)
         if tree_device(params) != self.device:
             raise ValueError(f"params live on {tree_device(params)}, the "
@@ -62,7 +82,10 @@ class CachedDenoiser:
         self.params, self.cfg = params, cfg
         self.policy = policy or NoCachePolicy()
         self.cfg_scale = float(cfg_scale)
+        self.cfg_policy = cfg_policy
         self.class_label = class_label
+        self.null_embed = (None if null_embed is None else torch.as_tensor(
+            null_embed, dtype=torch.float32, device=self.device))
         self._forward, self._signal = backbone_fns(params, cfg)
 
     def init_state(self, batch: int):
@@ -70,74 +93,155 @@ class CachedDenoiser:
         eps_shape = (batch, cfgm.dit_tokens, cfgm.dit_in_dim)
         kw = ({"signal_shape": (batch, cfgm.dit_tokens, cfgm.d_model)}
               if self.policy.uses_signal else {})
-        return {"policy": self.policy.init_state(eps_shape, device=self.device,
-                                                 **kw)}
+        state = {"policy": self.policy.init_state(eps_shape,
+                                                  device=self.device, **kw)}
+        if self.cfg_policy is not None:
+            state["cfg"] = self.cfg_policy.init_state(eps_shape,
+                                                      device=self.device)
+        return state
 
     def __call__(self, state, step: int, x_lat, t_vec):
         B = x_lat.shape[0]
         state = state if state is not None else self.init_state(B)
         y_cond = torch.full((B,), self.class_label, dtype=torch.long,
                             device=self.device)
+        sig = ({"signal": self._signal(x_lat, t_vec, y_cond)}
+               if self.policy.uses_signal else {})
         eps_c, pol_state = self.policy.apply(
             state["policy"], step, x_lat,
-            lambda lat: self._forward(lat, t_vec, y_cond),
-            signal=self._signal(x_lat, t_vec, y_cond))
+            lambda lat: self._forward(lat, t_vec, y_cond), **sig)
+        new_state = {"policy": pol_state}
         if self.cfg_scale > 0.0:
             y_null = torch.full((B,), self.cfg.dit_num_classes,
                                 dtype=torch.long, device=self.device)
-            eps_u = self._forward(x_lat, t_vec, y_null)
+            y_embed = (None if self.null_embed is None
+                       else self.null_embed[None].expand(B, -1))
+
+            def uncond(lat):
+                return self._forward(lat, t_vec, y_null, y_embed=y_embed)
+
+            if self.cfg_policy is not None:
+                eps_u, new_state["cfg"] = self.cfg_policy.apply(
+                    state["cfg"], step, x_lat, uncond, cond_out=eps_c)
+            else:
+                eps_u = uncond(x_lat)
             eps_c = eps_u + self.cfg_scale * (eps_c - eps_u)
-        return eps_c, {"policy": pol_state}
+        return eps_c, new_state
+
+
+def slot_denoise_fns(params, cfg, policy: CachePolicy):
+    """Slot-parallel entry point (model granularity), the dense engine's
+    cond branch:
+
+      backbone_fn(xs, ts, labels) -> eps
+          the plain slot-batched forward: the slot axis is the batch axis.
+      apply_fn(states, steps, xs, ys, want=None, signal=None)
+          -> (eps, states)
+          the policy's step over the whole slot axis on the plan's host
+          `want` and signal (`CachePolicy.apply_slots`).
+      want_fn(states, steps, xs, ts, labels) -> (SlotWant, signal)
+          every slot's decision on the device; TeaCache's signal is
+          computed over the slot batch only for a policy that reads it
+          (else None).
+    """
+    forward_fn, signal_fn = backbone_fns(params, cfg)
+
+    def want_fn(states, steps, xs, ts, labels):
+        sig = signal_fn(xs, ts, labels) if policy.uses_signal else None
+        return policy.want_slots(states, steps, xs, sig), sig
+
+    return forward_fn, policy.apply_slots, want_fn
+
+
+def slot_cfg_denoise_fns(params, cfg, policy: CachePolicy,
+                         cfg_policy: Optional[CachePolicy] = None):
+    """CFG-aware slot-parallel entry point of the dense engine: each slot
+    carries a cond state (`policy`) and an uncond state (`cfg_policy`; None
+    means the uncond branch recomputes every step).
+
+      backbone2_fn(xs, ts, labels, nulls, null_vecs, null_mask)
+          -> (y_c, y_u)
+          one 2S-row pass over [cond rows; uncond rows]; uncond rows
+          condition on the null label, or on the slot's negative-prompt
+          vector where `null_mask` is set.
+      backbone_fn(xs, ts, labels) -> y_c
+          the S-row cond-only pass.
+      apply_fn(states, steps, xs, scales, cfg_ws, y_c, y_u, want=None,
+               want_u=None, signal=None) -> (eps, states)
+          both branches' slot steps on the plan's host decisions: the
+          cond policy on `want`, the uncond policy on `want_u` with each
+          slot's progress weight `cfg_ws` and its cond output (what
+          FasterCacheCFG reads).  A slot with scale <= 0 keeps its cond
+          output, never blended.  Rows the tick did not compute arrive as
+          zeros and only reach branches the selects discard.
+    """
+    uncond = cfg_policy if cfg_policy is not None else NoCachePolicy()
+    forward_fn, _ = backbone_fns(params, cfg)
+    backbone_fn, cond_apply, _ = slot_denoise_fns(params, cfg, policy)
+
+    def backbone2_fn(xs, ts, labels, nulls, null_vecs, null_mask):
+        S = xs.shape[0]
+        ce_c = params["class_embed"][labels.long()]
+        ce_u = _null_embed_rows(params, nulls, null_vecs, null_mask)
+        eps = forward_fn(torch.cat([xs, xs]), torch.cat([ts, ts]),
+                         torch.cat([labels, nulls]),
+                         y_embed=torch.cat([ce_c, ce_u]))
+        return eps[:S], eps[S:]
+
+    def apply_fn(states, steps, xs, scales, cfg_ws, y_c, y_u, want=None,
+                 want_u=None, signal=None):
+        eps_c, pol_state = cond_apply(states["policy"], steps, xs, y_c,
+                                      want=want, signal=signal)
+        eps_u, cfg_state = uncond.apply_slots(
+            states["cfg"], steps, xs, y_u, want=want_u,
+            **_cfg_kwargs(uncond, cfg_ws, eps_c))
+        sc = scales.view(-1, 1, 1)
+        eps = torch.where(sc > 0.0, eps_u + sc * (eps_c - eps_u), eps_c)
+        return eps, {"policy": pol_state, "cfg": cfg_state}
+
+    return backbone2_fn, backbone_fn, apply_fn
 
 
 def slot_compact_denoise_fns(params, cfg, policy: CachePolicy,
                              cfg_policy: Optional[CachePolicy] = None):
     """Row-compacted slot-parallel entry point for the serving engine.
 
-      compact_backbone_fn(xs, tvals, labels, nulls, row_slot, row_uncond,
-                          row_dest) -> (y_c, y_u)
+      compact_backbone_fn(xs, tvals, labels, nulls, null_vecs, null_mask,
+                          row_slot, row_uncond, row_dest) -> (y_c, y_u)
           gathers the `bucket` wanted rows (row_slot picks the source slot,
-          row_uncond the null label), runs the backbone over that batch
-          only, and scatters each row into a (2S+1)-row buffer at row_dest
-          (cond row i -> i, uncond row i -> S + i, padding -> the dump row
-          2S), split back into S-row y_c / y_u.  Rows not gathered are
-          zeros, which only reach branches the per-slot select discards.
-      apply_fn(states, steps, xs, scales, y_c, y_u, want, signal)
-          -> (eps, states)
-          the per-slot policy step over the whole slot axis (explicit slot
-          dimension in place of JAX's vmap), taking the plan's host `want`
-          (before active masking) and its signal, so the branch each slot
-          takes is exactly the decision the plan read back.  The uncond
-          branch recomputes every step (naive two-branch CFG); a slot with
-          scale <= 0 keeps its cond output, never blended.
+          row_uncond the null conditioning: the null label, or the slot's
+          negative-prompt vector where `null_mask` is set), runs the
+          backbone over that batch only, and scatters each row into a
+          (2S+1)-row buffer at row_dest (cond row i -> i, uncond row i ->
+          S + i, padding -> the dump row 2S), split back into S-row y_c /
+          y_u.  Rows not gathered are zeros, which only reach branches the
+          per-slot selects discard.
+      backbone2_fn, backbone_fn, apply_fn
+          those of `slot_cfg_denoise_fns`: compaction changes how y_c / y_u
+          are produced, never the per-slot policy steps.
     """
-    if cfg_policy is not None:
-        raise _not_ported("cfg_policy (FasterCacheCFG) in serving")
     forward_fn, _ = backbone_fns(params, cfg)
+    backbone2_fn, backbone_fn, apply_fn = slot_cfg_denoise_fns(
+        params, cfg, policy, cfg_policy)
 
-    def compact_backbone_fn(xs, tvals, labels, nulls, row_slot, row_uncond,
-                            row_dest):
+    def compact_backbone_fn(xs, tvals, labels, nulls, null_vecs, null_mask,
+                            row_slot, row_uncond, row_dest):
         S, T, D = xs.shape
         yb = torch.where(row_uncond, nulls[row_slot], labels[row_slot])
-        eps = forward_fn(xs[row_slot], tvals[row_slot], yb)
+        ce = _null_embed_rows(params, yb, null_vecs[row_slot],
+                              row_uncond & null_mask[row_slot])
+        eps = forward_fn(xs[row_slot], tvals[row_slot], yb, y_embed=ce)
         buf = torch.zeros((2 * S + 1, T, D), dtype=eps.dtype, device=eps.device)
         buf[row_dest] = eps
         return buf[:S], buf[S:2 * S]
 
-    def apply_fn(states, steps, xs, scales, y_c, y_u, want=None,
-                 signal=None):
-        eps_c, pol_state = policy.apply_slots(states["policy"], steps, xs, y_c,
-                                              want=want, signal=signal)
-        sc = scales.view(-1, 1, 1)
-        eps = torch.where(sc > 0.0, y_u + sc * (eps_c - y_u), eps_c)
-        return eps, {"policy": pol_state, "cfg": states["cfg"]}
-
-    return compact_backbone_fn, apply_fn
+    return compact_backbone_fn, backbone2_fn, backbone_fn, apply_fn
 
 
 class WantPlan(NamedTuple):
     """One tick's plan, before active masking: host (S,) arrays (see
-    `core.policy.SlotWant`), and the signal on the device (None when the
+    `core.policy.SlotWant`; `want_uncond` is the uncond policy's decision
+    masked by the guided flag), and the signal on the device (None when the
     policy does not use one)."""
     want_cond: np.ndarray
     want_uncond: np.ndarray
@@ -158,31 +262,41 @@ def slot_want_fns(params, cfg, policy: CachePolicy,
     (only for a policy that uses it), then every slot's decision
     (`SlotWant`: want, the JAX `want_metric`, the value the decision
     thresholds, that threshold, and whether it was forced) comes out of
-    `policy.want_slots` on the device, packed into one tensor and read back
-    in ONE device-to-host copy.  `want_uncond` is the guided flag (the
-    uncond branch recomputes every step).  The signal stays on the device
-    for the tick's `apply_fn`."""
-    if cfg_policy is not None:
-        raise _not_ported("cfg_policy (FasterCacheCFG) in serving")
-    _, signal_fn = backbone_fns(params, cfg)
+    `policy.want_slots` on the device.  The uncond decision comes from the
+    host table of a step-only `cfg_policy` (all True without one), or else
+    from its own `want_slots` on the device; either way it is masked by the
+    guided flag.  Everything the device decided is packed into one tensor
+    and read back in ONE device-to-host copy.  The signal stays on the
+    device for the tick's `apply_fn`."""
+    uncond = cfg_policy if cfg_policy is not None else NoCachePolicy()
+    uncond_on_host = static_plan(uncond, 1) is not None
+    _, _, want_fn = slot_denoise_fns(params, cfg, policy)
 
     def want_all_fn(states, steps, xs, tvals, labels, guided):
         dev = xs.device
-        sig = None
-        if policy.uses_signal:
-            sig = signal_fn(xs, torch.as_tensor(tvals, device=dev),
-                            torch.as_tensor(labels, device=dev))
-        w = policy.want_slots(states["policy"], steps, xs, sig)
-        packed = torch.stack([t.float() for t in w]).cpu().numpy()
-        return WantPlan(packed[0] > 0.5, np.asarray(guided, bool).copy(),
+        w, sig = want_fn(states["policy"], steps, xs,
+                         torch.as_tensor(tvals, device=dev),
+                         torch.as_tensor(labels, device=dev))
+        rows = [t.float() for t in w]
+        if not uncond_on_host:
+            rows.append(uncond.want_slots(states["cfg"], steps, xs).want
+                        .float())
+        packed = torch.stack(rows).cpu().numpy()
+        wu = uncond.step_want(steps) if uncond_on_host else packed[5] > 0.5
+        return WantPlan(packed[0] > 0.5, wu & np.asarray(guided, bool),
                         packed[1], packed[2], packed[3], packed[4] > 0.5, sig)
 
     return want_all_fn
 
 
-def cfg_denoise_fn(params, cfg, cfg_scale: float, class_label: int = 0):
-    """Uncached CFG denoiser (the exact baseline): eps = e_u + s (e_c - e_u)."""
+def cfg_denoise_fn(params, cfg, cfg_scale: float, class_label: int = 0,
+                   null_embed=None):
+    """Uncached CFG denoiser (the exact baseline): eps = e_u + s (e_c - e_u);
+    `null_embed` (d_model,) replaces the null-class embedding with a
+    negative-prompt vector."""
     forward_fn, _ = backbone_fns(params, cfg)
+    ne = (None if null_embed is None
+          else torch.as_tensor(null_embed, dtype=torch.float32))
 
     def fn(state, step, x, t_vec):
         B = x.shape[0]
@@ -192,6 +306,7 @@ def cfg_denoise_fn(params, cfg, cfg_scale: float, class_label: int = 0):
             return e_c, state
         y_u = torch.full((B,), cfg.dit_num_classes, dtype=torch.long,
                          device=x.device)
-        e_u = forward_fn(x, t_vec, y_u)
+        ye = None if ne is None else ne.to(x.device)[None].expand(B, -1)
+        e_u = forward_fn(x, t_vec, y_u, y_embed=ye)
         return e_u + cfg_scale * (e_c - e_u), state
     return fn

@@ -39,3 +39,18 @@ class NoiseSchedule:
 def linear_schedule(T: int = 1000, beta_min: float = 1e-4,
                     beta_max: float = 0.02) -> NoiseSchedule:
     return NoiseSchedule(np.linspace(beta_min, beta_max, T, dtype=np.float64))
+
+
+def cosine_schedule(T: int = 1000, s: float = 8e-3) -> NoiseSchedule:
+    """IDDPM cosine alpha-bar schedule (survey ref [56]), built in float64."""
+    steps = np.arange(T + 1, dtype=np.float64) / T
+    abar = np.cos((steps + s) / (1 + s) * np.pi / 2) ** 2
+    abar = abar / abar[0]
+    return NoiseSchedule(np.clip(1.0 - abar[1:] / abar[:-1], 0.0, 0.999))
+
+
+def rectified_flow_times(num_steps: int) -> np.ndarray:
+    """Rectified-flow time grid 1 -> 0, float32 (survey Eq. 10 / ref [65]).
+
+    x_t = (1-t) x0 + t eps; the model regresses velocity v = eps - x0."""
+    return np.linspace(1.0, 0.0, num_steps + 1).astype(np.float32)

@@ -1,44 +1,55 @@
 """DiffusionServingEngine — step-interleaved continuous batching of latent
-generation with per-slot cache states; the port of the JAX
-`serving/diffusion/engine.py` in its row-compacted mode.
+generation with per-slot cache states, including classifier-free guidance
+with per-slot CFG-branch reuse (FasterCacheCFG, survey §III-C); the port of
+the JAX `serving/diffusion/engine.py`.
 
 Every tick plans which backbone rows the per-slot policies want (a slot's
-cond row iff its policy computes, its uncond row iff it is guided), pads
-them to a power-of-two bucket, runs the DiT over that batch, scatters the
-outputs back to the slot layout and takes each slot's policy step
-(compute / reuse / forecast selected per slot by masks over the slot axis,
-on exactly the decision the plan made), then the per-slot DDIM update.  A
-tick with no wanted rows runs no backbone at all.  The host-side
-SlotScheduler refills finished slots mid-flight and resets the slot's
-cache state (reset-on-refill).
+cond row iff its policy computes, its uncond row iff it is guided and its
+CFG policy wants an uncond refresh), pads them to a power-of-two bucket,
+runs the DiT over that batch, scatters the outputs back to the slot layout
+and takes each slot's policy steps (compute / reuse / forecast selected per
+slot by masks over the slot axis, on exactly the decisions the plan made),
+then the per-slot DDIM update.  A tick with no wanted rows runs no backbone
+at all.  `row_compaction=False` is the dense engine instead: each tick runs
+one of three whole-pool kinds (full over 2S rows, cond over S rows, skip),
+kept as the equivalence baseline.
+
+A request's `null_label` may be a (d_model,) conditioning VECTOR (a
+negative prompt) in place of a class id: the engine threads it through the
+slot's uncond rows as an embedding override.  The per-slot vector table
+lives on the device and is uploaded once per admission wave.
 
 The plan.  A policy that decides from the step alone (its
 `want_compute(None, step, None)` answers for every step: JAX's probe rule)
-is planned on the host from a table, with no device round trip.  Any other
-(TeaCache, MagCache, EasyCache, Foresight, LazyDiT) is planned by one
-batched pass over all slots on the device (`slot_want_fns`: TeaCache's
-signal over the slot batch, then every slot's want and metric), read back
-in ONE device-to-host copy a tick.
+is planned on the host from a table, with no device round trip; so is the
+CFG policy.  When either is not (TeaCache, MagCache, EasyCache, Foresight,
+LazyDiT), one batched pass over all slots on the device (`slot_want_fns`)
+decides, read back in ONE device-to-host copy a tick; a branch that is
+step-only keeps its host table.
 
-The state lives on the engine's device; ticks update the latent batch and
-the cache state in place where that saves a copy (admission writes one
-slot's rows).  One `torch.cuda.synchronize` a tick prices the tick.
+The host-side SlotScheduler refills finished slots mid-flight and resets
+the slot's combined cache state — main policy and CFG branch — to fresh
+(reset-on-refill).  The state lives on the engine's device; ticks update
+the latent batch and the cache state in place where that saves a copy.  One
+`torch.cuda.synchronize` a tick prices the tick.  Sessions take observer
+hooks (`TickEvent`), an opt-in metrics registry (`repro_torch.obs`) and
+mid-session submission.
 
-Not ported yet (ROADMAP.md §A): the dense `row_compaction=False` mode,
-`cfg_policy` (FasterCacheCFG), vector null labels, text prompts, tick
-hooks, metrics registries and latent capture; CUDA-graph capture per
-bucket comes in a later slice.
+Not ported yet (ROADMAP.md §A): text prompts (the `conditioner`), the
+video backbone, and CUDA-graph capture per bucket.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import (CachePolicy, SlotBatchedPolicy,
-                              cache_state_bytes, make_policy, stack_slots)
+                              cache_state_bytes, make_policy, stack_slots,
+                              static_plan)
 from repro_torch.device import DeviceLike, resolve_device, tree_device
 from repro_torch.diffusion.pipeline import (slot_compact_denoise_fns,
                                             slot_want_fns)
@@ -94,51 +105,144 @@ class DiffusionResult:
     record: RequestRecord
 
 
+@dataclass
+class TickEvent:
+    """Everything one engine tick decided and produced, for observer hooks.
+
+    All arrays are host-side copies indexed by slot; slots not active this
+    tick carry request_id -1.  `metric` is the per-slot `want_metric` the
+    device plan read back, None when the tick was planned from host tables.
+    `plan_seconds` is the host time spent deciding the tick (the fused want
+    pass and its read for state-dependent policies, a table lookup
+    otherwise).  `latents` is the pre-tick (slots, tokens, in_dim) latent
+    batch, filled only when the session captures latents (one
+    device-to-host copy a tick)."""
+    tick: int
+    modality: str
+    kind: str                       # "full" | "cond" | "skip"
+    seconds: float                  # wall time of this tick's device work
+    rows_computed: int
+    rows_padding: int
+    active: np.ndarray              # (S,) bool
+    request_ids: np.ndarray         # (S,) int64, -1 = free slot
+    steps: np.ndarray               # (S,) int32 per-slot step index
+    tvals: np.ndarray               # (S,) float32 model-facing timesteps
+    labels: np.ndarray              # (S,) int32 class conditioning
+    guided: np.ndarray              # (S,) bool
+    want_cond: np.ndarray           # (S,) bool, after active masking
+    want_uncond: np.ndarray         # (S,) bool, after active masking
+    plan_seconds: float = 0.0
+    metric: Optional[np.ndarray] = None     # (S,) float32 or None
+    latents: Optional[np.ndarray] = None    # (S, T, D) pre-tick, opt-in
+    admitted: List[DiffusionRequest] = field(default_factory=list)
+    finished: List[RequestRecord] = field(default_factory=list)
+
+
+#: observer hook signature: called once per tick, must not mutate the engine
+TickHook = Callable[[TickEvent], None]
+
+
 class ServeSession:
-    """One in-flight batch of requests, advanced one tick at a time."""
+    """One in-flight batch of requests, advanced one tick at a time.
+
+    `hooks` observe every tick (TickEvent); `capture_latents` copies the
+    pre-tick latents into each event; `modality` labels the events and
+    metrics (default: the first request's); `metrics` (a
+    `repro_torch.obs.MetricsRegistry`) opts into the repro_engine_* and
+    repro_scheduler_* instruments, under JAX's names."""
 
     def __init__(self, engine: "DiffusionServingEngine",
                  requests: Sequence[DiffusionRequest],
-                 telemetry: Optional[ServingTelemetry] = None):
+                 telemetry: Optional[ServingTelemetry] = None,
+                 hooks: Optional[Sequence[TickHook]] = None,
+                 capture_latents: bool = False,
+                 modality: Optional[str] = None, metrics=None):
         for r in requests:
-            engine._check_request(r)
+            self._validate(engine, r)
         if engine._session_active:
             raise RuntimeError(
                 "engine already has a session in flight; finish() it first")
         engine._session_active = True
         self.engine = engine
         self.requests = list(requests)
+        self.hooks: List[TickHook] = list(hooks or ())
+        self.capture_latents = bool(capture_latents)
+        self.modality = (modality if modality is not None
+                         else (requests[0].modality if requests else "image"))
         self.tele = telemetry if telemetry is not None else ServingTelemetry()
         self.tele.cache_state_bytes_per_slot = cache_state_bytes(engine._fresh)
         self.tele.start()
+        self.metrics = metrics
         self.sched = SlotScheduler(engine.slots, engine.align)
+        if metrics is not None:
+            self.sched.bind_metrics(metrics, modality=self.modality)
         self.recs: Dict[int, RequestRecord] = {
-            r.request_id: RequestRecord(r.request_id, r.num_steps,
-                                        r.traffic_class,
-                                        cfg_scale=r.cfg_scale,
-                                        modality=r.modality,
-                                        enqueue_time=monotonic())
-            for r in requests}
+            r.request_id: self._record(r) for r in requests}
         self.sched.submit_all(requests)
         self.xs = torch.zeros((engine.slots, engine.tokens, engine.in_dim),
                               dtype=torch.float32, device=engine.device)
         self.states = stack_slots(engine._fresh, engine.slots)
+        self._upload_nulls()
         self.results: Dict[int, DiffusionResult] = {}
         self.ticks = 0
         self._finished = False
+
+    @staticmethod
+    def _validate(engine: "DiffusionServingEngine",
+                  r: DiffusionRequest) -> None:
+        """Reject a malformed request before any work runs (the admission
+        contract, `engine._check_request`)."""
+        engine._check_request(r)
+
+    @staticmethod
+    def _record(r: DiffusionRequest) -> RequestRecord:
+        return RequestRecord(r.request_id, r.num_steps, r.traffic_class,
+                             cfg_scale=r.cfg_scale, modality=r.modality,
+                             enqueue_time=monotonic())
+
+    def _upload_nulls(self) -> None:
+        """The negative-prompt tables on the device (once per admission
+        wave, never per tick)."""
+        dev = self.engine.device
+        self._null_vecs = torch.as_tensor(self.engine._null_vecs, device=dev)
+        self._null_mask = torch.as_tensor(self.engine._null_mask, device=dev)
 
     @property
     def done(self) -> bool:
         return self.sched.idle()
 
+    def submit(self, request: DiffusionRequest) -> None:
+        """Enqueue one more request on a live session; it is admitted at
+        the next phase-aligned tick with a free slot."""
+        if self._finished:
+            raise RuntimeError("session already finished; submit to a new "
+                               "session instead")
+        if request.request_id in self.recs:
+            raise ValueError(f"request id {request.request_id} already "
+                             f"submitted to this session")
+        self._validate(self.engine, request)
+        self.requests.append(request)
+        self.recs[request.request_id] = self._record(request)
+        self.sched.submit(request)
+
+    def transfer_queued(self) -> List[DiffusionRequest]:
+        """Pop every request still waiting for a slot and drop its
+        bookkeeping here, so the caller can submit it to another session."""
+        moved = self.sched.queue.pop_many(len(self.sched.queue))
+        for r in moved:
+            del self.recs[r.request_id]
+            self.requests.remove(r)
+        return moved
+
     def tick(self) -> None:
         """One engine tick: refill free slots, plan the wanted rows,
-        dispatch the matching backbone bucket, advance and harvest."""
+        dispatch the matching backbone batch, advance and harvest."""
         if self._finished:
             raise RuntimeError("session already finished")
         eng, sched, tele = self.engine, self.sched, self.tele
 
-        for slot, req in sched.admit(self.ticks):
+        admitted = sched.admit(self.ticks)
+        for slot, req in admitted:
             self.xs[slot.index] = eng._initial_noise(req)
             SlotBatchedPolicy.reset_slot(self.states, slot.index, eng._fresh)
             eng._install_request(slot.index, req)
@@ -146,6 +250,8 @@ class ServeSession:
             rec.admit_time = monotonic()
             rec.admit_tick = self.ticks
             rec.slot = slot.index
+        if admitted:
+            self._upload_nulls()
 
         active = np.asarray(sched.active_mask())
         steps = np.asarray(sched.steps(), np.int32)
@@ -154,26 +260,40 @@ class ServeSession:
         tvals = eng._tv[rows, idx]
         ab_t = eng._ab[rows, idx]
         ab_n = eng._ab[rows, idx + 1]
+        # per-slot trajectory progress for FasterCacheCFG's blend
+        cfg_ws = idx.astype(np.float32) / np.maximum(eng._nsteps - 1, 1)
+        rids = np.asarray([s.request.request_id if s.busy else -1
+                           for s in sched.slots], np.int64)
+        latents = (self.xs.to("cpu", copy=True).numpy()
+                   if self.capture_latents else None)
 
-        plan_c, want_u, _, signal = eng._plan_all(self.states, idx, self.xs,
-                                                  tvals)
+        t_plan = monotonic()
+        plan_c, plan_u, metric, signal = eng._plan_all(self.states, idx,
+                                                       self.xs, tvals)
+        plan_s = monotonic() - t_plan
         want_c = plan_c & active
-        want_u = want_u & active
+        want_u = plan_u & active
         n_c, n_u = int(want_c.sum()), int(want_u.sum())
         kind = "full" if n_u else ("cond" if n_c else "skip")
         dense_rows = {"full": 2 * eng.slots, "cond": eng.slots,
                       "skip": 0}[kind]
-        bucket, row_slot, row_uncond, row_dest = compact_rows(
-            want_c, want_u, eng.slots)
+        if eng.row_compaction:
+            bucket, *gather = compact_rows(want_c, want_u, eng.slots)
+            rows_done, rows_pad = n_c + n_u, bucket - n_c - n_u
+        else:
+            gather, rows_done, rows_pad = None, dense_rows, 0
         t0 = monotonic()
-        self.xs, self.states = eng._tick(self.states, idx, self.xs, tvals,
-                                         ab_t, ab_n, row_slot, row_uncond,
-                                         row_dest, plan_c, signal)
+        self.xs, self.states = eng._tick(
+            kind, gather, self.states, idx, self.xs, tvals, cfg_ws, ab_t,
+            ab_n, self._null_vecs, self._null_mask, plan_c, plan_u, signal)
         eng._sync()
         tick_s = monotonic() - t0
-        tele.record_tick(kind, tick_s, rows_computed=n_c + n_u,
-                         rows_padding=bucket - n_c - n_u,
-                         rows_saved=dense_rows - n_c - n_u)
+        if eng.row_compaction:
+            tele.record_tick(kind, tick_s, rows_computed=rows_done,
+                             rows_padding=rows_pad,
+                             rows_saved=dense_rows - rows_done)
+        else:
+            tele.record_tick(kind, tick_s, rows_computed=dense_rows)
         tele.uncond_rows_computed += n_u
         tele.uncond_rows_saved += int((active & eng._guided & ~want_u).sum())
 
@@ -184,15 +304,70 @@ class ServeSession:
                 self.recs[slot.request.request_id].uncond_computed_steps += 1
 
         sched.advance()
+        finished: List[RequestRecord] = []
         for slot, req in sched.harvest():
             rec = self.recs[req.request_id]
             rec.finish_time = monotonic()
             rec.finish_tick = self.ticks + 1
             tele.finish_request(rec)
+            finished.append(rec)
             self.results[req.request_id] = DiffusionResult(
                 req.request_id,
                 self.xs[slot.index].to("cpu", copy=True).numpy(), rec)
+
+        if self.metrics is not None:
+            self._publish_tick(kind, tick_s, plan_s, rows_done, rows_pad,
+                               dense_rows - rows_done
+                               if eng.row_compaction else 0,
+                               n_u, int(active.sum()), len(finished))
+        if self.hooks:
+            event = TickEvent(
+                tick=self.ticks, modality=self.modality, kind=kind,
+                seconds=tick_s, plan_seconds=plan_s, rows_computed=rows_done,
+                rows_padding=rows_pad, active=active, request_ids=rids,
+                steps=steps, tvals=np.asarray(tvals, np.float32),
+                labels=eng._labels.copy(), guided=eng._guided.copy(),
+                want_cond=want_c, want_uncond=want_u, metric=metric,
+                latents=latents, admitted=[req for _, req in admitted],
+                finished=finished)
+            for hook in self.hooks:
+                hook(event)
         self.ticks += 1
+
+    def _publish_tick(self, kind: str, tick_s: float, plan_s: float,
+                      rows_done: int, rows_pad: int, rows_saved: int,
+                      n_u: int, occupancy: int, finished: int) -> None:
+        """One tick's registry updates (names follow JAX's
+        repro_<subsystem>_<metric>_<unit>; labels carry dimensions)."""
+        m, mod = self.metrics, self.modality
+        m.counter("repro_engine_ticks_total",
+                  "engine ticks by program kind").inc(
+            kind=kind, modality=mod)
+        m.counter("repro_engine_tick_seconds_total",
+                  "device seconds of dispatched tick programs").inc(
+            tick_s, kind=kind, modality=mod)
+        m.counter("repro_engine_plan_seconds_total",
+                  "host seconds spent deciding ticks (want pass)").inc(
+            plan_s, modality=mod)
+        m.counter("repro_engine_rows_computed_total",
+                  "backbone rows carrying real per-slot work").inc(
+            rows_done, modality=mod)
+        m.counter("repro_engine_rows_padding_total",
+                  "pow-2 bucket padding rows dispatched").inc(
+            rows_pad, modality=mod)
+        m.counter("repro_engine_rows_saved_total",
+                  "rows a dense whole-pool tick would have added").inc(
+            rows_saved, modality=mod)
+        m.counter("repro_engine_uncond_rows_computed_total",
+                  "uncond rows refreshing a CFG cache").inc(
+            n_u, modality=mod)
+        m.counter("repro_engine_requests_finished_total",
+                  "requests completed").inc(finished, modality=mod)
+        m.gauge("repro_engine_occupancy_slots",
+                "busy slots at the latest tick").set(occupancy, modality=mod)
+        m.histogram("repro_engine_tick_seconds",
+                    "device tick time distribution").observe(
+            tick_s, modality=mod)
 
     def finish(self) -> List[DiffusionResult]:
         """Close the session: preempted accounting, telemetry stop, results
@@ -201,6 +376,11 @@ class ServeSession:
             for r in self.requests:
                 if r.request_id not in self.results:
                     self.tele.preempt_request(self.recs[r.request_id])
+                    if self.metrics is not None:
+                        self.metrics.counter(
+                            "repro_engine_requests_preempted_total",
+                            "requests cut off before completion").inc(
+                            modality=self.modality)
             self.tele.stop()
             self.engine.telemetry = self.tele
             self.engine._session_active = False
@@ -212,11 +392,15 @@ class ServeSession:
 class DiffusionServingEngine:
     """Fixed-slot continuous-batching server over one DiT backbone.
 
-    `noise_fn(request) -> (tokens, in_dim)` tensor supplies each request's
-    initial latent; the default draws it from a torch.Generator seeded from
-    (request.seed, request.request_id), so requests left at the default
-    seed still get distinct noise.  Runs on the GPU unless the caller
-    passes device="cpu"; params must live on that device."""
+    `policy` and `cfg_policy` (the uncond-branch gate of guided requests;
+    None: naive two-branch guidance) are instances or registry names, a
+    name built with num_steps=max_steps.  Admission is phase-aligned to the
+    lcm of the two intervals unless `align` is given.  `noise_fn(request)
+    -> (tokens, in_dim)` tensor supplies each request's initial latent; the
+    default draws it from a torch.Generator seeded from (request.seed,
+    request.request_id), so requests left at the default seed still get
+    distinct noise.  Runs on the GPU unless the caller passes device="cpu";
+    params must live on that device."""
 
     def __init__(self, params, cfg, policy: Union[CachePolicy, str, None] = None,
                  *, slots: int = 8, max_steps: int = 64,
@@ -226,10 +410,6 @@ class DiffusionServingEngine:
                  row_compaction: bool = True, conditioner=None,
                  noise_fn: Optional[NoiseFn] = None,
                  device: DeviceLike = None):
-        if cfg_policy is not None:
-            raise _not_ported("cfg_policy (FasterCacheCFG)")
-        if not row_compaction:
-            raise _not_ported("the dense row_compaction=False engine")
         if conditioner is not None:
             raise _not_ported("text conditioning (conditioner)")
         self.device = resolve_device(device)
@@ -239,28 +419,41 @@ class DiffusionServingEngine:
         self.params, self.cfg = params, cfg
         self.slots = slots
         self.max_steps = max_steps
-        self.row_compaction = True
+        self.row_compaction = bool(row_compaction)
         self.sched = noise_schedule or linear_schedule(1000)
         if isinstance(policy, str):
             policy = make_policy(policy, num_steps=max_steps)
         self.policy = policy if policy is not None else make_policy("none")
-        self.cfg_policy = None
-        self.align = (align if align is not None
-                      else max(int(getattr(self.policy, "interval", 1)), 1))
+        if isinstance(cfg_policy, str):
+            cfg_policy = make_policy(cfg_policy, num_steps=max_steps)
+        self.cfg_policy = cfg_policy
+        if align is not None:
+            self.align = align
+        else:
+            a = max(int(getattr(self.policy, "interval", 1)), 1)
+            b = max(int(getattr(cfg_policy, "interval", 1)), 1)
+            self.align = a * b // math.gcd(a, b)
         self.tokens, self.in_dim = cfg.dit_tokens, cfg.dit_in_dim
         self.batched = SlotBatchedPolicy(self.policy, slots)
-        self._compact_backbone, self._apply = slot_compact_denoise_fns(
-            params, cfg, self.policy)
-        self._want_all = slot_want_fns(params, cfg, self.policy)
+        (self._compact_backbone, self._backbone2, self._backbone,
+         self._apply) = slot_compact_denoise_fns(params, cfg, self.policy,
+                                                 cfg_policy)
+        self._want_all = slot_want_fns(params, cfg, self.policy, cfg_policy)
+        feat = (self.tokens, self.in_dim)
         self._fresh = {
             "policy": self.batched.init_slot_state(
-                (self.tokens, self.in_dim),
-                signal_shape=(self.tokens, cfg.d_model), device=self.device),
-            "cfg": {},
+                feat, signal_shape=(self.tokens, cfg.d_model),
+                device=self.device),
+            "cfg": (cfg_policy.init_state(feat, device=self.device)
+                    if cfg_policy is not None else {}),
         }
-        # host plan table when the policy decides from the step alone,
-        # else None: the device want pass plans every tick
+        # host plan tables of the branches that decide from the step alone,
+        # else None: the device want pass plans every tick (the uncond
+        # branch is all True in naive two-branch guidance)
         self._static_plan = self._probe_static_plan(self.policy)
+        self._static_cfg_plan = (self._probe_static_plan(cfg_policy)
+                                 if cfg_policy is not None
+                                 else np.ones((max_steps,), bool))
         self._noise_fn = noise_fn
         # host-side per-slot tables, padded to max_steps (+1 for the
         # terminal alpha-bar = 1.0 that closes the DDIM update)
@@ -268,6 +461,9 @@ class DiffusionServingEngine:
         self._tv = np.zeros((slots, max_steps), np.float32)
         self._labels = np.zeros((slots,), np.int32)
         self._nulls = np.full((slots,), cfg.dit_num_classes, np.int32)
+        # negative-prompt conditioning vectors (per slot) and their mask
+        self._null_vecs = np.zeros((slots, cfg.d_model), np.float32)
+        self._null_mask = np.zeros((slots,), bool)
         self._scales = np.zeros((slots,), np.float32)
         self._nsteps = np.ones((slots,), np.int32)
         self._guided = np.zeros((slots,), bool)
@@ -292,27 +488,40 @@ class DiffusionServingEngine:
         gen.manual_seed((int(req.seed) * 2**32 + int(req.request_id)) % 2**63)
         return torch.randn(shape, generator=gen, device=self.device)
 
-    def _tick(self, states, steps, xs, tvals, ab_t, ab_n, row_slot,
-              row_uncond, row_dest, want, signal):
-        """One tick on the device: the bucket's backbone rows (none on a
-        skip tick), the per-slot policy step on the plan's `want` and
-        `signal`, and the per-slot DDIM update."""
+    def _tick(self, kind, gather, states, steps, xs, tvals, cfg_ws, ab_t,
+              ab_n, null_vecs, null_mask, want_c, want_u, signal):
+        """One tick on the device: the backbone rows (the compacted bucket
+        `gather` = (row_slot, row_uncond, row_dest), or with gather None
+        the dense batch of `kind`; none on a skip tick), both branches'
+        slot steps on the plan's decisions, and the per-slot DDIM update."""
         dev = self.device
-        if len(row_slot) == 0:
+
+        def dev_t(a):
+            return torch.as_tensor(a, device=dev)
+
+        if kind == "skip":
             y_c = y_u = torch.zeros_like(xs)
         else:
-            y_c, y_u = self._compact_backbone(
-                xs, torch.as_tensor(tvals, device=dev),
-                torch.as_tensor(self._labels, device=dev).long(),
-                torch.as_tensor(self._nulls, device=dev).long(),
-                torch.as_tensor(row_slot, device=dev).long(),
-                torch.as_tensor(row_uncond, device=dev),
-                torch.as_tensor(row_dest, device=dev).long())
-        eps, states = self._apply(states, steps, xs,
-                                  torch.as_tensor(self._scales, device=dev),
-                                  y_c, y_u, want, signal)
-        a_t = torch.as_tensor(ab_t, device=dev)[:, None, None]
-        a_n = torch.as_tensor(ab_n, device=dev)[:, None, None]
+            t_dev = dev_t(tvals)
+            labels = dev_t(self._labels).long()
+            nulls = dev_t(self._nulls).long()
+            if gather is not None:
+                row_slot, row_uncond, row_dest = gather
+                y_c, y_u = self._compact_backbone(
+                    xs, t_dev, labels, nulls, null_vecs, null_mask,
+                    dev_t(row_slot).long(), dev_t(row_uncond),
+                    dev_t(row_dest).long())
+            elif kind == "full":
+                y_c, y_u = self._backbone2(xs, t_dev, labels, nulls,
+                                           null_vecs, null_mask)
+            else:
+                y_c = self._backbone(xs, t_dev, labels)
+                y_u = torch.zeros_like(xs)
+        eps, states = self._apply(states, steps, xs, dev_t(self._scales),
+                                  dev_t(cfg_ws), y_c, y_u, want=want_c,
+                                  want_u=want_u, signal=signal)
+        a_t = dev_t(ab_t)[:, None, None]
+        a_n = dev_t(ab_n)[:, None, None]
         x0_hat = (xs - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
         return torch.sqrt(a_n) * x0_hat + torch.sqrt(1.0 - a_n) * eps, states
 
@@ -325,35 +534,48 @@ class DiffusionServingEngine:
             | {min(1 << (n - 1).bit_length(), 2 * S)
                for n in range(1, 2 * S + 1)})
 
-    def warmup(self) -> List[int]:
-        """Run the plan and every bucket's tick once on dummy operands
-        (this builds the CUDA kernels on first use and touches every batch
-        shape), so the first live ticks pay no set-up.  Returns the buckets
-        run."""
+    def warmup(self) -> List:
+        """Run the plan and every tick program once on dummy operands —
+        each bucket of the compacted engine, or the dense engine's three
+        kinds — so the kernels are built on first use and every batch shape
+        is touched before the first live tick.  Returns the buckets (or
+        kinds) run."""
         S = self.slots
         xs = torch.zeros((S, self.tokens, self.in_dim), device=self.device)
         states = stack_slots(self._fresh, S)
         steps = np.ones((S,), np.int32)   # forecast branch for interval > 1
         zf = np.zeros((S,), np.float32)
         ab = np.full((S,), 0.5, np.float32)
-        want, _, _, signal = self._plan_all(states, steps, xs, zf)
-        buckets = self._warmup_buckets()
-        for bucket in buckets:
-            row_slot = np.zeros((bucket,), np.int32)
-            row_uncond = np.zeros((bucket,), bool)
-            row_dest = np.full((bucket,), 2 * S, np.int32)
-            self._tick(states, steps, xs, zf, ab, ab, row_slot, row_uncond,
-                       row_dest, want, signal)
+        nv = torch.zeros((S, self.cfg.d_model), device=self.device)
+        nm = torch.zeros((S,), dtype=torch.bool, device=self.device)
+        want_c, want_u, _, signal = self._plan_all(states, steps, xs, zf)
+        if self.row_compaction:
+            runs = self._warmup_buckets()
+            ticks = [("full" if b else "skip",
+                      (np.zeros((b,), np.int32), np.zeros((b,), bool),
+                       np.full((b,), 2 * S, np.int32))) for b in runs]
+        else:
+            runs = ["full", "cond", "skip"]
+            ticks = [(kind, None) for kind in runs]
+        for kind, gather in ticks:
+            self._tick(kind, gather, states, steps, xs, zf, zf, ab, ab, nv,
+                       nm, want_c, want_u, signal)
         self._sync()
-        return buckets
+        return runs
 
     # ------------------------------------------------------------------
     def _check_request(self, req: DiffusionRequest) -> None:
+        """The one request-shape contract, shared by session submission and
+        slot admission."""
         if req.num_steps > self.max_steps:
             raise ValueError(f"request {req.request_id}: num_steps="
                              f"{req.num_steps} > max_steps={self.max_steps}")
         if req.null_label is not None and np.ndim(req.null_label) > 0:
-            raise _not_ported("a vector null_label (negative prompt)")
+            shape = np.shape(req.null_label)
+            if shape != (self.cfg.d_model,):
+                raise ValueError(
+                    f"request {req.request_id}: null_label vector shape "
+                    f"{shape} != (d_model={self.cfg.d_model},)")
         if req.prompt_tokens is not None or req.neg_prompt_tokens is not None:
             raise _not_ported("text prompts")
 
@@ -365,46 +587,68 @@ class DiffusionServingEngine:
         self._tv[slot, :] = 0.0
         self._tv[slot, :req.num_steps] = ts.astype(np.float32)
         self._labels[slot] = req.class_label
-        self._nulls[slot] = (self.cfg.dit_num_classes if req.null_label is None
-                             else int(req.null_label))
+        null = req.null_label
+        self._nulls[slot] = self.cfg.dit_num_classes
+        self._null_vecs[slot, :] = 0.0
+        self._null_mask[slot] = False
+        if null is not None and np.ndim(null) == 0:
+            self._nulls[slot] = int(null)
+        elif null is not None:
+            # a negative prompt overrides the class-embedding lookup on this
+            # slot's uncond rows
+            self._null_vecs[slot, :] = np.asarray(null, np.float32)
+            self._null_mask[slot] = True
         self._scales[slot] = req.cfg_scale
         self._nsteps[slot] = req.num_steps
         self._guided[slot] = req.guided
 
     def _probe_static_plan(self, policy: CachePolicy) -> Optional[np.ndarray]:
         """want_compute(None, s, None) for every step, or None when the
-        policy needs its state (or x) to decide (JAX's probe rule)."""
-        try:
-            return np.asarray([bool(policy.want_compute(None, s, None))
-                               for s in range(self.max_steps)], bool)
-        except (AttributeError, TypeError):
-            return None
+        policy needs its state (or x) to decide (JAX's probe rule: any
+        exception)."""
+        return static_plan(policy, self.max_steps)
 
     def _plan_all(self, states, steps, xs, tvals):
         """Per-slot (want_cond, want_uncond, metric, signal) before active
-        masking; the uncond mask is the guided flag (naive two-branch CFG).
-        A step-only policy is planned from the host table: no device round
-        trip, metric None.  Any other runs the fused device pass, ONE
-        device-to-host copy; its signal stays on the device for the tick."""
-        if self._static_plan is not None:
-            return (self._static_plan[steps], self._guided.copy(), None, None)
+        masking; want_uncond is masked by the guided flag.  When both
+        branches have host tables the plan costs no device round trip
+        (metric None).  Otherwise the fused device pass decides in ONE
+        device-to-host copy, a branch with a host table keeps it, and the
+        signal stays on the device for the tick."""
+        if self._static_plan is not None and self._static_cfg_plan is not None:
+            return (self._static_plan[steps],
+                    self._static_cfg_plan[steps] & self._guided, None, None)
         plan = self._want_all(states, steps, xs, tvals, self._labels,
                               self._guided)
-        return plan.want_cond, plan.want_uncond, plan.metric, plan.signal
+        wc = (plan.want_cond if self._static_plan is None
+              else self._static_plan[steps])
+        return wc, plan.want_uncond, plan.metric, plan.signal
 
     # ------------------------------------------------------------------
     def start_session(self, requests: Sequence[DiffusionRequest],
-                      telemetry: Optional[ServingTelemetry] = None
-                      ) -> ServeSession:
-        return ServeSession(self, requests, telemetry)
+                      telemetry: Optional[ServingTelemetry] = None,
+                      hooks: Optional[Sequence[TickHook]] = None,
+                      capture_latents: bool = False,
+                      modality: Optional[str] = None,
+                      metrics=None) -> ServeSession:
+        """Begin a tick-granular session (at most one per engine: the
+        per-slot tables live on the engine)."""
+        return ServeSession(self, requests, telemetry, hooks=hooks,
+                            capture_latents=capture_latents,
+                            modality=modality, metrics=metrics)
 
     def serve(self, requests: Sequence[DiffusionRequest],
               telemetry: Optional[ServingTelemetry] = None,
-              max_ticks: Optional[int] = None) -> List[DiffusionResult]:
+              max_ticks: Optional[int] = None,
+              hooks: Optional[Sequence[TickHook]] = None,
+              capture_latents: bool = False,
+              metrics=None) -> List[DiffusionResult]:
         """Run every request through the slot pool; results in request
         order.  With max_ticks, unfinished requests are recorded as
         preempted in telemetry."""
-        session = self.start_session(requests, telemetry)
+        session = self.start_session(requests, telemetry, hooks=hooks,
+                                     capture_latents=capture_latents,
+                                     metrics=metrics)
         try:
             while not session.done:
                 session.tick()

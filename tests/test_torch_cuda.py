@@ -214,6 +214,52 @@ def test_teacache_served_on_the_card_matches_the_cpu(cuda):
         assert rel <= 1e-3
 
 
+@pytest.mark.parametrize("mode", ["extrapolate", "lowfreq"])
+@pytest.mark.parametrize("compact", [True, False])
+def test_cfg_serving_card_matches_cpu(cuda, mode, compact):
+    """Guided requests (one with a negative-prompt vector) under TaylorSeer
+    with FasterCacheCFG, compacted or dense, on the card and on the CPU:
+    the same cond and uncond computed steps, x0 within 1e-3 relative."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import FasterCacheCFG
+    from repro_torch.models import init_params, perturb_zero_init
+    from repro_torch.serving.diffusion import (DiffusionRequest,
+                                               DiffusionServingEngine)
+    cfg = get_config("dit-xl").reduced(num_layers=2, d_model=128,
+                                       num_heads=4, num_kv_heads=4, d_ff=256,
+                                       dit_patch_tokens=64, dit_in_dim=8,
+                                       dit_num_classes=10)
+    gen = torch.Generator().manual_seed(3)
+    params = perturb_zero_init(init_params(gen, cfg, device="cpu"), gen)
+    vec = 0.02 * np.random.default_rng(7).standard_normal(
+        cfg.d_model).astype(np.float32)
+
+    def noise(req):
+        g = torch.Generator().manual_seed(100 + req.request_id)
+        return torch.randn((cfg.dit_tokens, cfg.dit_in_dim), generator=g)
+
+    reqs = [DiffusionRequest(i, num_steps=(8, 12)[i % 2], class_label=i,
+                             cfg_scale=3.0 if i != 2 else 0.0,
+                             null_label=vec if i == 3 else None)
+            for i in range(4)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = _to_device(params, cuda) if dev == "cuda" else params
+        eng = DiffusionServingEngine(p, cfg, "taylorseer", slots=2,
+                                     max_steps=12,
+                                     cfg_policy=FasterCacheCFG(3, 12,
+                                                               mode=mode),
+                                     row_compaction=compact, noise_fn=noise,
+                                     device=dev)
+        out[dev] = eng.serve(reqs)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.record.computed_steps == b.record.computed_steps
+        assert a.record.uncond_computed_steps == b.record.uncond_computed_steps
+        rel = float(abs(a.x0 - b.x0).max() / max(abs(b.x0).max(), 1e-6))
+        assert rel <= 1e-3
+
+
 def _to_device(tree, device):
     return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}

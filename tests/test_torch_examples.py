@@ -1,0 +1,26 @@
+"""The port's two examples run to their end on the CPU and print OK:
+`examples/torch_quickstart.py` (exact vs TaylorSeer sampling) and
+`examples/torch_serve_diffusion.py` (the SLA autotuner, per-class serving
+and the guided FasterCacheCFG pool), each at its JAX original's CPU size
+(a few seconds each here)."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("script", ["torch_quickstart.py",
+                                    "torch_serve_diffusion.py"])
+def test_example_runs_on_the_cpu(script):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / script),
+                          "--device", "cpu"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "OK"

@@ -204,8 +204,16 @@ def test_slot_batched_forecast_matches_jax_loop(basis):
 # ----------------------------------------------------------------------
 
 def test_port_imports_no_jax_and_no_repro():
+    """The port, its examples, chip_smoke.py and the tools import neither
+    JAX nor the JAX package."""
+    root = SRC.parent
+    paths = (sorted((SRC / "repro_torch").rglob("*.py"))
+             + sorted((root / "examples").glob("torch_*.py"))
+             + [root / "chip_smoke.py"]
+             + sorted((root / "tools").glob("*.py")))
+    assert len(paths) > 3 and all(p.exists() for p in paths)
     bad = []
-    for path in sorted((SRC / "repro_torch").rglob("*.py")):
+    for path in paths:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -217,7 +225,7 @@ def test_port_imports_no_jax_and_no_repro():
             for name in names:
                 top = name.split(".")[0]
                 if top in ("jax", "jaxlib", "repro"):
-                    bad.append(f"{path.relative_to(SRC)}: {name}")
+                    bad.append(f"{path.relative_to(root)}: {name}")
     assert not bad, bad
 
 

@@ -387,11 +387,10 @@ def test_registry_builds_every_name_with_jax_defaults(name):
 
 
 def test_registry_errors():
-    assert len(POLICY_REGISTRY) == 19
-    for name in ("teacache_video", "fastercache_cfg"):
-        assert name in NOT_PORTED
-        with pytest.raises(KeyError, match="ROADMAP.md"):
-            make_policy(name)
+    assert len(POLICY_REGISTRY) == 20
+    assert set(NOT_PORTED) == {"teacache_video"}
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        make_policy("teacache_video")
     with pytest.raises(KeyError, match="unknown"):
         make_policy("no-such-policy")
     with pytest.raises(ValueError, match="gate"):

@@ -134,17 +134,14 @@ def test_compact_rows_matches_jax(want_c, want_u, slots):
 def test_unported_options_raise(setup):
     _, tcfg, _, tp = setup
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DiffusionServingEngine(tp, tcfg, "none", row_compaction=False,
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DiffusionServingEngine(tp, tcfg, "none", cfg_policy="fastercache_cfg",
+        DiffusionServingEngine(tp, tcfg, "none", conditioner=object(),
                                device="cpu")
     with pytest.raises(KeyError, match="ROADMAP.md"):
         make_policy("teacache_video")
     eng = DiffusionServingEngine(tp, tcfg, "none", slots=1, device="cpu")
-    vec = np.zeros((tcfg.d_model,), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.serve([DiffusionRequest(0, 4, cfg_scale=2.0, null_label=vec)])
+        eng.serve([DiffusionRequest(0, 4, cfg_scale=2.0,
+                                    neg_prompt_tokens="blurry")])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DiffusionServingEngine(tp, tcfg, "none")
