@@ -13,16 +13,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
   3. flash    the flash-attention kernel against its plain version at the
               DiT-XL shape (f32 and bf16), a causal GQA shape with a window,
               a ragged shape, a q-at-the-tail shape, the zamba2-2.7b
-              prefill shape (bf16, head dim 80) and an odd head dim at a
-              misaligned storage offset; kernel, plain and
-              scaled_dot_product_attention (yardstick only) times, and the
-              CUDA kernels SDPA runs at each shape with their device time;
-              at the zamba2 shape also SDPA with is_causal
+              prefill shape (bf16, head dim 80), an odd head dim at a
+              misaligned storage offset, and the dit-video spatial (B 32 x
+              256) and temporal (B 512 x 16) and dit-audio (B 2 x 256, head
+              dim 64) shapes in f32, these three gated at 2e-5 with a
+              one-pass TF32 control that the gate must reject; kernel,
+              plain and scaled_dot_product_attention (yardstick only)
+              times, and the CUDA kernels SDPA runs at each shape with
+              their device time; at the zamba2 shape also SDPA with
+              is_causal
   4. forecast the forecast kernel against its plain version, batched over
               serving slots and unbatched at a block-sized shape, f32 and
-              bf16, taylor, hermite and foca coefficients (n_valid 0-3),
-              through `forecast` and through the fused `forecast_basis`; per-call times of
-              `forecast` beside torch.bmm and of `forecast_basis` beside
+              bf16, and at the video pool's (2, 3, 65536) and the audio
+              pool's (2, 3, 20480) in f32; taylor, hermite and foca
+              coefficients (n_valid 0-3), through `forecast` and through
+              the fused `forecast_basis`; per-call times of `forecast`
+              beside torch.bmm and of `forecast_basis` beside
               basis_coeffs + forecast; one skip tick's operators and
               kernels under the profiler
   5. ssd      the SSD scan kernels (C B^T pass and scan) against their plain
@@ -72,18 +78,43 @@ Phases, in order; any failure exits non-zero and prints no result line:
               class's pick, PSNR (against the exact trajectory on random
               weights: no quality measure), compute fraction, req/s and
               latency p50/p95, the pool's tick mix and saved uncond rows
-  12. serve-llm full-width zamba2-2.7b (54 Mamba2 layers, 9 shared attention
+  12. serve-video full-width, full-depth dit-video (28 layers, d_model 1152,
+              16 frames x 256 patches, bf16 params from seed 0, AdaLN gates
+              perturbed) behind DiffusionServingEngine(slots=2,
+              max_steps=16), 4 unguided requests of 8 and 16 steps, under
+              TaylorSeer (forecast kernel on its skip ticks) and then
+              teacache_video (frames 16, max; the device want pass with 1
+              DtoH a tick, counted from the profiler); 56 flash launches per
+              backbone pass (28 spatial + 28 temporal); req/s, latency,
+              ticks by kind, rows, peak memory, idle share
+  13. denoise-video CachedDenoiser on the same model, batch 1, 16 DDIM
+              steps: exact, pab_video, block under FORA 2, deepcache under
+              Δ-DiT 2 (shallow_n 4); ms per step, compute fraction, relative
+              L2 error of x0 against exact
+  14. check-video dit-video SMOKE on the card and on the CPU from the same
+              weights: served under teacache_video and TaylorSeer (the same
+              decisions and tick kinds, x0 within 1e-3 relative), and
+              CachedDenoiser under pab_video, block and deepcache (x0 within
+              1e-3 relative)
+  15. serve-mixed examples/torch_mixed_modality_serving.py's `run` on
+              full-width dit-xl, dit-video and dit-audio: autotune per
+              modality (the video sweep adds teacache_video), then the
+              example's 9 requests through MixedModalityEngine, 2 slots a
+              pool, image requests guided under FasterCacheCFG(4, 12);
+              each pool's pick, autotune seconds, req/s, rows and
+              token-weighted rows, latency
+  16. serve-llm full-width zamba2-2.7b (54 Mamba2 layers, 9 shared attention
               applications, bf16 params, random weights from a seed) behind
               ServingEngine, 4 slots, 8 greedy requests of 64-500 prompt
               tokens, 32 new tokens each; every logit finite, SSD launched
               54 times and flash 9 times per prefill; tok/s, prefill ms,
               decode ms per step, peak memory, device time by kernel
-  13. check-llm the zamba2 SMOKE config served on the card (kernels) and on
+  17. check-llm the zamba2 SMOKE config served on the card (kernels) and on
               the CPU (plain versions) from the same weights and prompts
               must give the same tokens and close logits
 
 Each served phase sets every launch count to 0 just before it and reads the
-counts just after.  It then prints a `kernels` JSON line, the card's name
+counts just after; every phase logs its wall seconds.  It then prints a `kernels` JSON line, the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Needs
 one CUDA card; it imports nothing of JAX.
 
@@ -94,6 +125,7 @@ flash kernel).
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import shutil
@@ -117,6 +149,11 @@ PEAK_FLOPS = {"float32": 67e12,  # f32 outside the tensor cores
               "bf16_x_f32_2xtf32": 495e12 / 2}
 SSD_KERNELS = ("ssd_cb_kernel", "ssd_scan_kernel")   # one ssd_scan call
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # flash: max |kernel - plain|
+# flash at the video and audio DiTs' shapes: a few times the largest error
+# of sound runs (5.96e-6 spatial, 3.34e-6 temporal), below what a one-pass
+# TF32 kernel gives there (tf32_control, logged and checked per case)
+CASE_TOL = {"dit-video spatial": 2e-5, "dit-video temporal": 2e-5,
+            "dit-audio": 2e-5}
 SSD_TOL = dict(atol=2e-4, rtol=1e-3)       # ssd: chunk invariance
 LLM_LOGIT_TOL = 1e-4                       # check-llm: f32 logits, card vs CPU
 
@@ -183,6 +220,22 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _tf32(torch, x):
+    """x (f32) rounded to the nearest TF32 value (10 mantissa bits)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_control(torch, q, k, v):
+    """Non-causal attention with each product's operands rounded once to
+    TF32 (q, k; P, v) and summed in f32: what the flash kernel would give
+    with one TF32 pass in place of its 3xTF32 split."""
+    scale = q.shape[-1] ** -0.5
+    qt, kt, vt = (_tf32(torch, t.float().transpose(1, 2)) for t in (q, k, v))
+    p = torch.softmax(qt @ kt.transpose(-1, -2) * scale, dim=-1)
+    return (_tf32(torch, p) @ vt).transpose(1, 2)
+
+
 def phase_flash(torch, F):
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     cases = [  # name, B, Sq, Sk, H, KH, D, causal, window, dtype, offset
@@ -194,6 +247,13 @@ def phase_flash(torch, F):
         ("zamba2 prefill", 4, 512, 512, 32, 32, 80, True, 0, "bfloat16", 0),
         # 72-byte rows at a 4-byte storage offset: element-by-element staging
         ("odd d, misaligned", 2, 100, 160, 4, 2, 18, True, 48, "float32", 1),
+        # the video and audio DiTs' shapes (serve-video's 2 rows): spatial
+        # B*F sequences of P = 256, temporal B*P sequences of F = 16
+        ("dit-video spatial", 32, 256, 256, 16, 16, 72, False, 0, "float32",
+         0),
+        ("dit-video temporal", 512, 16, 16, 16, 16, 72, False, 0, "float32",
+         0),
+        ("dit-audio", 2, 256, 256, 12, 12, 64, False, 0, "float32", 0),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -214,7 +274,12 @@ def phase_flash(torch, F):
         if out.dtype != dtype or out.shape != q.shape:
             fail(f"flash {name}: got {out.dtype} {tuple(out.shape)}")
         err = float((out.float() - ref.float()).abs().max())
-        ok = err <= TOL[dt]
+        tol = CASE_TOL.get(name, TOL[dt])
+        ok = err <= tol
+        control = None
+        if name in CASE_TOL:
+            control = float((tf32_control(torch, q, k, v)
+                             - ref.float()).abs().max())
         ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=causal,
                                                     window=window))
         dev_ms = device_ms(torch, lambda: flash_attention(
@@ -242,18 +307,30 @@ def phase_flash(torch, F):
         b_ms, by = bound(nbytes, 4.0 * B * H * pairs * D, peak)
         log(f"flash {name}: B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} D={D} "
             f"causal={causal} window={window} {dt}: max_abs_err={err:.3e} "
-            f"(tol {TOL[dt]}) ms={ms:.4f} device_ms={dev_ms} "
+            f"(tol {tol}) ms={ms:.4f} device_ms={dev_ms} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({by})")
         kernels, sdpa_dev_ms = sdpa_kernels(torch, sdpa)
         log(f"flash {name}: sdpa device_ms={sdpa_dev_ms:.4f} runs {kernels}")
         if not ok:
-            fail(f"flash {name}: max_abs_err {err} > {TOL[dt]}")
+            fail(f"flash {name}: max_abs_err {err} > {tol}")
+        if control is not None:
+            log(f"flash {name}: one-pass TF32 control max_abs_err="
+                f"{control:.3e} (must exceed the gate {tol})")
+            if not control > tol:
+                fail(f"flash {name}: the gate {tol} does not reject one-pass "
+                     f"TF32 ({control:.3e})")
         if report is None:       # the DiT main path's shape and type
             report = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
                       "device_ms": dev_ms, "shape": name,
                       "tolerance": f"{TOL[dt]} abs"}
+        if name.startswith("dit-video") or name == "dit-audio":
+            report[name] = {"ms": ms, "device_ms": dev_ms,
+                            "max_abs_err": err, "tolerance": f"{tol} abs",
+                            "tf32_control_err": control, "bound_ms": b_ms,
+                            "bound_by": by, "library_ms": lib_ms,
+                            "library_device_ms": sdpa_dev_ms}
         if name == "zamba2 prefill":   # the same function as is_causal
             def sdpa_causal():
                 return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
@@ -287,14 +364,19 @@ def phase_forecast(torch, slots: int):
                                               forecast_basis, forecast_ref)
     gen = torch.Generator(device="cuda").manual_seed(1)
     interval = 4
-    cases = [  # name, batch (None = unbatched), m+1, N
-        ("serving main path", slots, 3, 256 * 16),
-        ("serving 8 slots", 8, 3, 256 * 16),
-        ("block-sized", None, 3, 256 * 1152),
+    both = ("float32", "bfloat16")
+    cases = [  # name, batch (None = unbatched), m+1, N, dtypes
+        ("serving main path", slots, 3, 256 * 16, both),
+        ("serving 8 slots", 8, 3, 256 * 16, both),
+        ("block-sized", None, 3, 256 * 1152, both),
+        # serve-video's pool (2 slots of 4096 tokens x 16 channels) and
+        # serve-mixed's audio pool (2 slots of 256 tokens x 80), f32 latents
+        ("dit-video pool", 2, 3, 4096 * 16, ("float32",)),
+        ("dit-audio pool", 2, 3, 256 * 80, ("float32",)),
     ]
     report, foca = None, []
-    for name, batch, m1, n in cases:
-        for dt in ("float32", "bfloat16"):
+    for name, batch, m1, n, dtypes in cases:
+        for dt in dtypes:
             for basis in ("taylor", "hermite", "foca"):
                 dtype = getattr(torch, dt)
                 lead = (m1,) if batch is None else (batch, m1)
@@ -371,6 +453,14 @@ def phase_forecast(torch, slots: int):
                               "chain_ms": chain_ms,
                               "shape": f"{name} {tuple(d.shape)} {dt}",
                               "tolerance": f"{tol:.3e} abs"}
+                if name.endswith(" pool") and basis == "taylor":
+                    report[name] = {"ms": ms, "device_ms": dev_ms,
+                                    "fused_ms": fused_ms,
+                                    "fused_device_ms": fused_dev_ms,
+                                    "max_abs_err": max(err, err_f),
+                                    "bound_ms": b_ms, "bound_by": by,
+                                    "plain_ms": plain_ms,
+                                    "library_ms": lib_ms}
 
     report["foca_worst_err_over_tol"] = max(foca)
     # one skip tick of the policy (no slot computes) under the profiler
@@ -655,7 +745,11 @@ def drive(eng, reqs, record: bool = False):
         while not session.done:
             session.tick()
     finally:
-        eng._plan_all, eng._want_all = plan, want_all
+        # back to the class's method: an instance attribute holding the
+        # bound method would make a cycle that keeps the engine (and its
+        # params) alive until the next garbage collection
+        del eng._plan_all
+        eng._want_all = want_all
     return session.finish(), log
 
 
@@ -707,7 +801,7 @@ def plan_readbacks(torch, eng, reqs):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        eng._plan_all = plan
+        del eng._plan_all           # the class's method again (see drive)
     evts = prof.events()
 
     def in_plan(e):
@@ -949,7 +1043,6 @@ def phase_serve_cfg(torch, kernels, path, params, cfg):
     from repro_torch.core import FasterCacheCFG, make_policy
     from repro_torch.obs import MetricsRegistry
     from repro_torch.serving.diffusion import DiffusionServingEngine
-    t_phase = time.perf_counter()
 
     def engine(**kw):
         eng = DiffusionServingEngine(
@@ -1063,7 +1156,6 @@ def phase_serve_cfg(torch, kernels, path, params, cfg):
         f"plan_seconds {hook_ms:.4f} ms a tick (wrapper {plan_ms:.4f})")
     del eng
     torch.cuda.empty_cache()
-    log(f"serve-cfg: phase wall {time.perf_counter() - t_phase:.2f}s")
     return launches
 
 
@@ -1079,7 +1171,6 @@ def phase_check_cfg(torch):
     from repro_torch.models import init_params, perturb_zero_init
     from repro_torch.serving.diffusion import (DiffusionRequest,
                                                DiffusionServingEngine)
-    t_phase = time.perf_counter()
     cfg = get_config("dit-xl").reduced(num_layers=3, d_model=128, num_heads=4,
                                        num_kv_heads=4, d_ff=256,
                                        dit_patch_tokens=64, dit_in_dim=8,
@@ -1145,7 +1236,6 @@ def phase_check_cfg(torch):
             f"{extra}")
         if not worst <= 1e-3:
             fail(f"check-cfg {label}: card and CPU disagree (rel err {worst})")
-    log(f"check-cfg: phase wall {time.perf_counter() - t_phase:.2f}s")
 
 
 def phase_serve_diffusion(torch, kernels, path, params, cfg):
@@ -1153,7 +1243,6 @@ def phase_serve_diffusion(torch, kernels, path, params, cfg):
     class, per-class serving, the guided FasterCacheCFG pool) on full-width
     DiT-XL, through the example's own `run`."""
     import importlib.util
-    t_phase = time.perf_counter()
     spec = importlib.util.spec_from_file_location(
         "torch_serve_diffusion", ROOT / "examples" / "torch_serve_diffusion.py")
     example = importlib.util.module_from_spec(spec)
@@ -1180,7 +1269,307 @@ def phase_serve_diffusion(torch, kernels, path, params, cfg):
         f"{out['autotune_s']:.2f}s wall; launches {launches}")
     if g["uncond_rows_saved"] <= 0:
         fail("serve-diffusion: the guided pool saved no uncond row")
-    log(f"serve-diffusion: phase wall {time.perf_counter() - t_phase:.2f}s")
+    return launches
+
+
+# serve-video: teacache_video's threshold at full width, chosen so that the
+# slots diverge (some ticks gather fewer rows than there are active slots)
+VIDEO_DELTA = 0.5
+# check-video (dit-video SMOKE): splits the requests' steps with every
+# thresholded decision of the CPU reference >= MARGIN from it
+CHECK_VIDEO_DELTA = 0.2
+
+
+def full_video(torch):
+    """serve-video's model: full-width, full-depth dit-video (28 layers,
+    d_model 1152, 16 frames x 256 patches), bf16 params, random weights
+    from seed 0 with the AdaLN gates perturbed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, perturb_zero_init
+    cfg = get_config("dit-video")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, perturb_zero_init(init_params(gen, cfg, device="cuda"), gen)
+
+
+def video_requests(cfg):
+    """serve-video's traffic: 4 unguided requests, budgets 8 and 16."""
+    from repro_torch.serving.diffusion import DiffusionRequest
+    return [DiffusionRequest(i, num_steps=(8, 16)[i % 2], seed=i,
+                             class_label=(37 * i) % cfg.dit_num_classes,
+                             modality="video")
+            for i in range(4)]
+
+
+def phase_serve_video(torch, kernels, flash, forecast, params, cfg):
+    """Full-width dit-video behind DiffusionServingEngine(slots=2,
+    max_steps=16): TaylorSeer (forecast kernel on its skip ticks), then
+    teacache_video (frames 16, max; the device want pass, 1 DtoH a tick)."""
+    from repro_torch.core import make_policy
+    from repro_torch.serving.diffusion import DiffusionServingEngine
+    reqs = video_requests(cfg)
+    passes = 2 * cfg.num_layers      # flash: spatial + temporal per layer
+    out = {}
+    for name, kw, path in (
+            ("taylorseer", {"interval": 4, "order": 2}, (flash, forecast)),
+            ("teacache_video", {"delta": VIDEO_DELTA, "frames": 16,
+                                "reduce": "max"}, (flash,))):
+        phase = f"serve-video-{name}"
+        pol = make_policy(name, num_steps=16, **kw)
+        eng = DiffusionServingEngine(params, cfg, pol, slots=2, max_steps=16,
+                                     device="cuda")
+        t0 = time.perf_counter()
+        buckets = eng.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (res, trace), launches = _count_launches(
+            kernels, path, phase, lambda: drive(eng, reqs, record=True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if len(res) != len(reqs):
+            fail(f"{phase}: {len(res)} of {len(reqs)} requests finished")
+        for r in res:
+            if r.x0.shape != (cfg.dit_tokens, cfg.dit_in_dim) or \
+                    not math.isfinite(float(abs(r.x0).max())):
+                fail(f"{phase}: request {r.request_id} x0 {r.x0.shape} not "
+                     f"finite or misshapen")
+        check_rows(phase, res, reqs, trace)
+        s, tel = eng.telemetry.summary(), eng.telemetry
+        per_pass = launches["flash_attention"] / max(tel.ticks_backbone, 1)
+        if launches["flash_attention"] != passes * tel.ticks_backbone:
+            fail(f"{phase}: {launches['flash_attention']} flash launches in "
+                 f"{tel.ticks_backbone} backbone passes, want {passes} each")
+        extra = ""
+        if name == "taylorseer":
+            for r, req in zip(res, reqs):
+                want = sum(pol.static_schedule(req.num_steps))
+                if r.record.computed_steps != want:
+                    fail(f"{phase}: request {r.request_id} computed "
+                         f"{r.record.computed_steps}, schedule says {want}")
+        else:
+            vals = sorted(float(p.value[i]) for a, p in trace["plans"]
+                          for i in range(len(a)) if a[i] and not p.forced[i])
+            margin = least_margin(trace)
+            extra = (f"delta {VIDEO_DELTA}: {trace['split']} ticks gathered "
+                     f"fewer cond rows than active slots; thresholded values "
+                     f"min {vals[0]:.4f} median {vals[len(vals) // 2]:.4f} "
+                     f"max {vals[-1]:.4f}, least margin {margin}; ")
+            if s["backbone_rows_saved"] <= 0 or trace["split"] == 0:
+                fail(f"{phase}: at delta {VIDEO_DELTA} no row saved or no "
+                     f"tick split the slots ({extra})")
+        plan_ms = 1e3 * sum(trace["plan_s"]) / len(trace["plan_s"])
+        log(f"{phase}: {kw} {extra}{s['requests']} requests in "
+            f"{wall:.3f}s wall (warmup {warm_s:.2f}s, buckets {buckets}), "
+            f"throughput_rps={s['throughput_rps']:.4f} "
+            f"latency_p50_s={s['latency_p50_s']:.3f} "
+            f"latency_p95_s={s['latency_p95_s']:.3f} ticks={s['ticks']} "
+            f"(full {tel.ticks_full}, cond {tel.ticks_cond}, skip "
+            f"{tel.ticks_skip}) "
+            f"tick_ms_backbone_mean={s['tick_ms_backbone_mean']:.3f} "
+            f"tick_ms_skip_mean={s['tick_ms_skip_mean']:.3f} "
+            f"backbone_rows_computed={s['backbone_rows_computed']} "
+            f"backbone_rows_padding={s['backbone_rows_padding']} "
+            f"backbone_rows_saved={s['backbone_rows_saved']} "
+            f"computed_steps={[r.record.computed_steps for r in res]} "
+            f"flash_per_backbone_pass={per_pass:g} (want {passes}) "
+            f"forecast_launches={launches['forecast']} "
+            f"plan_host_ms_per_tick={plan_ms:.4f} peak_mem_gb={peak:.2f} "
+            f"cache_state_bytes_per_slot={s['cache_state_bytes_per_slot']} "
+            f"launches {launches}")
+        if name == "taylorseer":
+            log_profile(torch, phase, lambda: eng.serve(reqs))
+        else:
+            rb = plan_readbacks(torch, eng, reqs)
+            log(f"{phase}: plan DtoH copies {rb['dtoh_in_plan']} in "
+                f"{rb['plan_calls']} plan calls over {rb['ticks']} ticks "
+                f"({rb['dtoh_total']} DtoH in all, by operator "
+                f"{rb['dtoh_by_op']}); idle_share={rb['idle_share']:.3f} "
+                f"(profiled wall {rb['wall_ms']:.1f} ms, device kernels "
+                f"{rb['busy_ms']:.1f} ms)")
+            if rb["dtoh_in_plan"] != rb["ticks"]:
+                fail(f"{phase}: {rb['dtoh_in_plan']} device-to-host copies "
+                     f"in the plan over {rb['ticks']} ticks, want 1 a tick")
+        out[phase] = launches
+        del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_denoise_video(torch, kernels, flash, params, cfg):
+    """CachedDenoiser on full-width dit-video, batch 1, 16 DDIM steps:
+    exact, pab_video (default ranges), block under FORA 2, deepcache under
+    Δ-DiT 2 with shallow_n 4; ms per step, compute fraction, relative L2
+    error of x0 against exact."""
+    from repro_torch.core import compute_fraction, make_policy
+    from repro_torch.diffusion import (CachedDenoiser, ddim_step,
+                                       linear_schedule, sample)
+    sched = linear_schedule(1000)
+    ts = sched.spaced(16)
+    xT = torch.randn((1, cfg.dit_tokens, cfg.dit_in_dim),
+                     generator=torch.Generator(device="cuda").manual_seed(7),
+                     device="cuda")
+    cases = [("exact", "model", None, {}),
+             ("pab_video", "pab_video", None, {}),
+             ("block fora 2", "block", "fora", {"interval": 2}),
+             ("deepcache delta_dit 2", "deepcache", "delta_dit",
+              {"interval": 2})]
+    exact, total = None, {k.__name__: 0 for k in kernels}
+    for label, gran, name, kw in cases:
+        pol = make_policy(name, **kw) if name else None
+        den = CachedDenoiser(params, cfg, pol, granularity=gran, shallow_n=4,
+                             device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (x0, _), launches = _count_launches(
+            kernels, (flash,), f"denoise-video {label}",
+            lambda: sample(den, xT, ts, sched, step_fn=ddim_step,
+                           denoiser_state=den.init_state(1)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(ts)
+        for k, n in launches.items():
+            total[k] += n
+        if not bool(torch.isfinite(x0).all()):
+            fail(f"denoise-video {label}: x0 not finite")
+        # the fraction of branch (pab_video) or block evaluations run
+        L = cfg.num_layers
+        if gran == "pab_video":
+            cf = den._stack.compute_fraction(len(ts))
+        elif gran == "model":
+            cf = 1.0
+        else:
+            cf = compute_fraction(pol.static_schedule(len(ts)))
+            if gran == "deepcache":       # the shallow blocks always run
+                sh = min(den.shallow_n, L)
+                cf = (sh + (L - sh) * cf) / L
+        if exact is None:
+            exact, err = x0, 0.0
+        else:
+            err = float(torch.linalg.vector_norm(x0 - exact)
+                        / torch.linalg.vector_norm(exact))
+        log(f"denoise-video {label}: {len(ts)} DDIM steps, batch 1, "
+            f"ms_per_step={ms:.2f} compute_fraction={cf:.4f} "
+            f"rel_l2_err_vs_exact={err:.4e} "
+            f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+            f"launches {launches}")
+        del den
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_check_video(torch):
+    """dit-video SMOKE with the same weights on the card (kernels) and the
+    CPU (plain versions): served under teacache_video and TaylorSeer (the
+    same decisions and tick kinds, x0 within 1e-3 relative), then
+    CachedDenoiser under pab_video, block and deepcache (x0 within 1e-3
+    relative)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import make_policy
+    from repro_torch.diffusion import (CachedDenoiser, ddim_step,
+                                       linear_schedule, sample)
+    from repro_torch.models import init_params, perturb_zero_init
+    from repro_torch.serving.diffusion import (DiffusionRequest,
+                                               DiffusionServingEngine)
+    cfg = get_smoke_config("dit-video")
+    gen = torch.Generator().manual_seed(3)
+    cpu_params = perturb_zero_init(init_params(gen, cfg, device="cpu"), gen)
+    gpu_params = _to(cpu_params, "cuda")
+
+    def noise(req):
+        g = torch.Generator().manual_seed(100 + req.request_id)
+        return torch.randn((cfg.dit_tokens, cfg.dit_in_dim), generator=g)
+
+    reqs = [DiffusionRequest(i, num_steps=(8, 12)[i % 2], class_label=i,
+                             cfg_scale=3.0 if i == 1 else 0.0)
+            for i in range(3)]
+    for name, kw in (("teacache_video", {"delta": CHECK_VIDEO_DELTA}),
+                     ("taylorseer", {})):
+        out = {}
+        for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
+            eng = DiffusionServingEngine(
+                p, cfg, make_policy(name, num_steps=12, frames=4, **kw),
+                slots=2, max_steps=12, noise_fn=noise, device=dev)
+            out[dev] = drive(eng, reqs, record=True)
+        (gres, glog), (cres, clog) = out["cuda"], out["cpu"]
+        margin = least_margin(clog)
+        if margin is not None and margin < MARGIN:
+            fail(f"check-video {name}: a decision of the CPU reference lies "
+                 f"{margin:.3e} relative from its threshold (< {MARGIN})")
+        steps = {d: [r.record.computed_steps for r in out[d][0]] for d in out}
+        if steps["cuda"] != steps["cpu"] or glog["kinds"] != clog["kinds"]:
+            fail(f"check-video {name}: card and CPU decide differently: "
+                 f"computed steps {steps}, tick kinds {glog['kinds']} vs "
+                 f"{clog['kinds']}")
+        worst = rel_err(gres, cres)
+        kinds = clog["kinds"]
+        log(f"check-video {name}: dit-video SMOKE served on the card vs the "
+            f"CPU: computed steps {steps['cpu']} identical, {len(kinds)} "
+            f"tick kinds identical (full {kinds.count('full')}, cond "
+            f"{kinds.count('cond')}, skip {kinds.count('skip')}), least "
+            f"margin {margin}, max rel err {worst:.3e} (tol 1e-3)")
+        if not worst <= 1e-3:
+            fail(f"check-video {name}: card and CPU disagree ({worst})")
+    sched = linear_schedule(1000)
+    xT = noise(reqs[0])[None]
+    for gran, name, kw in (("pab_video", None, {}),
+                           ("block", "fora", {"interval": 2}),
+                           ("deepcache", "delta_dit", {"interval": 2})):
+        x0 = {}
+        for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
+            den = CachedDenoiser(p, cfg, make_policy(name, **kw) if name
+                                 else None, granularity=gran, shallow_n=1,
+                                 device=dev)
+            x0[dev], _ = sample(den, xT.to(dev), sched.spaced(8), sched,
+                                step_fn=ddim_step,
+                                denoiser_state=den.init_state(1))
+        worst = float((x0["cuda"].cpu() - x0["cpu"]).abs().max()
+                      / x0["cpu"].abs().max())
+        log(f"check-video CachedDenoiser {gran}: 8 DDIM steps on the card "
+            f"vs the CPU, max rel err {worst:.3e} (tol 1e-3)")
+        if not worst <= 1e-3:
+            fail(f"check-video {gran}: card and CPU disagree ({worst})")
+
+
+def phase_serve_mixed(torch, kernels, path, workloads):
+    """examples/torch_mixed_modality_serving.py's steps (autotune per
+    modality, the mixed image + video + audio pool, the example's traffic)
+    on full-width dit-xl, dit-video and dit-audio, through its `run`."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_mixed_modality_serving",
+        ROOT / "examples" / "torch_mixed_modality_serving.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out, launches = _count_launches(
+        kernels, path, "serve-mixed",
+        lambda: example.run(workloads,
+                            log=lambda m: log(f"serve-mixed: {m.strip()}")))
+    tel = out["engine"].telemetry
+    s = tel.summary()
+    for m, t in out["tuned"].items():
+        ms = tel.by_modality()[m]
+        log(f"serve-mixed: {m}: picked {t.policy_name} {t.kwargs} "
+            f"psnr={t.psnr:.4f} dB (agreement with the exact trajectory on "
+            f"random weights) compute_fraction={t.compute_fraction:.4f} "
+            f"autotune_s={out['autotune_s'][m]:.2f}; served "
+            f"requests={ms['requests']} "
+            f"throughput_rps={ms['throughput_rps']:.4f} "
+            f"latency_p50_s={ms['latency_p50_s']:.4f} "
+            f"latency_p95_s={ms['latency_p95_s']:.4f} "
+            f"backbone_rows_computed={ms['backbone_rows_computed']} "
+            f"backbone_rows_saved={ms['backbone_rows_saved']} "
+            f"row_tokens={tel.row_tokens[m]} ticks={ms['ticks']}")
+    log(f"serve-mixed: {s['requests']} requests in {s['elapsed_s']:.3f}s, "
+        f"throughput_rps={s['throughput_rps']:.4f} "
+        f"backbone_rows_computed={s['backbone_rows_computed']} "
+        f"backbone_rows_saved={s['backbone_rows_saved']} "
+        f"backbone_tokens_computed={s['backbone_tokens_computed']} "
+        f"backbone_tokens_saved={s['backbone_tokens_saved']} "
+        f"rows_by_modality={s['rows_by_modality']} launches {launches}")
+    if s["requests"] != 9:
+        fail(f"serve-mixed: {s['requests']} of 9 requests finished")
     return launches
 
 
@@ -1330,6 +1719,14 @@ def phase_check_llm(torch):
         fail(f"check-llm: logits differ by {err}")
 
 
+def timed(name, fn, *args):
+    """fn(*args), logging the phase's wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"{name}: phase wall {time.perf_counter() - t0:.2f}s")
+    return out
+
+
 def log_hmma(lib: Path) -> None:
     """Count the tensor-core instructions (HMMA) of each flash and SSD
     kernel in the built library's SASS, where the toolkit has cuobjdump."""
@@ -1371,6 +1768,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 references
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
@@ -1389,29 +1787,48 @@ def main() -> int:
     log_hmma(lib)
 
     flash_attention, forecast, ssd_scan = KERNELS
-    flash = phase_flash(torch, F)
+    flash = timed("flash", phase_flash, torch, F)
     if "--flash-only" in sys.argv[1:]:
         log(card)
         return 0
-    fc = phase_forecast(torch, slots=4)
-    ssd = phase_ssd(torch)
+    fc = timed("forecast", phase_forecast, torch, 4)
+    ssd = timed("ssd", phase_ssd, torch)
     by_path = {}
-    by_path["serve"], fc["serve_skip_tick_ms"] = phase_serve(
-        torch, KERNELS, (flash_attention, forecast))
-    by_path.update(phase_serve_adaptive(torch, KERNELS, flash_attention,
-                                        forecast))
-    phase_check(torch)
+    by_path["serve"], fc["serve_skip_tick_ms"] = timed(
+        "serve", phase_serve, torch, KERNELS, (flash_attention, forecast))
+    by_path.update(timed("serve-adaptive", phase_serve_adaptive, torch,
+                         KERNELS, flash_attention, forecast))
+    timed("check", phase_check, torch)
     dit_cfg, dit_params = full_dit(torch)
-    by_path["serve-cfg"] = phase_serve_cfg(
-        torch, KERNELS, (flash_attention, forecast), dit_params, dit_cfg)
-    phase_check_cfg(torch)
-    by_path["serve-diffusion"] = phase_serve_diffusion(
-        torch, KERNELS, (flash_attention,), dit_params, dit_cfg)
-    del dit_params
+    by_path["serve-cfg"] = timed(
+        "serve-cfg", phase_serve_cfg, torch, KERNELS,
+        (flash_attention, forecast), dit_params, dit_cfg)
+    timed("check-cfg", phase_check_cfg, torch)
+    by_path["serve-diffusion"] = timed(
+        "serve-diffusion", phase_serve_diffusion, torch, KERNELS,
+        (flash_attention,), dit_params, dit_cfg)
+    # slice 7: the video and audio DiTs, the temporal policies, the
+    # structural granularities and the mixed-modality pool
+    from repro_torch.modalities import make_workload
+    video_cfg, video_params = timed("init dit-video", full_video, torch)
+    by_path.update(timed("serve-video", phase_serve_video, torch, KERNELS,
+                         flash_attention, forecast, video_params, video_cfg))
+    by_path["denoise-video"] = timed(
+        "denoise-video", phase_denoise_video, torch, KERNELS,
+        flash_attention, video_params, video_cfg)
+    timed("check-video", phase_check_video, torch)
+    workloads = {
+        "image": make_workload("image", cfg=dit_cfg, params=dit_params),
+        "video": make_workload("video", cfg=video_cfg, params=video_params),
+        "audio": make_workload("audio", seed=0, device="cuda")}
+    by_path["serve-mixed"] = timed("serve-mixed", phase_serve_mixed, torch,
+                                   KERNELS, (flash_attention,), workloads)
+    del dit_params, video_params, workloads
+    gc.collect()         # nothing of the DiT phases counts in serve-llm's peak
     torch.cuda.empty_cache()
-    by_path["serve-llm"] = phase_serve_llm(torch, KERNELS,
-                                           (flash_attention, ssd_scan))
-    phase_check_llm(torch)
+    by_path["serve-llm"] = timed("serve-llm", phase_serve_llm, torch,
+                                 KERNELS, (flash_attention, ssd_scan))
+    timed("check-llm", phase_check_llm, torch)
 
     rows = []
     for name, fn, src, replaces, rep in (
@@ -1436,6 +1853,7 @@ def main() -> int:
                      **{k: v for k, v in rep.items() if k not in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms")}})
+    log(f"chip_smoke: total wall {time.perf_counter() - t_start:.2f}s")
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

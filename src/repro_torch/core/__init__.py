@@ -2,22 +2,28 @@
 
 Taxonomy map (survey Fig. 2), as in the JAX `repro.core`:
   Static            : FixedIntervalPolicy (FORA), DeltaCachePolicy (Δ-DiT),
-                      PABPolicy, FasterCacheCFG (CFG-branch reuse)
-  Timestep-adaptive : TeaCachePolicy, MagCachePolicy, EasyCachePolicy
-  Layer-adaptive    : BlockCachePolicy, ForesightPolicy
+                      PABPolicy, FasterCacheCFG (CFG-branch reuse),
+                      DeepCache (structural — see
+                      repro_torch.diffusion.pipeline)
+  Timestep-adaptive : TeaCachePolicy, MagCachePolicy, EasyCachePolicy,
+                      TemporalTeaCachePolicy (per-frame, video)
+  Layer-adaptive    : BlockCachePolicy, ForesightPolicy, DBCacheStack
   Predictive        : PredictivePolicy (taylor, newton, hermite, ab, foca),
                       FreqCaPolicy
   Hybrid            : ClusCaPolicy, SpeCaPolicy
   Token-wise        : ToCaPolicy
   Learned           : LazyDiTPolicy (inference; gate training is §A.5)
+  Stack-structural  : CachedStack (block granularity), DBCacheStack,
+                      TemporalPABStack (PAB over the video branches)
 
-Not ported yet: teacache_video (ROADMAP.md §A.3) and the stack-structural
-methods; their names raise KeyError pointing at ROADMAP.md.
+`make_policy` builds every name of the JAX registry; the stack-structural
+methods own the layer loop and are built directly (STRUCTURAL_POLICIES).
 """
 from .adaptive import (BlockCachePolicy, EasyCachePolicy, ForesightPolicy,
                        GatedPolicy, MagCachePolicy, TeaCachePolicy)
-from .engine import (CachedModule, SlotBatchedPolicy, cache_state_bytes,
-                     stack_slots)
+from .engine import (CachedModule, CachedStack, DBCacheStack,
+                     SlotBatchedPolicy, cache_state_bytes, compute_fraction,
+                     layer_params, stack_slots)
 from .hybrid import ClusCaPolicy, SpeCaPolicy, kmeans
 from .learned import LazyDiTPolicy, gate_score, init_gate
 from .metrics import (cosine_sim, mag_ratio, psnr, rel_l1, rel_l1_block,
@@ -28,6 +34,7 @@ from .predictive import (BASES, FreqCaPolicy, PredictivePolicy,
                          forecast_from_diffs, update_diff_stack)
 from .static_policies import (DeltaCachePolicy, FasterCacheCFG,
                               FixedIntervalPolicy, PABPolicy, lowpass)
+from .temporal import TemporalPABStack, TemporalTeaCachePolicy
 from .token import ToCaPolicy
 
 
@@ -72,37 +79,63 @@ POLICY_REGISTRY = {
         PABPolicy(module_type, ranges),
     "clusca": lambda interval=4, k=16, **kw: ClusCaPolicy(interval, k),
     "speca": lambda interval=4, tau=0.1, **kw: SpeCaPolicy(interval, tau=tau),
+    # temporal-aware TeaCache for video latent clips: `frames` must match
+    # the clip's frame count — the serving engine (string path) and
+    # DenoiseWorkload.make_policy inject cfg.dit_num_frames
+    "teacache_video": lambda delta=0.1, frames=4, reduce="max", **kw:
+        TemporalTeaCachePolicy(delta, frames, reduce=reduce),
     # CFG-branch reuse: gates the unconditional stream, so it belongs in
     # CachedDenoiser's or DiffusionServingEngine's `cfg_policy`
     "fastercache_cfg": lambda interval=4, num_steps=50, mode="extrapolate",
         **kw: FasterCacheCFG(interval, num_steps, mode=mode),
 }
 
+# Stack-structural methods are not CachePolicy instances: they own the
+# layer loop instead of gating one module's output behind `apply`, so
+# `make_policy` cannot build them without a block function and a layer
+# count.  They are built directly:
+#   dbcache   — DBCacheStack(block_fn, num_layers, front_n, back_n, threshold)
+#   deepcache — CachedDenoiser(..., granularity="deepcache")
+#   pab_video — TemporalPABStack(video_dit.pab_branch_fns(cfg), num_layers),
+#               or CachedDenoiser(..., granularity="pab_video")
+STRUCTURAL_POLICIES = {
+    "dbcache": DBCacheStack,
+    "deepcache": "repro_torch.diffusion.pipeline.CachedDenoiser("
+                 "granularity='deepcache')",
+    "pab_video": TemporalPABStack,
+}
+
 #: names of the JAX registry that wait for a later slice of the port
-NOT_PORTED = {"teacache_video": "§A.3 (video)"}
+NOT_PORTED: dict = {}
 
 
 def make_policy(name: str, **kwargs) -> CachePolicy:
+    if name in STRUCTURAL_POLICIES:
+        raise KeyError(
+            f"'{name}' is a stack-structural method, not a module-level "
+            f"policy; see repro_torch.core.STRUCTURAL_POLICIES for how to "
+            f"build it")
     if name in NOT_PORTED:
         raise KeyError(f"cache policy '{name}' is not ported to repro_torch "
                        f"yet; see ROADMAP.md {NOT_PORTED[name]}")
     if name not in POLICY_REGISTRY:
         raise KeyError(f"unknown cache policy '{name}'; available: "
-                       f"{sorted(POLICY_REGISTRY)} (the rest of the JAX "
-                       f"registry: ROADMAP.md §A)")
+                       f"{sorted(POLICY_REGISTRY)}")
     return POLICY_REGISTRY[name](**kwargs)
 
 
 __all__ = [
     "BASES", "BlockCachePolicy", "CachePolicy", "CachedModule",
-    "ClusCaPolicy", "DeltaCachePolicy", "EasyCachePolicy", "FasterCacheCFG",
-    "FixedIntervalPolicy", "ForesightPolicy", "FreqCaPolicy", "GatedPolicy",
-    "LazyDiTPolicy", "MagCachePolicy", "NOT_PORTED", "NoCachePolicy",
-    "PABPolicy", "POLICY_REGISTRY", "PredictivePolicy", "SlotBatchedPolicy",
-    "SlotWant",
-    "SpeCaPolicy", "TeaCachePolicy", "ToCaPolicy", "cache_state_bytes",
-    "cosine_sim", "forecast_from_diffs", "gate_score", "init_gate",
-    "interval_pred", "kmeans", "lowpass", "mag_ratio", "make_policy",
-    "psnr", "rel_l1", "rel_l1_block", "rel_l2", "stack_slots", "static_plan",
+    "CachedStack", "ClusCaPolicy", "DBCacheStack", "DeltaCachePolicy",
+    "EasyCachePolicy", "FasterCacheCFG", "FixedIntervalPolicy",
+    "ForesightPolicy", "FreqCaPolicy", "GatedPolicy", "LazyDiTPolicy",
+    "MagCachePolicy", "NOT_PORTED", "NoCachePolicy", "PABPolicy",
+    "POLICY_REGISTRY", "PredictivePolicy", "STRUCTURAL_POLICIES",
+    "SlotBatchedPolicy", "SlotWant", "SpeCaPolicy", "TeaCachePolicy",
+    "TemporalPABStack", "TemporalTeaCachePolicy", "ToCaPolicy",
+    "cache_state_bytes", "compute_fraction", "cosine_sim",
+    "forecast_from_diffs", "gate_score", "init_gate", "interval_pred",
+    "kmeans", "layer_params", "lowpass", "mag_ratio", "make_policy", "psnr",
+    "rel_l1", "rel_l1_block", "rel_l2", "stack_slots", "static_plan",
     "transform_rate", "update_diff_stack",
 ]

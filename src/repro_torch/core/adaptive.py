@@ -118,9 +118,14 @@ class TeaCachePolicy(GatedPolicy):
             out = out + a * d**i
         return out
 
+    def _signal_distance(self, sig, prev):
+        """(S,) input-side change per slot (Eq. 22); temporal subclasses
+        override it."""
+        return rel_l1_slots(sig, prev)
+
     def _acc(self, states, xs, signal):
         sig = (xs if signal is None else signal).float()
-        d = self._correct(rel_l1_slots(sig, states["prev_signal"]))
+        d = self._correct(self._signal_distance(sig, states["prev_signal"]))
         return sig, states["acc"] + d
 
     def gate_slots(self, states, steps, xs, signal=None):

@@ -1,9 +1,30 @@
 """CachedDenoiser and the serving engine's slot functions — the port of the
-JAX `diffusion/pipeline.py` for class-conditioned image DiTs at MODEL
-granularity, with classifier-free guidance (an optional cache policy on the
-unconditional branch, FasterCacheCFG) and negative-prompt vectors in place
-of the null-class embedding.  Block / deepcache / video granularity and
-text are not ported yet (ROADMAP.md §A).
+JAX `diffusion/pipeline.py` for class-conditioned DiTs, with
+classifier-free guidance (an optional cache policy on the unconditional
+branch, FasterCacheCFG) and negative-prompt vectors in place of the
+null-class embedding.  Text prompts are not ported yet (ROADMAP.md §A.4).
+
+Modalities: every entry point dispatches on the config — the plain
+isotropic DiT (image latents, audio mel-spectrograms) when
+`cfg.dit_num_frames == 0`, the factorized spatio-temporal video DiT
+(repro_torch.models.video_dit) otherwise.  Latents are always
+(B, cfg.dit_tokens, cfg.dit_in_dim), so the cache and serving stack is
+modality-agnostic; only the backbone and TeaCache's signal change.
+
+Granularities (survey Fig. 2 reuse-granularity axis):
+
+  MODEL     — one policy gates the full backbone output; TeaCache's signal
+              (the AdaLN-modulated first-block input, Eq. 22) is wired
+              through for a policy that reads it.
+  BLOCK     — one policy state per block, threaded through the layer loop
+              (core.CachedStack).
+  DEEPCACHE — the first `shallow_n` blocks always compute, the deep
+              section is gated as one unit (Δ-DiT's front/rear reading of
+              DeepCache's U-Net split).
+  PAB_VIDEO — video backbone only: each block's spatial-attention,
+              temporal-attention and MLP branch outputs cached and
+              broadcast over per-module-type ranges
+              (core.TemporalPABStack).
 """
 from __future__ import annotations
 
@@ -12,34 +33,40 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import (CachePolicy, FasterCacheCFG, NoCachePolicy,
+from repro_torch.core import (CachedStack, CachePolicy, FasterCacheCFG,
+                              NoCachePolicy, TemporalPABStack, layer_params,
                               static_plan)
 from repro_torch.device import DeviceLike, resolve_device, tree_device
-from repro_torch.models import dit
+from repro_torch.models import dit, video_dit
+
+GRANULARITIES = ("model", "block", "deepcache", "pab_video")
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet; "
-                               f"see ROADMAP.md §A")
+def backbone_module(cfg):
+    """The backbone module for this config's modality (dit | video_dit)."""
+    if cfg.dit_text_len > 0:
+        raise NotImplementedError(
+            f"the text-conditioned backbone of '{cfg.name}' is not ported to "
+            f"repro_torch yet; see ROADMAP.md §A.4")
+    return video_dit if cfg.dit_num_frames > 0 else dit
 
 
 def backbone_fns(params, cfg):
-    """(forward_fn, signal_fn) bound to params.
+    """(forward_fn, signal_fn) bound to params for this config's modality.
 
     forward_fn(xs, ts, labels, y_embed=None) -> eps for xs (B, T, D),
     ts (B,) timesteps, labels (B,) class ids, y_embed (B, d) an optional
     conditioning-vector override (negative prompts); signal_fn(xs, ts,
     labels) -> TeaCache's modulated first-block input."""
-    if cfg.dit_num_frames > 0 or cfg.dit_text_len > 0:
-        raise _not_ported(f"the backbone of '{cfg.name}'")
+    mod = backbone_module(cfg)
 
     def forward_fn(xs, ts, labels, y_embed=None):
-        return dit.forward(params, xs, ts.float(), labels.long(), cfg,
+        return mod.forward(params, xs, ts.float(), labels.long(), cfg,
                            y_embed=y_embed)
 
     def signal_fn(xs, ts, labels):
-        h, c = dit.embed_patches(params, xs, ts.float(), labels.long(), cfg)
-        return dit.modulated_signal(params, h, c, cfg)
+        h, c = mod.embed_patches(params, xs, ts.float(), labels.long(), cfg)
+        return mod.modulated_signal(params, h, c, cfg)
 
     return forward_fn, signal_fn
 
@@ -62,54 +89,102 @@ def _cfg_kwargs(cfg_policy, cfg_w, cond_out):
 
 class CachedDenoiser:
     """eps_hat, state = denoiser(state, i, x, t); the cache policy gates the
-    whole backbone forward (MODEL granularity).  TeaCache's signal (the
-    AdaLN-modulated first-block input, Eq. 22) is computed only for a
-    policy that reads it.  With cfg_scale > 0 the unconditional branch runs
-    under `cfg_policy` (None: it recomputes every step), conditioned on the
-    null class or on `null_embed`, a (d_model,) negative-prompt vector."""
+    backbone at `granularity` (see the module docstring; `shallow_n` is
+    deepcache's always-computed front).  At model granularity TeaCache's
+    signal is computed only for a policy that reads it.  With
+    cfg_scale > 0 the unconditional branch runs under `cfg_policy` (None:
+    it recomputes every step), conditioned on the null class or on
+    `null_embed`, a (d_model,) negative-prompt vector."""
 
     def __init__(self, params, cfg, policy: Optional[CachePolicy] = None,
-                 granularity: str = "model", cfg_scale: float = 0.0,
+                 granularity: str = "model", shallow_n: int = 4,
+                 cfg_scale: float = 0.0,
                  cfg_policy: Optional[CachePolicy] = None,
                  class_label: int = 0, null_embed=None,
                  device: DeviceLike = None):
-        if granularity != "model":
-            raise _not_ported(f"granularity '{granularity}'")
+        if granularity not in GRANULARITIES:
+            raise ValueError(f"granularity must be one of {GRANULARITIES}, "
+                             f"got {granularity!r}")
         self.device = resolve_device(device)
         if tree_device(params) != self.device:
             raise ValueError(f"params live on {tree_device(params)}, the "
                              f"denoiser runs on {self.device}")
         self.params, self.cfg = params, cfg
         self.policy = policy or NoCachePolicy()
+        self.granularity = granularity
+        self.shallow_n = shallow_n
         self.cfg_scale = float(cfg_scale)
         self.cfg_policy = cfg_policy
         self.class_label = class_label
         self.null_embed = (None if null_embed is None else torch.as_tensor(
             null_embed, dtype=torch.float32, device=self.device))
+        self._mod = backbone_module(cfg)
         self._forward, self._signal = backbone_fns(params, cfg)
+        if granularity == "block":
+            self._stack = CachedStack(self._block, self.policy,
+                                      cfg.num_layers)
+        elif granularity == "pab_video":
+            if cfg.dit_num_frames <= 0:
+                raise ValueError("pab_video granularity needs the factorized "
+                                 "video backbone (cfg.dit_num_frames > 0)")
+            self._stack = TemporalPABStack(video_dit.pab_branch_fns(cfg),
+                                           cfg.num_layers)
+
+    def _block(self, p, x, c):
+        if self._mod is video_dit:
+            return video_dit.video_block(p, x, c, self.cfg)
+        return dit.dit_block(p, x, c, self.cfg)
 
     def init_state(self, batch: int):
         cfgm = self.cfg
+        feat = (batch, cfgm.dit_tokens, cfgm.d_model)
         eps_shape = (batch, cfgm.dit_tokens, cfgm.dit_in_dim)
-        kw = ({"signal_shape": (batch, cfgm.dit_tokens, cfgm.d_model)}
-              if self.policy.uses_signal else {})
-        state = {"policy": self.policy.init_state(eps_shape,
-                                                  device=self.device, **kw)}
+        if self.granularity == "model":
+            kw = {"signal_shape": feat} if self.policy.uses_signal else {}
+            pol = self.policy.init_state(eps_shape, device=self.device, **kw)
+        elif self.granularity in ("block", "pab_video"):
+            pol = self._stack.init(feat, device=self.device)
+        else:   # deepcache: one cache over the deep section's hidden output
+            pol = self.policy.init_state(feat, device=self.device)
+        state = {"policy": pol}
         if self.cfg_policy is not None:
             state["cfg"] = self.cfg_policy.init_state(eps_shape,
                                                       device=self.device)
         return state
+
+    def _run(self, h, c, lo, hi):
+        for i in range(lo, hi):
+            h = self._block(layer_params(self.params["blocks"], i), h, c)
+        return h
+
+    def _backbone(self, x_lat, t_vec, y, state, step):
+        """One conditional forward under the configured granularity:
+        (eps_hat, new policy state)."""
+        params, cfgm, mod = self.params, self.cfg, self._mod
+        if self.granularity == "model":
+            sig = ({"signal": self._signal(x_lat, t_vec, y)}
+                   if self.policy.uses_signal else {})
+            return self.policy.apply(
+                state, step, x_lat,
+                lambda lat: self._forward(lat, t_vec, y), **sig)
+        h, c = mod.embed_patches(params, x_lat, t_vec.float(), y.long(), cfgm)
+        if self.granularity in ("block", "pab_video"):
+            h, new_state = self._stack(state, step, h, params["blocks"], c)
+        else:   # deepcache split (a stack shallower than shallow_n has
+            # no deep section, as JAX's slices give)
+            F, L = min(self.shallow_n, cfgm.num_layers), cfgm.num_layers
+            h = self._run(h, c, 0, F)
+            h, new_state = self.policy.apply(
+                state, step, h, lambda hh: self._run(hh, c, F, L))
+        return mod.final_layer(params, h, c, cfgm), new_state
 
     def __call__(self, state, step: int, x_lat, t_vec):
         B = x_lat.shape[0]
         state = state if state is not None else self.init_state(B)
         y_cond = torch.full((B,), self.class_label, dtype=torch.long,
                             device=self.device)
-        sig = ({"signal": self._signal(x_lat, t_vec, y_cond)}
-               if self.policy.uses_signal else {})
-        eps_c, pol_state = self.policy.apply(
-            state["policy"], step, x_lat,
-            lambda lat: self._forward(lat, t_vec, y_cond), **sig)
+        eps_c, pol_state = self._backbone(x_lat, t_vec, y_cond,
+                                          state["policy"], step)
         new_state = {"policy": pol_state}
         if self.cfg_scale > 0.0:
             y_null = torch.full((B,), self.cfg.dit_num_classes,

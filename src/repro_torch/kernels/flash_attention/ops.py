@@ -18,6 +18,18 @@ from .ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+#: the launch puts the batch on gridDim.z (csrc/flash_attention.cu:425)
+MAX_GRID_Z = 65535
+
+
+def check_grid(batch: int) -> None:
+    """Raise before a launch whose batch exceeds the grid's z limit (a
+    folded attention batch, such as the video DiT's B*P temporal
+    sequences, can reach it)."""
+    if batch > MAX_GRID_Z:
+        raise ValueError(f"flash_attention: batch {batch} > {MAX_GRID_Z}, "
+                         f"the kernel's gridDim.z limit")
+
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
@@ -42,6 +54,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
+    check_grid(B)
     o = torch.empty_like(q)
     _build.launch("flash_attention_fwd", q.get_device(), q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],

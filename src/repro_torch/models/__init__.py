@@ -1,4 +1,5 @@
-"""Model zoo of the port: so far the class-conditioned image DiT and the
+"""Model zoo of the port: so far the class-conditioned DiT (image latents
+and audio mel latents), the factorized spatio-temporal video DiT and the
 hybrid (Mamba2 + shared attention) decoder LM."""
 from __future__ import annotations
 
@@ -6,7 +7,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from . import dit, encdec, layers, ssm, transformer
+from . import dit, encdec, layers, ssm, transformer, video_dit
 from .transformer import decode_step, forward, prefill
 
 
@@ -20,10 +21,12 @@ def init_params(generator: torch.Generator, cfg, dtype=None, device=None):
                          f"{dev}: make the generator on the params' device")
     if cfg.family == "hybrid":
         return transformer.init_lm(generator, cfg, dtype, dev)
-    if not cfg.is_dit or cfg.dit_num_frames > 0 or cfg.dit_text_len > 0:
+    if not cfg.is_dit or cfg.dit_text_len > 0:
         raise NotImplementedError(
-            f"repro_torch ports only the class-conditioned image DiT and the "
+            f"repro_torch ports only the class-conditioned DiTs and the "
             f"hybrid LLM so far ('{cfg.name}' needs more); see ROADMAP.md §A")
+    if cfg.dit_num_frames > 0:
+        return video_dit.init_video_dit(generator, cfg, dtype, dev)
     return dit.init_dit(generator, cfg, dtype, dev)
 
 
@@ -48,5 +51,6 @@ def perturb_zero_init(params, generator: torch.Generator, scale: float = 0.05):
     return walk(params)
 
 
-__all__ = ["dit", "encdec", "layers", "ssm", "transformer", "init_params",
+__all__ = ["dit", "encdec", "layers", "ssm", "transformer", "video_dit",
+           "init_params",
            "perturb_zero_init", "forward", "prefill", "decode_step"]

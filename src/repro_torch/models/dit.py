@@ -1,7 +1,8 @@
 """Diffusion Transformer (DiT) with AdaLN-zero conditioning (survey
 Eq. 11-13) — the port of the JAX `models/dit.py` for class-conditioned
-image DiTs.  Text cross-attention and the video backbone are not ported
-yet (ROADMAP.md §A).
+DiTs (image latents; audio mel latents use it unchanged).  Text
+cross-attention is not ported yet (ROADMAP.md §A.4); the video backbone is
+`models/video_dit.py`.
 
 Params keep the JAX layout: `(in, out)` matrices and a leading layer axis
 on every `blocks` leaf; `forward` loops over layers in Python.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.engine import layer_params
 from repro_torch.kernels import flash_attention
 
 from .encdec import sinusoidal_positions
@@ -90,12 +92,6 @@ def _adaln(c, w, b, n):
     return (dot(F.silu(c), w) + b).chunk(n, dim=-1)
 
 
-def layer(blocks, i):
-    """Layer i's params out of the stacked `blocks` tree."""
-    return {k: layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in blocks.items()}
-
-
 def dit_block(p, x, c, cfg):
     """One DiT block.  x: (B, T, d); c: (B, d) conditioning."""
     B, T, _ = x.shape
@@ -135,5 +131,5 @@ def forward(params, latents, t, y, cfg, *, y_embed=None):
     """latents: (B, T, in_dim); t: (B,); y: (B,) -> noise prediction."""
     x, c = embed_patches(params, latents, t, y, cfg, y_embed)
     for i in range(cfg.num_layers):
-        x = dit_block(layer(params["blocks"], i), x, c, cfg)
+        x = dit_block(layer_params(params["blocks"], i), x, c, cfg)
     return final_layer(params, x, c, cfg)

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.engine import layer_params
+
 from .layers import (attention_decode, attention_forward, dense_init, dot,
                      embed_init, init_attention, init_mlp, mlp_forward,
                      rms_norm)
@@ -38,12 +40,6 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
-
-
-def _layer(tree, i):
-    """Layer i of params stacked on a leading layer axis."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
 
 
 def _init_block(generator, cfg, dtype, device):
@@ -98,7 +94,7 @@ def forward(params, tokens, cfg, *, collect_kv=False):
     for g in range(hybrid_points(cfg)):
         states = []
         for i in range(g * k, (g + 1) * k):
-            p = _layer(params["blocks"], i)
+            p = layer_params(params["blocks"], i)
             h, c = mamba2_forward(p["mamba"], rms_norm(x, p["ln1"], cfg.norm_eps),
                                   cfg)
             x = x + h
@@ -140,7 +136,7 @@ def decode_step(params, token, pos, cache, cfg):
     k = cfg.hybrid_attn_every
     for g in range(hybrid_points(cfg)):
         for i in range(g * k, (g + 1) * k):
-            p = _layer(params["blocks"], i)
+            p = layer_params(params["blocks"], i)
             h, conv, state = mamba2_decode(
                 p["mamba"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
                 cache["conv"][i], cache["state"][i])

@@ -35,8 +35,10 @@ the latent batch and the cache state in place where that saves a copy.  One
 hooks (`TickEvent`), an opt-in metrics registry (`repro_torch.obs`) and
 mid-session submission.
 
-Not ported yet (ROADMAP.md §A): text prompts (the `conditioner`), the
-video backbone, and CUDA-graph capture per bucket.
+The engine serves every class-conditioned modality: pool rows are
+(cfg.dit_tokens, cfg.dit_in_dim), frames x patches for the video DiT.  Not
+ported yet (ROADMAP.md §A): text prompts (the `conditioner`) and
+CUDA-graph capture per bucket.
 """
 from __future__ import annotations
 
@@ -394,8 +396,10 @@ class DiffusionServingEngine:
 
     `policy` and `cfg_policy` (the uncond-branch gate of guided requests;
     None: naive two-branch guidance) are instances or registry names, a
-    name built with num_steps=max_steps.  Admission is phase-aligned to the
-    lcm of the two intervals unless `align` is given.  `noise_fn(request)
+    name built with num_steps=max_steps and, for a video config, the
+    config's frame count (teacache_video groups its signal by it).
+    Admission is phase-aligned to the lcm of the two intervals unless
+    `align` is given.  `noise_fn(request)
     -> (tokens, in_dim)` tensor supplies each request's initial latent; the
     default draws it from a torch.Generator seeded from (request.seed,
     request.request_id), so requests left at the default seed still get
@@ -421,11 +425,14 @@ class DiffusionServingEngine:
         self.max_steps = max_steps
         self.row_compaction = bool(row_compaction)
         self.sched = noise_schedule or linear_schedule(1000)
+        policy_kw = {"num_steps": max_steps}
+        if cfg.dit_num_frames > 0:
+            policy_kw["frames"] = cfg.dit_num_frames
         if isinstance(policy, str):
-            policy = make_policy(policy, num_steps=max_steps)
+            policy = make_policy(policy, **policy_kw)
         self.policy = policy if policy is not None else make_policy("none")
         if isinstance(cfg_policy, str):
-            cfg_policy = make_policy(cfg_policy, num_steps=max_steps)
+            cfg_policy = make_policy(cfg_policy, **policy_kw)
         self.cfg_policy = cfg_policy
         if align is not None:
             self.align = align

@@ -260,6 +260,111 @@ def test_cfg_serving_card_matches_cpu(cuda, mode, compact):
         assert rel <= 1e-3
 
 
+@pytest.mark.parametrize("B,S,H,D", [
+    (32, 256, 16, 72),     # dit-video spatial: 2 rows x 16 frames of 256
+    (512, 16, 16, 72),     # dit-video temporal: 2 rows x 256 patches of 16
+    (2, 256, 12, 64),      # dit-audio self-attention
+])
+def test_flash_kernel_at_the_video_and_audio_shapes(cuda, B, S, H, D):
+    """f32 and non-causal, as the video and audio DiTs call it; tolerance
+    2e-5 abs, a few times the largest error of sound runs at these shapes
+    (6e-6) and below what one TF32 pass in place of 3xTF32 gives there."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=cuda)
+               for _ in range(3))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=False)
+    ref = attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert float((out - ref).abs().max()) <= 2e-5
+
+
+def test_flash_grid_guard_on_the_card(cuda):
+    """A batch above gridDim.z's 65535 raises before any launch."""
+    from repro_torch.kernels.flash_attention import MAX_GRID_Z
+    q = torch.zeros((MAX_GRID_Z + 1, 1, 1, 8), device=cuda)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="gridDim.z"):
+        flash_attention(q, q, q, causal=False)
+    assert flash_attention.launches == before
+
+
+def _video_smoke():
+    """dit-video SMOKE with seeded weights (AdaLN gates perturbed), a
+    per-request noise function and three requests, one guided."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, perturb_zero_init
+    from repro_torch.serving.diffusion import DiffusionRequest
+    cfg = get_smoke_config("dit-video")
+    gen = torch.Generator().manual_seed(3)
+    params = perturb_zero_init(init_params(gen, cfg, device="cpu"), gen)
+
+    def noise(req):
+        g = torch.Generator().manual_seed(100 + req.request_id)
+        return torch.randn((cfg.dit_tokens, cfg.dit_in_dim), generator=g)
+
+    reqs = [DiffusionRequest(i, num_steps=(8, 12)[i % 2], class_label=i,
+                             cfg_scale=3.0 if i == 1 else 0.0)
+            for i in range(3)]
+    return cfg, params, noise, reqs
+
+
+@pytest.mark.parametrize("name,kw", [("teacache_video", {"delta": 0.2}),
+                                     ("taylorseer", {})])
+def test_video_smoke_served_on_the_card_matches_the_cpu(cuda, name, kw):
+    """dit-video SMOKE served on the card and on the CPU from the same
+    weights and noise: the same computed steps per request, x0 within 1e-3
+    relative.  Under teacache_video (delta 0.2 splits these requests' steps)
+    every thresholded decision of the CPU reference lies at least 1e-4
+    relative from delta first."""
+    from repro_torch.core import make_policy
+    from repro_torch.serving.diffusion import DiffusionServingEngine
+    cfg, params, noise, reqs = _video_smoke()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = _to_device(params, cuda) if dev == "cuda" else params
+        eng = DiffusionServingEngine(
+            p, cfg, make_policy(name, num_steps=12, frames=4, **kw),
+            slots=2, max_steps=12, noise_fn=noise, device=dev)
+        plans, want_all = [], eng._want_all
+        eng._want_all = lambda *a: plans.append(want_all(*a)) or plans[-1]
+        out[dev] = eng.serve(reqs)
+    rel = [abs(p.value[s] - p.threshold[s]) / p.threshold[s]
+           for p in plans for s in range(2) if not p.forced[s]]
+    assert (name == "teacache_video") == bool(rel)
+    assert not rel or min(rel) >= 1e-4
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.record.computed_steps == b.record.computed_steps
+        rel = float(abs(a.x0 - b.x0).max() / max(abs(b.x0).max(), 1e-6))
+        assert rel <= 1e-3
+
+
+@pytest.mark.parametrize("gran,name,kw", [
+    ("pab_video", None, {}), ("block", "fora", {"interval": 2}),
+    ("deepcache", "delta_dit", {"interval": 2})])
+def test_video_smoke_denoiser_card_matches_cpu(cuda, gran, name, kw):
+    """CachedDenoiser at the structural granularities, 8 DDIM steps of
+    dit-video SMOKE on the card and on the CPU: x0 within 1e-3 relative."""
+    from repro_torch.core import make_policy
+    from repro_torch.diffusion import (CachedDenoiser, ddim_step,
+                                       linear_schedule, sample)
+    cfg, params, noise, reqs = _video_smoke()
+    sched = linear_schedule(1000)
+    xT = noise(reqs[0])[None]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = _to_device(params, cuda) if dev == "cuda" else params
+        den = CachedDenoiser(p, cfg, make_policy(name, **kw) if name else None,
+                             granularity=gran, shallow_n=1, device=dev)
+        x0, _ = sample(den, xT.to(dev), sched.spaced(8), sched,
+                       step_fn=ddim_step, denoiser_state=den.init_state(1))
+        out[dev] = x0.cpu()
+    rel = float((out["cuda"] - out["cpu"]).abs().max()
+                / out["cpu"].abs().max())
+    assert rel <= 1e-3
+
+
 def _to_device(tree, device):
     return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}

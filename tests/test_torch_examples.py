@@ -1,8 +1,10 @@
-"""The port's two examples run to their end on the CPU and print OK:
-`examples/torch_quickstart.py` (exact vs TaylorSeer sampling) and
+"""The port's examples run to their end on the CPU and print OK:
+`examples/torch_quickstart.py` (exact vs TaylorSeer sampling),
 `examples/torch_serve_diffusion.py` (the SLA autotuner, per-class serving
-and the guided FasterCacheCFG pool), each at its JAX original's CPU size
-(a few seconds each here)."""
+and the guided FasterCacheCFG pool) and
+`examples/torch_mixed_modality_serving.py` (autotune per modality, the
+mixed image + video + audio pool), each at its JAX original's CPU size (a
+few seconds each here)."""
 import os
 import subprocess
 import sys
@@ -16,9 +18,12 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize("script", ["torch_quickstart.py",
-                                    "torch_serve_diffusion.py"])
+                                    "torch_serve_diffusion.py",
+                                    "torch_mixed_modality_serving.py"])
 def test_example_runs_on_the_cpu(script):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # two intra-op threads, as the test processes use: beside the other
+    # xdist workers an example on every core oversubscribes the CPU
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
     out = subprocess.run([sys.executable, str(ROOT / "examples" / script),
                           "--device", "cpu"], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

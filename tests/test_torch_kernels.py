@@ -30,7 +30,8 @@ from repro.kernels.forecast.ref import forecast_ref as jax_forecast_ref  # noqa:
 from repro.models.layers import blocked_attention as jax_blocked_attention  # noqa: E402
 from repro_torch.core import forecast_from_diffs  # noqa: E402
 from repro_torch.kernels import flash_attention, forecast, ssd_scan  # noqa: E402
-from repro_torch.kernels.flash_attention import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (MAX_GRID_Z,  # noqa: E402
+                                                 attention_ref, check_grid)
 from repro_torch.kernels.forecast import basis_coeffs, forecast_ref  # noqa: E402
 from repro_torch.models.layers import blocked_attention  # noqa: E402
 
@@ -134,6 +135,17 @@ def test_wrappers_never_fall_back_off_the_cpu():
         ssd_scan(x, torch.empty((1, 8, 2)), torch.empty((2,)), s, s)
     assert (flash_attention.launches, forecast.launches,
             ssd_scan.launches) == (0, 0, 0)
+
+
+def test_flash_grid_guard():
+    """The CUDA branch's gridDim.z guard: a batch above 65535 raises before
+    any launch; the plain CPU path keeps no limit, as JAX has none."""
+    check_grid(MAX_GRID_Z)
+    with pytest.raises(ValueError, match="gridDim.z"):
+        check_grid(MAX_GRID_Z + 1)
+    q = torch.ones((MAX_GRID_Z + 1, 1, 1, 8))
+    out = flash_attention(q, q, q, causal=False)
+    assert out.shape == q.shape and bool((out == 1).all())
 
 
 # ----------------------------------------------------------------------

@@ -23,6 +23,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from repro.core import POLICY_REGISTRY as JAX_REGISTRY  # noqa: E402
+from repro.core import STRUCTURAL_POLICIES as JAX_STRUCTURAL  # noqa: E402
 from repro.core import SlotBatchedPolicy as JaxSlotBatched  # noqa: E402
 from repro.core import cache_state_bytes as jax_state_bytes  # noqa: E402
 from repro.core import kmeans as jax_kmeans  # noqa: E402
@@ -32,7 +34,8 @@ from repro.core.learned import init_gate as jax_init_gate  # noqa: E402
 from repro.core.predictive import _foca_forecast  # noqa: E402
 from repro.core.predictive import forecast_from_diffs  # noqa: E402
 from repro_torch.core import (NOT_PORTED, POLICY_REGISTRY,  # noqa: E402
-                              cache_state_bytes, kmeans, make_policy)
+                              STRUCTURAL_POLICIES, cache_state_bytes, kmeans,
+                              make_policy)
 from repro_torch.core import metrics as tm  # noqa: E402
 from repro_torch.core import SlotBatchedPolicy, stack_slots  # noqa: E402
 from repro_torch.kernels.forecast import basis_coeffs, forecast  # noqa: E402
@@ -387,10 +390,13 @@ def test_registry_builds_every_name_with_jax_defaults(name):
 
 
 def test_registry_errors():
-    assert len(POLICY_REGISTRY) == 20
-    assert set(NOT_PORTED) == {"teacache_video"}
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        make_policy("teacache_video")
+    assert len(POLICY_REGISTRY) == 21
+    assert set(POLICY_REGISTRY) == set(JAX_REGISTRY)
+    assert not NOT_PORTED
+    assert set(STRUCTURAL_POLICIES) == set(JAX_STRUCTURAL)
+    for name in STRUCTURAL_POLICIES:
+        with pytest.raises(KeyError, match="structural"):
+            make_policy(name)
     with pytest.raises(KeyError, match="unknown"):
         make_policy("no-such-policy")
     with pytest.raises(ValueError, match="gate"):

@@ -136,8 +136,8 @@ def test_unported_options_raise(setup):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         DiffusionServingEngine(tp, tcfg, "none", conditioner=object(),
                                device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        make_policy("teacache_video")
+    with pytest.raises(KeyError, match="structural"):
+        make_policy("dbcache")
     eng = DiffusionServingEngine(tp, tcfg, "none", slots=1, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         eng.serve([DiffusionRequest(0, 4, cfg_scale=2.0,
