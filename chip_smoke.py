@@ -103,13 +103,45 @@ Phases, in order; any failure exits non-zero and prints no result line:
               pool, image requests guided under FasterCacheCFG(4, 12);
               each pool's pick, autotune seconds, req/s, rows and
               token-weighted rows, latency
-  16. serve-llm full-width zamba2-2.7b (54 Mamba2 layers, 9 shared attention
+  16. serve-t2i examples/torch_text_to_image_serving.py's `run` on
+              full-width dit-t2i (28 layers, d_model 1152, 77 text tokens,
+              bf16 params from seed 0, every AdaLN gate perturbed, the
+              cross branch's too) with a full-width text encoder (d 1152, 2
+              layers, 4 heads): 6 prompts (3 unique) and a negative prompt
+              under TeaCache 0.1 + FasterCacheCFG(4, 12), 2 slots; the same
+              queue again tick by tick (computed steps = the plan's rows);
+              then 8 prompted requests of 8 and 16 steps under TaylorSeer
+              + FasterCacheCFG(4), 4 slots, four guided, one negative
+              prompt.  Encoder runs = unique prompts, text-table builds =
+              admission waves = text_kv calls (none in a tick), 28 flash
+              launches a backbone pass, forecast on the skip ticks, two
+              prompts give two x0; req/s, latency, ticks against
+              serve-cfg's, the cross-attention's share of device time
+              (profiler), peak memory, idle share; the cross-attention
+              core against masked SDPA (yardstick) at the 8-row shape
+  17. check-text dit-t2i and dit-t2v SMOKE with their text encoders on the
+              card and the CPU, the same weights, prompts and noise: under
+              TeaCache + FasterCacheCFG(3) and TaylorSeer the same
+              decisions, tick kinds, text-table builds and encoder runs
+              (every thresholded decision >= 1e-4 relative from its
+              threshold first), x0 within 1e-3 relative; the prompt-less
+              and all-masked forwards bit-identical on the card to the
+              forward without the cross branch
+  18. serve-t2v full-width dit-t2v (dit-video's 28 layers, 16 frames x 256
+              patches, with the cross branch), 2 slots, 4 prompted requests
+              of 8 and 16 steps under TaylorSeer: 56 flash launches a
+              backbone pass, the same text checks, req/s, latency,
+              cross-attention share, idle share, peak; CachedDenoiser
+              exact against pab_video (cross_attn at range 6), 16 steps:
+              ms a step, branch compute fraction, x0's relative L2 error;
+              the cross-attention core against masked SDPA at (2, 4096)
+  19. serve-llm full-width zamba2-2.7b (54 Mamba2 layers, 9 shared attention
               applications, bf16 params, random weights from a seed) behind
               ServingEngine, 4 slots, 8 greedy requests of 64-500 prompt
               tokens, 32 new tokens each; every logit finite, SSD launched
               54 times and flash 9 times per prefill; tok/s, prefill ms,
               decode ms per step, peak memory, device time by kernel
-  17. check-llm the zamba2 SMOKE config served on the card (kernels) and on
+  20. check-llm the zamba2 SMOKE config served on the card (kernels) and on
               the CPU (plain versions) from the same weights and prompts
               must give the same tokens and close logits
 
@@ -1156,7 +1188,7 @@ def phase_serve_cfg(torch, kernels, path, params, cfg):
         f"plan_seconds {hook_ms:.4f} ms a tick (wrapper {plan_ms:.4f})")
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, s
 
 
 def phase_check_cfg(torch):
@@ -1238,15 +1270,21 @@ def phase_check_cfg(torch):
             fail(f"check-cfg {label}: card and CPU disagree (rel err {worst})")
 
 
+def load_example(name):
+    """examples/<name>.py as a module (its `run` drives the steps)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    return example
+
+
 def phase_serve_diffusion(torch, kernels, path, params, cfg):
     """examples/torch_serve_diffusion.py's three steps (autotune per traffic
     class, per-class serving, the guided FasterCacheCFG pool) on full-width
     DiT-XL, through the example's own `run`."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "torch_serve_diffusion", ROOT / "examples" / "torch_serve_diffusion.py")
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("torch_serve_diffusion")
     out, launches = _count_launches(
         kernels, path, "serve-diffusion",
         lambda: example.run(params, cfg, "cuda",
@@ -1536,12 +1574,7 @@ def phase_serve_mixed(torch, kernels, path, workloads):
     """examples/torch_mixed_modality_serving.py's steps (autotune per
     modality, the mixed image + video + audio pool, the example's traffic)
     on full-width dit-xl, dit-video and dit-audio, through its `run`."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "torch_mixed_modality_serving",
-        ROOT / "examples" / "torch_mixed_modality_serving.py")
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("torch_mixed_modality_serving")
     out, launches = _count_launches(
         kernels, path, "serve-mixed",
         lambda: example.run(workloads,
@@ -1571,6 +1604,515 @@ def phase_serve_mixed(torch, kernels, path, workloads):
     if s["requests"] != 9:
         fail(f"serve-mixed: {s['requests']} of 9 requests finished")
     return launches
+
+
+# ----------------------------------------------------------------------
+# slice 8: text conditioning (dit-t2i, dit-t2v)
+# ----------------------------------------------------------------------
+
+# check-text (SMOKE): TeaCache thresholds that split the requests' steps
+# with every thresholded decision of the CPU reference >= MARGIN from them
+CHECK_TEXT_DELTA = {"dit-t2i": 0.3, "dit-t2v": 0.3}
+TEXT_PROMPTS = ("a photo of a red fox in the snow",
+                "a watercolor painting of a lighthouse",
+                "an isometric render of a tiny city")
+TEXT_NEG = "blurry, low quality"
+
+
+def full_text(torch, arch):
+    """serve-t2i's / serve-t2v's model: full width and depth, bf16 params,
+    random weights from seed 0 with the AdaLN gates (the cross branch's
+    too) perturbed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, perturb_zero_init
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, perturb_zero_init(init_params(gen, cfg, device="cuda"), gen)
+
+
+class counting:
+    """Count the calls of module.<name> inside the block (callers look the
+    function up through the module at call time, so every call counts)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.orig(*a, **k)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def text_requests(cfg, n, steps, guided=(), neg=None, modality="t2i"):
+    """Prompted requests cycling TEXT_PROMPTS (so prompts repeat); those in
+    `guided` at cfg_scale 4.0, request `neg` with TEXT_NEG."""
+    from repro_torch.serving.diffusion import DiffusionRequest
+    return [DiffusionRequest(i, num_steps=steps[i % len(steps)], seed=i,
+                             class_label=(37 * i) % cfg.dit_num_classes,
+                             cfg_scale=4.0 if i in guided else 0.0,
+                             prompt_tokens=TEXT_PROMPTS[i % 3],
+                             neg_prompt_tokens=TEXT_NEG if i == neg else None,
+                             modality=modality)
+            for i in range(n)]
+
+
+def admission_waves(res):
+    """The ticks at which requests were admitted (one text-table build
+    each)."""
+    return len({r.record.admit_tick for r in res})
+
+
+def cross_attn_profile(torch, fn):
+    """Run fn() under the profiler with every cross-attention branch marked;
+    returns (device ms of the kernels launched under the branch, of all
+    kernels linked to an operator, of all device events by name as
+    `log_profile` sums them, and the profiled wall ms)."""
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as prof_ctx
+    from repro_torch.models import dit, video_dit
+    orig = dit.cross_attn_branch
+
+    def marked(*a, **k):
+        with record_function("repro_cross_attn"):
+            return orig(*a, **k)
+
+    dit.cross_attn_branch = video_dit.cross_attn_branch = marked
+    try:
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        dit.cross_attn_branch = video_dit.cross_attn_branch = orig
+
+    def in_cross(e):
+        while e is not None and e.name != "repro_cross_attn":
+            e = e.cpu_parent
+        return e is not None
+
+    cross = total = 0.0
+    for e in prof.events():
+        if not str(e.device_type).endswith("CPU"):
+            continue
+        us = sum(k.duration for k in e.kernels)
+        total += us
+        if us and in_cross(e):
+            cross += us
+    by_name = sum(_self_device_us(e) for e in prof.key_averages()
+                  if _self_device_us(e) > 0 and e.key != "repro_cross_attn"
+                  and str(e.device_type).endswith("CUDA"))
+    return cross / 1e3, total / 1e3, by_name / 1e3, wall * 1e3
+
+
+def log_cross_share(torch, label, fn):
+    cross, linked, by_name, pwall = cross_attn_profile(torch, fn)
+    log(f"{label}: profiled: cross-attention {cross:.1f} ms of {linked:.1f} "
+        f"ms of kernels linked to operators (share {cross / linked:.4f}); "
+        f"device events by name {by_name:.1f} ms; idle share "
+        f"{1 - by_name / pwall:.3f} (profiled wall {pwall:.1f} ms)")
+
+
+def time_cross_attention(torch, F, label, cfg, B, T):
+    """The cross-attention core (`models.dit.cross_attention`: einsum, the
+    -1e9 key mask, softmax, einsum) at a path's shape, f32, against masked
+    scaled_dot_product_attention on the same inputs (a yardstick: the port
+    does not call it): max |difference|, ms each (CUDA events), and the
+    bound."""
+    from repro_torch.models.dit import cross_attention
+    H, hd, L = cfg.num_heads, cfg.head_dim, cfg.dit_text_len
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn((B, T, H, hd), generator=g, device="cuda")
+    k = torch.randn((B, L, H, hd), generator=g, device="cuda")
+    v = torch.randn((B, L, H, hd), generator=g, device="cuda")
+    n = torch.randint(1, L + 1, (B,), generator=g, device="cuda")
+    tm = torch.arange(L, device="cuda")[None] < n[:, None]
+    k, v = k * tm[..., None, None], v * tm[..., None, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=tm[:, None, None, :]).transpose(1, 2)
+
+    err = float((cross_attention(q, k, v, tm) - sdpa()).abs().max())
+    ms = cuda_ms(torch, lambda: cross_attention(q, k, v, tm))
+    sdpa_ms = cuda_ms(torch, sdpa)
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel()) + tm.numel()
+    b, by = bound(nbytes, 4.0 * B * H * T * L * hd, PEAK_FLOPS["float32"])
+    log(f"{label}: cross-attention (B {B}, T {T}, L {L}, H {H}, D {hd}, "
+        f"f32, prompt lengths {n.tolist()}): ms={ms:.4f} (einsum, where, "
+        f"softmax, einsum) sdpa_ms={sdpa_ms:.4f} (masked SDPA, yardstick) "
+        f"max_abs_diff={err:.3e} bound_ms={b:.4f} ({by})")
+    if not err <= 1e-4:
+        fail(f"{label}: the cross-attention and masked SDPA disagree ({err})")
+    return {"ms": ms, "sdpa_ms": sdpa_ms, "bound_ms": b}
+
+
+def check_prompt_moves_x0(phase, eng, steps):
+    """The same request (id, seed, class, noise) under two prompts through
+    a deterministic path: x0 must differ by more than rounding (1e-5 of
+    its largest value), so the prompt reached the perturbed cross gates."""
+    from repro_torch.serving.diffusion import DiffusionRequest
+    x0 = [eng.serve([DiffusionRequest(0, num_steps=steps, seed=0,
+                                      prompt_tokens=p)])[0].x0
+          for p in TEXT_PROMPTS[:2]]
+    diff = float(abs(x0[0] - x0[1]).max())
+    log(f"{phase}: one request under two prompts: max |dx0| {diff:.4e} "
+        f"(max |x0| {float(abs(x0[0]).max()):.4e})")
+    if not diff > 1e-5 * float(abs(x0[0]).max()):
+        fail(f"{phase}: two prompts gave the same x0 ({diff})")
+
+
+def check_text_counts(phase, eng, cond, res, builds, kv_calls, misses):
+    """Text-table builds equal the admission waves, the only text_kv calls
+    are those builds (none in a tick), the encoder ran once per unique
+    prompt."""
+    waves = admission_waves(res)
+    if builds != waves or kv_calls != builds:
+        fail(f"{phase}: {builds} text-table builds and {kv_calls} text_kv "
+             f"calls for {waves} admission waves")
+    if cond.misses != misses:
+        fail(f"{phase}: {cond.misses} encoder runs, want {misses}")
+    return waves
+
+
+def phase_serve_t2i(torch, kernels, flash, forecast, F, cfg_summary):
+    """examples/torch_text_to_image_serving.py's `run` on full-width
+    dit-t2i (TeaCache 0.1 + FasterCacheCFG(4, 12), 2 slots), the same
+    queue again through `drive`, then 8 prompted requests under TaylorSeer
+    with FasterCacheCFG(4), 4 slots, against serve-cfg's ticks."""
+    from repro_torch.core import FasterCacheCFG, make_policy
+    from repro_torch.modalities import make_workload
+    from repro_torch.models import dit
+    example = load_example("torch_text_to_image_serving")
+    held = torch.cuda.memory_allocated() / 1e9      # earlier phases' params
+    cfg, params = full_text(torch, "dit-t2i")
+    wl = make_workload("t2i", cfg=cfg, params=params)
+    L = cfg.num_layers
+    out_paths = {}
+    torch.cuda.reset_peak_memory_stats()
+    with counting(dit, "text_kv") as kv:
+        t0 = time.perf_counter()
+        out, launches = _count_launches(
+            kernels, (flash,), "serve-t2i",
+            lambda: example.run(wl, log=lambda m: log(f"serve-t2i: {m.strip()}")))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng, cond, res = out["engine"], out["conditioner"], out["results"]
+    tel, s = eng.telemetry, eng.telemetry.summary()
+    warm = sum(1 for r in out["warmup"] if isinstance(r, int) and r > 0)
+    if launches["flash_attention"] != L * (tel.ticks_backbone + warm):
+        fail(f"serve-t2i: {launches['flash_attention']} flash launches for "
+             f"{tel.ticks_backbone} served + {warm} warmup backbone passes, "
+             f"want {L} each")
+    unique = len(set(example.PROMPTS) | {example.NEG_PROMPT})
+    waves = check_text_counts("serve-t2i", eng, cond, res,
+                              eng.text_table_builds, kv.calls - 1, unique)
+    log(f"serve-t2i: example run {wall:.3f}s wall (warmup included): "
+        f"{s['requests']} requests, throughput_rps={s['throughput_rps']:.4f} "
+        f"latency_p50_s={s['latency_p50_s']:.3f} "
+        f"latency_p95_s={s['latency_p95_s']:.3f} ticks={s['ticks']} (full "
+        f"{tel.ticks_full}, cond {tel.ticks_cond}, skip {tel.ticks_skip}) "
+        f"tick_ms_full_mean={s['tick_ms_full_mean']:.3f} "
+        f"tick_ms_cond_mean={s['tick_ms_cond_mean']:.3f} "
+        f"backbone_rows_computed={s['backbone_rows_computed']} "
+        f"backbone_rows_saved={s['backbone_rows_saved']} "
+        f"uncond_rows_computed={s['uncond_rows_computed']} "
+        f"computed_steps={[r.record.computed_steps for r in res]} "
+        f"encoder_runs={cond.misses} (unique prompts {unique}, hits "
+        f"{cond.hits}) text_table_builds={eng.text_table_builds} "
+        f"(admission waves {waves}; text_kv calls {kv.calls}, one of them "
+        f"warmup's) flash_per_backbone_pass={L} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"(of which {held:.2f} held by earlier phases) launches {launches}")
+    out_paths["serve-t2i"] = launches
+
+    # the example's queue again, tick by tick: the plan's rows
+    reqs = example.requests()
+    eng.text_table_builds, misses = 0, cond.misses
+    with counting(dit, "text_kv") as kv:
+        (res2, trace), launches = _count_launches(
+            kernels, (flash,), "serve-t2i drive",
+            lambda: drive(eng, reqs, record=True))
+    check_rows("serve-t2i drive", res2, reqs, trace)
+    check_text_counts("serve-t2i drive", eng, cond, res2,
+                      eng.text_table_builds, kv.calls, misses)
+    if launches["flash_attention"] != L * eng.telemetry.ticks_backbone:
+        fail(f"serve-t2i drive: {launches['flash_attention']} flash launches "
+             f"in {eng.telemetry.ticks_backbone} backbone passes")
+    log(f"serve-t2i drive: the example's queue again: computed steps "
+        f"{[r.record.computed_steps for r in res2]} = the plan's rows, "
+        f"least margin {least_margin(trace)}, every encoder call a hit "
+        f"({cond.hits} hits), text_table_builds={eng.text_table_builds} = "
+        f"admission waves, launches {launches}")
+    del eng, out, res, res2
+
+    # TaylorSeer 4/2 + FasterCacheCFG(4): serve-cfg's traffic, prompted
+    cond_pol, cfg_pol = make_policy("taylorseer"), FasterCacheCFG(4, 16)
+    eng = wl.engine("taylorseer", slots=4, max_steps=16,
+                    cfg_policy=FasterCacheCFG(4, 16), conditioner=cond)
+    eng.warmup()
+    reqs = text_requests(cfg, 8, (8, 16), guided=CFG_GUIDED, neg=CFG_VECTOR)
+    misses = cond.misses + 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counting(dit, "text_kv") as kv:
+        t0 = time.perf_counter()
+        (res, trace), launches = _count_launches(
+            kernels, (flash, forecast), "serve-t2i-taylorseer",
+            lambda: drive(eng, reqs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_cfg_rows("serve-t2i-taylorseer", res, reqs, trace, cond_pol,
+                   cfg_pol)
+    tel, s = eng.telemetry, eng.telemetry.summary()
+    if launches["flash_attention"] != L * tel.ticks_backbone:
+        fail(f"serve-t2i-taylorseer: {launches['flash_attention']} flash "
+             f"launches in {tel.ticks_backbone} backbone passes")
+    waves = check_text_counts("serve-t2i-taylorseer", eng, cond, res,
+                              eng.text_table_builds, kv.calls, misses)
+    table_mb = 4 * L * cfg.dit_text_len * cfg.d_model * 4 / 1e6
+    log(f"serve-t2i-taylorseer: {s['requests']} requests "
+        f"({s['guided_requests']} guided, one negative prompt) in "
+        f"{wall:.3f}s wall, throughput_rps={s['throughput_rps']:.4f} "
+        f"(serve-cfg {cfg_summary['throughput_rps']:.4f}) "
+        f"latency_p50_s={s['latency_p50_s']:.3f} "
+        f"latency_p95_s={s['latency_p95_s']:.3f} ticks={s['ticks']} (full "
+        f"{tel.ticks_full}, cond {tel.ticks_cond}, skip {tel.ticks_skip}) "
+        f"tick_ms_full_mean={s['tick_ms_full_mean']:.3f} (serve-cfg "
+        f"{cfg_summary['tick_ms_full_mean']:.3f}) "
+        f"tick_ms_cond_mean={s['tick_ms_cond_mean']:.3f} (serve-cfg "
+        f"{cfg_summary['tick_ms_cond_mean']:.3f}) "
+        f"tick_ms_skip_mean={s['tick_ms_skip_mean']:.3f} "
+        f"backbone_rows_computed={s['backbone_rows_computed']} "
+        f"uncond_rows_computed={s['uncond_rows_computed']} "
+        f"text_table_builds={eng.text_table_builds} (admission waves "
+        f"{waves}, text_kv calls {kv.calls}) text_tables_mb_per_slot="
+        f"{table_mb:.1f} peak_mem_gb={peak:.2f} (of which {held:.2f} held "
+        f"by earlier phases) launches {launches}")
+    out_paths["serve-t2i-taylorseer"] = launches
+    log_cross_share(torch, "serve-t2i-taylorseer", lambda: eng.serve(reqs))
+    check_prompt_moves_x0("serve-t2i", eng, 8)
+    time_cross_attention(torch, F, "serve-t2i", cfg, 8, cfg.dit_tokens)
+    del eng, params, wl
+    torch.cuda.empty_cache()
+    return out_paths
+
+
+def phase_check_text(torch):
+    """dit-t2i and dit-t2v SMOKE with their text encoders on the card
+    (kernels) and the CPU (plain versions), the same weights, prompts and
+    noise: under TeaCache with FasterCacheCFG and under TaylorSeer the same
+    decisions and tick kinds (every thresholded decision of the CPU
+    reference >= MARGIN from its threshold), the same text-table builds
+    and encoder runs, x0 within 1e-3 relative; the prompt-less forward is
+    a bit-exact no-op on the card."""
+    import dataclasses
+    from repro_torch.conditioning import (PromptCache, init_text_encoder,
+                                          text_encoder_config)
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import FasterCacheCFG, make_policy
+    from repro_torch.models import (dit, init_params, perturb_zero_init,
+                                    video_dit)
+    from repro_torch.serving.diffusion import DiffusionServingEngine
+    for arch in ("dit-t2i", "dit-t2v"):
+        cfg = get_smoke_config(arch)
+        gen = torch.Generator().manual_seed(3)
+        cpu_params = perturb_zero_init(init_params(gen, cfg, device="cpu"),
+                                       gen)
+        tc = text_encoder_config(cfg)
+        cpu_enc = init_text_encoder(torch.Generator().manual_seed(4), tc,
+                                    device="cpu")
+        params = {"cuda": _to(cpu_params, "cuda"), "cpu": cpu_params}
+        encs = {"cuda": _to(cpu_enc, "cuda"), "cpu": cpu_enc}
+
+        def noise(req):
+            g = torch.Generator().manual_seed(100 + req.request_id)
+            return torch.randn((cfg.dit_tokens, cfg.dit_in_dim), generator=g)
+
+        reqs = text_requests(cfg, 4, (8, 12), guided=(0, 1, 3), neg=0)
+        reqs[2] = dataclasses.replace(reqs[2], prompt_tokens=None)
+        for label, name, kw, cfg_pol in (
+                ("teacache + FasterCacheCFG", "teacache",
+                 {"delta": CHECK_TEXT_DELTA[arch]}, FasterCacheCFG(3, 12)),
+                ("taylorseer", "taylorseer", {}, None)):
+            out, counts = {}, {}
+            for dev in ("cuda", "cpu"):
+                cond = PromptCache(encs[dev], tc)
+                eng = DiffusionServingEngine(
+                    params[dev], cfg, make_policy(name, num_steps=12, **kw),
+                    slots=2, max_steps=12, cfg_policy=cfg_pol,
+                    conditioner=cond, noise_fn=noise, device=dev)
+                out[dev] = drive(eng, reqs, record=True)
+                counts[dev] = (eng.text_table_builds, cond.misses)
+            (gres, glog), (cres, clog) = out["cuda"], out["cpu"]
+            margin = least_margin(clog)
+            if margin is not None and margin < MARGIN:
+                fail(f"check-text {arch} {label}: a decision of the CPU "
+                     f"reference lies {margin:.3e} relative from its "
+                     f"threshold (< {MARGIN})")
+            steps = {d: [(r.record.computed_steps,
+                          r.record.uncond_computed_steps)
+                         for r in out[d][0]] for d in out}
+            if steps["cuda"] != steps["cpu"] or \
+                    glog["kinds"] != clog["kinds"] or \
+                    counts["cuda"] != counts["cpu"]:
+                fail(f"check-text {arch} {label}: card and CPU decide "
+                     f"differently: (cond, uncond) steps {steps}, kinds "
+                     f"{glog['kinds']} vs {clog['kinds']}, (builds, "
+                     f"encoder runs) {counts}")
+            worst = rel_err(gres, cres)
+            kinds = clog["kinds"]
+            log(f"check-text {arch} {label}: SMOKE served on the card vs "
+                f"the CPU: (cond, uncond) computed steps {steps['cpu']} "
+                f"identical, {len(kinds)} tick kinds identical (full "
+                f"{kinds.count('full')}, cond {kinds.count('cond')}, skip "
+                f"{kinds.count('skip')}), (text-table builds, encoder runs) "
+                f"{counts['cpu']} identical, least margin {margin}, max rel "
+                f"err {worst:.3e} (tol 1e-3)")
+            if not worst <= 1e-3:
+                fail(f"check-text {arch} {label}: card and CPU disagree "
+                     f"({worst})")
+        # the prompt-less forward on the card: bit-exact no-op
+        mod = video_dit if cfg.dit_num_frames else dit
+        p = params["cuda"]
+        g = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn((2, cfg.dit_tokens, cfg.dit_in_dim), generator=g,
+                        device="cuda")
+        t = torch.tensor([10.0, 600.0], device="cuda")
+        y = torch.tensor([1, 7], device="cuda")
+        skipped = mod.forward(p, x, t, y,
+                              dataclasses.replace(cfg, dit_text_len=0))
+        noop = mod.forward(p, x, t, y, cfg)
+        masked = mod.forward(
+            p, x, t, y, cfg,
+            txt_embed=torch.randn((2, cfg.dit_text_len, cfg.d_model),
+                                  generator=g, device="cuda"),
+            txt_mask=torch.zeros((2, cfg.dit_text_len), dtype=torch.bool,
+                                 device="cuda"))
+        same = torch.equal(noop, skipped) and torch.equal(masked, skipped)
+        log(f"check-text {arch}: prompt-less and all-masked forwards on the "
+            f"card {'bit-identical' if same else 'DIFFER'} to the forward "
+            f"without the cross branch")
+        if not same:
+            fail(f"check-text {arch}: the prompt-less forward is not a "
+                 f"bit-exact no-op on the card")
+
+
+def phase_serve_t2v(torch, kernels, flash, forecast, F):
+    """Full-width dit-t2v, 2 slots, 4 prompted requests of 8 and 16 steps
+    under TaylorSeer; CachedDenoiser under pab_video (cross_attn at range 6)
+    against exact, 16 steps."""
+    from repro_torch.core import make_policy
+    from repro_torch.diffusion import (CachedDenoiser, ddim_step,
+                                       linear_schedule, sample)
+    from repro_torch.modalities import make_workload
+    from repro_torch.models import dit
+    held = torch.cuda.memory_allocated() / 1e9      # earlier phases' params
+    cfg, params = full_text(torch, "dit-t2v")
+    wl = make_workload("t2v", cfg=cfg, params=params)
+    cond = wl.conditioner()
+    pol = make_policy("taylorseer", interval=4, order=2, num_steps=16)
+    eng = wl.engine(pol, slots=2, max_steps=16, conditioner=cond)
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reqs = text_requests(cfg, 4, (8, 16), modality="t2v")
+    passes = 2 * cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    with counting(dit, "text_kv") as kv:
+        t0 = time.perf_counter()
+        (res, trace), launches = _count_launches(
+            kernels, (flash, forecast), "serve-t2v",
+            lambda: drive(eng, reqs, record=True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_rows("serve-t2v", res, reqs, trace)
+    for r, req in zip(res, reqs):
+        want = sum(pol.static_schedule(req.num_steps))
+        if r.record.computed_steps != want or not math.isfinite(
+                float(abs(r.x0).max())):
+            fail(f"serve-t2v: request {r.request_id} computed "
+                 f"{r.record.computed_steps} (schedule {want}) or x0 not "
+                 f"finite")
+    tel, s = eng.telemetry, eng.telemetry.summary()
+    if launches["flash_attention"] != passes * tel.ticks_backbone:
+        fail(f"serve-t2v: {launches['flash_attention']} flash launches in "
+             f"{tel.ticks_backbone} backbone passes, want {passes} each")
+    waves = check_text_counts("serve-t2v", eng, cond, res,
+                              eng.text_table_builds, kv.calls, 3)
+    log(f"serve-t2v: {s['requests']} prompted requests in {wall:.3f}s wall "
+        f"(warmup {warm_s:.2f}s), throughput_rps={s['throughput_rps']:.4f} "
+        f"latency_p50_s={s['latency_p50_s']:.3f} "
+        f"latency_p95_s={s['latency_p95_s']:.3f} ticks={s['ticks']} "
+        f"(backbone {tel.ticks_backbone}, skip {tel.ticks_skip}) "
+        f"tick_ms_backbone_mean={s['tick_ms_backbone_mean']:.3f} "
+        f"tick_ms_skip_mean={s['tick_ms_skip_mean']:.3f} "
+        f"backbone_rows_computed={s['backbone_rows_computed']} "
+        f"computed_steps={[r.record.computed_steps for r in res]} "
+        f"flash_per_backbone_pass={passes} encoder_runs={cond.misses} "
+        f"text_table_builds={eng.text_table_builds} (admission waves "
+        f"{waves}, text_kv calls {kv.calls}) peak_mem_gb={peak:.2f} (of "
+        f"which {held:.2f} held by earlier phases) launches {launches}")
+    out_paths = {"serve-t2v": launches}
+    log_cross_share(torch, "serve-t2v", lambda: eng.serve(reqs))
+    check_prompt_moves_x0("serve-t2v", eng, 8)
+    del eng
+
+    # single stream: exact against PAB over the four branches
+    sched = linear_schedule(1000)
+    ts = sched.spaced(16)
+    xT = torch.randn((1, cfg.dit_tokens, cfg.dit_in_dim),
+                     generator=torch.Generator(device="cuda").manual_seed(7),
+                     device="cuda")
+    text = cond.get(TEXT_PROMPTS[0])
+    exact, total = None, {k.__name__: 0 for k in kernels}
+    for label, gran in (("exact", "model"), ("pab_video", "pab_video")):
+        den = CachedDenoiser(params, cfg, granularity=gran, text=text,
+                             device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (x0, _), launches = _count_launches(
+            kernels, (flash,), f"denoise-t2v {label}",
+            lambda: sample(den, xT, ts, sched, step_fn=ddim_step,
+                           denoiser_state=den.init_state(1)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(ts)
+        for k, n in launches.items():
+            total[k] += n
+        if not bool(torch.isfinite(x0).all()):
+            fail(f"denoise-t2v {label}: x0 not finite")
+        if gran == "pab_video":
+            stack = den._stack
+            if stack.intervals.get("cross_attn") != 6:
+                fail(f"denoise-t2v: cross_attn range {stack.intervals}")
+            cf = stack.compute_fraction(len(ts))
+            err = float(torch.linalg.vector_norm(x0 - exact)
+                        / torch.linalg.vector_norm(exact))
+        else:
+            exact, cf, err = x0, 1.0, 0.0
+        log(f"denoise-t2v {label}: {len(ts)} DDIM steps, batch 1, prompted, "
+            f"ms_per_step={ms:.2f} branch_compute_fraction={cf:.4f} "
+            f"rel_l2_err_vs_exact={err:.4e} launches {launches}")
+        del den
+    out_paths["denoise-t2v"] = total
+    time_cross_attention(torch, F, "serve-t2v", cfg, 2, cfg.dit_tokens)
+    del params, wl, cond
+    torch.cuda.empty_cache()
+    return out_paths
 
 
 def _to(tree, device):
@@ -1800,7 +2342,7 @@ def main() -> int:
                          KERNELS, flash_attention, forecast))
     timed("check", phase_check, torch)
     dit_cfg, dit_params = full_dit(torch)
-    by_path["serve-cfg"] = timed(
+    by_path["serve-cfg"], cfg_summary = timed(
         "serve-cfg", phase_serve_cfg, torch, KERNELS,
         (flash_attention, forecast), dit_params, dit_cfg)
     timed("check-cfg", phase_check_cfg, torch)
@@ -1823,6 +2365,12 @@ def main() -> int:
         "audio": make_workload("audio", seed=0, device="cuda")}
     by_path["serve-mixed"] = timed("serve-mixed", phase_serve_mixed, torch,
                                    KERNELS, (flash_attention,), workloads)
+    # slice 8: text conditioning
+    by_path.update(timed("serve-t2i", phase_serve_t2i, torch, KERNELS,
+                         flash_attention, forecast, F, cfg_summary))
+    timed("check-text", phase_check_text, torch)
+    by_path.update(timed("serve-t2v", phase_serve_t2v, torch, KERNELS,
+                         flash_attention, forecast, F))
     del dit_params, video_params, workloads
     gc.collect()         # nothing of the DiT phases counts in serve-llm's peak
     torch.cuda.empty_cache()

@@ -1,8 +1,9 @@
 """Config registry of the port: only the architectures ported so far."""
-from . import dit_audio, dit_video, dit_xl, zamba2_2p7b
+from . import dit_audio, dit_t2i, dit_t2v, dit_video, dit_xl, zamba2_2p7b
 from .base import ArchConfig
 
 _MODULES = {"dit-xl": dit_xl, "dit-video": dit_video, "dit-audio": dit_audio,
+            "dit-t2i": dit_t2i, "dit-t2v": dit_t2v,
             "zamba2-2.7b": zamba2_2p7b}
 ALL_ARCH_IDS = list(_MODULES)
 

@@ -70,7 +70,7 @@ class ArchConfig:
     dit_in_dim: int = 0              # patchified latent channel dim
     dit_num_classes: int = 1000
     dit_num_frames: int = 0          # > 0: factorized video DiT
-    dit_text_len: int = 0            # > 0: text cross-attention (not ported yet)
+    dit_text_len: int = 0            # > 0: text cross-attention
 
     # --- numerics ---
     dtype: str = "bfloat16"          # parameter dtype

@@ -1,8 +1,10 @@
 """CachedDenoiser and the serving engine's slot functions — the port of the
-JAX `diffusion/pipeline.py` for class-conditioned DiTs, with
-classifier-free guidance (an optional cache policy on the unconditional
-branch, FasterCacheCFG) and negative-prompt vectors in place of the
-null-class embedding.  Text prompts are not ported yet (ROADMAP.md §A.4).
+JAX `diffusion/pipeline.py`, with classifier-free guidance (an optional
+cache policy on the unconditional branch, FasterCacheCFG), negative-prompt
+vectors in place of the null-class embedding, and text prompts for the
+text-enabled configs (dit-t2i, dit-t2v): the cond rows cross-attend over
+the prompt's K/V and the uncond rows over the negative prompt's, both
+projected once (at construction, or per admission wave in the engine).
 
 Modalities: every entry point dispatches on the config — the plain
 isotropic DiT (image latents, audio mel-spectrograms) when
@@ -44,25 +46,24 @@ GRANULARITIES = ("model", "block", "deepcache", "pab_video")
 
 def backbone_module(cfg):
     """The backbone module for this config's modality (dit | video_dit)."""
-    if cfg.dit_text_len > 0:
-        raise NotImplementedError(
-            f"the text-conditioned backbone of '{cfg.name}' is not ported to "
-            f"repro_torch yet; see ROADMAP.md §A.4")
     return video_dit if cfg.dit_num_frames > 0 else dit
 
 
 def backbone_fns(params, cfg):
     """(forward_fn, signal_fn) bound to params for this config's modality.
 
-    forward_fn(xs, ts, labels, y_embed=None) -> eps for xs (B, T, D),
-    ts (B,) timesteps, labels (B,) class ids, y_embed (B, d) an optional
-    conditioning-vector override (negative prompts); signal_fn(xs, ts,
-    labels) -> TeaCache's modulated first-block input."""
+    forward_fn(xs, ts, labels, y_embed=None, txt_kv=None, txt_mask=None)
+    -> eps for xs (B, T, D), ts (B,) timesteps, labels (B,) class ids,
+    y_embed (B, d) an optional conditioning-vector override (negative
+    prompts), txt_kv / txt_mask the per-layer text K/V tables and key mask
+    of a text-enabled config (models.dit.text_kv); signal_fn(xs, ts,
+    labels) -> TeaCache's modulated first-block input (computed before the
+    first block, so prompts never move a refresh decision)."""
     mod = backbone_module(cfg)
 
-    def forward_fn(xs, ts, labels, y_embed=None):
+    def forward_fn(xs, ts, labels, y_embed=None, txt_kv=None, txt_mask=None):
         return mod.forward(params, xs, ts.float(), labels.long(), cfg,
-                           y_embed=y_embed)
+                           y_embed=y_embed, txt_kv=txt_kv, txt_mask=txt_mask)
 
     def signal_fn(xs, ts, labels):
         h, c = mod.embed_patches(params, xs, ts.float(), labels.long(), cfg)
@@ -77,6 +78,55 @@ def _null_embed_rows(params, nulls, null_vecs, null_mask):
     set (the vector is cast to the embedding table's dtype, as in JAX)."""
     ce = params["class_embed"][nulls.long()]
     return torch.where(null_mask[:, None], null_vecs.to(ce.dtype), ce)
+
+
+def _as_text(text, cfg, device):
+    """Normalize prompt conditioning to (te (L, d) f32, tm (L,) bool) on
+    `device`, te zeroed at masked positions (the cross-attention no-op's
+    invariant).  `text` is a PromptEmbedding, an (embed, mask) pair, or
+    None."""
+    if text is None:
+        return None
+    if cfg.dit_text_len <= 0:
+        raise ValueError(f"config '{cfg.name}' is not text-enabled "
+                         f"(dit_text_len == 0) but a prompt was given")
+    te, tm = (text.embed, text.mask) if hasattr(text, "embed") else text
+    te = torch.tensor(np.asarray(te), dtype=torch.float32, device=device)
+    tm = torch.tensor(np.asarray(tm), dtype=torch.bool, device=device)
+    if te.ndim == 3:                      # batched (1, L, d) -> (L, d)
+        te, tm = te[0], tm[0]
+    if tuple(te.shape) != (cfg.dit_text_len, cfg.d_model):
+        raise ValueError(f"prompt embedding shape {tuple(te.shape)} != "
+                         f"({cfg.dit_text_len}, {cfg.d_model})")
+    return torch.where(tm[:, None], te, 0.0), tm
+
+
+def _text_pooled(text):
+    """The pooled (d_model,) view of a normalized (te, tm) pair: the
+    vector the CFG negative-prompt (null-vector) path conditions on."""
+    te, tm = text
+    return te.sum(dim=0) / tm.sum().clamp(min=1)
+
+
+def _text_operands(params, cfg, text, device):
+    """(tk, tv, tm) of one prompt, batch 1: its K/V over all layers
+    (projected here, once) and its mask; zero tables and an all-False mask
+    for None, the no-op of a text-enabled config."""
+    if text is None:
+        return dit.resolve_txt(params, cfg, 1, device=device)
+    tk, tv = dit.text_kv(params, text[0][None], cfg)
+    return tk, tv, text[1][None]
+
+
+def _txt_kwargs(ops, B):
+    """forward() kwargs broadcasting one prompt's (tk, tv, tm) to batch B
+    ({} on a text-free config)."""
+    if ops is None:
+        return {}
+    tk, tv, tm = ops
+    return {"txt_kv": (tk.expand(B, *tk.shape[1:]),
+                       tv.expand(B, *tv.shape[1:])),
+            "txt_mask": tm.expand(B, -1)}
 
 
 def _cfg_kwargs(cfg_policy, cfg_w, cond_out):
@@ -94,14 +144,22 @@ class CachedDenoiser:
     signal is computed only for a policy that reads it.  With
     cfg_scale > 0 the unconditional branch runs under `cfg_policy` (None:
     it recomputes every step), conditioned on the null class or on
-    `null_embed`, a (d_model,) negative-prompt vector."""
+    `null_embed`, a (d_model,) negative-prompt vector.
+
+    `text` / `neg_text` (a PromptEmbedding or an (embed, mask) pair;
+    text-enabled configs only) condition the cond / uncond branch through
+    cross-attention.  Their K/V over all layers are projected once, here;
+    the block and deepcache stacks read each layer's slice, and pab_video's
+    cross branch projects from the embeddings on the steps it refreshes,
+    as JAX's.  A `neg_text` defaults `null_embed` to its pooled
+    embedding."""
 
     def __init__(self, params, cfg, policy: Optional[CachePolicy] = None,
                  granularity: str = "model", shallow_n: int = 4,
                  cfg_scale: float = 0.0,
                  cfg_policy: Optional[CachePolicy] = None,
-                 class_label: int = 0, null_embed=None,
-                 device: DeviceLike = None):
+                 class_label: int = 0, null_embed=None, text=None,
+                 neg_text=None, device: DeviceLike = None):
         if granularity not in GRANULARITIES:
             raise ValueError(f"granularity must be one of {GRANULARITIES}, "
                              f"got {granularity!r}")
@@ -116,10 +174,24 @@ class CachedDenoiser:
         self.cfg_scale = float(cfg_scale)
         self.cfg_policy = cfg_policy
         self.class_label = class_label
+        self._text = _as_text(text, cfg, self.device)
+        neg = _as_text(neg_text, cfg, self.device)
+        if null_embed is None and neg is not None:
+            null_embed = _text_pooled(neg)
         self.null_embed = (None if null_embed is None else torch.as_tensor(
             null_embed, dtype=torch.float32, device=self.device))
         self._mod = backbone_module(cfg)
         self._forward, self._signal = backbone_fns(params, cfg)
+        self._txt = self._neg = None
+        self._blocks = params["blocks"]
+        if cfg.dit_text_len > 0:
+            self._txt = _text_operands(params, cfg, self._text, self.device)
+            self._neg = _text_operands(params, cfg, neg, self.device)
+            # each layer's prompt K/V ride beside its params (a leading
+            # layer axis), so the block loops slice them with the weights
+            tk, tv, _ = self._txt
+            self._blocks = dict(params["blocks"], txt_k=tk.transpose(0, 1),
+                                txt_v=tv.transpose(0, 1))
         if granularity == "block":
             self._stack = CachedStack(self._block, self.policy,
                                       cfg.num_layers)
@@ -131,9 +203,16 @@ class CachedDenoiser:
                                            cfg.num_layers)
 
     def _block(self, p, x, c):
+        """One block under the cond branch's text conditioning (`p` holds
+        the layer's prompt K/V on a text-enabled config)."""
+        txt = None
+        if self._txt is not None:
+            B = x.shape[0]
+            txt = (p["txt_k"].expand(B, -1, -1), p["txt_v"].expand(B, -1, -1),
+                   self._txt[2].expand(B, -1))
         if self._mod is video_dit:
-            return video_dit.video_block(p, x, c, self.cfg)
-        return dit.dit_block(p, x, c, self.cfg)
+            return video_dit.video_block(p, x, c, self.cfg, txt=txt)
+        return dit.dit_block(p, x, c, self.cfg, txt=txt)
 
     def init_state(self, batch: int):
         cfgm = self.cfg
@@ -154,7 +233,7 @@ class CachedDenoiser:
 
     def _run(self, h, c, lo, hi):
         for i in range(lo, hi):
-            h = self._block(layer_params(self.params["blocks"], i), h, c)
+            h = self._block(layer_params(self._blocks, i), h, c)
         return h
 
     def _backbone(self, x_lat, t_vec, y, state, step):
@@ -166,10 +245,21 @@ class CachedDenoiser:
                    if self.policy.uses_signal else {})
             return self.policy.apply(
                 state, step, x_lat,
-                lambda lat: self._forward(lat, t_vec, y), **sig)
+                lambda lat: self._forward(
+                    lat, t_vec, y, **_txt_kwargs(self._txt, lat.shape[0])),
+                **sig)
         h, c = mod.embed_patches(params, x_lat, t_vec.float(), y.long(), cfgm)
-        if self.granularity in ("block", "pab_video"):
-            h, new_state = self._stack(state, step, h, params["blocks"], c)
+        if self.granularity == "pab_video" and self._txt is not None:
+            # the text-enabled branch fns take (c, te, tm) stack args
+            B = h.shape[0]
+            te = (self._text[0] if self._text is not None
+                  else torch.zeros((cfgm.dit_text_len, cfgm.d_model),
+                                   device=self.device))
+            h, new_state = self._stack(state, step, h, params["blocks"], c,
+                                       te.expand(B, -1, -1),
+                                       self._txt[2].expand(B, -1))
+        elif self.granularity in ("block", "pab_video"):
+            h, new_state = self._stack(state, step, h, self._blocks, c)
         else:   # deepcache split (a stack shallower than shallow_n has
             # no deep section, as JAX's slices give)
             F, L = min(self.shallow_n, cfgm.num_layers), cfgm.num_layers
@@ -193,7 +283,10 @@ class CachedDenoiser:
                        else self.null_embed[None].expand(B, -1))
 
             def uncond(lat):
-                return self._forward(lat, t_vec, y_null, y_embed=y_embed)
+                # the uncond rows attend over the negative prompt's K/V
+                # (zero tables when there is none)
+                return self._forward(lat, t_vec, y_null, y_embed=y_embed,
+                                     **_txt_kwargs(self._neg, lat.shape[0]))
 
             if self.cfg_policy is not None:
                 eps_u, new_state["cfg"] = self.cfg_policy.apply(
@@ -208,8 +301,12 @@ def slot_denoise_fns(params, cfg, policy: CachePolicy):
     """Slot-parallel entry point (model granularity), the dense engine's
     cond branch:
 
-      backbone_fn(xs, ts, labels) -> eps
+      backbone_fn(xs, ts, labels, txt=None) -> eps
           the plain slot-batched forward: the slot axis is the batch axis.
+          `txt` is the engine's per-slot text-table dict (None or {} on a
+          text-free engine): "k", "v" (2S, nl, L, H*hd) and "mask" (2S, L),
+          rows [0, S) the slots' prompts, rows [S, 2S) their negative
+          prompts; the S cond rows read the first half.
       apply_fn(states, steps, xs, ys, want=None, signal=None)
           -> (eps, states)
           the policy's step over the whole slot axis on the plan's host
@@ -221,11 +318,18 @@ def slot_denoise_fns(params, cfg, policy: CachePolicy):
     """
     forward_fn, signal_fn = backbone_fns(params, cfg)
 
+    def backbone_fn(xs, ts, labels, txt=None):
+        if not txt:
+            return forward_fn(xs, ts, labels)
+        S = xs.shape[0]
+        return forward_fn(xs, ts, labels, txt_kv=(txt["k"][:S], txt["v"][:S]),
+                          txt_mask=txt["mask"][:S])
+
     def want_fn(states, steps, xs, ts, labels):
         sig = signal_fn(xs, ts, labels) if policy.uses_signal else None
         return policy.want_slots(states, steps, xs, sig), sig
 
-    return forward_fn, policy.apply_slots, want_fn
+    return backbone_fn, policy.apply_slots, want_fn
 
 
 def slot_cfg_denoise_fns(params, cfg, policy: CachePolicy,
@@ -234,12 +338,14 @@ def slot_cfg_denoise_fns(params, cfg, policy: CachePolicy,
     carries a cond state (`policy`) and an uncond state (`cfg_policy`; None
     means the uncond branch recomputes every step).
 
-      backbone2_fn(xs, ts, labels, nulls, null_vecs, null_mask)
+      backbone2_fn(xs, ts, labels, nulls, null_vecs, null_mask, txt=None)
           -> (y_c, y_u)
           one 2S-row pass over [cond rows; uncond rows]; uncond rows
           condition on the null label, or on the slot's negative-prompt
-          vector where `null_mask` is set.
-      backbone_fn(xs, ts, labels) -> y_c
+          vector where `null_mask` is set, and cross-attend over the
+          negative prompts' half of `txt` (whose 2S rows line up with the
+          pass's rows, so no table is copied).
+      backbone_fn(xs, ts, labels, txt=None) -> y_c
           the S-row cond-only pass.
       apply_fn(states, steps, xs, scales, cfg_ws, y_c, y_u, want=None,
                want_u=None, signal=None) -> (eps, states)
@@ -254,13 +360,15 @@ def slot_cfg_denoise_fns(params, cfg, policy: CachePolicy,
     forward_fn, _ = backbone_fns(params, cfg)
     backbone_fn, cond_apply, _ = slot_denoise_fns(params, cfg, policy)
 
-    def backbone2_fn(xs, ts, labels, nulls, null_vecs, null_mask):
+    def backbone2_fn(xs, ts, labels, nulls, null_vecs, null_mask, txt=None):
         S = xs.shape[0]
         ce_c = params["class_embed"][labels.long()]
         ce_u = _null_embed_rows(params, nulls, null_vecs, null_mask)
+        kw = ({"txt_kv": (txt["k"], txt["v"]), "txt_mask": txt["mask"]}
+              if txt else {})
         eps = forward_fn(torch.cat([xs, xs]), torch.cat([ts, ts]),
                          torch.cat([labels, nulls]),
-                         y_embed=torch.cat([ce_c, ce_u]))
+                         y_embed=torch.cat([ce_c, ce_u]), **kw)
         return eps[:S], eps[S:]
 
     def apply_fn(states, steps, xs, scales, cfg_ws, y_c, y_u, want=None,
@@ -282,10 +390,13 @@ def slot_compact_denoise_fns(params, cfg, policy: CachePolicy,
     """Row-compacted slot-parallel entry point for the serving engine.
 
       compact_backbone_fn(xs, tvals, labels, nulls, null_vecs, null_mask,
-                          row_slot, row_uncond, row_dest) -> (y_c, y_u)
+                          txt, row_slot, row_uncond, row_dest) -> (y_c, y_u)
           gathers the `bucket` wanted rows (row_slot picks the source slot,
           row_uncond the null conditioning: the null label, or the slot's
-          negative-prompt vector where `null_mask` is set), runs the
+          negative-prompt vector where `null_mask` is set; with text, each
+          row's K/V and mask are gathered from table row row_slot +
+          S * row_uncond on the device: the slot's prompt for a cond row,
+          its negative prompt for an uncond row), runs the
           backbone over that batch only, and scatters each row into a
           (2S+1)-row buffer at row_dest (cond row i -> i, uncond row i ->
           S + i, padding -> the dump row 2S), split back into S-row y_c /
@@ -300,12 +411,17 @@ def slot_compact_denoise_fns(params, cfg, policy: CachePolicy,
         params, cfg, policy, cfg_policy)
 
     def compact_backbone_fn(xs, tvals, labels, nulls, null_vecs, null_mask,
-                            row_slot, row_uncond, row_dest):
+                            txt, row_slot, row_uncond, row_dest):
         S, T, D = xs.shape
         yb = torch.where(row_uncond, nulls[row_slot], labels[row_slot])
         ce = _null_embed_rows(params, yb, null_vecs[row_slot],
                               row_uncond & null_mask[row_slot])
-        eps = forward_fn(xs[row_slot], tvals[row_slot], yb, y_embed=ce)
+        kw = {}
+        if txt:
+            rows = row_slot + S * row_uncond.long()
+            kw = {"txt_kv": (txt["k"][rows], txt["v"][rows]),
+                  "txt_mask": txt["mask"][rows]}
+        eps = forward_fn(xs[row_slot], tvals[row_slot], yb, y_embed=ce, **kw)
         buf = torch.zeros((2 * S + 1, T, D), dtype=eps.dtype, device=eps.device)
         buf[row_dest] = eps
         return buf[:S], buf[S:2 * S]
@@ -365,23 +481,34 @@ def slot_want_fns(params, cfg, policy: CachePolicy,
 
 
 def cfg_denoise_fn(params, cfg, cfg_scale: float, class_label: int = 0,
-                   null_embed=None):
+                   null_embed=None, text=None, neg_text=None):
     """Uncached CFG denoiser (the exact baseline): eps = e_u + s (e_c - e_u);
     `null_embed` (d_model,) replaces the null-class embedding with a
-    negative-prompt vector."""
+    negative-prompt vector.  `text` / `neg_text` (PromptEmbedding or
+    (embed, mask); text-enabled configs) condition the cond / uncond branch
+    through cross-attention, their K/V projected once here; a `neg_text`
+    defaults `null_embed` to its pooled embedding."""
     forward_fn, _ = backbone_fns(params, cfg)
+    dev = tree_device(params)
+    txt = _as_text(text, cfg, dev)
+    neg = _as_text(neg_text, cfg, dev)
+    if null_embed is None and neg is not None:
+        null_embed = _text_pooled(neg)
     ne = (None if null_embed is None
           else torch.as_tensor(null_embed, dtype=torch.float32))
+    ops = ((None, None) if cfg.dit_text_len <= 0 else
+           (_text_operands(params, cfg, txt, dev),
+            _text_operands(params, cfg, neg, dev)))
 
     def fn(state, step, x, t_vec):
         B = x.shape[0]
         y_c = torch.full((B,), class_label, dtype=torch.long, device=x.device)
-        e_c = forward_fn(x, t_vec, y_c)
+        e_c = forward_fn(x, t_vec, y_c, **_txt_kwargs(ops[0], B))
         if cfg_scale <= 0.0:
             return e_c, state
         y_u = torch.full((B,), cfg.dit_num_classes, dtype=torch.long,
                          device=x.device)
         ye = None if ne is None else ne.to(x.device)[None].expand(B, -1)
-        e_u = forward_fn(x, t_vec, y_u, y_embed=ye)
+        e_u = forward_fn(x, t_vec, y_u, y_embed=ye, **_txt_kwargs(ops[1], B))
         return e_u + cfg_scale * (e_c - e_u), state
     return fn

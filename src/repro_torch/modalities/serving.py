@@ -93,14 +93,20 @@ class MixedModalityEngine:
     def from_workloads(cls, workloads: Mapping[str, DenoiseWorkload],
                        policies: Optional[Mapping[str, object]] = None,
                        cfg_policies: Optional[Mapping[str, object]] = None,
+                       conditioners: Optional[Mapping[str, object]] = None,
                        **engine_kw) -> "MixedModalityEngine":
         """One sub-pool per workload; `policies` / `cfg_policies` map
-        modality -> policy (name or instance), defaulting to None."""
+        modality -> policy (name or instance), defaulting to None.
+        `conditioners` maps text modalities to their PromptCache — per
+        modality, never in engine_kw: the non-text pools reject a
+        conditioner."""
         policies = dict(policies or {})
         cfg_policies = dict(cfg_policies or {})
+        conditioners = dict(conditioners or {})
         return cls({
             name: wl.engine(policies.get(name),
-                            cfg_policy=cfg_policies.get(name), **engine_kw)
+                            cfg_policy=cfg_policies.get(name),
+                            conditioner=conditioners.get(name), **engine_kw)
             for name, wl in workloads.items()})
 
     def warmup(self, verify: bool = False) -> Dict[str, List]:

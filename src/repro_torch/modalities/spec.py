@@ -15,7 +15,11 @@ modality is for the cache and serving stack:
           temporal policies (repro_torch.core.temporal).
   audio — mel-spectrogram latents (dit-audio): tokens = mel time-frames,
           channels = mel bins, backbone = the plain DiT.
-  t2i, t2v — text-conditioned; their backbones are ROADMAP.md §A.4.
+  t2i   — text-to-image: the image DiT with a cross-attention branch per
+          block over prompt embeddings (dit-t2i); requests carry
+          prompt_tokens, resolved through the workload's conditioner.
+  t2v   — text-to-video: the factorized video DiT with the same branch
+          after spatial attention (dit-t2v).
 
 `DenoiseWorkload` binds a spec to (cfg, params) and hands out the pieces
 the rest of the stack consumes: a CachedDenoiser, a serving engine, the
@@ -46,10 +50,6 @@ class ModalitySpec:
     text: bool = False
 
     def config(self, smoke: bool = False):
-        if self.text:
-            raise KeyError(f"modality '{self.name}': its text-conditioned "
-                           f"config '{self.arch_id}' is not ported to "
-                           f"repro_torch yet; see ROADMAP.md §A.4")
         return (get_smoke_config(self.arch_id) if smoke
                 else get_config(self.arch_id))
 
@@ -163,18 +163,27 @@ class DenoiseWorkload:
                               device=self.device, **kw)
 
     def cfg_denoise_fn(self, cfg_scale: float, class_label: int = 0,
-                       null_embed=None):
+                       null_embed=None, text=None, neg_text=None):
         """The exact (uncached) guided baseline for this modality."""
         from repro_torch.diffusion.pipeline import cfg_denoise_fn
         return cfg_denoise_fn(self.params, self.cfg, cfg_scale, class_label,
-                              null_embed)
+                              null_embed, text=text, neg_text=neg_text)
 
     def conditioner(self, capacity: int = 128, seed: int = 0, metrics=None):
-        """A prompt cache for a text modality: text conditioning is not
-        ported yet."""
-        raise NotImplementedError("the prompt conditioner (PromptCache) is "
-                                  "not ported to repro_torch yet; see "
-                                  "ROADMAP.md §A.4")
+        """A PromptCache over a text encoder freshly drawn from a
+        torch.Generator seeded with `seed` on the workload's device, matched
+        to this workload's config (text modalities only): what the engine
+        resolves DiffusionRequest.prompt_tokens through."""
+        if not self.spec.text:
+            raise ValueError(f"modality '{self.spec.name}' is not "
+                             f"text-conditioned; no conditioner to build")
+        from repro_torch.conditioning import (PromptCache, init_text_encoder,
+                                              text_encoder_config)
+        tc = text_encoder_config(self.cfg)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        tparams = init_text_encoder(gen, tc, device=self.device)
+        return PromptCache(tparams, tc, capacity=capacity, metrics=metrics,
+                           name=self.spec.name)
 
     def engine(self, policy=None, **kw):
         """A single-modality DiffusionServingEngine over this backbone —

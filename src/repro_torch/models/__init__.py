@@ -1,6 +1,7 @@
-"""Model zoo of the port: so far the class-conditioned DiT (image latents
-and audio mel latents), the factorized spatio-temporal video DiT and the
-hybrid (Mamba2 + shared attention) decoder LM."""
+"""Model zoo of the port: so far the DiT (image latents and audio mel
+latents, class- or text-conditioned), the factorized spatio-temporal video
+DiT (with or without text) and the hybrid (Mamba2 + shared attention)
+decoder LM."""
 from __future__ import annotations
 
 import torch
@@ -21,10 +22,10 @@ def init_params(generator: torch.Generator, cfg, dtype=None, device=None):
                          f"{dev}: make the generator on the params' device")
     if cfg.family == "hybrid":
         return transformer.init_lm(generator, cfg, dtype, dev)
-    if not cfg.is_dit or cfg.dit_text_len > 0:
+    if not cfg.is_dit:
         raise NotImplementedError(
-            f"repro_torch ports only the class-conditioned DiTs and the "
-            f"hybrid LLM so far ('{cfg.name}' needs more); see ROADMAP.md §A")
+            f"repro_torch ports only the DiTs and the hybrid LLM so far "
+            f"('{cfg.name}' needs more); see ROADMAP.md §A")
     if cfg.dit_num_frames > 0:
         return video_dit.init_video_dit(generator, cfg, dtype, dev)
     return dit.init_dit(generator, cfg, dtype, dev)

@@ -1,7 +1,7 @@
 """Factorized spatio-temporal DiT (Latte / OpenSora style) — the port of the
 JAX `models/video_dit.py`, the video backbone of the survey's multi-modal
-caching claims.  Text cross-attention is §A.4 of ROADMAP.md: a
-text-enabled config raises.
+caching claims; a config with `dit_text_len > 0` (dit-t2v) adds a
+cross-attention branch over prompt embeddings after spatial attention.
 
 A latent *clip* carries `F = cfg.dit_num_frames` frames of
 `P = cfg.dit_patch_tokens` patches each, flattened to (B, F*P, in_dim) so
@@ -24,7 +24,10 @@ Both factorized attentions go through the flash kernel
 `blocked_attention`: the same function on another route, as in
 `models/dit.py`.  Params keep the JAX layout (a leading layer axis on every
 `blocks` leaf) and dtypes follow JAX's promotion: bf16 params under f32
-latents give an f32 token path.
+latents give an f32 token path.  The cross-attention is
+`models.dit.cross_attn_branch` on the flat (B, F*P, d) layout: per-query
+softmax over the shared text keys makes that identical to a frame-folded
+form.
 """
 from __future__ import annotations
 
@@ -34,19 +37,15 @@ import torch.nn.functional as F
 from repro_torch.core.engine import layer_params
 from repro_torch.kernels import flash_attention
 
-from .dit import _modulate, _stack, condition
+from .dit import (_modulate, _stack, condition, cross_attn_branch,
+                  cross_attn_embed_branch, resolve_txt)
 from .encdec import sinusoidal_positions
 from .layers import dense_init, dot, init_mlp, layer_norm, mlp_forward
 
 #: the three PAB module types of a factorized block, in execution order
+#: (text-enabled configs insert cross_attn after spatial_attn — see
+#: block_branches)
 BRANCHES = ("spatial_attn", "temporal_attn", "mlp")
-
-
-def _no_text(cfg):
-    if cfg.dit_text_len > 0:
-        raise NotImplementedError(
-            f"'{cfg.name}' is text-conditioned: the video DiT's cross-"
-            f"attention is not ported to repro_torch yet; see ROADMAP.md §A.4")
 
 
 def _init_attn(gen, d, H, hd, dtype, device):
@@ -62,7 +61,7 @@ def _init_attn(gen, d, H, hd, dtype, device):
 
 def _init_video_block(gen, cfg, dtype, device):
     d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
-    return {
+    block = {
         "spatial": _init_attn(gen, d, H, hd, dtype, device),
         "temporal": _init_attn(gen, d, H, hd, dtype, device),
         "mlp": init_mlp(gen, d, cfg.d_ff, dtype, gated=False, device=device),
@@ -70,10 +69,18 @@ def _init_video_block(gen, cfg, dtype, device):
         "ada_w": torch.zeros((d, 9 * d), dtype=dtype, device=device),
         "ada_b": torch.zeros((9 * d,), dtype=dtype, device=device),
     }
+    if cfg.dit_text_len > 0:
+        # text cross-attention branch: its own AdaLN-zero triple, the image
+        # DiT's param layout so dit.text_kv works on both
+        block["cross"] = _init_attn(gen, d, H, hd, dtype, device)
+        block["cross_ada_w"] = torch.zeros((d, 3 * d), dtype=dtype,
+                                           device=device)
+        block["cross_ada_b"] = torch.zeros((3 * d,), dtype=dtype,
+                                           device=device)
+    return block
 
 
 def init_video_dit(generator, cfg, dtype=None, device=None):
-    _no_text(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     d, gen = cfg.d_model, generator
     blocks = _stack([_init_video_block(gen, cfg, dtype, device)
@@ -161,22 +168,36 @@ BRANCH_FNS = {"spatial_attn": spatial_branch, "temporal_attn": temporal_branch,
 def block_branches(cfg):
     """Module types this backbone's blocks expose as separately cacheable
     branches, in execution order (the PAB vocabulary)."""
-    _no_text(cfg)
-    return BRANCHES
+    return (("spatial_attn", "cross_attn", "temporal_attn", "mlp")
+            if cfg.dit_text_len > 0 else BRANCHES)
 
 
 def pab_branch_fns(cfg):
     """The factorized branches bound to `cfg`, keyed by PAB module type:
-    fn(layer_params, x, c) -> the branch's gated residual output."""
-    _no_text(cfg)
+    fn(layer_params, x, c) -> the branch's gated residual output.
+
+    Text-enabled configs add the cross_attn branch (broadcast over the
+    longest range: text is step-invariant) and every branch takes the
+    stack's args (c, te, tm); the cross branch projects its K/V inline
+    from the prompt embeddings on the steps it refreshes."""
+    if cfg.dit_text_len > 0:
+        fns = {name: (lambda p, x, c, te, tm, fn=fn: fn(p, x, c, cfg))
+               for name, fn in BRANCH_FNS.items()}
+        fns["cross_attn"] = (lambda p, x, c, te, tm:
+                             cross_attn_embed_branch(p, x, c, te, tm, cfg))
+        return {name: fns[name] for name in block_branches(cfg)}
     return {name: (lambda p, x, c, fn=fn: fn(p, x, c, cfg))
             for name, fn in BRANCH_FNS.items()}
 
 
-def video_block(p, x, c, cfg):
-    """One factorized block: the gated residual branches in order."""
+def video_block(p, x, c, cfg, txt=None):
+    """One factorized block: the gated residual branches in order; txt
+    ((tk, tv, tm) per-layer text K/V + mask) inserts the cross-attention
+    branch after spatial attention."""
     for name in BRANCHES:
         x = x + BRANCH_FNS[name](p, x, c, cfg)
+        if name == "spatial_attn" and txt is not None:
+            x = x + cross_attn_branch(p, x, c, *txt, cfg)
     return x
 
 
@@ -206,10 +227,18 @@ def final_layer(params, x, c, cfg):
     return dot(_norm_mod(x, s, sc), params["patch_out"])
 
 
-def forward(params, latents, t, y, cfg, *, y_embed=None):
-    """latents: (B, F*P, in_dim); t: (B,); y: (B,) -> noise prediction."""
-    _no_text(cfg)
+def forward(params, latents, t, y, cfg, *, y_embed=None, txt_kv=None,
+            txt_mask=None, txt_embed=None):
+    """latents: (B, F*P, in_dim); t: (B,); y: (B,) -> noise prediction.
+    Text operands as in dit.forward (precomputed txt_kv or inline
+    txt_embed, both optional)."""
     x, c = embed_patches(params, latents, t, y, cfg, y_embed)
+    tk = tv = tm = None
+    if cfg.dit_text_len > 0:
+        tk, tv, tm = resolve_txt(params, cfg, x.shape[0], txt_kv=txt_kv,
+                                 txt_mask=txt_mask, txt_embed=txt_embed,
+                                 dtype=x.dtype, device=x.device)
     for i in range(cfg.num_layers):
-        x = video_block(layer_params(params["blocks"], i), x, c, cfg)
+        txt = None if tk is None else (tk[:, i], tv[:, i], tm)
+        x = video_block(layer_params(params["blocks"], i), x, c, cfg, txt=txt)
     return final_layer(params, x, c, cfg)

@@ -35,10 +35,17 @@ the latent batch and the cache state in place where that saves a copy.  One
 hooks (`TickEvent`), an opt-in metrics registry (`repro_torch.obs`) and
 mid-session submission.
 
-The engine serves every class-conditioned modality: pool rows are
-(cfg.dit_tokens, cfg.dit_in_dim), frames x patches for the video DiT.  Not
-ported yet (ROADMAP.md §A): text prompts (the `conditioner`) and
-CUDA-graph capture per bucket.
+The engine serves every modality: pool rows are (cfg.dit_tokens,
+cfg.dit_in_dim), frames x patches for the video DiT.  A text-enabled config
+(dit-t2i, dit-t2v) takes a `conditioner` (a repro_torch.conditioning
+PromptCache) that resolves `DiffusionRequest.prompt_tokens` and
+`neg_prompt_tokens` at admission.  The slots' prompt and negative-prompt
+embeddings sit in host tables; each admission wave copies them to the
+device in one host-to-device copy and projects every layer's cross-
+attention K/V for all slots at once (`_build_text_tables`), so no tick
+projects text.  A negative prompt's pooled embedding rides the
+null-vector path.  Not ported yet (ROADMAP.md §A.10): CUDA-graph capture
+per bucket.
 """
 from __future__ import annotations
 
@@ -56,17 +63,13 @@ from repro_torch.device import DeviceLike, resolve_device, tree_device
 from repro_torch.diffusion.pipeline import (slot_compact_denoise_fns,
                                             slot_want_fns)
 from repro_torch.diffusion.schedules import NoiseSchedule, linear_schedule
+from repro_torch.models import dit
 from repro_torch.obs.clock import monotonic
 
 from .scheduler import DiffusionRequest, SlotScheduler
 from .telemetry import RequestRecord, ServingTelemetry
 
 NoiseFn = Callable[[DiffusionRequest], torch.Tensor]
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet; "
-                               f"see ROADMAP.md §A")
 
 
 def compact_rows(want_c: np.ndarray, want_u: np.ndarray, slots: int):
@@ -185,6 +188,9 @@ class ServeSession:
                               dtype=torch.float32, device=engine.device)
         self.states = stack_slots(engine._fresh, engine.slots)
         self._upload_nulls()
+        # the per-slot text K/V tables: all-masked until the first
+        # admission wave builds them ({} on a text-free engine)
+        self._txt = engine._empty_txt()
         self.results: Dict[int, DiffusionResult] = {}
         self.ticks = 0
         self._finished = False
@@ -254,6 +260,10 @@ class ServeSession:
             rec.slot = slot.index
         if admitted:
             self._upload_nulls()
+            if eng.text_enabled:
+                # one projection of every slot's text K/V per admission wave
+                self._txt = eng._build_text_tables()
+                eng.text_table_builds += 1
 
         active = np.asarray(sched.active_mask())
         steps = np.asarray(sched.steps(), np.int32)
@@ -287,7 +297,8 @@ class ServeSession:
         t0 = monotonic()
         self.xs, self.states = eng._tick(
             kind, gather, self.states, idx, self.xs, tvals, cfg_ws, ab_t,
-            ab_n, self._null_vecs, self._null_mask, plan_c, plan_u, signal)
+            ab_n, self._null_vecs, self._null_mask, self._txt, plan_c, plan_u,
+            signal)
         eng._sync()
         tick_s = monotonic() - t0
         if eng.row_compaction:
@@ -414,8 +425,13 @@ class DiffusionServingEngine:
                  row_compaction: bool = True, conditioner=None,
                  noise_fn: Optional[NoiseFn] = None,
                  device: DeviceLike = None):
-        if conditioner is not None:
-            raise _not_ported("text conditioning (conditioner)")
+        # text conditioning (T2I/T2V): a PromptCache resolving the requests'
+        # prompts at admission; needs a text-enabled config
+        self.text_enabled = cfg.dit_text_len > 0
+        if conditioner is not None and not self.text_enabled:
+            raise ValueError(f"conditioner given but config '{cfg.name}' is "
+                             f"not text-enabled (dit_text_len == 0)")
+        self.conditioner = conditioner
         self.device = resolve_device(device)
         if tree_device(params) != self.device:
             raise ValueError(f"params live on {tree_device(params)}, the "
@@ -471,6 +487,14 @@ class DiffusionServingEngine:
         # negative-prompt conditioning vectors (per slot) and their mask
         self._null_vecs = np.zeros((slots, cfg.d_model), np.float32)
         self._null_mask = np.zeros((slots,), bool)
+        # the slots' prompt (rows [0, S)) and negative-prompt (rows [S, 2S))
+        # embeddings, each row's mask packed as a last 0/1 column so one
+        # host-to-device copy carries both (zero-size without text)
+        self._txt_host = np.zeros(
+            (2 * slots, cfg.dit_text_len, cfg.d_model + 1), np.float32)
+        #: text K/V table projections by serving sessions (one per
+        #: admission wave; warmup's is not counted)
+        self.text_table_builds = 0
         self._scales = np.zeros((slots,), np.float32)
         self._nsteps = np.ones((slots,), np.int32)
         self._guided = np.zeros((slots,), bool)
@@ -495,12 +519,39 @@ class DiffusionServingEngine:
         gen.manual_seed((int(req.seed) * 2**32 + int(req.request_id)) % 2**63)
         return torch.randn(shape, generator=gen, device=self.device)
 
+    # -- text conditioning ---------------------------------------------
+    def _empty_txt(self) -> Dict[str, torch.Tensor]:
+        """All-masked per-slot text tables (zero K/V, False masks): the
+        exact no-op of the cross-attention branch.  {} on a text-free
+        engine, whose ticks then take no text operand at all."""
+        if not self.text_enabled:
+            return {}
+        cfg = self.cfg
+        z = torch.zeros((2 * self.slots, cfg.num_layers, cfg.dit_text_len,
+                         cfg.num_heads * cfg.head_dim), device=self.device)
+        m = torch.zeros((2 * self.slots, cfg.dit_text_len), dtype=torch.bool,
+                        device=self.device)
+        return {"k": z, "v": z, "mask": m}
+
+    def _build_text_tables(self) -> Dict[str, torch.Tensor]:
+        """The live per-slot text tables of a text-enabled engine from the
+        host embedding tables: one host-to-device copy, the embeddings
+        re-zeroed under their masks (the no-op branch must hold
+        bit-exactly), then every layer's K/V for all 2S rows in one
+        `text_kv`.  Runs once per admission wave, never in a tick."""
+        packed = torch.from_numpy(self._txt_host).to(self.device)
+        tm = packed[..., -1] > 0.5
+        te = torch.where(tm[..., None], packed[..., :-1], 0.0)
+        tk, tv = dit.text_kv(self.params, te, self.cfg)
+        return {"k": tk, "v": tv, "mask": tm}
+
     def _tick(self, kind, gather, states, steps, xs, tvals, cfg_ws, ab_t,
-              ab_n, null_vecs, null_mask, want_c, want_u, signal):
+              ab_n, null_vecs, null_mask, txt, want_c, want_u, signal):
         """One tick on the device: the backbone rows (the compacted bucket
         `gather` = (row_slot, row_uncond, row_dest), or with gather None
-        the dense batch of `kind`; none on a skip tick), both branches'
-        slot steps on the plan's decisions, and the per-slot DDIM update."""
+        the dense batch of `kind`; none on a skip tick) over the slots'
+        text tables `txt`, both branches' slot steps on the plan's
+        decisions, and the per-slot DDIM update."""
         dev = self.device
 
         def dev_t(a):
@@ -515,14 +566,14 @@ class DiffusionServingEngine:
             if gather is not None:
                 row_slot, row_uncond, row_dest = gather
                 y_c, y_u = self._compact_backbone(
-                    xs, t_dev, labels, nulls, null_vecs, null_mask,
+                    xs, t_dev, labels, nulls, null_vecs, null_mask, txt,
                     dev_t(row_slot).long(), dev_t(row_uncond),
                     dev_t(row_dest).long())
             elif kind == "full":
                 y_c, y_u = self._backbone2(xs, t_dev, labels, nulls,
-                                           null_vecs, null_mask)
+                                           null_vecs, null_mask, txt)
             else:
-                y_c = self._backbone(xs, t_dev, labels)
+                y_c = self._backbone(xs, t_dev, labels, txt)
                 y_u = torch.zeros_like(xs)
         eps, states = self._apply(states, steps, xs, dev_t(self._scales),
                                   dev_t(cfg_ws), y_c, y_u, want=want_c,
@@ -545,8 +596,11 @@ class DiffusionServingEngine:
         """Run the plan and every tick program once on dummy operands —
         each bucket of the compacted engine, or the dense engine's three
         kinds — so the kernels are built on first use and every batch shape
-        is touched before the first live tick.  Returns the buckets (or
-        kinds) run."""
+        is touched before the first live tick; a text-enabled engine also
+        builds its text tables once ("text_kv") and runs its conditioner's
+        encoder once ("text_encoder"), neither counted as a build, hit or
+        miss.  Returns the buckets (or kinds) run, then those text
+        programs."""
         S = self.slots
         xs = torch.zeros((S, self.tokens, self.in_dim), device=self.device)
         states = stack_slots(self._fresh, S)
@@ -564,9 +618,16 @@ class DiffusionServingEngine:
         else:
             runs = ["full", "cond", "skip"]
             ticks = [(kind, None) for kind in runs]
+        txt = self._empty_txt()
         for kind, gather in ticks:
             self._tick(kind, gather, states, steps, xs, zf, zf, ab, ab, nv,
-                       nm, want_c, want_u, signal)
+                       nm, txt, want_c, want_u, signal)
+        if self.text_enabled:
+            self._build_text_tables()
+            runs = runs + ["text_kv"]
+            if self.conditioner is not None:
+                self.conditioner.warmup()
+                runs.append("text_encoder")
         self._sync()
         return runs
 
@@ -584,7 +645,20 @@ class DiffusionServingEngine:
                     f"request {req.request_id}: null_label vector shape "
                     f"{shape} != (d_model={self.cfg.d_model},)")
         if req.prompt_tokens is not None or req.neg_prompt_tokens is not None:
-            raise _not_ported("text prompts")
+            if not self.text_enabled:
+                raise ValueError(
+                    f"request {req.request_id}: prompt on non-text config "
+                    f"'{self.cfg.name}' (dit_text_len == 0)")
+            if self.conditioner is None:
+                raise ValueError(
+                    f"request {req.request_id}: prompt given but the engine "
+                    f"has no conditioner (pass conditioner=PromptCache(...))")
+        if (req.neg_prompt_tokens is not None and req.null_label is not None
+                and np.ndim(req.null_label) > 0):
+            raise ValueError(
+                f"request {req.request_id}: neg_prompt_tokens conflicts "
+                f"with a vector-valued null_label — both claim the uncond "
+                f"conditioning vector")
 
     def _install_request(self, slot: int, req: DiffusionRequest) -> None:
         self._check_request(req)
@@ -605,9 +679,30 @@ class DiffusionServingEngine:
             # slot's uncond rows
             self._null_vecs[slot, :] = np.asarray(null, np.float32)
             self._null_mask[slot] = True
+        if self.text_enabled:
+            # reset-on-refill covers the text tables: a refilled slot never
+            # sees its previous request's prompt
+            neg_row = self.slots + slot
+            self._txt_host[[slot, neg_row]] = 0.0
+            if req.prompt_tokens is not None:
+                self._put_text(slot, self.conditioner.get(req.prompt_tokens))
+            if req.neg_prompt_tokens is not None:
+                ne = self.conditioner.get(req.neg_prompt_tokens)
+                self._put_text(neg_row, ne)
+                # the pooled negative-prompt embedding rides the null-vector
+                # path: the uncond rows condition on it in place of the
+                # null-class embedding, and cross-attend its K/V
+                self._nulls[slot] = self.cfg.dit_num_classes
+                self._null_vecs[slot, :] = ne.pooled
+                self._null_mask[slot] = True
         self._scales[slot] = req.cfg_scale
         self._nsteps[slot] = req.num_steps
         self._guided[slot] = req.guided
+
+    def _put_text(self, row: int, pe) -> None:
+        """A PromptEmbedding into host text-table row `row`."""
+        self._txt_host[row, :, :-1] = pe.embed
+        self._txt_host[row, :, -1] = pe.mask
 
     def _probe_static_plan(self, policy: CachePolicy) -> Optional[np.ndarray]:
         """want_compute(None, s, None) for every step, or None when the

@@ -365,6 +365,87 @@ def test_video_smoke_denoiser_card_matches_cpu(cuda, gran, name, kw):
     assert rel <= 1e-3
 
 
+@pytest.mark.parametrize("arch", ["dit-t2i", "dit-t2v"])
+def test_text_promptless_forward_is_a_noop_on_the_card(cuda, arch):
+    """On the card, a text-enabled SMOKE forward with no prompt and with
+    an all-masked prompt is torch.equal to the same params' forward with
+    the cross branch skipped; a real prompt changes it."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import (dit, init_params, perturb_zero_init,
+                                    video_dit)
+    cfg = get_smoke_config(arch)
+    mod = video_dit if cfg.dit_num_frames else dit
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = perturb_zero_init(init_params(gen, cfg, device=cuda), gen)
+    x = torch.randn((2, cfg.dit_tokens, cfg.dit_in_dim), generator=gen,
+                    device=cuda)
+    t = torch.tensor([10.0, 600.0], device=cuda)
+    y = torch.tensor([1, 7], device=cuda)
+    skipped = mod.forward(params, x, t, y,
+                          dataclasses.replace(cfg, dit_text_len=0))
+    L = cfg.dit_text_len
+    te = torch.randn((2, L, cfg.d_model), generator=gen, device=cuda)
+    for kw in ({}, {"txt_embed": te, "txt_mask": torch.zeros(
+            (2, L), dtype=torch.bool, device=cuda)}):
+        assert torch.equal(mod.forward(params, x, t, y, cfg, **kw), skipped)
+    prompted = mod.forward(params, x, t, y, cfg, txt_embed=te)
+    assert float((prompted - skipped).abs().max()) > 1e-3
+
+
+def test_t2i_smoke_served_on_the_card_matches_the_cpu(cuda):
+    """dit-t2i SMOKE with its text encoder, the same weights on both
+    devices, prompted guided requests (one negative prompt, one without a
+    prompt) under TeaCache with FasterCacheCFG: the same (cond, uncond)
+    computed steps, text-table builds and encoder misses; x0 within 1e-3
+    relative.  Every thresholded decision of the CPU reference lies at
+    least 1e-4 relative from delta first."""
+    from repro_torch.conditioning import (PromptCache, init_text_encoder,
+                                          text_encoder_config)
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import FasterCacheCFG, make_policy
+    from repro_torch.models import init_params, perturb_zero_init
+    from repro_torch.serving.diffusion import (DiffusionRequest,
+                                               DiffusionServingEngine)
+    cfg = get_smoke_config("dit-t2i")
+    gen = torch.Generator().manual_seed(3)
+    params = perturb_zero_init(init_params(gen, cfg, device="cpu"), gen)
+    tc = text_encoder_config(cfg)
+    enc = init_text_encoder(torch.Generator().manual_seed(4), tc,
+                            device="cpu")
+
+    def noise(req):
+        g = torch.Generator().manual_seed(100 + req.request_id)
+        return torch.randn((cfg.dit_tokens, cfg.dit_in_dim), generator=g)
+
+    prompts = ("a red fox", "a lighthouse", None, "a red fox")
+    reqs = [DiffusionRequest(i, num_steps=(8, 12)[i % 2], class_label=i,
+                             cfg_scale=3.0 if i != 2 else 0.0,
+                             prompt_tokens=prompts[i],
+                             neg_prompt_tokens="blurry" if i == 0 else None)
+            for i in range(4)]
+    out, plans = {}, []
+    for dev in ("cuda", "cpu"):
+        p = _to_device(params, cuda) if dev == "cuda" else params
+        cond = PromptCache(_to_device(enc, dev), tc)
+        eng = DiffusionServingEngine(
+            p, cfg, make_policy("teacache", delta=0.3), slots=2,
+            max_steps=12, cfg_policy=FasterCacheCFG(3, 12),
+            conditioner=cond, noise_fn=noise, device=dev)
+        plans, want_all = [], eng._want_all
+        eng._want_all = lambda *a: plans.append(want_all(*a)) or plans[-1]
+        out[dev] = (eng.serve(reqs), eng.text_table_builds, cond.misses)
+    rel = [abs(p.value[s] - p.threshold[s]) / p.threshold[s]
+           for p in plans for s in range(2) if not p.forced[s]]
+    assert rel and min(rel) >= 1e-4
+    assert out["cuda"][1:] == out["cpu"][1:]
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert (a.record.computed_steps, a.record.uncond_computed_steps) == (
+            b.record.computed_steps, b.record.uncond_computed_steps)
+        rel = float(abs(a.x0 - b.x0).max() / max(abs(b.x0).max(), 1e-6))
+        assert rel <= 1e-3
+
+
 def _to_device(tree, device):
     return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}

@@ -3,8 +3,10 @@
 `examples/torch_serve_diffusion.py` (the SLA autotuner, per-class serving
 and the guided FasterCacheCFG pool) and
 `examples/torch_mixed_modality_serving.py` (autotune per modality, the
-mixed image + video + audio pool), each at its JAX original's CPU size (a
-few seconds each here)."""
+mixed image + video + audio pool) and
+`examples/torch_text_to_image_serving.py` (the prompted guided t2i queue
+through the PromptCache and the per-slot text tables), each at its JAX
+original's CPU size (a few seconds each here)."""
 import os
 import subprocess
 import sys
@@ -19,7 +21,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 @pytest.mark.parametrize("script", ["torch_quickstart.py",
                                     "torch_serve_diffusion.py",
-                                    "torch_mixed_modality_serving.py"])
+                                    "torch_mixed_modality_serving.py",
+                                    "torch_text_to_image_serving.py"])
 def test_example_runs_on_the_cpu(script):
     # two intra-op threads, as the test processes use: beside the other
     # xdist workers an example on every core oversubscribes the CPU

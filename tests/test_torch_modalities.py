@@ -15,6 +15,8 @@ relative from delta at every tick the JAX engine plans.  VIDEO_DELTA was
 chosen so that the video slots diverge with that margin on these weights
 and this noise; a draw that lost it would fail, not be re-seeded.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -132,8 +134,12 @@ def test_modality_specs_match_jax_and_validate():
     with pytest.raises(ValueError, match="not a DiT"):
         image.validate(get_smoke_config("zamba2-2.7b"))
     for text in ("t2i", "t2v"):
-        with pytest.raises(KeyError, match="§A.4"):
-            get_modality(text).config(smoke=True)
+        spec = get_modality(text)
+        spec.validate(spec.config(smoke=True))
+        assert spec.config().dit_text_len == 77
+        with pytest.raises(ValueError, match="text="):
+            spec.validate(dataclasses.replace(spec.config(smoke=True),
+                                              dit_text_len=0))
     with pytest.raises(KeyError, match="unknown modality"):
         get_modality("3d")
 
@@ -158,7 +164,7 @@ def test_workload_policies_and_entry_points(workloads):
                                            "temporal_attn": 4, "mlp": 4}
     with pytest.raises(ValueError, match="temporal"):
         image.pab_stack()
-    with pytest.raises(NotImplementedError, match="§A.4"):
+    with pytest.raises(ValueError, match="not text-conditioned"):
         video.conditioner()
     x = video.noise(torch.Generator().manual_seed(0), 1)
     assert tuple(x.shape) == video.latent_shape(1)

@@ -133,13 +133,15 @@ def test_compact_rows_matches_jax(want_c, want_u, slots):
 
 def test_unported_options_raise(setup):
     _, tcfg, _, tp = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # text conditioning is ported: on this class-conditioned config a
+    # conditioner and a prompt are caller errors, as in JAX
+    with pytest.raises(ValueError, match="not text-enabled"):
         DiffusionServingEngine(tp, tcfg, "none", conditioner=object(),
                                device="cpu")
     with pytest.raises(KeyError, match="structural"):
         make_policy("dbcache")
     eng = DiffusionServingEngine(tp, tcfg, "none", slots=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="prompt on non-text config"):
         eng.serve([DiffusionRequest(0, 4, cfg_scale=2.0,
                                     neg_prompt_tokens="blurry")])
     if not torch.cuda.is_available():

@@ -481,8 +481,9 @@ def test_structural_granularities_reject_what_they_cannot_run():
         CachedDenoiser(params, cfg, granularity="pab_video", device="cpu")
     with pytest.raises(ValueError, match="granularity"):
         CachedDenoiser(params, cfg, granularity="layer", device="cpu")
+    # a text-enabled config adds the cross branch after spatial attention
     text = dataclasses.replace(get_smoke_config("dit-video"), dit_text_len=4)
-    with pytest.raises(NotImplementedError, match="§A.4"):
-        video_dit.pab_branch_fns(text)
+    assert list(video_dit.pab_branch_fns(text)) == [
+        "spatial_attn", "cross_attn", "temporal_attn", "mlp"]
     with pytest.raises(ValueError, match="middle"):
         DBCacheStack(_tblock_fn, 4, 2, 2)
