@@ -12,7 +12,7 @@ Taxonomy map (survey Fig. 2), as in the JAX `repro.core`:
                       FreqCaPolicy
   Hybrid            : ClusCaPolicy, SpeCaPolicy
   Token-wise        : ToCaPolicy
-  Learned           : LazyDiTPolicy (inference; gate training is §A.5)
+  Learned           : LazyDiTPolicy, lazy_trajectory_loss, train_lazy_gate
   Stack-structural  : CachedStack (block granularity), DBCacheStack,
                       TemporalPABStack (PAB over the video branches)
 
@@ -25,7 +25,8 @@ from .engine import (CachedModule, CachedStack, DBCacheStack,
                      SlotBatchedPolicy, cache_state_bytes, compute_fraction,
                      layer_params, stack_slots)
 from .hybrid import ClusCaPolicy, SpeCaPolicy, kmeans
-from .learned import LazyDiTPolicy, gate_score, init_gate
+from .learned import (LazyDiTPolicy, gate_score, init_gate,
+                      lazy_trajectory_loss, train_lazy_gate)
 from .metrics import (cosine_sim, mag_ratio, psnr, rel_l1, rel_l1_block,
                       rel_l2, transform_rate)
 from .policy import (CachePolicy, NoCachePolicy, SlotWant, interval_pred,
@@ -135,7 +136,8 @@ __all__ = [
     "TemporalPABStack", "TemporalTeaCachePolicy", "ToCaPolicy",
     "cache_state_bytes", "compute_fraction", "cosine_sim",
     "forecast_from_diffs", "gate_score", "init_gate", "interval_pred",
-    "kmeans", "layer_params", "lowpass", "mag_ratio", "make_policy", "psnr",
+    "kmeans", "layer_params", "lazy_trajectory_loss", "lowpass",
+    "mag_ratio", "make_policy", "psnr",
     "rel_l1", "rel_l1_block", "rel_l2", "stack_slots", "static_plan",
-    "transform_rate", "update_diff_stack",
+    "train_lazy_gate", "transform_rate", "update_diff_stack",
 ]

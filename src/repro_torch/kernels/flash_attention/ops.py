@@ -5,8 +5,12 @@ CPU tensors take the plain version (`attention_ref`).  CUDA tensors launch
 kernel runs bf16 inputs on bf16 tensor-core products (P rounded to bf16
 before P V, as `blocked_attention` does) and f32 inputs as 3xTF32; its C
 entry point picks 16-byte or element-by-element staging from D and the
-pointers' alignment.  `flash_attention.launches` counts kernel launches (a
-plain integer)."""
+pointers' alignment.  `flash_attention.launches` counts kernel launches and
+`flash_attention.flops` the products they compute, 4*B*H*Sq*Sk*D a launch
+(plain integers).  The FLOPs are counted on the CUDA path only: a ctypes
+launch is no aten operator, so `FlopCounterMode` cannot see it, while on
+CPU tensors it counts `attention_ref`'s two products as the same
+4*B*H*Sq*Sk*D."""
 from __future__ import annotations
 
 import math
@@ -61,7 +65,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
                   B, Sq, Sk, H, KH, D, int(bool(causal)), int(window),
                   float(scale))
     flash_attention.launches += 1
+    flash_attention.flops += 4 * B * H * Sq * Sk * D
     return o
 
 
 flash_attention.launches = 0
+flash_attention.flops = 0

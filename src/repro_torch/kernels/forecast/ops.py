@@ -11,7 +11,10 @@ CPU tensors take the plain version (`forecast_ref`, after `basis_coeffs`
 for `forecast_basis`).  CUDA tensors launch `csrc/forecast.cu` or raise:
 there is no fallback on the card.  Both share one lean host path
 (`_build.launch`).  `forecast.launches` counts launches of the kernel from
-either entry point (a plain integer)."""
+either entry point and `forecast.flops` the products they compute,
+2*B*(m+1)*n a launch (plain integers; counted on the CUDA path only, where
+`FlopCounterMode` cannot see the ctypes launch: on CPU tensors it counts
+`forecast_ref`'s product as the same number)."""
 from __future__ import annotations
 
 import numpy as np
@@ -84,10 +87,12 @@ def forecast(diffs, coeffs):
     _build.launch("forecast_fwd", dev, ptr, coeffs.data_ptr(), out.data_ptr(),
                   code, batch, m1, n, _vec(ptr, code, n))
     forecast.launches += 1
+    forecast.flops += 2 * batch * m1 * n
     return out
 
 
 forecast.launches = 0
+forecast.flops = 0
 
 
 def forecast_basis(diffs, steps, last_step, n_valid, interval: int,
@@ -149,6 +154,7 @@ def forecast_basis(diffs, steps, last_step, n_valid, interval: int,
                   code, S, m1, n, _vec(ptr, code, n), code_b, int(interval),
                   float(sigma))
     forecast.launches += 1
+    forecast.flops += 2 * S * m1 * n
     return out
 
 

@@ -112,9 +112,11 @@ class MixedModalityEngine:
     def warmup(self, verify: bool = False) -> Dict[str, List]:
         """Run every sub-pool's tick programs once (each bucket of each
         modality shape), so the kernels are built and every batch shape is
-        touched before the first mixed tick.  Returns {modality: the
-        buckets run}.  `verify=True` asks for JAX's compiled-IR contract
-        checks, which have no counterpart in the port (ROADMAP.md §A.8)."""
+        touched before the first mixed tick, and profile them into each
+        pool's `program_profile`.  Returns {modality: the buckets run}
+        (JAX returns the profiles).  `verify=True` asks for JAX's
+        compiled-IR contract checks, which have no counterpart in the port
+        (ROADMAP.md §A.8)."""
         if verify:
             raise NotImplementedError(
                 "warmup(verify=True) runs the JAX package's compiled-IR "

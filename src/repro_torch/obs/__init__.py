@@ -1,8 +1,36 @@
-"""repro_torch.obs — the serving stack's clock and its metrics registry
-(counters, gauges, histograms; Prometheus text and JSON snapshots)."""
+"""repro_torch.obs — tracing, metrics and program profiling of the port (the
+JAX `repro.obs`).
+
+  clock      — the one monotonic clock helper (`monotonic()`); every wall
+               time the serving stack measures goes through it
+  trace      — TraceRecorder: TickEvents -> Chrome/Perfetto trace (per
+               sub-pool tracks, plan/backbone phases, per-slot cache
+               lifecycle spans annotated with signal vs threshold) + a
+               cache-event JSONL that rebuilds a SignalTraceLog from disk
+  metrics    — MetricsRegistry: labelled counters / gauges / histograms,
+               Prometheus text exposition + JSON snapshots, an event ring
+  profiling  — per-program first-run seconds and FLOPs captured by
+               engine.warmup(), the measured redundancy ratio (FLOPs
+               avoided / dense FLOPs), opt-in torch.profiler traces
+
+Metric names follow JAX's `repro_<subsystem>_<metric>_<unit>`.
+Instrumentation is opt-in: no registry is consulted unless one is passed,
+so hooks-off serving pays nothing.
+"""
 from .clock import monotonic, wall
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       default_registry)
+from .profiling import (ProgramProfile, count_flops, flops_per_row,
+                        profiler_trace, redundancy_ratio)
+from .trace import (TraceRecorder, load_cache_events, load_probes,
+                    policy_signature, signal_trace_from_files,
+                    validate_chrome_trace)
 
-__all__ = ["monotonic", "wall", "Counter", "Gauge", "Histogram",
-           "MetricsRegistry", "default_registry"]
+__all__ = [
+    "monotonic", "wall",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "default_registry",
+    "ProgramProfile", "count_flops", "flops_per_row", "profiler_trace",
+    "redundancy_ratio",
+    "TraceRecorder", "load_cache_events", "load_probes", "policy_signature",
+    "signal_trace_from_files", "validate_chrome_trace",
+]

@@ -65,6 +65,7 @@ from repro_torch.diffusion.pipeline import (slot_compact_denoise_fns,
 from repro_torch.diffusion.schedules import NoiseSchedule, linear_schedule
 from repro_torch.models import dit
 from repro_torch.obs.clock import monotonic
+from repro_torch.obs.profiling import ProgramProfile, profile_program
 
 from .scheduler import DiffusionRequest, SlotScheduler
 from .telemetry import RequestRecord, ServingTelemetry
@@ -500,6 +501,10 @@ class DiffusionServingEngine:
         self._guided = np.zeros((slots,), bool)
         #: ServingTelemetry of the most recent serve() call
         self.telemetry: Optional[ServingTelemetry] = None
+        #: per-program first-run seconds and FLOPs, filled by warmup():
+        #: keyed by bucket (compacted) or tick kind (dense), plus "want"
+        #: for the device plan pass
+        self.program_profile: Dict[object, ProgramProfile] = {}
         self._session_active = False
 
     # ------------------------------------------------------------------
@@ -600,7 +605,19 @@ class DiffusionServingEngine:
         builds its text tables once ("text_kv") and runs its conditioner's
         encoder once ("text_encoder"), neither counted as a build, hit or
         miss.  Returns the buckets (or kinds) run, then those text
-        programs."""
+        programs.
+
+        The first warmup also profiles each program into
+        `self.program_profile` (`repro_torch.obs.ProgramProfile`), keyed
+        by bucket (compacted) or tick kind (dense), plus "want" for the
+        device plan pass when the engine has one and the text programs'
+        keys: `compile_seconds` is the synced wall time of the program's
+        first run (kernel builds included: nothing is compiled ahead of
+        time), `flops` the products of a second run under
+        `repro_torch.obs.profiling.count_flops`, `bytes_accessed` nan.  A
+        later warmup runs the programs again and leaves the profiles as
+        they are.  (JAX's warmup returns the profiles; the port keeps
+        returning the runs and holds the profiles on the engine.)"""
         S = self.slots
         xs = torch.zeros((S, self.tokens, self.in_dim), device=self.device)
         states = stack_slots(self._fresh, S)
@@ -609,24 +626,37 @@ class DiffusionServingEngine:
         ab = np.full((S,), 0.5, np.float32)
         nv = torch.zeros((S, self.cfg.d_model), device=self.device)
         nm = torch.zeros((S,), dtype=torch.bool, device=self.device)
-        want_c, want_u, _, signal = self._plan_all(states, steps, xs, zf)
+        profiles = self.program_profile
+
+        def run(key, fn):
+            if key in profiles:
+                return fn()
+            out, profiles[key] = profile_program(key, fn, self._sync)
+            return out
+
+        plan = lambda: self._plan_all(states, steps, xs, zf)  # noqa: E731
+        if self._static_plan is None or self._static_cfg_plan is None:
+            want_c, want_u, _, signal = run("want", plan)
+        else:
+            want_c, want_u, _, signal = plan()
         if self.row_compaction:
             runs = self._warmup_buckets()
-            ticks = [("full" if b else "skip",
+            ticks = [(b, "full" if b else "skip",
                       (np.zeros((b,), np.int32), np.zeros((b,), bool),
                        np.full((b,), 2 * S, np.int32))) for b in runs]
         else:
             runs = ["full", "cond", "skip"]
-            ticks = [(kind, None) for kind in runs]
+            ticks = [(kind, kind, None) for kind in runs]
         txt = self._empty_txt()
-        for kind, gather in ticks:
-            self._tick(kind, gather, states, steps, xs, zf, zf, ab, ab, nv,
-                       nm, txt, want_c, want_u, signal)
+        for key, kind, gather in ticks:
+            run(key, lambda: self._tick(kind, gather, states, steps, xs, zf,
+                                        zf, ab, ab, nv, nm, txt, want_c,
+                                        want_u, signal))
         if self.text_enabled:
-            self._build_text_tables()
+            run("text_kv", self._build_text_tables)
             runs = runs + ["text_kv"]
             if self.conditioner is not None:
-                self.conditioner.warmup()
+                run("text_encoder", self.conditioner.warmup)
                 runs.append("text_encoder")
         self._sync()
         return runs

@@ -545,3 +545,71 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                  torch.zeros((1, 8, 2), device=cuda), A, s, s)
     with pytest.raises(ValueError):
         ssd_scan(x, dt, A, s.transpose(1, 2).contiguous().transpose(1, 2), s)
+
+
+def test_kernel_flop_counters_match_flop_counter_mode(cuda):
+    """The flash and forecast wrappers' FLOP counters on the card equal
+    what FlopCounterMode counts for their plain versions (4*B*H*Sq*Sk*D
+    and 2*B*(m+1)*n), so `count_flops` gives the card the CPU's count."""
+    from repro_torch.obs import count_flops
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((3, 256, 16, 72), generator=g, device=cuda)
+               for _ in range(3))
+    before = flash_attention.flops
+    n = count_flops(lambda: flash_attention(q, k, v, causal=False))
+    assert flash_attention.flops - before == n == 4 * 3 * 16 * 256 * 256 * 72
+    assert count_flops(lambda: attention_ref(q, k, v, causal=False)) == n
+    diffs = torch.randn((4, 3, 4096), generator=g, device=cuda)
+    coeffs = torch.randn((4, 3), generator=g, device=cuda)
+    n = count_flops(lambda: forecast(diffs, coeffs))
+    assert n == 2 * 4 * 3 * 4096
+    assert count_flops(lambda: forecast_ref(diffs, coeffs)) == n
+
+
+def test_program_profiles_card_match_cpu(cuda):
+    """The reduced DiT's program profiles under TaylorSeer (forecast on the
+    skip ticks) and TeaCache (the plan pass): identical FLOPs per program
+    on the card and on the CPU, strictly rising with the bucket."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, perturb_zero_init
+    from repro_torch.serving.diffusion import DiffusionServingEngine
+    cfg = get_config("dit-xl").reduced(num_layers=2, d_model=128,
+                                       num_heads=4, num_kv_heads=4, d_ff=256,
+                                       dit_patch_tokens=64, dit_in_dim=8,
+                                       dit_num_classes=10)
+    gen = torch.Generator().manual_seed(3)
+    params = perturb_zero_init(init_params(gen, cfg, device="cpu"), gen)
+    for policy in ("taylorseer", "teacache"):
+        flops = {}
+        for dev in ("cuda", "cpu"):
+            p = _to_device(params, cuda) if dev == "cuda" else params
+            eng = DiffusionServingEngine(p, cfg, policy, slots=2,
+                                         max_steps=12, device=dev)
+            eng.warmup()
+            flops[dev] = {k: v.flops for k, v in eng.program_profile.items()}
+        assert flops["cuda"] == flops["cpu"], policy
+        buckets = [flops["cpu"][b] for b in (0, 1, 2, 4)]
+        assert buckets == sorted(set(buckets))
+
+
+def test_fit_want_gate_on_the_card(cuda):
+    """One fit_want_gate on the card from the CPU generator's gate: loss
+    history within 1e-4 relative of the CPU's, a detached gate on the card,
+    the loss falls."""
+    from repro_torch.serving.control import fit_want_gate
+    g = torch.Generator().manual_seed(2)
+    pairs = []
+    for T in (6, 4):
+        ins = torch.randn((T, 64, 8), generator=g)
+        pairs.append((ins, 0.5 * ins + 0.2 * torch.randn(ins.shape,
+                                                         generator=g)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ps = [(i.to(dev), o.to(dev)) for i, o in pairs]
+        out[dev] = fit_want_gate(torch.Generator().manual_seed(1), ps,
+                                 steps=60, lr=0.5)
+    (gate, hist), (_, ref) = out["cuda"], out["cpu"]
+    assert gate["w"].is_cuda and not gate["w"].requires_grad
+    err = max(abs(a - b) / abs(b) for a, b in zip(hist, ref))
+    assert err <= 1e-4
+    assert hist[-1] < hist[0]

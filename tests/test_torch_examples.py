@@ -5,8 +5,12 @@ and the guided FasterCacheCFG pool) and
 `examples/torch_mixed_modality_serving.py` (autotune per modality, the
 mixed image + video + audio pool) and
 `examples/torch_text_to_image_serving.py` (the prompted guided t2i queue
-through the PromptCache and the per-slot text tables), each at its JAX
-original's CPU size (a few seconds each here)."""
+through the PromptCache and the per-slot text tables),
+`examples/torch_online_control_plane.py` (SmoothCache, the OnlineTuner's
+blue/green swaps, a gate learned from the serving traces) and
+`examples/torch_observability.py` (the mixed pool's trace, cache-event
+JSONL reconciled with telemetry, metrics and program profiles), each at
+its JAX original's CPU size (a few seconds each here)."""
 import os
 import subprocess
 import sys
@@ -22,7 +26,9 @@ ROOT = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("script", ["torch_quickstart.py",
                                     "torch_serve_diffusion.py",
                                     "torch_mixed_modality_serving.py",
-                                    "torch_text_to_image_serving.py"])
+                                    "torch_text_to_image_serving.py",
+                                    "torch_online_control_plane.py",
+                                    "torch_observability.py"])
 def test_example_runs_on_the_cpu(script):
     # two intra-op threads, as the test processes use: beside the other
     # xdist workers an example on every core oversubscribes the CPU
