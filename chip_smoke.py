@@ -22,7 +22,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
               times, and the CUDA kernels SDPA runs at each shape with
               their device time; at the zamba2 shape also SDPA with
               is_causal
-  4. forecast the forecast kernel against its plain version, batched over
+  4. flash-bwd the flash backward kernels (Delta, dK/dV, dQ) under autograd
+              against autograd of the plain version on float64 copies (f32
+              1e-4 abs, bf16 2e-2 abs) and the plain backward
+              (`attention_bwd_ref`, from the kernel's output and row
+              log-sum-exp) against the same, at the DiT-XL shape in f32
+              and in bf16 (the full-width train phase's), a causal GQA
+              shape with a window, a ragged shape, q longer than k (the
+              keyless rows' dq exactly 0), the zamba2 prefill shape, an
+              odd head dim and the train-dit example's shape; kernel,
+              device and plain times, SDPA forward + backward (yardstick
+              only), and the forward with and without its log-sum-exp
+  5. forecast the forecast kernel against its plain version, batched over
               serving slots and unbatched at a block-sized shape, f32 and
               bf16, and at the video pool's (2, 3, 65536) and the audio
               pool's (2, 3, 20480) in f32; taylor, hermite and foca
@@ -31,17 +42,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
               beside torch.bmm and of `forecast_basis` beside
               basis_coeffs + forecast; one skip tick's operators and
               kernels under the profiler
-  5. ssd      the SSD scan kernels (C B^T pass and scan) against their plain
+  6. ssd      the SSD scan kernels (C B^T pass and scan) against their plain
               version at the zamba2 prefill shape (b 4, s 512, h 80, p 64,
               n 64) in f32, as the path passes them (bf16 views of the conv
               output xBC) at b 4 and b 1, and at b 1 with a ragged s = 500;
               kernel, device and plain times
-  6. serve    full-width DiT-XL (28 layers, bf16 params, random weights from
+  7. serve    full-width DiT-XL (28 layers, bf16 params, random weights from
               a seed, AdaLN gates perturbed) behind DiffusionServingEngine
               with TaylorSeer, 4 slots, 8 requests of 8 and 16 steps, two
               guided; every x0 finite, every request's computed steps equal
               its static schedule, flash and forecast launched on this path
-  7. serve-adaptive  the same DiT-XL, weights, slots and requests as
+  8. serve-adaptive  the same DiT-XL, weights, slots and requests as
               serve, under TeaCache (planned by the device want pass: one
               read a tick) and then FoCa (host plan; forecast kernel on its
               skip ticks); every x0 finite, each request's first step
@@ -49,13 +60,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
               row, TeaCache saves rows; req/s, ticks by kind, tick ms, the
               plan's host ms and device-to-host copies per tick (profiler),
               the device's idle share
-  8. check    a reduced DiT served on the card (kernels) and on the CPU
+  9. check    a reduced DiT served on the card (kernels) and on the CPU
               (plain versions) from the same weights and noise under each of
               the 13 policies of slice 5 and TaylorSeer: the same computed
               steps per request and tick kinds (every thresholded decision
               of the CPU reference at least 1e-4 relative from its
               threshold), x0 within 1e-3 relative
-  9. serve-cfg serve's DiT-XL under TaylorSeer with FasterCacheCFG(4) on
+  10. serve-cfg serve's DiT-XL under TaylorSeer with FasterCacheCFG(4) on
               the uncond branch, 8 requests of 8 and 16 steps, four guided,
               one with a negative-prompt vector: every x0 finite, each
               request's cond and uncond computed steps equal the two
@@ -65,20 +76,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
               within 1e-3 relative; with a MetricsRegistry and a TickEvent
               hook the counters agree with the telemetry; req/s with and
               without them; flash and forecast launched on this path
-  10. check-cfg the reduced DiT of phase 8 on the card and on the CPU under
+  11. check-cfg the reduced DiT of phase 9 on the card and on the CPU under
               FasterCacheCFG (extrapolate and lowfreq with TaylorSeer,
               TeaCache, the dense engine), guided requests, one with a
               vector: the same (cond, uncond) computed steps and tick
               kinds, x0 within 1e-3 relative; the plan's device-to-host
               copies per tick from the profiler (1 under TeaCache, 0 with
               two step-only branches)
-  11. serve-diffusion  examples/torch_serve_diffusion.py's `run` on
+  12. serve-diffusion  examples/torch_serve_diffusion.py's `run` on
               serve's DiT-XL: the SLA autotuner per traffic class, the
               per-class serving and the guided FasterCacheCFG pool; each
               class's pick, PSNR (against the exact trajectory on random
               weights: no quality measure), compute fraction, req/s and
               latency p50/p95, the pool's tick mix and saved uncond rows
-  12. serve-video full-width, full-depth dit-video (28 layers, d_model 1152,
+  13. serve-video full-width, full-depth dit-video (28 layers, d_model 1152,
               16 frames x 256 patches, bf16 params from seed 0, AdaLN gates
               perturbed) behind DiffusionServingEngine(slots=2,
               max_steps=16), 4 unguided requests of 8 and 16 steps, under
@@ -87,23 +98,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
               DtoH a tick, counted from the profiler); 56 flash launches per
               backbone pass (28 spatial + 28 temporal); req/s, latency,
               ticks by kind, rows, peak memory, idle share
-  13. denoise-video CachedDenoiser on the same model, batch 1, 16 DDIM
+  14. denoise-video CachedDenoiser on the same model, batch 1, 16 DDIM
               steps: exact, pab_video, block under FORA 2, deepcache under
               Δ-DiT 2 (shallow_n 4); ms per step, compute fraction, relative
               L2 error of x0 against exact
-  14. check-video dit-video SMOKE on the card and on the CPU from the same
+  15. check-video dit-video SMOKE on the card and on the CPU from the same
               weights: served under teacache_video and TaylorSeer (the same
               decisions and tick kinds, x0 within 1e-3 relative), and
               CachedDenoiser under pab_video, block and deepcache (x0 within
               1e-3 relative)
-  15. serve-mixed examples/torch_mixed_modality_serving.py's `run` on
+  16. serve-mixed examples/torch_mixed_modality_serving.py's `run` on
               full-width dit-xl, dit-video and dit-audio: autotune per
               modality (the video sweep adds teacache_video), then the
               example's 9 requests through MixedModalityEngine, 2 slots a
               pool, image requests guided under FasterCacheCFG(4, 12);
               each pool's pick, autotune seconds, req/s, rows and
               token-weighted rows, latency
-  16. serve-t2i examples/torch_text_to_image_serving.py's `run` on
+  17. serve-t2i examples/torch_text_to_image_serving.py's `run` on
               full-width dit-t2i (28 layers, d_model 1152, 77 text tokens,
               bf16 params from seed 0, every AdaLN gate perturbed, the
               cross branch's too) with a full-width text encoder (d 1152, 2
@@ -119,7 +130,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
               serve-cfg's, the cross-attention's share of device time
               (profiler), peak memory, idle share; the cross-attention
               core against masked SDPA (yardstick) at the 8-row shape
-  17. check-text dit-t2i and dit-t2v SMOKE with their text encoders on the
+  18. check-text dit-t2i and dit-t2v SMOKE with their text encoders on the
               card and the CPU, the same weights, prompts and noise: under
               TeaCache + FasterCacheCFG(3) and TaylorSeer the same
               decisions, tick kinds, text-table builds and encoder runs
@@ -127,7 +138,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
               threshold first), x0 within 1e-3 relative; the prompt-less
               and all-masked forwards bit-identical on the card to the
               forward without the cross branch
-  18. serve-t2v full-width dit-t2v (dit-video's 28 layers, 16 frames x 256
+  19. serve-t2v full-width dit-t2v (dit-video's 28 layers, 16 frames x 256
               patches, with the cross branch), 2 slots, 4 prompted requests
               of 8 and 16 steps under TaylorSeer: 56 flash launches a
               backbone pass, the same text checks, req/s, latency,
@@ -135,7 +146,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
               exact against pab_video (cross_attn at range 6), 16 steps:
               ms a step, branch compute fraction, x0's relative L2 error;
               the cross-attention core against masked SDPA at (2, 4096)
-  19. control examples/torch_online_control_plane.py's `run` on serve's
+  20. control examples/torch_online_control_plane.py's `run` on serve's
               full-width DiT-XL: SmoothCache calibrated at 16 steps (profile,
               schedule, compute fraction); the OnlineTuner over the
               example's menu (none, teacache 0.06, fora 2, blockcache 0.05
@@ -149,7 +160,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
               (equal computed steps, x0 within 5e-4 abs + 1e-3 rel); sweep
               seconds, swaps, the window's row and plan times and
               occupancy, req/s, the training seconds and losses
-  20. observability examples/torch_observability.py's `run` on full-width
+  21. observability examples/torch_observability.py's `run` on full-width
               DiT-XL and dit-video (2 slots a pool, 8 requests, TeaCache,
               FasterCacheCFG(4, 8) on the image pool): each program's
               first-run seconds and FLOPs, flops_per_row against the hand
@@ -158,20 +169,40 @@ Phases, in order; any failure exits non-zero and prints no result line:
               cache-event JSONL must equal telemetry's computed and uncond
               steps exactly; req/s with the hooks against without them
               (reported, not gated)
-  21. check-control a reduced DiT on the card and on the CPU: the forced-
+  22. check-control a reduced DiT on the card and on the CPU: the forced-
               swap tuner run (identical computed steps, x0 within 1e-3
               relative), the program profiles' FLOPs (identical per
               program) and fit_want_gate from one initial gate (loss
               history within 1e-4 relative)
-  22. serve-llm full-width zamba2-2.7b (54 Mamba2 layers, 9 shared attention
+  23. serve-llm full-width zamba2-2.7b (54 Mamba2 layers, 9 shared attention
               applications, bf16 params, random weights from a seed) behind
               ServingEngine, 4 slots, 8 greedy requests of 64-500 prompt
               tokens, 32 new tokens each; every logit finite, SSD launched
               54 times and flash 9 times per prefill; tok/s, prefill ms,
               decode ms per step, peak memory, device time by kernel
-  23. check-llm the zamba2 SMOKE config served on the card (kernels) and on
+  24. check-llm the zamba2 SMOKE config served on the card (kernels) and on
               the CPU (plain versions) from the same weights and prompts
               must give the same tokens and close logits
+  25. train   full-width DiT-XL (28 layers, d_model 1152, 256 tokens, 1000
+              classes, bf16 params from seed 0) trained through
+              launch/train.py's `train`: AdamW, the cosine schedule (warmup
+              0), clipping, batch 8, 8 steps, a checkpoint every 4.  Every
+              loss finite, every leaf moves, 28 forward and 28 backward
+              flash launches a step; restored from step 4 and rerun to step
+              8, the state equals the uninterrupted run's (bitwise, or the
+              largest relative difference within 1e-4); one more step
+              profiled (device ms of the forward, backward and optimizer
+              between CUDA events at their edges, the idle share, the flash
+              backward's share); one backward on gate-perturbed params
+              gives every leaf, and wq, wk, wv of every layer, a finite
+              non-zero gradient; checkpoint save and restore seconds, peak
+  26. train-dit examples/torch_train_dit.py's `run` at its defaults (~130M
+              params, batch 16, 300 steps): the loss falls, the checkpoint
+              restores, the TaylorSeer-cached sample is finite; steps/s
+  27. check-train DiT-XL SMOKE (f32) trained 3 steps on the card (kernels)
+              and on the CPU (plain versions) from the same weights and
+              injected draws: losses, params and moments within 1e-4
+              relative; ssd_scan under grad raises on the card
 
 Each served phase sets every launch count to 0 just before it and reads the
 counts just after; every phase builds the models it serves and drops them
@@ -182,14 +213,15 @@ imports nothing of JAX.
 
     python3 chip_smoke.py --flash-only
 
-runs phases 1-3 alone and prints no result line (a quick check of the
-flash kernel).
+runs phases 1-4 alone and prints no result line (a quick check of the
+flash kernels).
 """
 from __future__ import annotations
 
 import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -417,6 +449,125 @@ def sdpa_kernels(torch, fn, reps: int = 3):
                   key=_self_device_us, reverse=True)
     dev_ms = sum(_self_device_us(e) for e in kern) / 1e3 / reps
     return "; ".join(f"{e.key[:120]} x{e.count}" for e in kern[:2]), dev_ms
+
+
+# flash-bwd: the backward kernels (f32 1e-4 abs as the forward, bf16 2e-2
+# abs) against autograd of the plain version on float64 copies
+BWD_CASES = [  # name, B, Sq, Sk, H, KH, D, causal, window, dtype
+    ("dit-xl f32", 8, 256, 256, 16, 16, 72, False, 0, "float32"),
+    # the full-width train phase's shape: JAX's step casts x_t to cfg.dtype
+    ("dit-xl bf16 (train)", 8, 256, 256, 16, 16, 72, False, 0, "bfloat16"),
+    ("causal gqa window", 2, 512, 512, 8, 2, 64, True, 128, "float32"),
+    ("ragged 77", 2, 77, 77, 4, 4, 72, True, 0, "float32"),
+    # q longer than k, causal: the first 32 rows see no key
+    ("fully masked rows", 1, 64, 32, 2, 2, 16, True, 0, "float32"),
+    ("zamba2 prefill", 4, 512, 512, 32, 32, 80, True, 0, "bfloat16"),
+    ("odd d", 2, 100, 160, 4, 2, 18, True, 48, "float32"),
+    # examples/torch_train_dit.py's ~100M model (f32 params)
+    ("train-dit f32", 16, 64, 64, 12, 12, 64, False, 0, "float32"),
+]
+BWD_MAIN = "dit-xl bf16 (train)"     # the kernels line's row
+
+
+def phase_flash_bwd(torch, F):
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_ref, ops)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for name, B, Sq, Sk, H, KH, D, causal, window, dt in BWD_CASES:
+        dtype = getattr(torch, dt)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        q, k, v, do = randn(B, Sq, H, D), randn(B, Sk, KH, D), \
+            randn(B, Sk, KH, D), randn(B, Sq, H, D)
+        scale = 1.0 / math.sqrt(D)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        o = flash_attention(qg, kg, vg, causal=causal, window=window)
+        if o.grad_fn is None:
+            fail(f"flash-bwd {name}: the output under grad has no grad_fn")
+        got = torch.autograd.grad(o, (qg, kg, vg), do)
+        q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+        ref = torch.autograd.grad(
+            attention_ref(q64, k64, v64, causal=causal, window=window),
+            (q64, k64, v64), do.double())
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+        o = ops._forward(q, k, v, causal, window, scale, lse)
+        plain = attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                  window=window)
+        torch.cuda.synchronize()
+        err = max(float((a.double() - b).abs().max()) for a, b in zip(got, ref))
+        plain_err = max(float((a.double() - b).abs().max())
+                        for a, b in zip(plain, ref))
+        vs_plain = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(got, plain))
+        scale_ref = max(float(b.abs().max()) for b in ref)
+        tol = TOL[dt]
+        extra = ""
+        if name == "fully masked rows":   # rows 0..31: dq exactly 0
+            dead = got[0][:, :Sq - Sk]
+            extra = f" dq of the {Sq - Sk} keyless rows max {float(dead.abs().max())}"
+            if bool((dead != 0).any()):
+                fail(f"flash-bwd {name}: dq of a row with no key is not 0")
+
+        def bwd():
+            return flash_attention_backward(q, k, v, o, do, lse,
+                                            causal=causal, window=window)
+        ms = cuda_ms(torch, bwd)
+        dev_ms = device_ms(torch, bwd, "flash_bwd")
+        plain_ms = cuda_ms(torch, lambda: attention_bwd_ref(
+            q, k, v, o, do, lse, causal=causal, window=window), reps=5)
+        fwd_ms = cuda_ms(torch, lambda: ops._forward(q, k, v, causal, window,
+                                                     scale, None))
+        fwd_lse_ms = cuda_ms(torch, lambda: ops._forward(q, k, v, causal,
+                                                         window, scale, lse))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dot_ = do.transpose(1, 2)
+        mask = None
+        if causal or window:
+            qp = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
+            kp = torch.arange(Sk, device="cuda")[None, :]
+            mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+            if causal:
+                mask &= kp <= qp
+            if window:
+                mask &= qp - kp < window
+
+        def sdpa_fwd_bwd():   # the yardstick: the port never calls it
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 enable_gqa=KH != H)
+            return torch.autograd.grad(out, (qt, kt, vt), dot_)
+
+        lib_ms = cuda_ms(torch, sdpa_fwd_bwd)
+        pairs = Sq * Sk if mask is None else int(mask.sum())
+        # q, o, dO, dq; k, v, dk, dv; the f32 lse
+        nbytes = (4 * B * Sq * H * D + 4 * B * Sk * KH * D) \
+            * q.element_size() + 4 * B * H * Sq
+        peak = PEAK_FLOPS["float32_3xtf32" if dt == "float32" else dt]
+        b_ms, by = bound(nbytes, 10.0 * B * H * pairs * D, peak)
+        log(f"flash-bwd {name}: B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} D={D} "
+            f"causal={causal} window={window} {dt}: max_abs_err={err:.3e} "
+            f"(tol {tol}; largest |grad| {scale_ref:.3e}) plain "
+            f"max_abs_err={plain_err:.3e} kernel-plain={vs_plain:.3e}"
+            f"{extra} ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f} "
+            f"sdpa_fwd_bwd_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({by}) "
+            f"fwd_ms={fwd_ms:.4f} fwd_lse_ms={fwd_lse_ms:.4f}")
+        if not err <= tol:
+            fail(f"flash-bwd {name}: max_abs_err {err} > {tol}")
+        if not plain_err <= tol:
+            fail(f"flash-bwd {name}: the plain backward is off by {plain_err}")
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                      "device_ms": dev_ms, "shape": name,
+                      "tolerance": f"{tol} abs", "fwd_ms": fwd_ms,
+                      "fwd_with_lse_ms": fwd_lse_ms}
+    report = dict(rows[BWD_MAIN])
+    report.update({n: rows[n] for n in ("dit-xl f32", "train-dit f32")})
+    return report
 
 
 def phase_forecast(torch, slots: int):
@@ -744,7 +895,7 @@ def _leaves(tree):
             yield v
 
 
-# The reduced check's policies (phase 8): thresholds for its weights and
+# The reduced check's policies (phase 9): thresholds for its weights and
 # noise, each splitting the steps into computes and reuses; every
 # thresholded decision of the CPU reference lies at least 1e-4 relative from
 # them (the phase asserts it).  LazyDiT's gate comes from a seeded
@@ -1222,7 +1373,7 @@ def phase_serve_cfg(torch, kernels, path, params, cfg):
 
 
 def phase_check_cfg(torch):
-    """The reduced DiT of phase 8 served on the card (kernels) and on the
+    """The reduced DiT of phase 9 served on the card (kernels) and on the
     CPU (plain versions) from the same weights and noise, guided requests
     (one with a negative-prompt vector) under FasterCacheCFG: TaylorSeer
     with both modes, TeaCache (one device-to-host copy a tick in the plan;
@@ -2635,6 +2786,290 @@ def phase_check_llm(torch):
         fail(f"check-llm: logits differ by {err}")
 
 
+# ----------------------------------------------------------------------
+# slice 10: training
+# ----------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_CKPT_EVERY = 8, 8, 4
+CHECK_TRAIN_TOL = 1e-4     # check-train: losses and params, relative
+TRAIN_PARTS = ("train.forward", "train.backward", "train.optimizer")
+
+
+def train_profile(torch, fn):
+    """Run fn() (a train step) under the profiler, with a CUDA event at each
+    edge of the step's ranges ("train.forward", "train.backward",
+    "train.optimizer"; the backward's operators run on autograd's thread,
+    in stream order between its edges).  Returns the device ms between each
+    range's edges, the flash backward's device ms, all device events' ms
+    by name, the profiled wall ms and the profiler's key averages."""
+    import contextlib
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as prof_ctx
+    from repro_torch.train import steps
+    spans, orig = [], steps.record_function
+
+    @contextlib.contextmanager
+    def marked(name):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        with orig(name):
+            yield
+        b.record()
+        spans.append((name, a, b))
+
+    steps.record_function = marked
+    try:
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        steps.record_function = orig
+    parts = dict.fromkeys(TRAIN_PARTS, 0.0)
+    for name, a, b in spans:
+        parts[name] += a.elapsed_time(b)
+    # the ranges also appear on the device's timeline: not kernels
+    kern = [e for e in prof.key_averages() if _self_device_us(e) > 0
+            and str(e.device_type).endswith("CUDA")
+            and e.key not in TRAIN_PARTS]
+    by_name = sum(_self_device_us(e) for e in kern) / 1e3
+    bwd = sum(_self_device_us(e) for e in kern if "flash_bwd" in e.key) / 1e3
+    return parts, bwd, by_name, wall * 1e3, kern
+
+
+def _tree_rel(torch, a, b):
+    """Largest over the leaves of max |a - b| / max |b|."""
+    from repro_torch.tree import tree_leaves
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x, y = x.double().cpu(), y.double().cpu()
+        worst = max(worst, float((x - y).abs().max())
+                    / max(float(y.abs().max()), 1e-30))
+    return worst
+
+
+def phase_train(torch, kernels, path):
+    """Full-width DiT-XL trained through launch/train.py's `train`."""
+    import tempfile
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import linear_schedule
+    from repro_torch.launch.train import train
+    from repro_torch.models import perturb_zero_init
+    from repro_torch.train.steps import (_value_and_grad, diffusion_batches,
+                                         diffusion_loss, init_train_state,
+                                         make_diffusion_train_step)
+    from repro_torch.tree import tree_leaves, tree_paths
+    flash, flash_bwd = path
+    cfg = get_config("dit-xl")
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, device="cuda")
+    init = [p.clone() for p in tree_leaves(state.params)]
+    n_params = sum(p.numel() for p in init)
+    torch.cuda.synchronize()
+    log(f"train: dit-xl {cfg.num_layers} layers d_model={cfg.d_model} "
+        f"params={n_params} ({cfg.dtype}, {len(init)} leaves) init "
+        f"{time.perf_counter() - t0:.2f}s; batch {TRAIN_BATCH}, "
+        f"{TRAIN_STEPS} steps, warmup 0, a checkpoint every "
+        f"{TRAIN_CKPT_EVERY}")
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, warmup=0, device="cuda",
+              log_fn=log)
+    save_s, orig_save = [], ckpt_lib.save
+
+    def timed_save(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        orig_save(*a, **k)
+        save_s.append(time.perf_counter() - t)
+
+    with tempfile.TemporaryDirectory() as d:
+        ckpt_lib.save = timed_save
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (state, hist), launches = _count_launches(
+                kernels, path, "train", lambda: train(
+                    "dit-xl", ckpt_dir=d, ckpt_every=TRAIN_CKPT_EVERY,
+                    log_every=1, state=state, **kw))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ckpt_lib.save = orig_save
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        kept = sorted(os.listdir(d))
+        t0 = time.perf_counter()
+        restored, at, _ = ckpt_lib.restore(d, state, step=TRAIN_CKPT_EVERY)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    log(f"train: {TRAIN_STEPS} steps in {wall:.3f}s wall (checkpoints "
+        f"included), losses {losses}, peak_mem_gb={peak:.2f}; checkpoint "
+        f"save_s={save_s} (kept {kept}), restore_s={restore_s:.3f} from step "
+        f"{at}")
+    run_launches = launches
+    want = cfg.num_layers * TRAIN_STEPS
+    if launches[flash.__name__] != want or launches[flash_bwd.__name__] != want:
+        fail(f"train: launches {launches}, want {cfg.num_layers} forward and "
+             f"{cfg.num_layers} backward flash launches a step")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"train: losses {losses}")
+    still = [k for (k, p), p0 in zip(tree_paths(state.params), init)
+             if torch.equal(p, p0)]
+    if still:
+        fail(f"train: leaves that did not move in {TRAIN_STEPS} steps: "
+             f"{still}")
+    del init
+
+    # restore from the step-4 checkpoint and rerun steps 5-8
+    t0 = time.perf_counter()
+    resumed, _ = train("dit-xl", state=restored, start_step=TRAIN_CKPT_EVERY,
+                       log_every=TRAIN_STEPS, **kw)
+    torch.cuda.synchronize()
+    rerun_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(resumed),
+                                                 tree_leaves(state)))
+    rel = _tree_rel(torch, resumed, state)
+    log(f"train: restored at step {TRAIN_CKPT_EVERY} and reran steps "
+        f"{TRAIN_CKPT_EVERY + 1}-{TRAIN_STEPS} in {rerun_s:.3f}s "
+        f"({rerun_s / (TRAIN_STEPS - TRAIN_CKPT_EVERY) * 1e3:.1f} ms a "
+        f"step): bitwise equal to the uninterrupted run: {same}; largest "
+        f"relative difference over params and moments {rel:.3e}")
+    if not same and not rel <= CHECK_TRAIN_TOL:
+        fail(f"train: the resumed run differs by {rel} relative")
+    del restored
+
+    # one more step under the profiler: forward, backward, optimizer
+    sched = linear_schedule(1000)
+    step = make_diffusion_train_step(cfg, sched, peak_lr=3e-4, warmup=0,
+                                     total_steps=TRAIN_STEPS + 1)
+    batch = next(diffusion_batches(0, TRAIN_BATCH, cfg, "cuda",
+                                   start_step=TRAIN_STEPS))
+    parts, bwd_ms, busy, pwall, kern = train_profile(
+        torch, lambda: step(resumed, batch))
+    log(f"train: profiled step wall {pwall:.1f} ms, device kernels "
+        f"{busy:.1f} ms, idle share {1 - busy / pwall:.3f}; device ms "
+        f"between each part's edges (CUDA events) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"; flash backward {bwd_ms:.2f} ms, share of device time "
+        f"{bwd_ms / busy:.4f}")
+    for e in sorted(kern, key=_self_device_us, reverse=True)[:12]:
+        log(f"profile: {_self_device_us(e) / 1e3:9.3f} ms "
+            f"{100 * _self_device_us(e) / 1e3 / busy:5.1f}% "
+            f"x{e.count:<5d} {e.key[:90]}")
+    del resumed, state
+
+    # every leaf gets a finite, non-zero gradient once the AdaLN-zero gates
+    # are perturbed (at init they block attention's gradient)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = perturb_zero_init(init_train_state(gen, cfg,
+                                                device="cuda").params, gen)
+    draws_gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def loss_fn(p, b):
+        return diffusion_loss(p, b["latents"], b["labels"], cfg, sched,
+                              draws_gen)
+
+    (grads, metrics), launches = _count_launches(
+        kernels, path, "train (perturbed gates)",
+        lambda: _value_and_grad(loss_fn, params, batch))
+    bad = []
+    for (k, g) in tree_paths(grads):
+        g = g.float()
+        if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+            bad.append(k)
+        if k.split("/")[-1] in ("wq", "wk", "wv") and "attn" in k:
+            zero = [i for i in range(g.shape[0]) if not bool((g[i] != 0).any())]
+            if zero:
+                bad.append(f"{k} layers {zero}")
+    log(f"train: perturbed gates: loss {float(metrics['loss']):.4f}, "
+        f"{len(tree_paths(grads))} gradients, launches {launches}; zero or "
+        f"non-finite: {bad}")
+    if bad:
+        fail(f"train: gradients zero or non-finite: {bad}")
+    if launches[flash.__name__] != cfg.num_layers \
+            or launches[flash_bwd.__name__] != cfg.num_layers:
+        fail(f"train: one backward launched {launches}")
+    return run_launches
+
+
+def phase_train_dit(torch, kernels, path):
+    """examples/torch_train_dit.py's `run` at its defaults on the card."""
+    example = load_example("torch_train_dit")
+    t0 = time.perf_counter()
+    out, launches = _count_launches(kernels, path, "train-dit",
+                                    lambda: example.run(device="cuda",
+                                                        log=log))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hist = out["history"]
+    log(f"train-dit: {out['params']} params, {hist[-1]['step']} steps, "
+        f"steps_per_s={hist[-1]['steps_per_s']:.3f} (the loop's own), loss "
+        f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, restored from "
+        f"step {out['restored_step']} (kept {out['kept']}), sample finite, "
+        f"{wall:.2f}s wall; launches {launches}")
+    return launches
+
+
+def phase_check_train(torch):
+    """DiT-XL SMOKE (f32) trained 3 steps on the card (kernels) and on the
+    CPU (plain versions) from the same weights and injected draws; the SSD
+    wrapper under grad must raise on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import latent_batches
+    from repro_torch.diffusion import linear_schedule
+    from repro_torch.kernels import flash_attention, flash_attention_backward
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import init_params, perturb_zero_init
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.steps import (TrainState, diffusion_draws,
+                                         make_diffusion_train_step)
+    from repro_torch.tree import tree_map
+    cfg = get_smoke_config("dit-xl")
+    gen = torch.Generator().manual_seed(0)
+    params = perturb_zero_init(init_params(gen, cfg, device="cpu"), gen)
+    cpu = TrainState(params, adamw_init(params))
+    card = tree_map(lambda t: t.to("cuda", copy=True), cpu)
+    sched = linear_schedule(1000)
+    step = make_diffusion_train_step(cfg, sched, warmup=0, total_steps=3)
+    lat = latent_batches(0, 8, cfg.dit_patch_tokens, cfg.dit_in_dim,
+                         cfg.dit_num_classes)
+    losses = []
+    for k in (flash_attention, flash_attention_backward):
+        k.launches = 0
+    for _ in range(3):
+        x, y = next(lat)
+        x, y = torch.from_numpy(x), torch.from_numpy(y)
+        draws = diffusion_draws(gen, x, sched.T)
+        cpu, mc = step(cpu, {"latents": x, "labels": y, "draws": draws})
+        card, mg = step(card, {"latents": x.cuda(), "labels": y.cuda(),
+                               "draws": tuple(d.cuda() for d in draws)})
+        losses.append((float(mc["loss"]), float(mg["loss"])))
+    loss_rel = max(abs(a - b) / abs(a) for a, b in losses)
+    rel = _tree_rel(torch, card, cpu)
+    log(f"check-train: dit-xl SMOKE ({cfg.dtype}) 3 steps, losses (cpu, "
+        f"card) {losses}: largest relative difference {loss_rel:.3e}, params "
+        f"and moments {rel:.3e} (tol {CHECK_TRAIN_TOL}); card launches flash "
+        f"{flash_attention.launches}, backward "
+        f"{flash_attention_backward.launches}")
+    if not (loss_rel <= CHECK_TRAIN_TOL and rel <= CHECK_TRAIN_TOL):
+        fail(f"check-train: card and CPU differ ({loss_rel}, {rel})")
+    if flash_attention_backward.launches != 3 * cfg.num_layers:
+        fail("check-train: the card's steps did not run the flash backward")
+    x = torch.randn((1, 64, 2, 16), device="cuda", requires_grad=True)
+    s = torch.randn((1, 64, 16), device="cuda")
+    try:
+        ssd_scan(x, torch.rand((1, 64, 2), device="cuda"),
+                 -torch.rand((2,), device="cuda"), s, s)
+    except RuntimeError as e:
+        log(f"check-train: ssd_scan under grad raises: {e}")
+    else:
+        fail("check-train: ssd_scan under grad returned a detached output")
+
+
 def timed(name, fn, *args):
     """fn(*args), logging the phase's wall seconds and its own peak device
     memory: what earlier phases left is collected first, the peak counter
@@ -2721,8 +3156,9 @@ def main() -> int:
             log(f"build: {line.strip()}")
     log_hmma(lib)
 
-    flash_attention, forecast, ssd_scan = KERNELS
+    flash_attention, forecast, ssd_scan, flash_attention_backward = KERNELS
     flash = timed("flash", phase_flash, torch, F)
+    flash_bwd = timed("flash-bwd", phase_flash_bwd, torch, F)
     if "--flash-only" in sys.argv[1:]:
         log(card)
         return 0
@@ -2768,6 +3204,12 @@ def main() -> int:
     by_path["serve-llm"] = timed("serve-llm", phase_serve_llm, torch,
                                  KERNELS, (flash_attention, ssd_scan))
     timed("check-llm", phase_check_llm, torch)
+    # slice 10: training, the flash kernel in both directions
+    train_path = (flash_attention, flash_attention_backward)
+    by_path["train"] = timed("train", phase_train, torch, KERNELS, train_path)
+    by_path["train-dit"] = timed("train-dit", phase_train_dit, torch, KERNELS,
+                                 (*train_path, forecast))
+    timed("check-train", phase_check_train, torch)
 
     rows = []
     for name, fn, src, replaces, rep in (
@@ -2778,7 +3220,12 @@ def main() -> int:
              "src/repro_torch/kernels/forecast/csrc/forecast.cu",
              "src/repro/kernels/forecast/forecast.py:32", fc),
             ("ssd", ssd_scan, "src/repro_torch/kernels/ssd/csrc/ssd.cu",
-             "src/repro/kernels/ssd/ssd.py:73", ssd)):
+             "src/repro/kernels/ssd/ssd.py:73", ssd),
+            ("flash_attention_backward", flash_attention_backward,
+             "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_bwd.cu",
+             "src/repro/models/layers.py:86 (JAX autodiff of "
+             "blocked_attention; no Pallas kernel)", flash_bwd)):
         per_path = {path: n[fn.__name__] for path, n in by_path.items()
                     if n[fn.__name__] > 0}
         # the contract's keys first, then each phase's extra numbers

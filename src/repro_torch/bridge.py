@@ -8,7 +8,8 @@ cannot reproduce `jax.random`.  A bfloat16 leaf arrives as an
 `ml_dtypes.bfloat16` numpy array, which `torch.from_numpy` rejects, so its
 bits travel as 16-bit integers and are reinterpreted — the same
 bf16-as-uint16 convention the JAX checkpoint store uses.  This module reads
-arrays only; it imports no JAX.
+arrays only; it imports no JAX.  `train_state_to_torch` bridges a whole
+training state (params, AdamW moments and step).
 """
 from __future__ import annotations
 
@@ -39,3 +40,18 @@ def to_torch(tree: Mapping[str, Any], device: DeviceLike = None):
         return to_tensor(node, dev)
 
     return walk(tree)
+
+
+def train_state_to_torch(params: Mapping[str, Any], opt, device: DeviceLike = None):
+    """A JAX training state -> the port's `TrainState` on `device`: params,
+    the AdamW moments `opt.mu` / `opt.nu` and the step count `opt.step`
+    (any object with those attributes; leaves as arrays), so that a run
+    started in JAX continues in the port."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.train.steps import TrainState
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                        device=dev)
+    return TrainState(params=to_torch(params, dev),
+                      opt=AdamWState(step=step, mu=to_torch(opt.mu, dev),
+                                     nu=to_torch(opt.nu, dev)))

@@ -34,6 +34,17 @@ def layer_params(stacked: State, i: int) -> State:
             for k, v in stacked.items()}
 
 
+def layer_list(stacked: State) -> List[State]:
+    """Every layer's params (`layer_params` for each i), from one unbind
+    per leaf: the same views, but under autograd each stacked leaf gets one
+    stack of its layers' gradients, where a select per layer adds a
+    zero-filled full-size gradient per layer."""
+    per_leaf = {k: layer_list(v) if isinstance(v, dict) else torch.unbind(v)
+                for k, v in stacked.items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
 class CachedModule:
     """A module fn wrapped with a cache policy; fn: (x, *args) -> y."""
 

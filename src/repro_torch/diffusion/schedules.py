@@ -9,6 +9,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -30,6 +31,19 @@ class NoiseSchedule:
     @property
     def alpha_bars(self) -> np.ndarray:
         return np.cumprod(self.alphas, dtype=np.float64).astype(np.float32)
+
+    def q_sample(self, x0, t, eps):
+        """Forward diffuse x0 to step t (Eq. 4).  t: integer tensor (B,).
+        The alpha-bar table goes to x0's device once and is kept there."""
+        cache = self.__dict__.setdefault("_alpha_bars_on", {})
+        ab_all = cache.get(x0.device)
+        if ab_all is None:
+            ab_all = cache[x0.device] = torch.as_tensor(
+                self.alpha_bars, dtype=torch.float32, device=x0.device)
+        ab = ab_all[t]
+        shape = (-1,) + (1,) * (x0.dim() - 1)
+        return (torch.sqrt(ab).reshape(shape) * x0
+                + torch.sqrt(1.0 - ab).reshape(shape) * eps)
 
     def spaced(self, num_steps: int) -> np.ndarray:
         """Evenly spaced sampling timesteps T-1 ... 0 (descending)."""

@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
   flash_attention — online-softmax attention (every DiT self-attention and
-                    every LLM prefill attention)
+                    every LLM prefill attention), and its backward
+                    (`flash_attention_backward`, every DiT self-attention
+                    under training)
   forecast        — fused weighted sum over a finite-difference stack (every
                     forecast step of the predictive cache policies)
   ssd             — the Mamba2 chunked SSD scan (every Mamba2 layer's
@@ -12,10 +14,11 @@ Each subpackage holds `csrc/*.cu` (the CUDA kernel, built for sm_90a by
 an error for CUDA tensors, launch counter) and `ref.py` (plain PyTorch).
 Nothing is compiled at import time.
 """
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_backward
 from .forecast import forecast
 from .ssd import ssd_scan
 
-KERNELS = (flash_attention, forecast, ssd_scan)
+KERNELS = (flash_attention, forecast, ssd_scan, flash_attention_backward)
 
-__all__ = ["flash_attention", "forecast", "ssd_scan", "KERNELS"]
+__all__ = ["flash_attention", "flash_attention_backward", "forecast",
+           "ssd_scan", "KERNELS"]

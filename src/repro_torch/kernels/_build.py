@@ -109,17 +109,21 @@ def build_log() -> str:
 
 def _declare(lib) -> None:
     """Argument and result types of every C entry point: flash_attention_fwd,
-    forecast_fwd, forecast_basis_fwd and ssd_fwd."""
+    flash_attention_fwd_lse, flash_attention_bwd, forecast_fwd,
+    forecast_basis_fwd and ssd_fwd."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     L = ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
                                         I, F, P]
+    lib.flash_attention_fwd_lse.argtypes = [P] * 5 + [I] * 9 + [F, P]
+    lib.flash_attention_bwd.argtypes = [P] * 10 + [I] * 9 + [F, P]
     lib.forecast_fwd.argtypes = [P, P, P, I, I, I, L, I, P]
     lib.forecast_basis_fwd.argtypes = [P, ctypes.c_char_p, P, P, P, I, I, I,
                                        L, I, I, I, ctypes.c_double, P]
     lib.ssd_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                             L, L, L, L, L, L, L, P]
-    for fn in (lib.flash_attention_fwd, lib.forecast_fwd,
+    for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_lse,
+               lib.flash_attention_bwd, lib.forecast_fwd,
                lib.forecast_basis_fwd, lib.ssd_fwd):
         fn.restype = I
 
@@ -135,6 +139,16 @@ def load():
             _declare(lib)
             _lib = lib
     return _lib
+
+
+def no_grad_launch(name: str, why: str, *tensors) -> None:
+    """Raise before a launch that autograd would not see: grad mode on and
+    an input requiring a gradient (the output would come back detached and
+    the gradient would be lost without a word).  `why` says where the
+    backward is to come from."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires a gradient, and the "
+                           f"CUDA kernel has no backward: {why}")
 
 
 def launch(entry: str, idx: int, *args) -> None:

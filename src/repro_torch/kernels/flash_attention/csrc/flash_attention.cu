@@ -51,6 +51,13 @@
 // - Where D * element size is not a multiple of 16 bytes or a pointer is not
 //   16-byte aligned, the same kernel stages element by element (template
 //   flag kVec = false) at the widest padding, 128.
+// - Training (template flag kLse): the epilogue also writes each row's
+//   log-sum-exp (natural log, (B, H, Sq) f32) for the backward
+//   (flash_attention_bwd.cu).  Those instantiations are built from
+//   flash_attention_lse.cu, which includes this file with
+//   FLASH_ATTENTION_LSE defined and exports flash_attention_fwd_lse; this
+//   file's own entry point, flash_attention_fwd, builds only the serving
+//   instantiations (kLse = false), whose code the flag leaves as it was.
 // Where the time goes (tools/flash_ablate.py) and what is left to gain are
 // in PERF.md.
 
@@ -72,6 +79,7 @@ static_assert(kBQ <= 2 * kBK, "Q is staged in one stage of the ring");
 constexpr int kDMax = 128;
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Head-dim padding (the mma's reduction depth) and shared row padding.
 template <typename T> struct Traits;
@@ -133,11 +141,15 @@ __device__ __forceinline__ void stage_tile(T* dst, const T* src, long long strid
 // An explicit minimum of one block an SM: ptxas then gives the bf16 kernel
 // the registers it asks for (153 at D 80, against 130 without it), which
 // measured 5-12 % faster (tools/flash_ablate.py, PERF.md).
-template <typename T, int DP, bool kVec>
+// lse comes last, so that the other parameters keep the serving kernel's
+// offsets in the constant bank: with it in front, the DiT bf16 shape ran
+// 3.2 % slower on an H100 with identical instructions and registers
+// (tools/flash_fwd_ab.py).
+template <typename T, int DP, bool kVec, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, int Sq, int Sk, int H, int KH, int D, int causal, int window,
-          float scale_log2, int q_offset) {
+          float scale_log2, int q_offset, float* __restrict__ lse) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int LD = DP + Traits<T>::kRowPad;   // shared row stride, elements
   constexpr int kTile = kBK * LD;
@@ -372,6 +384,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int r = 0; r < 2; ++r) {
     const float lr = quad_sum(l[r]);
     inv[r] = lr > 0.f ? 1.f / lr : 0.f;
+    if constexpr (kLse) {
+      // the row's log-sum-exp for the backward; a row whose keys are all
+      // masked (max kMasked) gets the reference's -1e30
+      const int s = q0 + w0 + g + 8 * r;
+      if (t == 0 && s < Sq)
+        lse[((long long)b * H + h) * Sq + s] =
+            m[r] <= 0.5f * kMasked ? kMasked : (m[r] + __log2f(lr)) * kLn2;
+    }
   }
   T* ob = o + ((long long)b * Sq * H + h) * D;
   if constexpr (kVec) {
@@ -406,9 +426,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-template <typename T, int DP, bool kVec>
-cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                      int Sk, int H, int KH, int D, int causal, int window, float scale,
+template <typename T, int DP, bool kVec, bool kLse>
+cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int Sq, int Sk, int H, int KH, int D, int causal, int window, float scale,
                       cudaStream_t stream) {
   constexpr int LD = DP + Traits<T>::kRowPad;
   constexpr size_t smem = sizeof(T) * kStages * 2 * kBK * LD;   // the ring
@@ -417,46 +437,42 @@ cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o, int 
     static bool raised = false;
     if (!raised) {
       const cudaError_t e = cudaFuncSetAttribute(
-          flash_fwd<T, DP, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          flash_fwd<T, DP, kVec, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return e;
       raised = true;
     }
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd<T, DP, kVec><<<grid, kThreads, smem, stream>>>(
+  flash_fwd<T, DP, kVec, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, KH, D, causal, window, scale * kLog2e, Sk - Sq);
+      static_cast<T*>(o), Sq, Sk, H, KH, D, causal, window, scale * kLog2e, Sk - Sq, lse);
   return cudaGetLastError();
 }
 
 // The head dim rounds up to the next instantiated width: a multiple of the
 // mma's depth (16 in bf16, 8 in f32); the element-by-element path takes 128.
-template <typename T, int DP = Traits<T>::kPadTo>
-cudaError_t launch(bool vec, const void* q, const void* k, const void* v, void* o, int B,
-                   int Sq, int Sk, int H, int KH, int D, int causal, int window, float scale,
-                   cudaStream_t s) {
+template <typename T, bool kLse, int DP = Traits<T>::kPadTo>
+cudaError_t launch(bool vec, const void* q, const void* k, const void* v, void* o, float* lse,
+                   int B, int Sq, int Sk, int H, int KH, int D, int causal, int window,
+                   float scale, cudaStream_t s) {
   if (!vec)
-    return launch_dp<T, kDMax, false>(q, k, v, o, B, Sq, Sk, H, KH, D, causal, window,
-                                      scale, s);
+    return launch_dp<T, kDMax, false, kLse>(q, k, v, o, lse, B, Sq, Sk, H, KH, D, causal,
+                                            window, scale, s);
   if constexpr (DP < kDMax) {
     if (D > DP)
-      return launch<T, DP + Traits<T>::kPadTo>(vec, q, k, v, o, B, Sq, Sk, H, KH, D, causal,
-                                               window, scale, s);
+      return launch<T, kLse, DP + Traits<T>::kPadTo>(vec, q, k, v, o, lse, B, Sq, Sk, H, KH, D,
+                                                     causal, window, scale, s);
   }
-  return launch_dp<T, DP, true>(q, k, v, o, B, Sq, Sk, H, KH, D, causal, window, scale, s);
+  return launch_dp<T, DP, true, kLse>(q, k, v, o, lse, B, Sq, Sk, H, KH, D, causal, window,
+                                      scale, s);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  All four
-// tensors are contiguous: q and o (B, Sq, H, D), k and v (B, Sk, KH, D).
-// 16-byte copies need 16-byte rows and pointers; anything else stages
-// element by element in the same kernel.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int Sq, int Sk, int H, int KH, int D,
-                                   int causal, int window, float scale, void* stream) {
+template <bool kLse>
+int run(const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B,
+        int Sq, int Sk, int H, int KH, int D, int causal, int window, float scale,
+        void* stream) {
   if (D < 1 || D > kDMax || KH < 1 || H % KH != 0 || B < 1 || Sq < 1 || Sk < 1 ||
       B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -465,9 +481,34 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const bool vec = (D * elem) % 16 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(o);
   if (dtype == 0)
-    return (int)launch<float>(vec, q, k, v, o, B, Sq, Sk, H, KH, D, causal, window, scale, s);
+    return (int)launch<float, kLse>(vec, q, k, v, o, lse, B, Sq, Sk, H, KH, D, causal, window,
+                                    scale, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(vec, q, k, v, o, B, Sq, Sk, H, KH, D, causal, window,
-                                      scale, s);
+    return (int)launch<__nv_bfloat16, kLse>(vec, q, k, v, o, lse, B, Sq, Sk, H, KH, D, causal,
+                                            window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  All four
+// tensors are contiguous: q and o (B, Sq, H, D), k and v (B, Sk, KH, D).
+// 16-byte copies need 16-byte rows and pointers; anything else stages
+// element by element in the same kernel.
+#ifndef FLASH_ATTENTION_LSE
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   int dtype, int B, int Sq, int Sk, int H, int KH, int D,
+                                   int causal, int window, float scale, void* stream) {
+  return run<false>(q, k, v, o, nullptr, dtype, B, Sq, Sk, H, KH, D, causal, window, scale,
+                    stream);
+}
+#else
+// The same, and lse (B, H, Sq) f32 receives each row's log-sum-exp.
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                                       void* lse, int dtype, int B, int Sq, int Sk, int H,
+                                       int KH, int D, int causal, int window, float scale,
+                                       void* stream) {
+  return run<true>(q, k, v, o, static_cast<float*>(lse), dtype, B, Sq, Sk, H, KH, D, causal,
+                   window, scale, stream);
+}
+#endif

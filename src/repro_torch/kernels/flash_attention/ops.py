@@ -1,16 +1,32 @@
-"""Public wrapper for the flash-attention kernel.
+"""Public wrappers for the flash-attention kernels.
 
-CPU tensors take the plain version (`attention_ref`).  CUDA tensors launch
-`csrc/flash_attention.cu` or raise: there is no fallback on the card.  The
-kernel runs bf16 inputs on bf16 tensor-core products (P rounded to bf16
-before P V, as `blocked_attention` does) and f32 inputs as 3xTF32; its C
-entry point picks 16-byte or element-by-element staging from D and the
-pointers' alignment.  `flash_attention.launches` counts kernel launches and
-`flash_attention.flops` the products they compute, 4*B*H*Sq*Sk*D a launch
-(plain integers).  The FLOPs are counted on the CUDA path only: a ctypes
-launch is no aten operator, so `FlopCounterMode` cannot see it, while on
-CPU tensors it counts `attention_ref`'s two products as the same
-4*B*H*Sq*Sk*D."""
+  flash_attention(q, k, v)          the forward: softmax(q k^T scale) v
+  flash_attention_backward(...)     (dq, dk, dv) from the forward's output,
+                                    its row log-sum-exp and dO
+
+CPU tensors take the plain versions (`attention_ref`, `attention_bwd_ref`).
+CUDA tensors launch `csrc/flash_attention.cu` (serving),
+`csrc/flash_attention_lse.cu` (the same kernels writing the row
+log-sum-exp, under grad) and `csrc/flash_attention_bwd.cu`, or raise:
+there is no fallback on the card.  The forward runs bf16 inputs
+on bf16 tensor-core products (P rounded to bf16 before P V, as
+`blocked_attention` does) and f32 inputs as 3xTF32; its C entry point picks
+16-byte or element-by-element staging from D and the pointers' alignment.
+
+Under grad (grad mode on and q, k or v requiring a gradient) a CUDA call
+goes through a `torch.autograd.Function`: the forward also writes each
+row's log-sum-exp and saves q, k, v, o and it, and the backward launches
+the backward kernels on a contiguous dO.  Otherwise the call takes the
+serving path, which writes no log-sum-exp.  On the CPU `attention_ref` is
+differentiable itself.
+
+`flash_attention.launches` counts forward launches and
+`flash_attention_backward.launches` backward launches (three kernels a
+launch: Delta, dK/dV, dQ); `flash_attention.flops` counts the forward's
+products, 4*B*H*Sq*Sk*D a launch (plain integers).  The FLOPs are counted
+on the CUDA path only: a ctypes launch is no aten operator, so
+`FlopCounterMode` cannot see it, while on CPU tensors it counts
+`attention_ref`'s two products as the same 4*B*H*Sq*Sk*D."""
 from __future__ import annotations
 
 import math
@@ -18,7 +34,7 @@ import math
 import torch
 
 from .. import _build
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -35,6 +51,63 @@ def check_grid(batch: int) -> None:
                          f"the kernel's gridDim.z limit")
 
 
+def _check_cuda(name, tensors):
+    """Raise unless every tensor is a contiguous float32 / bfloat16 tensor
+    of q's dtype on one CUDA device."""
+    if {t.device.type for t in tensors} != {"cuda"} \
+            or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: tensors must share one CUDA device (got "
+                         f"{[str(t.device) for t in tensors]})")
+    dtype = tensors[0].dtype
+    if dtype not in _DTYPES or any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"{name}: q, k, v must all be float32 or bfloat16 "
+                        f"(got {[str(t.dtype) for t in tensors]})")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _forward(q, k, v, causal, window, scale, lse):
+    """Launch the forward kernel; `lse` is None (serving) or a (B, H, Sq)
+    f32 buffer for the rows' log-sum-exp (training: the kLse
+    instantiations, `csrc/flash_attention_lse.cu`)."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    args = (_DTYPES[q.dtype], B, Sq, Sk, H, KH, D, int(bool(causal)),
+            int(window), float(scale))
+    if lse is None:
+        _build.launch("flash_attention_fwd", q.get_device(), *ptrs, *args)
+    else:
+        _build.launch("flash_attention_fwd_lse", q.get_device(), *ptrs,
+                      lse.data_ptr(), *args)
+    flash_attention.launches += 1
+    flash_attention.flops += 4 * B * H * Sq * Sk * D
+    return o
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The CUDA forward with its row log-sum-exp, and the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        B, Sq, H, _ = q.shape
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        o = _forward(q, k, v, causal, window, scale, lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, scale)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_backward(q, k, v, o, do.contiguous(), lse,
+                                              causal=causal, window=window,
+                                              scale=scale)
+        return dq, dk, dv, None, None, None
+
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     """q: (B, Sq, H, D); k/v: (B, Sk, KH, D), KH divides H -> (B, Sq, H, D)
@@ -45,29 +118,56 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
         raise ValueError(f"flash_attention: incompatible shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    devices = {t.device.type for t in (q, k, v)}
-    if devices == {"cpu"}:
+    if {t.device.type for t in (q, k, v)} == {"cpu"}:
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
-    if devices != {"cuda"} or len({t.device for t in (q, k, v)}) != 1:
-        raise ValueError(f"flash_attention: q, k, v must share one CUDA "
-                         f"device (got {[str(t.device) for t in (q, k, v)]})")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: q, k, v must all be float32 or "
-                        f"bfloat16 (got {q.dtype}, {k.dtype}, {v.dtype})")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
+    _check_cuda("flash_attention", (q, k, v))
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
     check_grid(B)
-    o = torch.empty_like(q)
-    _build.launch("flash_attention_fwd", q.get_device(), q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
-                  B, Sq, Sk, H, KH, D, int(bool(causal)), int(window),
-                  float(scale))
-    flash_attention.launches += 1
-    flash_attention.flops += 4 * B * H * Sq * Sk * D
-    return o
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale, None)
+
+
+def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
+                             scale=None):
+    """(dq, dk, dv) of `flash_attention(q, k, v)` for the output gradient
+    `do`, given its output `o` and row log-sum-exp `lse` (B, H, Sq) f32;
+    each in its input's shape and dtype, GQA groups summed into their kv
+    head."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if o.shape != q.shape or do.shape != q.shape \
+            or tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"flash_attention_backward: o{tuple(o.shape)}, "
+                         f"do{tuple(do.shape)} and lse{tuple(lse.shape)} do "
+                         f"not fit q{tuple(q.shape)}")
+    ts = (q, k, v, o, do, lse)
+    if {t.device.type for t in ts} == {"cpu"}:
+        return attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                 window=window, scale=scale)
+    _check_cuda("flash_attention_backward", (q, k, v, o, do))
+    if lse.device != q.device or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError("flash_attention_backward: lse must be a contiguous "
+                         "float32 tensor on q's device")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_backward: head dim {D} > "
+                         f"{MAX_HEAD_DIM}")
+    check_grid(B)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    _build.launch("flash_attention_bwd", q.get_device(), q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk,
+                  H, KH, D, int(bool(causal)), int(window), float(scale))
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention.flops = 0
+flash_attention_backward.launches = 0

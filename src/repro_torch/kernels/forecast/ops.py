@@ -14,7 +14,11 @@ there is no fallback on the card.  Both share one lean host path
 either entry point and `forecast.flops` the products they compute,
 2*B*(m+1)*n a launch (plain integers; counted on the CUDA path only, where
 `FlopCounterMode` cannot see the ctypes launch: on CPU tensors it counts
-`forecast_ref`'s product as the same number)."""
+`forecast_ref`'s product as the same number).
+
+Under grad (grad mode on and an input requiring a gradient) the CUDA path
+raises: the kernel has no backward, and no training path runs it.  The
+CPU path stays differentiable through `forecast_ref`."""
 from __future__ import annotations
 
 import numpy as np
@@ -24,6 +28,7 @@ from .. import _build
 from .ref import basis_coeffs, forecast_ref
 
 _BASES = {"taylor": 0, "newton": 1, "hermite": 2, "ab": 3, "foca": 4}
+_NO_BACKWARD = "no training path runs the forecast"
 MAX_ORDER1 = 8       # order + 1 the kernel takes
 MAX_SLOTS = 64       # slots of one forecast_basis launch
 
@@ -74,6 +79,7 @@ def forecast(diffs, coeffs):
     if coeffs.get_device() != dev:
         raise ValueError(f"forecast: diffs and coeffs must share one CUDA "
                          f"device (got {diffs.device}, {coeffs.device})")
+    _build.no_grad_launch("forecast", _NO_BACKWARD, diffs, coeffs)
     code = _code(diffs, "forecast")
     if coeffs.dtype is not torch.float32 or not coeffs.is_contiguous():
         raise TypeError(f"forecast: coeffs must be contiguous float32 (got "
@@ -133,6 +139,7 @@ def forecast_basis(diffs, steps, last_step, n_valid, interval: int,
         raise ValueError(f"forecast_basis: tensors must share one CUDA device "
                          f"(got {diffs.device}, {last_step.device}, "
                          f"{n_valid.device})")
+    _build.no_grad_launch("forecast_basis", _NO_BACKWARD, diffs)
     code = _code(diffs, "forecast_basis")
     if (last_step.dtype is not torch.int32 or n_valid.dtype is not torch.int32
             or not (last_step.is_contiguous() and n_valid.is_contiguous())):

@@ -11,7 +11,11 @@ path they are views of the conv output.  Both take 64-token chunks.  The
 kernel masks a ragged tail, where the plain version, as JAX's does, takes
 the whole sequence as one chunk; the scan's result does not depend on the
 chunking beyond rounding (held at 2e-4 abs / 1e-3 rel against the plain
-version)."""
+version).
+
+Under grad (grad mode on and an input requiring a gradient) the CUDA path
+raises: the scan has no backward kernel yet (ROADMAP.md §A.6b), so training
+zamba2 runs on the CPU, where `ssd_ref` is differentiable."""
 from __future__ import annotations
 
 import torch
@@ -52,6 +56,8 @@ def ssd_scan(x, dt, A, B_, C_):
                          "last axis")
     if not (dt.is_contiguous() and A.is_contiguous()):
         raise ValueError("ssd_scan: dt and A must be contiguous")
+    _build.no_grad_launch("ssd_scan", "the SSD scan's backward kernel is "
+                          "ROADMAP.md §A.6b", *ts)
     if p > MAX_HEAD_DIM or n > MAX_STATE:
         raise ValueError(f"ssd_scan: head dim {p} or state {n} above "
                          f"{MAX_HEAD_DIM}")

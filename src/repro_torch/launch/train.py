@@ -1,0 +1,99 @@
+"""Training launcher of the port: the flags of the JAX package's
+`repro.launch.train`, plus `--device`.
+
+    python -m repro_torch.launch.train --arch dit-xl --steps 100     # on the GPU
+    python -m repro_torch.launch.train --arch dit-xl --smoke --device cpu
+
+`--arch` takes the port's configs on which JAX's launcher trains: the
+class-conditioned DiTs (dit-xl, dit-audio and dit-t2i, whose prompt-less
+forward runs the zero-table text branch) and the hybrid LM zamba2-2.7b.
+JAX's launcher fails on the video DiTs (it calls the image DiT's forward on
+their params), so the port raises for them.  zamba2 trains on the CPU only
+until the SSD scan has a backward kernel (ROADMAP.md §A.6b): on the card
+its wrapper raises under grad.  Random weights from `--seed`; the
+diffusion draws of step n come from a generator seeded with (seed + 1, n).
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Optional
+
+import torch
+
+from repro_torch.configs import ALL_ARCH_IDS, get_config, get_smoke_config
+from repro_torch.data import lm_batches
+from repro_torch.device import resolve_device
+from repro_torch.diffusion import linear_schedule
+from repro_torch.train import train_loop
+from repro_torch.train.steps import (diffusion_batches, init_train_state,
+                                     make_diffusion_train_step,
+                                     make_lm_train_step)
+
+
+def train(arch: str, *, smoke: bool = False, steps: int = 100, batch: int = 8,
+          seq: int = 128, lr: float = 3e-4, accum: int = 1,
+          ckpt_dir: Optional[str] = None, seed: int = 0, device=None,
+          warmup: int = 100, ckpt_every: int = 500, log_every: int = 10,
+          log_fn=print, start_step: int = 0, state=None):
+    """Train `arch` for `steps` steps, as `main` does; the keywords past
+    `seed` are the step factories' and the loop's defaults (JAX's launcher
+    keeps them fixed).  `state` and `start_step` resume a run: the batches
+    then start at `start_step` (the loop counts its steps from 1, so a
+    resumed run writes no checkpoints).  Returns (state, history)."""
+    if start_step and ckpt_dir:
+        raise ValueError("a resumed run would number its checkpoints from "
+                         "step 1: pass no ckpt_dir with start_step")
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if cfg.is_dit and cfg.dit_num_frames > 0:
+        raise ValueError(
+            f"{cfg.name}: the video DiTs do not train through this launcher "
+            f"(JAX's launcher fails on them as well: it runs the image DiT's "
+            f"forward on video params)")
+    dev = resolve_device(device)
+    log_fn(f"training {cfg.name} ({cfg.family}) for {steps} steps on {dev}")
+    if state is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = init_train_state(gen, cfg, device=dev)
+    if cfg.is_dit:
+        step = make_diffusion_train_step(cfg, linear_schedule(1000),
+                                         peak_lr=lr, warmup=warmup,
+                                         total_steps=steps, accum=accum)
+        it = diffusion_batches(seed, batch, cfg, dev, start_step=start_step)
+    else:
+        step = make_lm_train_step(cfg, peak_lr=lr, warmup=warmup,
+                                  total_steps=steps, accum=accum)
+        it = ({"tokens": torch.from_numpy(t).to(dev),
+               "targets": torch.from_numpy(y).to(dev)}
+              for t, y in lm_batches(seed, batch, seq, cfg.vocab_size,
+                                     start_step=start_step))
+    return train_loop(step, state, it, steps - start_step,
+                      log_every=log_every, ckpt_dir=ckpt_dir,
+                      ckpt_every=ckpt_every, log_fn=log_fn)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="dit-xl", choices=ALL_ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-feasible)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' to run there)")
+    args = ap.parse_args(argv)
+    state, history = train(args.arch, smoke=args.smoke, steps=args.steps,
+                           batch=args.batch, seq=args.seq, lr=args.lr,
+                           accum=args.accum, ckpt_dir=args.ckpt_dir,
+                           seed=args.seed, device=args.device)
+    if history:
+        print(f"loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}")
+    return state, history
+
+
+if __name__ == "__main__":
+    main()

@@ -23,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.engine import layer_params
+from repro_torch.core.engine import layer_list
 from repro_torch.kernels import flash_attention
 
 from .encdec import sinusoidal_positions
@@ -257,7 +257,7 @@ def forward(params, latents, t, y, cfg, *, y_embed=None, txt_kv=None,
         tk, tv, tm = resolve_txt(params, cfg, x.shape[0], txt_kv=txt_kv,
                                  txt_mask=txt_mask, txt_embed=txt_embed,
                                  dtype=x.dtype, device=x.device)
-    for i in range(cfg.num_layers):
+    for i, p in enumerate(layer_list(params["blocks"])):
         txt = None if tk is None else (tk[:, i], tv[:, i], tm)
-        x = dit_block(layer_params(params["blocks"], i), x, c, cfg, txt=txt)
+        x = dit_block(p, x, c, cfg, txt=txt)
     return final_layer(params, x, c, cfg)

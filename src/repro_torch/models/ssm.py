@@ -23,10 +23,13 @@ def causal_conv(x, w, b):
     """Depthwise causal conv.  x: (B, S, C); w: (W, C); b: (C,).  Returns
     (B, S, C) contiguous: the bias add writes the conv's (B, C, S) output
     back in token-major order, so that the SSD scan reads x, B and C as
-    views with a unit last stride."""
+    views with a unit last stride.  Under grad the add allocates its own
+    output (autograd takes no `out=`) and the copy makes it token-major."""
     W, C = w.shape
     lhs = F.pad(x.transpose(1, 2), (W - 1, 0))                   # (B, C, S+W-1)
     out = F.conv1d(lhs, w.t()[:, None, :], groups=C)
+    if torch.is_grad_enabled() and out.requires_grad:
+        return (out.transpose(1, 2) + b).contiguous()
     res = torch.empty(x.shape[:2] + (C,), dtype=torch.result_type(out, b),
                       device=out.device)
     return torch.add(out.transpose(1, 2), b, out=res)

@@ -613,3 +613,91 @@ def test_fit_want_gate_on_the_card(cuda):
     err = max(abs(a - b) / abs(b) for a, b in zip(hist, ref))
     assert err <= 1e-4
     assert hist[-1] < hist[0]
+
+
+# ----------------------------------------------------------------------
+# training: the flash backward, the LSE output, the gradient guards
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal,window", [
+    (8, 256, 256, 16, 16, 72, False, 0),     # DiT-XL
+    (2, 512, 512, 8, 2, 64, True, 128),       # causal GQA with a window
+    (2, 77, 77, 4, 4, 72, True, 0),           # ragged
+    (1, 64, 32, 2, 2, 16, True, 0),           # q longer than k: keyless rows
+    (1, 128, 256, 4, 1, 128, True, 64),       # q at the tail of k, D 128
+    (2, 100, 160, 4, 2, 18, True, 48),        # odd head dim
+    (1, 40, 40, 2, 2, 80, False, 0),          # below one tile
+])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_flash_backward_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D,
+                                             causal, window, dtype, tol):
+    """The backward kernels under autograd against autograd of the plain
+    version on float64 copies.  Tolerance: 1e-4 abs in f32, 2e-2 abs in
+    bf16 (the gradients' bf16 rounding)."""
+    from repro_torch.kernels import flash_attention_backward
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Sq, H, D), generator=g, device=cuda).to(dt)
+    k = torch.randn((B, Sk, KH, D), generator=g, device=cuda).to(dt)
+    v = torch.randn((B, Sk, KH, D), generator=g, device=cuda).to(dt)
+    do = torch.randn((B, Sq, H, D), generator=g, device=cuda).to(dt)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    before = (flash_attention.launches, flash_attention_backward.launches)
+    o = flash_attention(qg, kg, vg, causal=causal, window=window)
+    assert o.grad_fn is not None
+    got = torch.autograd.grad(o, (qg, kg, vg), do)
+    assert (flash_attention.launches, flash_attention_backward.launches) \
+        == (before[0] + 1, before[1] + 1)
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(attention_ref(q64, k64, v64, causal=causal,
+                                             window=window),
+                               (q64, k64, v64), do.double())
+    for a, b in zip(got, want):
+        assert a.dtype == dt
+        assert float((a.double() - b).abs().max()) <= tol
+    if causal and Sq > Sk:
+        assert bool((got[0][:, :Sq - Sk] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_forward_writes_the_lse_only_under_grad(cuda, dtype):
+    """Under grad the forward also writes each row's log-sum-exp (held to
+    the plain one within 1e-4 abs; -1e30 for a keyless row); its output is
+    the serving path's, bit for bit."""
+    from repro_torch.kernels.flash_attention import attention_lse_ref, ops
+    g = torch.Generator(device=cuda).manual_seed(2)
+    dt = getattr(torch, dtype)
+    q = torch.randn((2, 96, 4, 64), generator=g, device=cuda).to(dt)
+    k = torch.randn((2, 80, 2, 64), generator=g, device=cuda).to(dt)
+    lse = torch.full((2, 4, 96), 7.0, device=cuda)
+    o_lse = ops._forward(q, k, k, True, 0, 0.125, lse)
+    o = flash_attention(q, k, k, causal=True, scale=0.125)
+    assert torch.equal(o, o_lse)
+    want = attention_lse_ref(q, k, causal=True, scale=0.125)
+    live = want > -1e29
+    assert float((lse - want)[live].abs().max()) <= 1e-4
+    assert bool((lse[~live] == -1e30).all()) and int((~live).sum()) > 0
+
+
+def test_wrappers_under_grad_differentiate_or_raise(cuda):
+    """No CUDA wrapper hands back an output detached from an input that
+    requires a gradient: flash differentiates, the forecast and the SSD
+    scan raise (§A.6b); under no_grad all three launch."""
+    from repro_torch.kernels.forecast import forecast_basis
+    x = torch.randn((1, 64, 2, 16), device=cuda, requires_grad=True)
+    s = torch.randn((1, 64, 16), device=cuda)
+    dt = torch.rand((1, 64, 2), device=cuda)
+    A = -torch.rand((2,), device=cuda)
+    with pytest.raises(RuntimeError, match="A.6b"):
+        ssd_scan(x, dt, A, s, s)
+    d = torch.randn((3, 256), device=cuda, requires_grad=True)
+    c = torch.tensor([1.0, 0.5, 0.25], device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        forecast(d, c)
+    i32 = torch.zeros((), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        forecast_basis(d, 1, i32, i32 + 2, 1)
+    with torch.no_grad():
+        y, _ = ssd_scan(x, dt, A, s, s)
+        assert forecast(d, c).shape == (256,)
+    assert y.shape == x.shape

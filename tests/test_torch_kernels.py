@@ -245,7 +245,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serving.diffusion, "
             "repro_torch.bridge, repro_torch.diffusion, repro_torch.kernels, "
             "repro_torch.serving, repro_torch.launch.serve, "
-            "repro_torch.models.transformer; "
+            "repro_torch.models.transformer, repro_torch.data, "
+            "repro_torch.optim, repro_torch.checkpoint, repro_torch.train, "
+            "repro_torch.launch.train, repro_torch.tree; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad")
