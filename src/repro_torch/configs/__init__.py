@@ -1,9 +1,14 @@
-"""Config registry of the port: only the architectures ported so far."""
-from . import dit_audio, dit_t2i, dit_t2v, dit_video, dit_xl, zamba2_2p7b
+"""Config registry of the port: the architectures ported so far (the DiTs,
+the dense LLMs and the hybrid zamba2; the ssm, moe, encdec and vlm configs
+are ROADMAP.md §A.7)."""
+from . import (dit_audio, dit_t2i, dit_t2v, dit_video, dit_xl, minitron_8b,
+               qwen2_7b, qwen2p5_14b, tinyllama_1p1b, zamba2_2p7b)
 from .base import ArchConfig
 
 _MODULES = {"dit-xl": dit_xl, "dit-video": dit_video, "dit-audio": dit_audio,
             "dit-t2i": dit_t2i, "dit-t2v": dit_t2v,
+            "tinyllama-1.1b": tinyllama_1p1b, "qwen2-7b": qwen2_7b,
+            "qwen2.5-14b": qwen2p5_14b, "minitron-8b": minitron_8b,
             "zamba2-2.7b": zamba2_2p7b}
 ALL_ARCH_IDS = list(_MODULES)
 

@@ -7,7 +7,8 @@
   forecast        — fused weighted sum over a finite-difference stack (every
                     forecast step of the predictive cache policies)
   ssd             — the Mamba2 chunked SSD scan (every Mamba2 layer's
-                    prefill)
+                    prefill), and its backward (`ssd_scan_backward`,
+                    every Mamba2 layer under training)
 
 Each subpackage holds `csrc/*.cu` (the CUDA kernel, built for sm_90a by
 `_build`), `ops.py` (the wrapper: plain version for CPU tensors, kernel or
@@ -16,9 +17,10 @@ Nothing is compiled at import time.
 """
 from .flash_attention import flash_attention, flash_attention_backward
 from .forecast import forecast
-from .ssd import ssd_scan
+from .ssd import ssd_scan, ssd_scan_backward
 
-KERNELS = (flash_attention, forecast, ssd_scan, flash_attention_backward)
+KERNELS = (flash_attention, forecast, ssd_scan, flash_attention_backward,
+           ssd_scan_backward)
 
 __all__ = ["flash_attention", "flash_attention_backward", "forecast",
-           "ssd_scan", "KERNELS"]
+           "ssd_scan", "ssd_scan_backward", "KERNELS"]

@@ -110,7 +110,7 @@ def build_log() -> str:
 def _declare(lib) -> None:
     """Argument and result types of every C entry point: flash_attention_fwd,
     flash_attention_fwd_lse, flash_attention_bwd, forecast_fwd,
-    forecast_basis_fwd and ssd_fwd."""
+    forecast_basis_fwd, ssd_fwd and ssd_bwd."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     L = ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
@@ -122,9 +122,10 @@ def _declare(lib) -> None:
                                        L, I, I, I, ctypes.c_double, P]
     lib.ssd_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                             L, L, L, L, L, L, L, P]
+    lib.ssd_bwd.argtypes = [P] * 17 + [I] * 6 + [L] * 7 + [P]
     for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_lse,
                lib.flash_attention_bwd, lib.forecast_fwd,
-               lib.forecast_basis_fwd, lib.ssd_fwd):
+               lib.forecast_basis_fwd, lib.ssd_fwd, lib.ssd_bwd):
         fn.restype = I
 
 

@@ -1,4 +1,5 @@
-from .ops import ssd_scan
-from .ref import ssd_chunked, ssd_ref
+from .ops import ssd_scan, ssd_scan_backward
+from .ref import ssd_bwd_ref, ssd_chunked, ssd_ref
 
-__all__ = ["ssd_scan", "ssd_chunked", "ssd_ref"]
+__all__ = ["ssd_scan", "ssd_scan_backward", "ssd_chunked", "ssd_ref",
+           "ssd_bwd_ref"]

@@ -1,27 +1,35 @@
-"""Public wrapper for the SSD scan kernel.
+"""Public wrappers for the SSD scan kernels.
 
-CPU tensors take the plain version (`ssd_ref`).  CUDA tensors launch
-`csrc/ssd.cu` (a C B^T pass and the scan, from one C entry point) or raise:
-there is no fallback on the card.  `ssd_scan.launches` counts calls that
-launched the kernels (a plain integer).
+  ssd_scan(x, dt, A, B, C)             the scan: (y, h_final)
+  ssd_scan_backward(..., dy, dh_final) its VJP: (dx, ddt, dA, dB, dC)
+
+CPU tensors take the plain versions (`ssd_ref`, `ssd_bwd_ref`).  CUDA
+tensors launch `csrc/ssd.cu` (a C B^T pass and the scan, from one C entry
+point) and `csrc/ssd_bwd.cu` (the recomputed states and their gradients,
+the per-tile terms, the sums over heads), or raise: there is no fallback
+on the card.  `ssd_scan.launches` and `ssd_scan_backward.launches` count
+calls that launched the kernels (plain integers).
 
 x, B and C are read in place, in their own dtype (f32 or bf16) and through
-their strides, as long as the last axis has a unit stride: on the serving
+their strides, as long as the last axis has a unit stride: on the model's
 path they are views of the conv output.  Both take 64-token chunks.  The
-kernel masks a ragged tail, where the plain version, as JAX's does, takes
+kernels mask a ragged tail, where the plain forward, as JAX's does, takes
 the whole sequence as one chunk; the scan's result does not depend on the
 chunking beyond rounding (held at 2e-4 abs / 1e-3 rel against the plain
 version).
 
-Under grad (grad mode on and an input requiring a gradient) the CUDA path
-raises: the scan has no backward kernel yet (ROADMAP.md §A.6b), so training
-zamba2 runs on the CPU, where `ssd_ref` is differentiable."""
+Under grad (grad mode on and an input requiring a gradient) a CUDA call
+goes through a `torch.autograd.Function`: the forward launches the serving
+kernels and saves its inputs, and the backward launches `ssd_bwd` with the
+output gradients (dh_final None when h_final takes no part in the loss).
+dx, dB and dC come back in x's dtype, each rounded once from f32.  On the
+CPU `ssd_ref` is differentiable itself."""
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .ref import ssd_ref
+from .ref import ssd_bwd_ref, ssd_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64      # p
@@ -29,50 +37,137 @@ MAX_STATE = 64         # n
 TILE = 64              # tokens of a tile (the C B^T scratch is per tile)
 
 
-def ssd_scan(x, dt, A, B_, C_):
-    """Mamba2 SSD scan.  x: (b,s,h,p); dt: (b,s,h) softplus'd; A: (h,)
-    negative; B_, C_: (b,s,n) shared across heads.  Returns (y (b,s,h,p),
-    h_final (b,h,p,n)), both f32."""
+def _check(name, x, dt, A, B_, C_):
+    """Shapes, and on the card devices, dtypes and strides, of the scan's
+    inputs; True when every input lies on the CPU (the plain version)."""
     b, s, h, p = x.shape
     n = B_.shape[-1]
     if (tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,)
             or tuple(B_.shape) != (b, s, n) or C_.shape != B_.shape):
-        raise ValueError(f"ssd_scan: incompatible shapes x{tuple(x.shape)} "
+        raise ValueError(f"{name}: incompatible shapes x{tuple(x.shape)} "
                          f"dt{tuple(dt.shape)} A{tuple(A.shape)} "
                          f"B{tuple(B_.shape)} C{tuple(C_.shape)}")
     ts = (x, dt, A, B_, C_)
     if all(t.device.type == "cpu" for t in ts):
-        return ssd_ref(x, dt, A, B_, C_)
+        return True
     if not x.is_cuda or len({t.device for t in ts}) != 1:
-        raise ValueError(f"ssd_scan: inputs must share one CUDA device "
+        raise ValueError(f"{name}: inputs must share one CUDA device "
                          f"(got {[str(t.device) for t in ts]})")
     if (x.dtype not in _DTYPES or B_.dtype != x.dtype or C_.dtype != x.dtype
             or dt.dtype != torch.float32 or A.dtype != torch.float32):
-        raise TypeError(f"ssd_scan: x, B, C float32 or bfloat16 (one dtype) "
+        raise TypeError(f"{name}: x, B, C float32 or bfloat16 (one dtype) "
                         f"and dt, A float32 required (got "
                         f"{[str(t.dtype) for t in ts]})")
     if x.stride(-1) != 1 or B_.stride(-1) != 1 or C_.stride(-1) != 1:
-        raise ValueError("ssd_scan: x, B and C need a unit stride on their "
-                         "last axis")
+        raise ValueError(f"{name}: x, B and C need a unit stride on their "
+                         f"last axis")
     if not (dt.is_contiguous() and A.is_contiguous()):
-        raise ValueError("ssd_scan: dt and A must be contiguous")
-    _build.no_grad_launch("ssd_scan", "the SSD scan's backward kernel is "
-                          "ROADMAP.md §A.6b", *ts)
+        raise ValueError(f"{name}: dt and A must be contiguous")
     if p > MAX_HEAD_DIM or n > MAX_STATE:
-        raise ValueError(f"ssd_scan: head dim {p} or state {n} above "
+        raise ValueError(f"{name}: head dim {p} or state {n} above "
                          f"{MAX_HEAD_DIM}")
+    return False
+
+
+def _strides(x, B_, C_):
+    xs, bs, cs = x.stride(), B_.stride(), C_.stride()
+    return (xs[0], xs[1], xs[2], bs[0], bs[1], cs[0], cs[1])
+
+
+def _forward(x, dt, A, B_, C_):
+    """Launch the scan's kernels on checked CUDA inputs."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
     dev = x.device
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
     h_fin = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     cb = torch.empty((b, -(-s // TILE), TILE, TILE), dtype=torch.float32,
                      device=dev)
-    xs, bs, cs = x.stride(), B_.stride(), C_.stride()
     _build.launch("ssd_fwd", x.get_device(), x.data_ptr(), dt.data_ptr(),
                   A.data_ptr(), B_.data_ptr(), C_.data_ptr(), cb.data_ptr(),
                   y.data_ptr(), h_fin.data_ptr(), _DTYPES[x.dtype], b, s, h,
-                  p, n, xs[0], xs[1], xs[2], bs[0], bs[1], cs[0], cs[1])
+                  p, n, *_strides(x, B_, C_))
     ssd_scan.launches += 1
     return y, h_fin
 
 
+class _SSDScan(torch.autograd.Function):
+    """The CUDA scan, and its backward kernels."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C_):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B_, C_)
+        return _forward(x, dt, A, B_, C_)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dh):
+        x, dt, A, B_, C_ = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        return ssd_scan_backward(x, dt, A, B_, C_, dy.contiguous(),
+                                 None if dh is None else dh.contiguous())
+
+
+def ssd_scan(x, dt, A, B_, C_):
+    """Mamba2 SSD scan.  x: (b,s,h,p); dt: (b,s,h) softplus'd; A: (h,)
+    negative; B_, C_: (b,s,n) shared across heads.  Returns (y (b,s,h,p),
+    h_final (b,h,p,n)), both f32."""
+    if _check("ssd_scan", x, dt, A, B_, C_):
+        return ssd_ref(x, dt, A, B_, C_)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, B_, C_)):
+        return _SSDScan.apply(x, dt, A, B_, C_)
+    return _forward(x, dt, A, B_, C_)
+
+
+def ssd_scan_backward(x, dt, A, B_, C_, dy, dh_final=None):
+    """The VJP of `ssd_scan(x, dt, A, B_, C_)` for the output gradients dy
+    (b,s,h,p) and dh_final (b,h,p,n, or None for 0): (dx in x's shape and
+    dtype, ddt (b,s,h) f32, dA (h,) f32 summed over b and s, dB and dC in
+    B_'s shape and dtype, summed over the heads)."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    if tuple(dy.shape) != (b, s, h, p) or (
+            dh_final is not None and tuple(dh_final.shape) != (b, h, p, n)):
+        raise ValueError(f"ssd_scan_backward: dy{tuple(dy.shape)} or "
+                         f"dh_final do not fit x{tuple(x.shape)}, n {n}")
+    outs = (dy,) if dh_final is None else (dy, dh_final)
+    on_cpu = _check("ssd_scan_backward", x, dt, A, B_, C_)
+    if on_cpu != all(t.device.type == "cpu" for t in outs):
+        raise ValueError("ssd_scan_backward: dy and dh_final must lie on "
+                         "the inputs' device")
+    if on_cpu:
+        dx, ddt, dA, dB, dC = ssd_bwd_ref(x, dt, A, B_, C_, dy, dh_final)
+        return dx.to(x.dtype), ddt, dA, dB.to(B_.dtype), dC.to(C_.dtype)
+    if any(t.device != x.device or t.dtype != torch.float32
+           or not t.is_contiguous() for t in outs):
+        raise ValueError("ssd_scan_backward: dy and dh_final must be "
+                         "contiguous float32 tensors on x's device")
+    dev, nt = x.device, -(-s // TILE)
+    f32 = dict(dtype=torch.float32, device=dev)
+    hin = torch.empty((b, nt, h, p, n), **f32)
+    gout = torch.empty((b, nt, h, p, n), **f32)
+    dbh = torch.empty((b, s, h, n), **f32)
+    dch = torch.empty((b, s, h, n), **f32)
+    dapart = torch.empty((b, nt, h), **f32)
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, s, h), **f32)
+    dA = torch.empty((h,), **f32)
+    dB = torch.empty((b, s, n), dtype=B_.dtype, device=dev)
+    dC = torch.empty((b, s, n), dtype=C_.dtype, device=dev)
+    _build.launch("ssd_bwd", x.get_device(), x.data_ptr(), dt.data_ptr(),
+                  A.data_ptr(), B_.data_ptr(), C_.data_ptr(), dy.data_ptr(),
+                  None if dh_final is None else dh_final.data_ptr(),
+                  hin.data_ptr(), gout.data_ptr(), dx.data_ptr(),
+                  ddt.data_ptr(), dbh.data_ptr(), dch.data_ptr(),
+                  dapart.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                  dA.data_ptr(), _DTYPES[x.dtype], b, s, h, p, n,
+                  *_strides(x, B_, C_))
+    ssd_scan_backward.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
 ssd_scan.launches = 0
+ssd_scan_backward.launches = 0

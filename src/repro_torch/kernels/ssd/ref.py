@@ -1,11 +1,20 @@
-"""Plain PyTorch version of the SSD scan kernel: the port of the JAX
+"""Plain PyTorch versions of the SSD scan kernels: the port of the JAX
 package's `models/ssm.py::ssd_chunked` (the Mamba2 chunked state-space-dual
-scan) and of `kernels/ssd/ref.py::ssd_ref`.  It lives beside the kernel, not
-in `models/ssm.py`, so that `models/ssm.py -> kernels/ssd/ops.py -> ref.py`
-is not an import cycle."""
+scan) and of `kernels/ssd/ref.py::ssd_ref`, and `ssd_bwd_ref`, the scan's
+VJP written out chunk by chunk in the decomposition the backward kernel
+uses.  They live beside the kernels, not in `models/ssm.py`, so that
+`models/ssm.py -> kernels/ssd/ops.py -> ref.py` is not an import cycle.
+
+They compute in f32, or in f64 when given f64 inputs (the card's checks
+hold the kernels against float64 autograd of `ssd_ref`)."""
 from __future__ import annotations
 
 import torch
+
+
+def _f(t):
+    """t in f32, or in f64 if it is f64."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def _segsum(dA):
@@ -32,12 +41,12 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int):
     if s % chunk != 0:
         chunk = s
     nc = s // chunk
-    xc = x.float().reshape(b, nc, chunk, h, p)
-    dtc = dt.float().reshape(b, nc, chunk, h)
-    Bc = B_.float().reshape(b, nc, chunk, n)
-    Cc = C_.float().reshape(b, nc, chunk, n)
+    xc = _f(x).reshape(b, nc, chunk, h, p)
+    dtc = _f(dt).reshape(b, nc, chunk, h)
+    Bc = _f(B_).reshape(b, nc, chunk, n)
+    Cc = _f(C_).reshape(b, nc, chunk, n)
 
-    dA = dtc * A.float()                                     # (b,nc,l,h) <= 0
+    dA = dtc * _f(A)                                     # (b,nc,l,h) <= 0
     dA_cs = torch.cumsum(dA, dim=2)                          # inclusive
 
     # intra-chunk
@@ -65,6 +74,106 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int):
 
 def ssd_ref(x, dt, A, B_, C_, chunk: int = 64):
     """x: (b,s,h,p); dt: (b,s,h) softplus'd; A: (h,) negative; B_, C_:
-    (b,s,n).  All cast to f32.  Returns (y (b,s,h,p), h_final (b,h,p,n))."""
-    return ssd_chunked(x.float(), dt.float(), A.float(), B_.float(),
-                       C_.float(), chunk)
+    (b,s,n).  All cast to f32 (f64 stays f64).  Returns (y (b,s,h,p),
+    h_final (b,h,p,n))."""
+    return ssd_chunked(_f(x), _f(dt), _f(A), _f(B_), _f(C_), chunk)
+
+
+def _pad_tiles(t, s_pad):
+    """t (b, s, ...) with s_pad zero rows appended on the token axis."""
+    if s_pad == 0:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], s_pad) + t.shape[2:])], 1)
+
+
+def ssd_bwd_ref(x, dt, A, B_, C_, dy, dh_final=None, chunk: int = 64):
+    """The VJP of `ssd_chunked` in closed form: the gradients (dx (b,s,h,p),
+    ddt (b,s,h), dA (h,), dB (b,s,n), dC (b,s,n)) of <dy, y> + <dh_final,
+    h_final>, in f32 (f64 for f64 inputs).  dA is summed over b and s, dB
+    and dC over the heads (B and C are shared).  dh_final None means 0.
+
+    Chunks of `chunk` tokens; a ragged tail is padded with dt = 0 and zero
+    x, B, C and dy, which leaves cs flat and adds nothing, so the result
+    does not depend on the chunking beyond rounding (the forward takes a
+    ragged s as one chunk).  Per chunk c, with cs the inclusive cumsum of
+    dA = dt A inside it, E_ij = exp(cs_i - cs_j) (j <= i) and
+    w_j = exp(cs_L - cs_j) dt_j:
+      H_c   = exp(cs_L) H_{c-1} + sum_j w_j x_j B_j^T        (recomputed)
+      G_c   = dL/dH_c:  G_{c-1} = exp(cs_L) G_c + sum_t exp(cs_t) dy_t C_t^T,
+              G_last = dh_final                    (reverse state passing)
+      M_ij  = (C_i . B_j) E_ij dt_j,  dM_ij = dy_i . x_j
+      dx_j  = sum_i M_ij dy_i + w_j G_c B_j
+      dC_i  = sum_j dCB_ij B_j + exp(cs_i) H_{c-1}^T dy_i,  dCB = dM E dt_j
+      dB_j  = sum_i dCB_ij C_i + w_j G_c^T x_j
+    and the log-decay gradient dcs (from M, from exp(cs_i) in y's
+    carried-state term, from w and from the state's decay exp(cs_L)) turns
+    into ddA by a reverse cumsum inside the chunk: ddt += A ddA,
+    dA = sum dt ddA."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    L = chunk
+    nc = -(-s // L)
+    pad = nc * L - s
+    xc = _pad_tiles(_f(x), pad).reshape(b, nc, L, h, p)
+    dtc = _pad_tiles(_f(dt), pad).reshape(b, nc, L, h)
+    Bc = _pad_tiles(_f(B_), pad).reshape(b, nc, L, n)
+    Cc = _pad_tiles(_f(C_), pad).reshape(b, nc, L, n)
+    dyc = _pad_tiles(_f(dy), pad).reshape(b, nc, L, h, p)
+    A = _f(A)
+
+    cs = torch.cumsum(dtc * A, dim=2)                        # (b,nc,L,h)
+    csL = cs[:, :, -1]                                       # (b,nc,h)
+    decay = torch.exp(csL)
+    ecs = torch.exp(cs)
+    w = torch.exp(csL[:, :, None] - cs) * dtc                # (b,nc,L,h)
+
+    # the state entering each chunk, recomputed
+    states = torch.einsum("bclh,bclhp,bcln->bchpn", w, xc, Bc)
+    hin, hc = [], xc.new_zeros((b, h, p, n))
+    for c in range(nc):
+        hin.append(hc)
+        hc = hc * decay[:, c, :, None, None] + states[:, c]
+    hin = torch.stack(hin, 1)                                # (b,nc,h,p,n)
+
+    # reverse state passing: G_c, the gradient of the state leaving chunk c
+    carry = torch.einsum("bclh,bclhp,bcln->bchpn", ecs, dyc, Cc)
+    gc = xc.new_zeros((b, h, p, n)) if dh_final is None else _f(dh_final)
+    gout = [None] * nc
+    for c in reversed(range(nc)):
+        gout[c] = gc
+        gc = gc * decay[:, c, :, None, None] + carry[:, c]
+    gout = torch.stack(gout, 1)                              # (b,nc,h,p,n)
+
+    # intra-chunk terms through exp(segsum)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]        # (b,nc,i,j,h)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=x.device))[None, None, :, :, None]
+    E = torch.exp(seg.masked_fill(~causal, float("-inf")))
+    CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None]  # (b,nc,i,j,1)
+    dM = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    dtj = dtc[:, :, None]                                    # (b,nc,1,j,h)
+    M = CB * E * dtj
+    T = dM * CB * E                       # dM_ij * dM_ij/d(dt_j)
+    dCB = (dM * E * dtj).sum(-1)          # summed over the heads
+
+    # chunk-state terms exp(cs_L - cs_j) G_c B_j
+    GB = torch.einsum("bchpn,bcjn->bcjhp", gout, Bc)
+    dx = torch.einsum("bcijh,bcihp->bcjhp", M, dyc) + w[..., None] * GB
+    doff = ecs[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyc, hin)
+    dC = torch.einsum("bcij,bcjn->bcin", dCB, Bc) + doff.sum(3)
+    dB = torch.einsum("bcij,bcin->bcjn", dCB, Cc) \
+        + torch.einsum("bcjh,bcjhp,bchpn->bcjn", w, xc, gout)
+
+    # the log-decay gradient
+    dw = (xc * GB).sum(-1)                                   # (b,nc,L,h)
+    dcs = (T * dtj).sum(3) - dtc * T.sum(2) \
+        + torch.einsum("bcihn,bcin->bcih", doff, Cc) - w * dw
+    dcs[:, :, -1] += decay * (gout * hin).sum((-1, -2)) + (w * dw).sum(2)
+    ddA = torch.flip(torch.cumsum(torch.flip(dcs, [2]), 2), [2])
+    ddt = T.sum(2) + torch.exp(csL[:, :, None] - cs) * dw + A * ddA
+    dA = (dtc * ddA).sum((0, 1, 2))
+
+    def unpad(t):
+        return t.reshape((b, nc * L) + t.shape[3:])[:, :s]
+
+    return unpad(dx), unpad(ddt), dA, unpad(dB), unpad(dC)

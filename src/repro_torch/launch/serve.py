@@ -1,9 +1,13 @@
 """Serving launcher: batched generation over a ported LLM architecture.
 
-    python -m repro_torch.launch.serve --arch zamba2-2.7b          # on the GPU
-    python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke --device cpu
+    python -m repro_torch.launch.serve                             # on the GPU
+    python -m repro_torch.launch.serve --arch zamba2-2.7b
+    python -m repro_torch.launch.serve --smoke --device cpu
 
-Random weights drawn from `--seed`; runs on the GPU unless `--device cpu`.
+`--arch` defaults to JAX's tinyllama-1.1b and takes the port's LLMs: the
+dense tinyllama-1.1b, qwen2-7b, qwen2.5-14b and minitron-8b, and the
+hybrid zamba2-2.7b.  Random weights drawn from `--seed`; runs on the GPU
+unless `--device cpu`.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from repro_torch.serving import ServingEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-2.7b", choices=ALL_ARCH_IDS)
+    ap.add_argument("--arch", default="tinyllama-1.1b", choices=ALL_ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

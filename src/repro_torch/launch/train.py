@@ -1,17 +1,20 @@
 """Training launcher of the port: the flags of the JAX package's
 `repro.launch.train`, plus `--device`.
 
-    python -m repro_torch.launch.train --arch dit-xl --steps 100     # on the GPU
+    python -m repro_torch.launch.train --steps 100               # on the GPU
+    python -m repro_torch.launch.train --arch zamba2-2.7b --steps 10
     python -m repro_torch.launch.train --arch dit-xl --smoke --device cpu
 
-`--arch` takes the port's configs on which JAX's launcher trains: the
+`--arch` takes the port's configs on which JAX's launcher trains, and
+defaults to JAX's tinyllama-1.1b: the dense LMs (tinyllama-1.1b, qwen2-7b,
+qwen2.5-14b, minitron-8b), the hybrid LM zamba2-2.7b (its SSD scans
+differentiate through the scan's backward kernel on the card) and the
 class-conditioned DiTs (dit-xl, dit-audio and dit-t2i, whose prompt-less
-forward runs the zero-table text branch) and the hybrid LM zamba2-2.7b.
-JAX's launcher fails on the video DiTs (it calls the image DiT's forward on
-their params), so the port raises for them.  zamba2 trains on the CPU only
-until the SSD scan has a backward kernel (ROADMAP.md §A.6b): on the card
-its wrapper raises under grad.  Random weights from `--seed`; the
-diffusion draws of step n come from a generator seeded with (seed + 1, n).
+forward runs the zero-table text branch).  JAX's launcher fails on the
+video DiTs (it calls the image DiT's forward on their params), so the port
+raises for them.  Random weights from `--seed`; the LM batches of step n
+are `lm_batches(seed, ...)`'s, and the diffusion draws of step n come from
+a generator seeded with (seed + 1, n).
 """
 from __future__ import annotations
 
@@ -73,7 +76,7 @@ def train(arch: str, *, smoke: bool = False, steps: int = 100, batch: int = 8,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dit-xl", choices=ALL_ARCH_IDS)
+    ap.add_argument("--arch", default="tinyllama-1.1b", choices=ALL_ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-feasible)")
     ap.add_argument("--steps", type=int, default=100)

@@ -1,12 +1,15 @@
 """Model zoo of the port: so far the DiT (image latents and audio mel
 latents, class- or text-conditioned), the factorized spatio-temporal video
-DiT (with or without text) and the hybrid (Mamba2 + shared attention)
-decoder LM."""
+DiT (with or without text), and the dense (GQA) and hybrid (Mamba2 + shared
+attention) decoder LMs."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.tree import tree_leaves
 
 from . import dit, encdec, layers, ssm, transformer, video_dit
 from .transformer import decode_step, forward, prefill
@@ -20,15 +23,32 @@ def init_params(generator: torch.Generator, cfg, dtype=None, device=None):
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, params go to "
                          f"{dev}: make the generator on the params' device")
-    if cfg.family == "hybrid":
-        return transformer.init_lm(generator, cfg, dtype, dev)
+    return _init(generator, cfg, dtype, dev)
+
+
+def _init(generator, cfg, dtype, dev):
     if not cfg.is_dit:
-        raise NotImplementedError(
-            f"repro_torch ports only the DiTs and the hybrid LLM so far "
-            f"('{cfg.name}' needs more); see ROADMAP.md §A")
+        return transformer.init_lm(generator, cfg, dtype, dev)
     if cfg.dit_num_frames > 0:
         return video_dit.init_video_dit(generator, cfg, dtype, dev)
     return dit.init_dit(generator, cfg, dtype, dev)
+
+
+def params_shape(cfg, dtype=None):
+    """The params tree of `cfg` on the meta device: shapes and dtypes, no
+    storage and no draws (the counterpart of JAX's `eval_shape`)."""
+    return _init(torch.Generator(), cfg, dtype, torch.device("meta"))
+
+
+def param_count(cfg) -> int:
+    return sum(math.prod(t.shape) for t in tree_leaves(params_shape(cfg)))
+
+
+def active_param_count(cfg) -> int:
+    """Parameters touched per token, the N of MODEL_FLOPS = 6 N_active D.
+    Every ported family is dense in its params, so this is `param_count`;
+    the moe slice (ROADMAP §A.7) subtracts the experts not routed in."""
+    return param_count(cfg)
 
 
 def perturb_zero_init(params, generator: torch.Generator, scale: float = 0.05):
@@ -53,5 +73,5 @@ def perturb_zero_init(params, generator: torch.Generator, scale: float = 0.05):
 
 
 __all__ = ["dit", "encdec", "layers", "ssm", "transformer", "video_dit",
-           "init_params",
+           "init_params", "params_shape", "param_count", "active_param_count",
            "perturb_zero_init", "forward", "prefill", "decode_step"]

@@ -3,8 +3,10 @@ JAX `models/ssm.py`; Mamba1 is not ported yet, ROADMAP.md §A).
 
 Plain functions over a params dict with the JAX key names and the
 `(in, out)` layout.  The full-sequence scan goes through
-`repro_torch.kernels.ssd_scan` (the CUDA kernel on the card, the plain
-`ssd_chunked` on the CPU), the drop-in JAX names for its own plain scan.
+`repro_torch.kernels.ssd_scan` (the CUDA kernels on the card, the plain
+`ssd_chunked` on the CPU), the drop-in JAX names for its own plain scan;
+under training its gradient comes from the scan's backward kernel on the
+card (dx, dB and dC flow back into the views of the conv output).
 One-token decode is elementwise, as in JAX.
 """
 from __future__ import annotations

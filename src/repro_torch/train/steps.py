@@ -58,8 +58,9 @@ def init_train_state(generator: torch.Generator, cfg, dtype=None,
 
 def lm_loss(params, tokens, targets, cfg, *, vision_embeds=None,
             aux_weight: float = 0.01, z_weight: float = 1e-3):
-    """Causal-LM cross-entropy.  The port's only LM family (hybrid) has no
-    MoE losses, so they are 0 as JAX's are for it."""
+    """Causal-LM cross-entropy.  The port's LM families (dense and hybrid)
+    have no MoE losses, so the load-balance and router-z terms are 0, as
+    JAX's are for them."""
     if vision_embeds is not None:
         raise NotImplementedError("vision inputs belong to the vlm family, "
                                   "not ported yet (ROADMAP.md §A.7)")

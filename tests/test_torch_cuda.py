@@ -681,15 +681,21 @@ def test_flash_forward_writes_the_lse_only_under_grad(cuda, dtype):
 
 def test_wrappers_under_grad_differentiate_or_raise(cuda):
     """No CUDA wrapper hands back an output detached from an input that
-    requires a gradient: flash differentiates, the forecast and the SSD
-    scan raise (§A.6b); under no_grad all three launch."""
+    requires a gradient: flash and the SSD scan differentiate through
+    their backward kernels, the forecast raises; under no_grad all three
+    launch."""
     from repro_torch.kernels.forecast import forecast_basis
+    from repro_torch.kernels.ssd import ssd_scan_backward
     x = torch.randn((1, 64, 2, 16), device=cuda, requires_grad=True)
     s = torch.randn((1, 64, 16), device=cuda)
     dt = torch.rand((1, 64, 2), device=cuda)
     A = -torch.rand((2,), device=cuda)
-    with pytest.raises(RuntimeError, match="A.6b"):
-        ssd_scan(x, dt, A, s, s)
+    before = ssd_scan_backward.launches
+    y, _ = ssd_scan(x, dt, A, s, s)
+    assert y.grad_fn is not None
+    y.sum().backward()
+    assert ssd_scan_backward.launches == before + 1
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
     d = torch.randn((3, 256), device=cuda, requires_grad=True)
     c = torch.tensor([1.0, 0.5, 0.25], device=cuda)
     with pytest.raises(RuntimeError, match="no backward"):
@@ -701,3 +707,74 @@ def test_wrappers_under_grad_differentiate_or_raise(cuda):
         y, _ = ssd_scan(x, dt, A, s, s)
         assert forecast(d, c).shape == (256,)
     assert y.shape == x.shape
+
+
+# the SSD scan's backward: float64 autograd of the plain version is the
+# reference; f32 inputs within 1e-4 of the largest gradient, bf16 views of
+# the conv output within one bf16 rounding of it (2^-8 relative to each
+# element plus the f32 tolerance)
+@pytest.mark.parametrize("b,s,h,p,n", [(1, 100, 2, 16, 16), (2, 128, 4, 64, 64),
+                                       (2, 64, 3, 32, 16)])
+@pytest.mark.parametrize("dh", [False, True])
+@pytest.mark.parametrize("xbc", [False, True])
+def test_ssd_backward_kernel_matches_float64(cuda, b, s, h, p, n, dh, xbc):
+    from repro_torch.kernels.ssd import ssd_bwd_ref, ssd_scan_backward
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=g, device=cuda))
+    A = -torch.exp(torch.rand((h,), generator=g, device=cuda))
+    if xbc:
+        buf = torch.randn((b, s, h * p + 2 * n), generator=g,
+                          device=cuda).to(torch.bfloat16)
+        x = buf[..., :h * p].view(b, s, h, p)
+        B_, C_ = buf[..., h * p:h * p + n], buf[..., h * p + n:]
+    else:
+        x = torch.randn((b, s, h, p), generator=g, device=cuda)
+        B_ = torch.randn((b, s, n), generator=g, device=cuda)
+        C_ = torch.randn((b, s, n), generator=g, device=cuda)
+    dy = torch.randn((b, s, h, p), generator=g, device=cuda)
+    dhf = torch.randn((b, h, p, n), generator=g, device=cuda) if dh else None
+    before = ssd_scan_backward.launches
+    got = ssd_scan_backward(x, dt, A, B_, C_, dy, dhf)
+    again = ssd_scan_backward(x, dt, A, B_, C_, dy, dhf)
+    torch.cuda.synchronize()
+    assert ssd_scan_backward.launches == before + 2
+    ref = ssd_bwd_ref(x.double(), dt.double(), A.double(), B_.double(),
+                      C_.double(), dy.double(),
+                      None if dhf is None else dhf.double())
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert torch.equal(a, again[i])            # no atomics: bitwise
+        assert a.shape == r.shape
+        assert a.dtype == (x.dtype if i in (0, 3, 4) else torch.float32)
+        err = (a.double() - r).abs()
+        tol = 1e-4 * float(r.abs().max())
+        if a.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -8 * r.abs()
+        assert bool((err <= tol).all()), i
+
+
+def test_ssd_scan_trains_through_the_backward_kernel(cuda):
+    """Autograd through `ssd_scan` on bf16 views of one buffer, as
+    `mamba2_forward` passes them: the gradients reach the buffer, equal
+    the backward wrapper's, and y and h_final both carry a gradient."""
+    from repro_torch.kernels.ssd import ssd_scan_backward
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, s, h, p, n = 2, 130, 4, 32, 16
+    buf = torch.randn((b, s, h * p + 2 * n), generator=g, device=cuda).to(
+        torch.bfloat16).requires_grad_()
+    dt = torch.rand((b, s, h), generator=g, device=cuda).requires_grad_()
+    A = (-torch.rand((h,), generator=g, device=cuda)).requires_grad_()
+    x = buf[..., :h * p].view(b, s, h, p)
+    B_, C_ = buf[..., h * p:h * p + n], buf[..., h * p + n:]
+    y, hf = ssd_scan(x, dt, A, B_, C_)
+    dy = torch.randn(y.shape, generator=g, device=cuda)
+    dhf = torch.randn(hf.shape, generator=g, device=cuda)
+    gbuf, gdt, gA = torch.autograd.grad((y * dy).sum() + (hf * dhf).sum(),
+                                        (buf, dt, A))
+    dx, ddt, dA, dB, dC = ssd_scan_backward(x.detach(), dt.detach(),
+                                            A.detach(), B_.detach(),
+                                            C_.detach(), dy, dhf)
+    assert torch.equal(gbuf[..., :h * p].view(b, s, h, p), dx)
+    assert torch.equal(gbuf[..., h * p:h * p + n], dB)
+    assert torch.equal(gbuf[..., h * p + n:], dC)
+    assert torch.equal(gdt, ddt) and torch.equal(gA, dA)

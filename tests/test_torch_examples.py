@@ -9,8 +9,12 @@ through the PromptCache and the per-slot text tables),
 `examples/torch_online_control_plane.py` (SmoothCache, the OnlineTuner's
 blue/green swaps, a gate learned from the serving traces) and
 `examples/torch_observability.py` (the mixed pool's trace, cache-event
-JSONL reconciled with telemetry, metrics and program profiles), each at
-its JAX original's CPU size (a few seconds each here)."""
+JSONL reconciled with telemetry, metrics and program profiles),
+`examples/torch_cached_generation.py` (14 cache policies with CFG 1.5 on a
+reduced DiT-XL, PSNR against exact) and `examples/torch_diffusion_lm.py`
+(mask-denoising generation on tinyllama SMOKE, exact, FORA, TaylorSeer and
+TeaCache), each at its JAX original's CPU size (a few seconds each here,
+the policy zoo about 20 s)."""
 import os
 import subprocess
 import sys
@@ -28,7 +32,9 @@ ROOT = Path(__file__).resolve().parents[1]
                                     "torch_mixed_modality_serving.py",
                                     "torch_text_to_image_serving.py",
                                     "torch_online_control_plane.py",
-                                    "torch_observability.py"])
+                                    "torch_observability.py",
+                                    "torch_cached_generation.py",
+                                    "torch_diffusion_lm.py"])
 def test_example_runs_on_the_cpu(script):
     # two intra-op threads, as the test processes use: beside the other
     # xdist workers an example on every core oversubscribes the CPU

@@ -247,7 +247,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serving, repro_torch.launch.serve, "
             "repro_torch.models.transformer, repro_torch.data, "
             "repro_torch.optim, repro_torch.checkpoint, repro_torch.train, "
-            "repro_torch.launch.train, repro_torch.tree; "
+            "repro_torch.launch.train, repro_torch.tree, "
+            "repro_torch.diffusion.dlm; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad")

@@ -251,9 +251,9 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
 
 def test_unported_families_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("tinyllama-1.1b")
-    dense = dataclasses.replace(get_smoke_config(ARCH), family="dense")
+        get_config("falcon-mamba-7b")
+    ssm_only = dataclasses.replace(get_smoke_config(ARCH), family="ssm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(torch.Generator().manual_seed(0), dense, device="cpu")
+        init_params(torch.Generator().manual_seed(0), ssm_only, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward({}, torch.zeros((1, 2), dtype=torch.long), dense)
+        forward({}, torch.zeros((1, 2), dtype=torch.long), ssm_only)

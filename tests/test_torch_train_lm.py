@@ -1,7 +1,8 @@
 """The port's LM training (`lm_loss`, `make_lm_train_step`) against the JAX
 package on the CPU, at zamba2-2.7b SMOKE size (hybrid: Mamba2 layers and a
-shared attention block; the SSD scan's plain version carries the
-gradient, as the card's kernel has no backward yet, ROADMAP.md §A.6b).
+shared attention block; on CPU tensors the SSD scan's plain version
+carries the gradient; the card's backward kernel is held against its plain
+VJP in tests/test_torch_ssd_bwd.py and tests/test_torch_cuda.py).
 
 Tolerances: the loss 1e-5 relative and its gradient 1e-4 relative per leaf
 (summation order of XLA and torch); 3 steps with accum=4 against JAX's
