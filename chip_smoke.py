@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
   2. build    every kernel of the port from `src/repro_torch/kernels/*/csrc`;
               ptxas registers and spills per kernel, and the tensor-core
               (HMMA) instructions cuobjdump finds in the flash and SSD
-              kernels where the toolkit has cuobjdump
+              kernels where the toolkit has cuobjdump (a backward kernel
+              without any fails)
   3. flash    the flash-attention kernel against its plain version at the
               DiT-XL shape (f32 and bf16), a causal GQA shape with a window,
               a ragged shape, a q-at-the-tail shape, the zamba2-2.7b
@@ -25,7 +26,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
               times, and the CUDA kernels SDPA runs at each shape with
               their device time; at the zamba2 shape also SDPA with
               is_causal
-  4. flash-bwd the flash backward kernels (Delta, dK/dV, dQ) under autograd
+  4. flash-bwd the flash backward kernels (Delta, dK/dV, dQ on the tensor
+              cores) under autograd, bitwise on a rerun,
               against autograd of the plain version on float64 copies (f32
               1e-4 abs, bf16 2e-2 abs) and the plain backward
               (`attention_bwd_ref`, from the kernel's output and row
@@ -51,9 +53,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
               n 64) in f32, as the path passes them (bf16 views of the conv
               output xBC) at b 4 and b 1, and at b 1 with a ragged s = 500;
               kernel, device and plain times
-  7. ssd-bwd  the SSD backward kernels (the states entering and the
-              gradients leaving each tile, the per-tile terms, the sums
-              over heads) against float64 autograd of the plain scan
+  7. ssd-bwd  the SSD backward kernels (the tile-local states and their
+              gradients, the recurrence, the per-tile terms of a head
+              group, the sums over groups) against float64 autograd of the
+              plain scan
               (1e-4 of each gradient's largest value; a bf16 dx, dB, dC
               within one bf16 rounding more) and the plain VJP
               (`ssd_bwd_ref`), bitwise on a rerun, at the zamba2 prefill
@@ -523,6 +526,12 @@ BWD_CASES = [  # name, B, Sq, Sk, H, KH, D, causal, window, dtype
     ("tinyllama train (gqa 8)", 8, 128, 128, 32, 4, 64, True, 0, "bfloat16"),
 ]
 BWD_MAIN = "dit-xl bf16 (train)"     # the kernels line's row
+# an older tree's backward kernels' device times at these shapes
+# are not taken here: the parent's source is not in a checkout.  The A/B
+# tool builds both trees' kernels and times them in turns on one card.
+PARENT_AB = {k: f"not measured here: python3 tools/flash_fwd_ab.py "
+                f"--kernel {k} --src <parent>/src --src src (PERF.md §6)"
+             for k in ("flash-bwd", "ssd-bwd")}
 # a GQA group summed into its kv head makes dk and dv larger (up to 14 at
 # tinyllama's group of 8), where one bf16 rounding of the output exceeds
 # 2e-2 abs: there each element is held within 2e-2 abs plus one rounding
@@ -551,6 +560,10 @@ def phase_flash_bwd(torch, F):
         if o.grad_fn is None:
             fail(f"flash-bwd {name}: the output under grad has no grad_fn")
         got = torch.autograd.grad(o, (qg, kg, vg), do)
+        o2 = flash_attention(qg, kg, vg, causal=causal, window=window)
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, torch.autograd.grad(o2, (qg, kg, vg), do))):
+            fail(f"flash-bwd {name}: a rerun is not bitwise equal")
         q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
         ref = torch.autograd.grad(
             attention_ref(q64, k64, v64, causal=causal, window=window),
@@ -622,7 +635,8 @@ def phase_flash_bwd(torch, F):
             f"max_abs_err={plain_err:.3e} kernel-plain={vs_plain:.3e}"
             f"{extra} ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f} "
             f"sdpa_fwd_bwd_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({by}) "
-            f"fwd_ms={fwd_ms:.4f} fwd_lse_ms={fwd_lse_ms:.4f}")
+            f"fwd_ms={fwd_ms:.4f} fwd_lse_ms={fwd_lse_ms:.4f}; bitwise on a "
+            f"rerun")
         if not err <= tol:
             fail(f"flash-bwd {name}: max_abs_err {err} > {tol}")
         if not plain_err <= tol:
@@ -634,7 +648,8 @@ def phase_flash_bwd(torch, F):
                           " + 2^-8 |ref| (max_abs_err: the excess over one "
                           "rounding)" if name in BWD_ROUNDED else ""),
                       "fwd_ms": fwd_ms,
-                      "fwd_with_lse_ms": fwd_lse_ms}
+                      "fwd_with_lse_ms": fwd_lse_ms,
+                      "parent_device_ms": PARENT_AB["flash-bwd"]}
     report = dict(rows[BWD_MAIN])
     report.update({n: rows[n] for n in ("dit-xl f32", "train-dit f32",
                                          "zamba2 prefill",
@@ -3265,7 +3280,8 @@ def phase_ssd_bwd(torch):
                       "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                       "device_ms": dev_ms, "shape": name, "errors": errs,
                       "tolerance": f"{SSD_BWD_TOL} of the largest float64 "
-                      f"gradient (+ 2^-8 |ref| for bf16 outputs)"}
+                      f"gradient (+ 2^-8 |ref| for bf16 outputs)",
+                      "parent_device_ms": PARENT_AB["ssd-bwd"]}
     report = dict(rows[SSD_BWD_MAIN])
     report.update({n: rows[n] for n in rows if n != SSD_BWD_MAIN})
     return report
@@ -3688,8 +3704,16 @@ def log_hmma(lib: Path) -> None:
         f"forward kernels use HMMA: {ssd}")
     if not ssd or not all(ssd.values()):
         fail("build: an SSD forward kernel has no HMMA instruction")
-    bwd = {f: n for f, n in counts.items() if "ssd_bwd" in f}
-    log(f"build: sass: SSD backward kernels (SIMT f32 by design): {bwd}")
+    for tag, kernels in (("flash backward", ("flash_bwd_dkdv",
+                                             "flash_bwd_dq")),
+                         ("SSD backward", ("ssd_bwd_state_kernel",
+                                           "ssd_bwd_tile_kernel"))):
+        bwd = {f: n for f, n in counts.items() if any(k in f for k in kernels)}
+        log(f"build: sass: {sum(n > 0 for n in bwd.values())} of {len(bwd)} "
+            f"{tag} product kernels use HMMA; {sum(bwd.values())} HMMA "
+            f"instructions in all")
+        if not bwd or not all(bwd.values()):
+            fail(f"build: a {tag} product kernel has no HMMA instruction")
 
 
 def main() -> int:

@@ -122,7 +122,7 @@ def _declare(lib) -> None:
                                        L, I, I, I, ctypes.c_double, P]
     lib.ssd_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                             L, L, L, L, L, L, L, P]
-    lib.ssd_bwd.argtypes = [P] * 17 + [I] * 6 + [L] * 7 + [P]
+    lib.ssd_bwd.argtypes = [P] * 18 + [I] * 7 + [L] * 7 + [P]
     for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_lse,
                lib.flash_attention_bwd, lib.forecast_fwd,
                lib.forecast_basis_fwd, lib.ssd_fwd, lib.ssd_bwd):

@@ -7,7 +7,8 @@
 CPU tensors take the plain versions (`attention_ref`, `attention_bwd_ref`).
 CUDA tensors launch `csrc/flash_attention.cu` (serving),
 `csrc/flash_attention_lse.cu` (the same kernels writing the row
-log-sum-exp, under grad) and `csrc/flash_attention_bwd.cu`, or raise:
+log-sum-exp, under grad) and `csrc/flash_attention_bwd.cu` (its f32
+half built from `csrc/flash_attention_bwd_f32.cu`), or raise:
 there is no fallback on the card.  The forward runs bf16 inputs
 on bf16 tensor-core products (P rounded to bf16 before P V, as
 `blocked_attention` does) and f32 inputs as 3xTF32; its C entry point picks

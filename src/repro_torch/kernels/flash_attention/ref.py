@@ -63,16 +63,26 @@ def attention_lse_ref(q, k, *, causal: bool = True, window: int = 0,
     return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
 
 
+def bf16_pair(x):
+    """x (f32) as the backward kernel carries an f32 operand into a bf16
+    tensor-core product: hi = bf16(x), lo = bf16(x - hi), returned as
+    hi + lo in x's dtype (about 16 bits of x's 24)."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi + (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
 def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
                       window: int = 0, scale=None):
     """(dq, dk, dv) of `attention_ref` for the output gradient `do`, from
     the forward's output `o` and row log-sum-exp `lse` (B, H, Sq): P is
     recomputed as exp(S - lse), dV = P^T dO, dS = P * (dO V^T -
-    rowsum(dO * O)) (0 where the key is masked), dQ = dS K scale, dK = dS^T Q
-    scale, the GQA groups summed into their kv head.  A row whose keys are
+    rowsum(dO * O)) * scale (0 where the key is masked), dQ = dS K, dK =
+    dS^T Q, the GQA groups summed into their kv head.  A row whose keys are
     all masked takes the uniform P = 1 / Sk, so it adds dO / Sk to dv and
-    nothing to dq or dk, as autograd through the -1e30 fill gives.  Each
-    gradient comes back in its input's dtype."""
+    nothing to dq or dk, as autograd through the -1e30 fill gives.  For
+    bf16 inputs P and dS enter the products that use them as operands as
+    the kernel carries them, a bf16 pair each (`bf16_pair`).  Each gradient
+    comes back in its input's dtype."""
     B, Sq, H, D = q.shape
     _, Sk, KH, _ = k.shape
     G = H // KH
@@ -84,15 +94,16 @@ def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
     dead = ~ok.any(dim=-1)[:, None]                       # (Sq, 1)
     p = torch.where(dead, torch.full((), 1.0 / Sk, dtype=dt,
                                      device=q.device), p)
+    operand = bf16_pair if q.dtype == torch.bfloat16 else (lambda t: t)
     do_g = do.to(dt).reshape(B, Sq, KH, G, D)
     o_g = o.to(dt).reshape(B, Sq, KH, G, D)
-    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do_g)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", operand(p), do_g)
     dp = torch.einsum("bqkgd,bskd->bkgqs", do_g, v.to(dt))
     delta = torch.einsum("bqkgd,bqkgd->bkgq", do_g, o_g)[..., None]
-    ds = torch.where(ok, p * (dp - delta), torch.zeros((), dtype=dt,
-                                                       device=q.device))
-    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.to(dt)) * scale
+    ds = operand(torch.where(ok, p * (dp - delta) * scale,
+                             torch.zeros((), dtype=dt, device=q.device)))
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.to(dt))
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
-                      q.to(dt).reshape(B, Sq, KH, G, D)) * scale
+                      q.to(dt).reshape(B, Sq, KH, G, D))
     return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))

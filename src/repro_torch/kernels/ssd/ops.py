@@ -5,8 +5,9 @@
 
 CPU tensors take the plain versions (`ssd_ref`, `ssd_bwd_ref`).  CUDA
 tensors launch `csrc/ssd.cu` (a C B^T pass and the scan, from one C entry
-point) and `csrc/ssd_bwd.cu` (the recomputed states and their gradients,
-the per-tile terms, the sums over heads), or raise: there is no fallback
+point) and `csrc/ssd_bwd.cu` (the tile-local states and their gradients,
+the recurrence between tiles, the per-tile terms of a head group, the
+sums over groups), or raise: there is no fallback
 on the card.  `ssd_scan.launches` and `ssd_scan_backward.launches` count
 calls that launched the kernels (plain integers).
 
@@ -35,6 +36,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64      # p
 MAX_STATE = 64         # n
 TILE = 64              # tokens of a tile (the C B^T scratch is per tile)
+
+
+def head_group(b: int, s: int, h: int) -> int:
+    """Heads a block of the backward's tile kernels walks: enough that the
+    grid keeps about 256 blocks (two an SM on the H100's 132), at most 8.
+    B and C are shared by the heads, so C B^T and the dB / dC products over
+    dCB run once a group, and the group's dB and dC partials go out once."""
+    nt = -(-s // TILE)
+    return max(1, min(8, h, nt * h * b // 256))
 
 
 def _check(name, x, dt, A, B_, C_):
@@ -146,11 +156,14 @@ def ssd_scan_backward(x, dt, A, B_, C_, dy, dh_final=None):
         raise ValueError("ssd_scan_backward: dy and dh_final must be "
                          "contiguous float32 tensors on x's device")
     dev, nt = x.device, -(-s // TILE)
+    group = head_group(b, s, h)
+    groups = -(-h // group)
     f32 = dict(dtype=torch.float32, device=dev)
-    hin = torch.empty((b, nt, h, p, n), **f32)
-    gout = torch.empty((b, nt, h, p, n), **f32)
-    dbh = torch.empty((b, s, h, n), **f32)
-    dch = torch.empty((b, s, h, n), **f32)
+    hst = torch.empty((b, nt - 1, h, p, n), **f32)
+    gst = torch.empty((b, nt - 1, h, p, n), **f32)
+    decay = torch.empty((b, nt, h), **f32)
+    dbp = torch.empty((b, s, groups, n), **f32)
+    dcp = torch.empty((b, s, groups, n), **f32)
     dapart = torch.empty((b, nt, h), **f32)
     dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((b, s, h), **f32)
@@ -160,11 +173,11 @@ def ssd_scan_backward(x, dt, A, B_, C_, dy, dh_final=None):
     _build.launch("ssd_bwd", x.get_device(), x.data_ptr(), dt.data_ptr(),
                   A.data_ptr(), B_.data_ptr(), C_.data_ptr(), dy.data_ptr(),
                   None if dh_final is None else dh_final.data_ptr(),
-                  hin.data_ptr(), gout.data_ptr(), dx.data_ptr(),
-                  ddt.data_ptr(), dbh.data_ptr(), dch.data_ptr(),
-                  dapart.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-                  dA.data_ptr(), _DTYPES[x.dtype], b, s, h, p, n,
-                  *_strides(x, B_, C_))
+                  hst.data_ptr(), gst.data_ptr(), decay.data_ptr(),
+                  dx.data_ptr(), ddt.data_ptr(), dbp.data_ptr(),
+                  dcp.data_ptr(), dapart.data_ptr(), dB.data_ptr(),
+                  dC.data_ptr(), dA.data_ptr(), _DTYPES[x.dtype], b, s, h, p,
+                  n, group, *_strides(x, B_, C_))
     ssd_scan_backward.launches += 1
     return dx, ddt, dA, dB, dC
 

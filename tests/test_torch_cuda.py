@@ -627,13 +627,14 @@ def test_fit_want_gate_on_the_card(cuda):
     (1, 128, 256, 4, 1, 128, True, 64),       # q at the tail of k, D 128
     (2, 100, 160, 4, 2, 18, True, 48),        # odd head dim
     (1, 40, 40, 2, 2, 80, False, 0),          # below one tile
+    (2, 72, 72, 4, 2, 72, False, 0),          # D 72 (bf16 pads to 80), GQA 2
 ])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
 def test_flash_backward_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D,
                                              causal, window, dtype, tol):
     """The backward kernels under autograd against autograd of the plain
-    version on float64 copies.  Tolerance: 1e-4 abs in f32, 2e-2 abs in
-    bf16 (the gradients' bf16 rounding)."""
+    version on float64 copies, and bitwise on a rerun.  Tolerance: 1e-4
+    abs in f32, 2e-2 abs in bf16 (the gradients' bf16 rounding)."""
     from repro_torch.kernels import flash_attention_backward
     g = torch.Generator(device=cuda).manual_seed(1)
     dt = getattr(torch, dtype)
@@ -648,6 +649,10 @@ def test_flash_backward_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D,
     got = torch.autograd.grad(o, (qg, kg, vg), do)
     assert (flash_attention.launches, flash_attention_backward.launches) \
         == (before[0] + 1, before[1] + 1)
+    again = torch.autograd.grad(flash_attention(qg, kg, vg, causal=causal,
+                                                window=window),
+                                (qg, kg, vg), do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
     q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
     want = torch.autograd.grad(attention_ref(q64, k64, v64, causal=causal,
                                              window=window),
@@ -714,7 +719,9 @@ def test_wrappers_under_grad_differentiate_or_raise(cuda):
 # the conv output within one bf16 rounding of it (2^-8 relative to each
 # element plus the f32 tolerance)
 @pytest.mark.parametrize("b,s,h,p,n", [(1, 100, 2, 16, 16), (2, 128, 4, 64, 64),
-                                       (2, 64, 3, 32, 16)])
+                                       (2, 64, 3, 32, 16),
+                                       # head groups of 2: the last has 1
+                                       (4, 512, 21, 32, 32)])
 @pytest.mark.parametrize("dh", [False, True])
 @pytest.mark.parametrize("xbc", [False, True])
 def test_ssd_backward_kernel_matches_float64(cuda, b, s, h, p, n, dh, xbc):

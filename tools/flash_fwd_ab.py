@@ -1,31 +1,40 @@
 #!/usr/bin/env python3
-"""A serving forward kernel (flash attention or the SSD scan) built from
-several source trees, compared on one CUDA card.
+"""A kernel of the port (the flash forward, the SSD scan, or either
+backward) built from several source trees, compared on one CUDA card.
 
-    python3 tools/flash_fwd_ab.py [--kernel flash|ssd] --src build/parent/src --src src [--src build/parent/src]
+    python3 tools/flash_fwd_ab.py [--kernel flash|ssd|flash-bwd|ssd-bwd] --src build/parent/src --src src [--src src --src build/parent/src]
 
-Builds the kernel's source (`flash_attention/csrc/flash_attention.cu` or
-`ssd/csrc/ssd.cu` under `repro_torch/kernels`) of each tree (one nvcc per
-tree, all started together, into `build/flash_fwd_ab/`), then prints,
-against the first tree:
+Builds the kernel's sources of each tree (under `repro_torch/kernels`:
+`flash_attention/csrc/flash_attention.cu`, `ssd/csrc/ssd.cu`,
+`flash_attention/csrc/flash_attention_bwd*.cu` or `ssd/csrc/ssd_bwd.cu`;
+one nvcc per tree, all started together, into `build/flash_fwd_ab/`),
+then prints, against the first tree:
 
-- ptxas registers and spill bytes of every instantiation (`flash_fwd`, or
-  `ssd_cb_kernel` and `ssd_scan_kernel`), and those where they differ;
+- ptxas registers, spill bytes and static shared bytes of every
+  instantiation (`flash_fwd`; `ssd_cb_kernel` and `ssd_scan_kernel`;
+  `flash_bwd_*`; `ssd_bwd_*`), and those where they differ (the backward
+  kernels' shared memory is dynamic: their source notes give its bytes);
 - for flash, the SASS of the main paths' instantiations (f32 D 72 and bf16
   D 80, 16-byte staging) with constant-bank offsets masked: the count of
   differing instructions;
-- at the kernel's serving shapes (flash: DiT-XL f32 and bf16, B 8, S 256,
-  H 16, D 72; zamba2 prefill bf16, B 4, S 512, H 32, D 80, causal.  ssd:
+- at the kernel's shapes (flash: DiT-XL f32 and bf16, B 8, S 256, H 16,
+  D 72; zamba2 prefill bf16, B 4, S 512, H 32, D 80, causal.  ssd:
   chip_smoke's ssd phase, zamba2 prefill b 4, s 512, h 80, p = n = 64 in
   f32 and on bf16 views of the conv output, b 1 on bf16 views, a ragged
-  s = 500 in f32), whether the outputs are bitwise equal, and the device ms
-  per call: CUDA events around a CUDA graph of `reps` back-to-back calls,
-  each tree in order and then in reverse, three rounds; a tree given twice
-  shows the spread of one build.
+  s = 500 in f32.  flash-bwd and ssd-bwd: chip_smoke's flash-bwd and
+  ssd-bwd phases' shapes), for a forward whether the outputs are bitwise
+  equal, for a backward each tree's largest error against float64
+  autograd of the plain version (flash: max abs, or the excess over one
+  bf16 rounding where chip_smoke gates so; ssd: the largest of each
+  gradient's error over its largest value), and the device ms per call:
+  CUDA events around a CUDA graph of `reps` back-to-back calls, each tree
+  in order and then in reverse, three rounds; a tree given twice shows the
+  spread of one build.
 
-Prints the card's name and power limit.  `--src` takes a tree's `src`
-directory: unpack an older commit with `git archive <commit> | tar -x -C
-build/parent`.
+Each tree's backward is called through that tree's own argument list (the
+SSD backward's changed with its head groups).  Prints the card's name and
+power limit.  `--src` takes a tree's `src` directory: unpack an older
+commit with `git archive <commit> | tar -x -C build/parent`.
 """
 from __future__ import annotations
 
@@ -65,6 +74,106 @@ def ssd_case(torch, gen, b, s, h, p, n, xbc):
              *C_.stride()[:2]), (y, hf), (*ins, cb))
 
 
+def _ptrs(ts):
+    return tuple(0 if t is None else t.data_ptr() for t in ts)
+
+
+def flash_bwd_case(torch, gen, name, B, Sq, Sk, H, KH, D, causal, window,
+                   dt):
+    """q, k, v, o, dO, lse from the forward of the checkout, and the
+    float64 gradients; call(variant) -> (args, outputs, buffers)."""
+    from chip_smoke import BWD_ROUNDED
+    from repro_torch.kernels.flash_attention import attention_ref, ops
+    dtype = getattr(torch, dt)
+    q, k, v, do = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                   for sh in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D),
+                              (B, Sq, H, D)))
+    scale = 1.0 / math.sqrt(D)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+    o = ops._forward(q, k, v, causal, window, scale, lse)
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    ref = torch.autograd.grad(attention_ref(q64, k64, v64, causal=causal,
+                                            window=window),
+                              (q64, k64, v64), do.double())
+    rounded = name in BWD_ROUNDED
+
+    def call(variant):
+        outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        delta = torch.empty((B, H, Sq), device="cuda")
+        return ((*_ptrs((q, k, v, o, do, lse, delta, *outs)),
+                 int(dt == "bfloat16"), B, Sq, Sk, H, KH, D, int(causal),
+                 int(window), scale), outs, (delta,))
+
+    def error(outs):
+        return max(float(((a.double() - r).abs()
+                          - (2.0 ** -8 * r.abs() if rounded else 0)).max())
+                   for a, r in zip(outs, ref))
+    return call, error, (q, k, v, o, do, lse)
+
+
+def ssd_bwd_case(torch, gen, name, b, s, h, p, n, xbc, dh):
+    from chip_smoke import SSD_GRADS, ssd_inputs
+    from repro_torch.kernels.ssd import ssd_ref
+    from repro_torch.kernels.ssd.ops import head_group
+    ins = ssd_inputs(torch, gen, b, s, h, p, n, xbc)
+    x, dt, A, B_, C_ = ins
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+    dhf = torch.randn((b, h, p, n), generator=gen, device="cuda") \
+        if dh else None
+    i64 = [a.detach().double().requires_grad_() for a in ins]
+    y64, h64 = ssd_ref(*i64)
+    loss = (y64 * dy.double()).sum()
+    if dh:
+        loss = loss + (h64 * dhf.double()).sum()
+    ref = torch.autograd.grad(loss, i64)
+    nt = -(-s // 64)
+    strides = (*x.stride()[:3], *B_.stride()[:2], *C_.stride()[:2])
+
+    def call(variant):
+        def f32(*shape):
+            return torch.empty(shape, device="cuda")
+        outs = (torch.empty((b, s, h, p), dtype=x.dtype, device="cuda"),
+                f32(b, s, h), f32(h),
+                torch.empty((b, s, n), dtype=B_.dtype, device="cuda"),
+                torch.empty((b, s, n), dtype=C_.dtype, device="cuda"))
+        dx, ddt, dA, dB, dC = outs
+        if variant == "groups":      # hst, gst, decay, dbp, dcp, dapart
+            group = head_group(b, s, h)
+            groups = -(-h // group)
+            scratch = (f32(b, nt - 1, h, p, n), f32(b, nt - 1, h, p, n),
+                       f32(b, nt, h), f32(b, s, groups, n),
+                       f32(b, s, groups, n), f32(b, nt, h))
+            args = (*_ptrs((x, dt, A, B_, C_, dy, dhf, *scratch[:3], dx,
+                            ddt, *scratch[3:], dB, dC, dA)),
+                    int(xbc), b, s, h, p, n, group, *strides)
+        else:                        # hin, gout, dbh, dch, dapart
+            scratch = (f32(b, nt, h, p, n), f32(b, nt, h, p, n),
+                       f32(b, s, h, n), f32(b, s, h, n), f32(b, nt, h))
+            args = (*_ptrs((x, dt, A, B_, C_, dy, dhf, *scratch[:2], dx,
+                            ddt, *scratch[2:], dB, dC, dA)),
+                    int(xbc), b, s, h, p, n, *strides)
+        return args, outs, scratch
+
+    def error(outs):
+        # grads come back in (dx, ddt, dA, dB, dC) order, as SSD_GRADS
+        assert len(outs) == len(SSD_GRADS)
+        return max(float((a.double() - r).abs().max())
+                   / max(float(r.abs().max()), 1e-30)
+                   for a, r in zip(outs, ref))
+    return call, error, (*ins, dy, dhf)
+
+
+def ssd_bwd_variant(cu: Path) -> str:
+    """The argument list of a tree's ssd_bwd: with head groups (the
+    tensor-core kernels) or per head (the earlier SIMT kernels)."""
+    return "groups" if "int group" in cu.read_text() else "heads"
+
+
+def ssd_bwd_argtypes(variant):
+    return ([P] * 18 + [I] * 7 + [L] * 7 if variant == "groups"
+            else [P] * 17 + [I] * 6 + [L] * 7)
+
+
 KERNELS = {
     "flash": {
         "cu": "flash_attention/csrc/flash_attention.cu",
@@ -88,32 +197,51 @@ KERNELS = {
             ("b1 bf16 xBC views", 1, 512, 80, 64, 64, True),
             ("ragged 500 f32", 1, 500, 80, 64, 64, False),
         ]},
+    "flash-bwd": {
+        "cu": "flash_attention/csrc/flash_attention_bwd*.cu",
+        "entry": "flash_attention_bwd",
+        "argtypes": lambda cu: [P] * 10 + [I] * 9 + [F],
+        "instantiation": r"flash_bwd_\w+?E(?:E|Lb\dE)",
+        "sass": (), "case": flash_bwd_case, "seed": 0, "backward": True,
+        "shapes": "BWD_CASES"},
+    "ssd-bwd": {
+        "cu": "ssd/csrc/ssd_bwd.cu",
+        "entry": "ssd_bwd", "argtypes": lambda cu: ssd_bwd_argtypes(
+            ssd_bwd_variant(cu)), "variant": ssd_bwd_variant,
+        "instantiation": r"(?<=\d)ssd_bwd_[a-z]+_kernel\w*?E",
+        "sass": (), "case": ssd_bwd_case, "seed": 3, "backward": True,
+        "shapes": "SSD_BWD_CASES"},
 }
 
 
 def build(kernel, srcs, nvcc, flags):
-    """{label: (library path, {instantiation: (registers, spill bytes)})}"""
+    """{label: (library path, the tree's first source, {instantiation:
+    (registers, spill bytes, static shared bytes)})}"""
     procs = {}
     for i, src in enumerate(srcs):
         d = OUT / f"src{i}"
         d.mkdir(parents=True, exist_ok=True)
         shutil.copytree(Path(src) / "repro_torch" / "kernels", d / "kernels",
                         dirs_exist_ok=True)
+        cus = sorted((d / "kernels").glob(kernel["cu"]))
+        if not cus:
+            sys.exit(f"flash_fwd_ab: no {kernel['cu']} under {src}")
         inc = [f if not f.startswith("-I") else f"-I{d / 'kernels'}"
                for f in flags]
-        procs[f"src{i}"] = (d / "lib.so", subprocess.Popen(
-            [nvcc, *inc, "-shared", str(d / "kernels" / kernel["cu"]), "-o",
-             str(d / "lib.so")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+        procs[f"src{i}"] = (d / "lib.so", cus[0], subprocess.Popen(
+            [nvcc, *inc, "-shared", *map(str, cus), "-o", str(d / "lib.so")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
-    for label, (lib, p) in procs.items():
+    for label, (lib, cu, p) in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
             sys.exit(f"flash_fwd_ab: nvcc failed for {label}:\n{log}")
-        regs = {m.group(1): (int(m.group(3)), int(m.group(2))) for m in re.finditer(
+        regs = {m.group(1): (int(m.group(3)), int(m.group(2)),
+                             int(m.group(4) or 0)) for m in re.finditer(
             rf"Function properties for \w*?({kernel['instantiation']})\w*\n"
-            r".*?(\d+) bytes spill stores.*?\n.*?Used (\d+) registers", log)}
-        out[label] = (lib, regs)
+            r".*?(\d+) bytes spill stores.*?\n.*?Used (\d+) registers"
+            r"(?:.*?, (\d+) bytes smem)?", log)}
+        out[label] = (lib, cu, regs)
     return out
 
 
@@ -148,6 +276,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("flash_fwd_ab: no CUDA device")
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 references
     from repro_torch.kernels import _build
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -155,13 +284,13 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     built = build(kernel, args.src, _build._nvcc(), _build.FLAGS)
     labels = list(built)
-    ref_lib, ref_regs = built[labels[0]]
+    ref_lib, _, ref_regs = built[labels[0]]
     for label in labels:
-        lib, regs = built[label]
+        lib, _, regs = built[label]
         diff = {k: (ref_regs.get(k), v) for k, v in regs.items()
                 if ref_regs.get(k) != v}
-        print(f"{label} ({args.src[labels.index(label)]}): registers/spill "
-              f"{regs}; differing from src0: {diff}", flush=True)
+        print(f"{label} ({args.src[labels.index(label)]}): registers/spill/"
+              f"static smem {regs}; differing from src0: {diff}", flush=True)
         for tag in kernel["sass"]:
             a, b = sass(ref_lib, tag), sass(lib, tag)
             same = None if a is None or b is None else (
@@ -169,17 +298,31 @@ def main() -> int:
             print(f"{label} {tag}: registers/spill {regs.get(tag)}; SASS "
                   f"instructions {None if b is None else len(b)}, differing "
                   f"from src0 (offsets masked) {same}", flush=True)
-    fns = {}
+    fns, variants = {}, {}
     for label in labels:
-        fn = getattr(ctypes.CDLL(str(built[label][0])), kernel["entry"])
-        fn.argtypes, fn.restype = kernel["argtypes"] + [P], I
+        lib, cu, _ = built[label]
+        fn = getattr(ctypes.CDLL(str(lib)), kernel["entry"])
+        argtypes = kernel["argtypes"]
+        fn.argtypes = (argtypes(cu) if callable(argtypes) else argtypes) + [P]
+        fn.restype = I
         fns[label] = fn
+        variants[label] = kernel.get("variant", lambda _: None)(cu)
+    backward = kernel.get("backward", False)
+    shapes = kernel["shapes"]
+    if isinstance(shapes, str):
+        import chip_smoke
+        shapes = getattr(chip_smoke, shapes)
     gen = torch.Generator(device="cuda").manual_seed(kernel["seed"])
-    for name, *shape in kernel["shapes"]:
-        call_args, outs_of, _keep = kernel["case"](torch, gen, *shape)
+    for name, *shape in shapes:
+        if backward:
+            call, error, _keep = kernel["case"](torch, gen, name, *shape)
+            calls = {x: call(variants[x]) for x in labels}
+        else:
+            call_args, outs_of, _keep = kernel["case"](torch, gen, *shape)
+            calls = {x: (call_args, outs_of, ()) for x in labels}
 
         def run(label):
-            err = fns[label](*call_args,
+            err = fns[label](*calls[label][0],
                              torch.cuda.current_stream().cuda_stream)
             if err:
                 sys.exit(f"flash_fwd_ab: CUDA error {err}")
@@ -188,9 +331,14 @@ def main() -> int:
         for label in labels:
             run(label)
             torch.cuda.synchronize()
-            outs[label] = [t.clone() for t in outs_of]
-        equal = all(torch.equal(a, b) for x in labels
-                    for a, b in zip(outs[labels[0]], outs[x]))
+            outs[label] = [t.clone() for t in calls[label][1]]
+        if backward:
+            check = "error against float64 " + ", ".join(
+                f"{x} {error(outs[x]):.3e}" for x in labels)
+        else:
+            check = "outputs bitwise equal " + str(all(
+                torch.equal(a, b) for x in labels
+                for a, b in zip(outs[labels[0]], outs[x])))
 
         def time_ms(label):
             run(label)
@@ -213,7 +361,7 @@ def main() -> int:
             for turn in (labels, labels[::-1]):
                 for label in turn:
                     times[label].append(time_ms(label))
-        print(f"{name}: outputs bitwise equal {equal}; " + "; ".join(
+        print(f"{name}: {check}; " + "; ".join(
             f"{x} mean {sum(t) / len(t):.5f} ms (min {min(t):.5f}, max "
             f"{max(t):.5f})" for x, t in times.items()), flush=True)
     return 0
