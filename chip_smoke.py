@@ -21,7 +21,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
               one-pass TF32 control that the gate must reject, and the
               dense LLMs' prefill shapes (bf16, causal, 4 x 512 tokens:
               tinyllama 32 / 4 heads of 64, qwen2-7b 28 / 4 of 128,
-              qwen2.5-14b 40 / 8 of 128, minitron-8b 32 / 8 of 128); kernel,
+              qwen2.5-14b 40 / 8 of 128, minitron-8b 32 / 8 of 128), the
+              whisper-small encoder (4 x 1500 frames, 12 heads of 64) and
+              cross-attention (448 queries over 1500 keys), and the
+              pixtral-12b prefill (2 x 1088 positions, 32 / 8 heads of
+              160, causal: the bf16 serving instantiation at D 160); kernel,
               plain and scaled_dot_product_attention (yardstick only)
               times, and the CUDA kernels SDPA runs at each shape with
               their device time; at the zamba2 shape also SDPA with
@@ -247,6 +251,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
               TaylorSeer 2 (8, 4 and 4 full computes, 2 x 22 flash launches
               each, the forecast kernel on TaylorSeer's forecast steps, no
               mask left); ms a generation
+  35. serve-ssm full-width falcon-mamba-7b (64 Mamba1 layers, d_inner 8192,
+              bf16 params from seed 0) behind ServingEngine with
+              serve-llm's traffic; attention-free and its scan plain
+              PyTorch, so no kernel runs (every count must stay 0); every
+              logit finite; tok/s, prefill ms, decode ms a step, peak, the
+              Mamba1 scan's share of a prefill's device time (CUDA events
+              at the edges of each scan) and the idle share (profiler)
+  36. check-ssm falcon-mamba-7b SMOKE (f32) on the card and the CPU: the
+              forward's, a prefill's and 4 decode steps' logits within
+              1e-4 relative, greedy and ServingEngine tokens identical,
+              `lm_loss`'s gradients within 1e-4 relative per leaf
+  37. serve-encdec full-width whisper-small (12 + 12 layers, bf16): 4
+              requests of (1500, 768) stub frames, `encode` (12 flash
+              launches), one `cross_kv`, 32 greedy `decode_step`s (no
+              flash, no (6000, 768) x (768, 768) product in a step, which
+              one cross_kv shows 24 of, from the profiler's shapes); every
+              logit finite; encode, cross_kv and decode ms, peak; the
+              teacher-forced `forward` at 448 tokens (36 flash launches)
+  38. check-encdec whisper-small SMOKE (f32) on the card and the CPU:
+              forward and 12 decode steps' logits within 1e-4 relative,
+              greedy tokens identical, the token cross-entropy's gradients
+              within 1e-4 relative per leaf; on the card, decoding against
+              the cached cross K/V bit-identical to recomputing them
+  39. serve-vlm full-width pixtral-12b (40 layers, head dim 160, bf16): 2
+              requests of (1024, 1024) stub patch embeddings and 16-64 text
+              tokens, `prefill` with vision_embeds (40 flash launches, all
+              of the D 160 kernel by the profiler's kernel names), 32
+              greedy `decode_step`s; every logit finite; prefill and
+              decode ms, peak
+  40. check-vlm pixtral-12b SMOKE (f32) with patch embeddings on the card
+              and the CPU, as check-ssm without the engine
 
 Each served phase sets every launch count to 0 just before it and reads the
 counts just after; every phase builds the models it serves and drops them
@@ -400,6 +435,15 @@ def phase_flash(torch, F):
          0),
         ("minitron-8b prefill", 4, 512, 512, 32, 8, 128, True, 0, "bfloat16",
          0),
+        # whisper-small's encoder (4 requests x 1500 frames) and its
+        # decoder's cross-attention at Whisper's 448-token context; the
+        # pixtral-12b prefill (1024 patches + 64 text tokens) at head dim
+        # 160, the bf16 serving path's one instantiation above 128
+        ("whisper encoder", 4, 1500, 1500, 12, 12, 64, False, 0, "bfloat16",
+         0),
+        ("whisper cross", 4, 448, 1500, 12, 12, 64, False, 0, "bfloat16", 0),
+        ("pixtral prefill", 2, 1088, 1088, 32, 8, 160, True, 0, "bfloat16",
+         0),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -477,7 +521,13 @@ def phase_flash(torch, F):
                             "tf32_control_err": control, "bound_ms": b_ms,
                             "bound_by": by, "library_ms": lib_ms,
                             "library_device_ms": sdpa_dev_ms}
-        if name.endswith(" prefill") and name != "zamba2 prefill":
+        if name.startswith(("whisper", "pixtral")):
+            report[name] = {"ms": ms, "device_ms": dev_ms, "max_abs_err": err,
+                            "tolerance": f"{tol} abs", "bound_ms": b_ms,
+                            "bound_by": by, "plain_ms": plain_ms,
+                            "library_ms": lib_ms,
+                            "library_device_ms": sdpa_dev_ms}
+        elif name.endswith(" prefill") and name != "zamba2 prefill":
             report.setdefault("dense", {})[name] = {
                 "ms": ms, "device_ms": dev_ms, "max_abs_err": err,
                 "bound_ms": b_ms, "bound_by": by, "plain_ms": plain_ms,
@@ -1948,49 +1998,66 @@ def admission_waves(res):
     return len({r.record.admit_tick for r in res})
 
 
-def cross_attn_profile(torch, fn):
-    """Run fn() under the profiler with every cross-attention branch marked;
-    returns (device ms of the kernels launched under the branch, of all
-    kernels linked to an operator, of all device events by name as
-    `log_profile` sums them, and the profiled wall ms)."""
+def marked_profile(torch, label, targets, fn, record_shapes=False):
+    """Run fn() under the profiler with every function `targets` names
+    ((module, attribute) pairs; callers look them up through the module at
+    call time) wrapped in record_function(label).  Returns (device ms of
+    the kernels launched under the range, of all kernels linked to an
+    operator, of all device events by name as `log_profile` sums them, the
+    profiled wall ms, the profiler)."""
     from torch.profiler import ProfilerActivity, record_function
     from torch.profiler import profile as prof_ctx
-    from repro_torch.models import dit, video_dit
-    orig = dit.cross_attn_branch
+    origs = [getattr(m, a) for m, a in targets]
 
-    def marked(*a, **k):
-        with record_function("repro_cross_attn"):
-            return orig(*a, **k)
+    def marked(orig):
+        def run(*a, **k):
+            with record_function(label):
+                return orig(*a, **k)
+        return run
 
-    dit.cross_attn_branch = video_dit.cross_attn_branch = marked
+    for (m, a), orig in zip(targets, origs):
+        setattr(m, a, marked(orig))
     try:
         torch.cuda.synchronize()
         with prof_ctx(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
+                                  ProfilerActivity.CUDA],
+                      record_shapes=record_shapes) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        dit.cross_attn_branch = video_dit.cross_attn_branch = orig
+        for (m, a), orig in zip(targets, origs):
+            setattr(m, a, orig)
 
-    def in_cross(e):
-        while e is not None and e.name != "repro_cross_attn":
+    def inside(e):
+        while e is not None and e.name != label:
             e = e.cpu_parent
         return e is not None
 
-    cross = total = 0.0
+    part = total = 0.0
     for e in prof.events():
         if not str(e.device_type).endswith("CPU"):
             continue
         us = sum(k.duration for k in e.kernels)
         total += us
-        if us and in_cross(e):
-            cross += us
+        if us and inside(e):
+            part += us
     by_name = sum(_self_device_us(e) for e in prof.key_averages()
-                  if _self_device_us(e) > 0 and e.key != "repro_cross_attn"
+                  if _self_device_us(e) > 0 and e.key != label
                   and str(e.device_type).endswith("CUDA"))
-    return cross / 1e3, total / 1e3, by_name / 1e3, wall * 1e3
+    return part / 1e3, total / 1e3, by_name / 1e3, wall * 1e3, prof
+
+
+def cross_attn_profile(torch, fn):
+    """Run fn() under the profiler with every cross-attention branch marked;
+    returns (device ms of the kernels launched under the branch, of all
+    kernels linked to an operator, of all device events by name as
+    `log_profile` sums them, and the profiled wall ms)."""
+    from repro_torch.models import dit, video_dit
+    return marked_profile(torch, "repro_cross_attn",
+                          [(dit, "cross_attn_branch"),
+                           (video_dit, "cross_attn_branch")], fn)[:4]
 
 
 def log_cross_share(torch, label, fn):
@@ -3648,6 +3715,571 @@ def phase_dlm(torch, kernels, path):
     return launches
 
 
+# ----------------------------------------------------------------------
+# slice 13: the ssm (Mamba1), encoder-decoder and vlm families
+# ----------------------------------------------------------------------
+
+SLICE13_TOL = 1e-4     # check-ssm / -encdec / -vlm: card vs CPU, relative
+WHISPER_SOT = 50258    # Whisper's <|startoftranscript|>: the first token
+ENCDEC_REQUESTS, ENCDEC_NEW, WHISPER_CTX = 4, 32, 448
+VLM_TEXT, VLM_NEW = 64, 32
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / max |b| (b on the CPU, a anywhere)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _sync_ms(torch, fn):
+    """(fn(), host milliseconds around it, synchronized on both ends)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_serve_ssm(torch, kernels, path):
+    """Full-width falcon-mamba-7b (64 Mamba1 layers, bf16 params, random
+    weights from a seed) behind ServingEngine with serve-llm's traffic.
+    Attention-free, and Mamba1's scan is plain PyTorch (JAX has no kernel
+    for it), so no kernel of the port runs on this path."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill, ssm
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("falcon-mamba-7b")
+    slots, max_prompt, cache_len, new = 4, 512, 1024, 32
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    eng = ServingEngine(params, cfg, slots=slots, max_prompt=max_prompt,
+                        cache_len=cache_len, device="cuda")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 501, size=8)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in lens]
+    eng.generate(prompts[:slots], max_new_tokens=2)         # warm-up
+    torch.cuda.synchronize()
+    log(f"serve-ssm: falcon-mamba-7b {cfg.num_layers} Mamba1 layers, "
+        f"d_model={cfg.d_model}, d_inner={cfg.ssm_expand * cfg.d_model}, "
+        f"state {cfg.ssm_state}, vocab {cfg.vocab_size}, params={n_params} "
+        f"({cfg.dtype}), init+warm-up {time.perf_counter() - t0:.2f}s; "
+        f"prompt lengths {lens.tolist()}")
+    flags = _watch_logits(eng)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, launches = _count_launches(
+        kernels, path, "serve-ssm",
+        lambda: eng.generate(prompts, max_new_tokens=new))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(res) != len(prompts):
+        fail(f"serve-ssm: {len(res)} of {len(prompts)} requests finished")
+    for r in res:
+        if len(r.tokens) != new or not all(0 <= t < cfg.vocab_size
+                                           for t in r.tokens):
+            fail(f"serve-ssm: request {r.request_id} got {len(r.tokens)} "
+                 f"tokens {r.tokens[:8]}")
+    if not bool(torch.stack(flags).all()):
+        fail("serve-ssm: a logit was not finite")
+    if any(launches.values()):
+        fail(f"serve-ssm: the attention-free path launched {launches}")
+    ntok = sum(len(r.tokens) for r in res)
+    log(f"serve-ssm: {len(res)} requests x {new} tokens in {wall:.3f}s wall, "
+        f"{ntok / wall:.1f} tok/s, {len(flags)} logit rows all finite, "
+        f"peak_mem_gb={peak:.2f}, launches {launches}")
+
+    toks = torch.from_numpy(np.stack([np.resize(p, max_prompt)
+                                      for p in prompts[:slots]])).cuda()
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        (logits, cache), prefill_ms = _sync_ms(
+            torch, lambda: prefill(params, toks, cfg, cache_len))
+        prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+        tok = logits[:, -1].argmax(-1)
+        del logits
+        pos = torch.full((slots,), max_prompt, device="cuda")
+        steps = 16
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = decode_step(params, tok, pos, cache, cfg)
+            tok, pos = logits.argmax(-1), pos + 1
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+        log(f"serve-ssm: prefill {slots}x{max_prompt} tokens {prefill_ms:.2f} "
+            f"ms (peak {prefill_peak:.2f} GB); decode {decode_ms:.2f} ms per "
+            f"step ({slots} slots)")
+        scan_ms, pre_ms, n_scans = scan_share(
+            torch, ssm, lambda: prefill(params, toks, cfg, cache_len))
+        log(f"serve-ssm: the Mamba1 scan (linear_scan_chunked, plain "
+            f"PyTorch; CUDA events at its edges, {n_scans} calls) "
+            f"{scan_ms:.1f} ms of the prefill's {pre_ms:.1f} device ms "
+            f"(share {scan_ms / pre_ms:.4f})")
+        log_profile(torch, "serve-ssm prefill",
+                    lambda: prefill(params, toks, cfg, cache_len))
+        log_profile(torch, "serve-ssm decode x8", lambda: [
+            decode_step(params, tok, pos, cache, cfg) for _ in range(8)])
+    del params, eng, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def scan_share(torch, ssm, fn):
+    """(device ms between CUDA events at the edges of every
+    `ssm.linear_scan_chunked` call in fn(), device ms of all of fn(), the
+    calls).  fn() must not wait on the host inside (a prefill does not),
+    so the events bound exactly the scan's kernels in stream order."""
+    spans, orig = [], ssm.linear_scan_chunked
+
+    def timed_scan(*a, **k):
+        a0, b0 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a0.record()
+        out = orig(*a, **k)
+        b0.record()
+        spans.append((a0, b0))
+        return out
+
+    ssm.linear_scan_chunked = timed_scan
+    try:
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    finally:
+        ssm.linear_scan_chunked = orig
+    return (sum(a0.elapsed_time(b0) for a0, b0 in spans),
+            start.elapsed_time(end), len(spans))
+
+
+def big_projections(prof, rows: int, d: int):
+    """Matrix products (aten::mm / addmm, what matmul runs) in the profile
+    of an activation of at least rows x d elements by a (d, d) weight."""
+    hits = []
+    for e in prof.events():
+        if e.name not in ("aten::mm", "aten::addmm"):   # matmul's inner op
+            continue
+        shapes = [list(s) for s in (e.input_shapes or []) if s]
+        if len(shapes) >= 2 and shapes[-1] == [d, d] \
+                and shapes[-2][-1] == d and math.prod(shapes[-2]) >= rows * d:
+            hits.append((e.name, shapes))
+    return hits
+
+
+def phase_serve_encdec(torch, kernels, path):
+    """Full-width whisper-small (12 + 12 layers, bf16 params, random weights
+    from a seed): 4 requests of (1500, 768) stub frames, `encode`, one
+    `cross_kv`, 32 greedy `decode_step`s; then the teacher-forced
+    `forward` at Whisper's 448-token decoder context."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import frame_embeddings
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import encdec, init_params
+    cfg = get_config("whisper-small")
+    B, L_enc = ENCDEC_REQUESTS, cfg.num_encoder_layers
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    frames = torch.from_numpy(frame_embeddings(
+        0, B, cfg.encoder_seq, cfg.d_model)).to("cuda", getattr(torch,
+                                                                cfg.dtype))
+
+    def serve():
+        with counting(encdec, "cross_kv") as ckv, torch.no_grad():
+            enc = encdec.encode(params, frames, cfg)
+            enc_flash = flash_attention.launches
+            cache = encdec.init_dec_cache(cfg, B, WHISPER_CTX,
+                                          cfg.encoder_seq, device="cuda")
+            cache["xk"], cache["xv"] = encdec.cross_kv(params, enc, cfg)
+            tok = torch.full((B,), WHISPER_SOT, device="cuda")
+            toks, finite = [], []
+            for i in range(ENCDEC_NEW):
+                pos = torch.full((B,), i, device="cuda")
+                logits, cache = encdec.decode_step(params, tok, pos, cache,
+                                                   cfg)
+                finite.append(logits.isfinite().all())
+                tok = logits.argmax(-1)
+                toks.append(tok)
+        return (enc_flash, ckv.calls, torch.stack(toks, 1).cpu(),
+                bool(torch.stack(finite).all()), enc, cache)
+
+    serve()                                                  # warm-up
+    torch.cuda.synchronize()
+    log(f"serve-encdec: whisper-small {L_enc} encoder + {cfg.num_layers} "
+        f"decoder layers, d_model={cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.head_dim}, {cfg.encoder_seq} frames, vocab {cfg.vocab_size}, "
+        f"params={n_params} ({cfg.dtype}), init+warm-up "
+        f"{time.perf_counter() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    (enc_flash, ckv_calls, toks, finite, enc, cache), launches = \
+        _count_launches(kernels, path, "serve-encdec", serve)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if enc_flash != L_enc or launches["flash_attention"] != L_enc:
+        fail(f"serve-encdec: flash launched {enc_flash} times by encode and "
+             f"{launches['flash_attention']} in all, want {L_enc} (one a "
+             f"layer; decode attends with blocked_attention)")
+    if ckv_calls != 1:
+        fail(f"serve-encdec: cross_kv ran {ckv_calls} times, want once")
+    if not finite or tuple(toks.shape) != (B, ENCDEC_NEW) or not (
+            0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+        fail(f"serve-encdec: logits finite {finite}, tokens {toks[:, :8]}")
+    log(f"serve-encdec: {B} requests, encode + one cross_kv + {ENCDEC_NEW} "
+        f"greedy decode steps: logits all finite, cross_kv calls "
+        f"{ckv_calls}, encoder flash launches {enc_flash}, "
+        f"peak_mem_gb={peak:.2f}, launches {launches}")
+
+    with torch.no_grad():
+        enc, encode_ms = _sync_ms(
+            torch, lambda: encdec.encode(params, frames, cfg))
+        kv, cross_ms = _sync_ms(torch,
+                                lambda: encdec.cross_kv(params, enc, cfg))
+        tok = toks[:, -1].cuda()
+        pos = torch.full((B,), ENCDEC_NEW, device="cuda")
+
+        def steps(n):
+            nonlocal tok, pos
+            for _ in range(n):
+                logits, _ = encdec.decode_step(params, tok, pos, cache, cfg)
+                tok, pos = logits.argmax(-1), pos + 1
+
+        _, decode_ms = _sync_ms(torch, lambda: steps(16))
+        log(f"serve-encdec: encode {B}x{cfg.encoder_seq} frames "
+            f"{encode_ms:.2f} ms, cross_kv {cross_ms:.2f} ms, decode "
+            f"{decode_ms / 16:.2f} ms per step ({B} requests, self-cache "
+            f"{WHISPER_CTX})")
+        # the decode step reuses the cached cross K/V: no (B*1500, d) x
+        # (d, d) product; cross_kv itself shows them (a control)
+        rows = B * cfg.encoder_seq
+        *_, prof = marked_profile(torch, "decode", [], lambda: steps(1),
+                                  record_shapes=True)
+        in_decode = big_projections(prof, rows, cfg.d_model)
+        *_, prof = marked_profile(torch, "cross_kv", [],
+                                  lambda: encdec.cross_kv(params, enc, cfg),
+                                  record_shapes=True)
+        in_cross = big_projections(prof, rows, cfg.d_model)
+        log(f"serve-encdec: ({rows}, {cfg.d_model}) x ({cfg.d_model}, "
+            f"{cfg.d_model}) products in a decode step: {len(in_decode)}; "
+            f"in one cross_kv (control): {len(in_cross)}")
+        if in_decode or len(in_cross) != 2 * cfg.num_layers:
+            fail(f"serve-encdec: decode step projections {in_decode[:2]}, "
+                 f"cross_kv {len(in_cross)} (want 0 and "
+                 f"{2 * cfg.num_layers})")
+        log_profile(torch, "serve-encdec decode x8", lambda: steps(8))
+
+        # the teacher-forced forward at the decoder's 448-token context
+        tgt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B, WHISPER_CTX))).cuda()
+        flash_attention.launches = 0
+        logits, fwd_ms = _sync_ms(
+            torch, lambda: encdec.forward(params, frames, tgt, cfg))
+        want = L_enc + 2 * cfg.num_layers
+        if flash_attention.launches != want or not bool(
+                logits.isfinite().all()):
+            fail(f"serve-encdec: forward launched flash "
+                 f"{flash_attention.launches} times (want {want}), logits "
+                 f"finite {bool(logits.isfinite().all())}")
+        _, fwd_ms = _sync_ms(
+            torch, lambda: encdec.forward(params, frames, tgt, cfg))
+        log(f"serve-encdec: forward {B}x{cfg.encoder_seq} frames + "
+            f"{B}x{WHISPER_CTX} tokens (teacher forcing) {fwd_ms:.2f} ms, "
+            f"{want} flash launches (encoder {L_enc}, decoder self "
+            f"{cfg.num_layers} causal + cross {cfg.num_layers})")
+    flash_attention.launches = 0
+    del params, cache, enc, kv, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_vlm(torch, kernels, path):
+    """Full-width pixtral-12b (40 layers, head dim 160, bf16 params, random
+    weights from a seed): 2 requests of (1024, 1024) stub patch embeddings
+    and 16-64 text tokens (right-aligned into 64), `prefill` with
+    vision_embeds, 32 greedy `decode_step`s."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import patch_embeddings
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_config("pixtral-12b")
+    B, nv = 2, cfg.num_vision_tokens
+    S = nv + VLM_TEXT
+    cache_len = S + VLM_NEW
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, VLM_TEXT + 1, size=B)
+    toks = np.zeros((B, VLM_TEXT), np.int64)
+    for row, n in enumerate(lens):
+        toks[row, -n:] = rng.integers(1, cfg.vocab_size, size=n)
+    toks = torch.from_numpy(toks).cuda()
+    ve = torch.from_numpy(patch_embeddings(0, B, nv, cfg.vision_dim)).cuda()
+
+    def serve():
+        with torch.no_grad():
+            logits, cache = prefill(params, toks, cfg, cache_len,
+                                    vision_embeds=ve)
+            pre_flash = flash_attention.launches
+            finite = [logits.isfinite().all()]
+            tok = logits[:, -1].argmax(-1)
+            del logits
+            pos = torch.full((B,), S, device="cuda")
+            out = [tok]
+            for _ in range(VLM_NEW):
+                logits, cache = decode_step(params, tok, pos, cache, cfg)
+                finite.append(logits.isfinite().all())
+                tok, pos = logits.argmax(-1), pos + 1
+                out.append(tok)
+        return pre_flash, torch.stack(out, 1).cpu(), bool(
+            torch.stack(finite).all())
+
+    serve()                                                  # warm-up
+    torch.cuda.synchronize()
+    log(f"serve-vlm: pixtral-12b {cfg.num_layers} layers, d_model="
+        f"{cfg.d_model}, heads {cfg.num_heads} over {cfg.num_kv_heads} KV "
+        f"heads of {cfg.head_dim}, {nv} vision tokens of {cfg.vision_dim}, "
+        f"vocab {cfg.vocab_size}, params={n_params} ({cfg.dtype}), "
+        f"init+warm-up {time.perf_counter() - t0:.2f}s; text lengths "
+        f"{lens.tolist()}")
+    torch.cuda.reset_peak_memory_stats()
+    (pre_flash, out, finite), launches = _count_launches(
+        kernels, path, "serve-vlm", serve)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if pre_flash != cfg.num_layers or launches["flash_attention"] != \
+            cfg.num_layers:
+        fail(f"serve-vlm: flash launched {pre_flash} times by prefill and "
+             f"{launches['flash_attention']} in all, want {cfg.num_layers}")
+    if not finite or not (0 <= int(out.min())
+                          and int(out.max()) < cfg.vocab_size):
+        fail(f"serve-vlm: logits finite {finite}, tokens {out[:, :8]}")
+    log(f"serve-vlm: {B} requests, prefill of {S} positions + {VLM_NEW} "
+        f"greedy decode steps: logits all finite, peak_mem_gb={peak:.2f}, "
+        f"launches {launches}")
+    with torch.no_grad():
+        (logits, cache), prefill_ms = _sync_ms(
+            torch, lambda: prefill(params, toks, cfg, cache_len,
+                                   vision_embeds=ve))
+        tok = logits[:, -1].argmax(-1)
+        del logits
+        pos = torch.full((B,), S, device="cuda")
+
+        def steps(n):
+            nonlocal tok, pos
+            for _ in range(n):
+                logits, _ = decode_step(params, tok, pos, cache, cfg)
+                tok, pos = logits.argmax(-1), pos + 1
+
+        _, decode_ms = _sync_ms(torch, lambda: steps(16))
+        log(f"serve-vlm: prefill {B}x{S} positions {prefill_ms:.2f} ms; "
+            f"decode {decode_ms / 16:.2f} ms per step (cache_len "
+            f"{cache_len})")
+        evts, _ = profile(torch, lambda: prefill(params, toks, cfg, cache_len,
+                                                 vision_embeds=ve))
+        wide = sum(e.count for e in evts if "flash_fwd" in e.key
+                   and "160" in e.key and str(e.device_type).endswith("CUDA"))
+        log(f"serve-vlm: profiled prefill: {wide} launches of the head-dim "
+            f"160 flash kernel")
+        if wide != cfg.num_layers:
+            fail(f"serve-vlm: the D 160 flash kernel ran {wide} times in a "
+                 f"prefill, want {cfg.num_layers}")
+        log_profile(torch, "serve-vlm prefill", lambda: prefill(
+            params, toks, cfg, cache_len, vision_embeds=ve))
+        log_profile(torch, "serve-vlm decode x8", lambda: steps(8))
+    del params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _lm_logits_card_vs_cpu(torch, phase, arch, engine):
+    """`arch` SMOKE (f32) on the card and the CPU from one set of weights:
+    the forward's logits, a prefill and 4 greedy decode steps' logits and
+    tokens, and (engine) ServingEngine's greedy tokens; relative to the
+    largest CPU logit, within SLICE13_TOL.  Returns (cfg, CPU params,
+    vision embeds or None)."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import patch_embeddings
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.serving import ServingEngine
+    cfg = get_smoke_config(arch)
+    cpu = init_params(torch.Generator().manual_seed(5), cfg, device="cpu")
+    card = _to(cpu, "cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in rng.integers(3, 91, size=6)]
+    toks = torch.from_numpy(np.stack([np.resize(p, 100)
+                                      for p in prompts[:4]]))
+    ve = None
+    if cfg.family == "vlm":
+        ve = torch.from_numpy(patch_embeddings(5, 4, cfg.num_vision_tokens,
+                                               cfg.vision_dim))
+    S = 100 + (cfg.num_vision_tokens if ve is not None else 0)
+    fwd, rows, picks, tokens = {}, {}, {}, {}
+    for dev, p in (("cuda", card), ("cpu", cpu)):
+        kw = {} if ve is None else {"vision_embeds": ve.to(dev)}
+        with torch.no_grad():
+            fwd[dev] = forward(p, toks.to(dev), cfg, **kw).cpu()
+            lg, cache = prefill(p, toks.to(dev), cfg, 128, **kw)
+            out, pick = [lg[:, -1]], [lg[:, -1].argmax(-1)]
+            pos = torch.full((4,), S, device=dev)
+            for _ in range(4):
+                lg, cache = decode_step(p, pick[-1], pos, cache, cfg)
+                out.append(lg)
+                pick.append(lg.argmax(-1))
+                pos = pos + 1
+        rows[dev] = torch.stack(out).cpu()
+        picks[dev] = torch.stack(pick).cpu()
+        if engine:
+            eng = ServingEngine(p, cfg, slots=4, max_prompt=100,
+                                cache_len=128, device=dev)
+            tokens[dev] = [r.tokens for r in eng.generate(
+                prompts, max_new_tokens=12)]
+    f_err, d_err = _rel(fwd["cuda"], fwd["cpu"]), _rel(rows["cuda"],
+                                                       rows["cpu"])
+    same = torch.equal(picks["cuda"], picks["cpu"]) and (
+        tokens.get("cuda") == tokens.get("cpu"))
+    log(f"{phase}: {arch} SMOKE ({cfg.dtype}) card vs CPU: forward logits "
+        f"{f_err:.3e}, prefill + 4 decode steps' logits {d_err:.3e} "
+        f"(relative, tol {SLICE13_TOL}); greedy tokens "
+        f"{'identical' if same else 'DIFFER'}"
+        + (" (and ServingEngine's, 6 requests x 12)" if engine else ""))
+    if not (f_err <= SLICE13_TOL and d_err <= SLICE13_TOL and same):
+        fail(f"{phase}: card and CPU differ ({f_err}, {d_err}, tokens "
+             f"{picks} {tokens})")
+    return cfg, cpu, ve
+
+
+def _grads_card_vs_cpu(torch, phase, what, loss_fn, cpu_params):
+    """loss_fn(params, device) -> (loss, metrics) on the CPU and the card
+    from the same params: the loss and every leaf's gradient within
+    SLICE13_TOL relative."""
+    from repro_torch.train.steps import _value_and_grad
+    card = _to(cpu_params, "cuda")
+    g_cpu, m_cpu = _value_and_grad(lambda p, _: loss_fn(p, "cpu"),
+                                   cpu_params, None)
+    g_gpu, m_gpu = _value_and_grad(lambda p, _: loss_fn(p, "cuda"), card,
+                                   None)
+    a, b = float(m_gpu["loss"]), float(m_cpu["loss"])
+    loss_rel, grad_rel = abs(a - b) / abs(b), _tree_rel(torch, g_gpu, g_cpu)
+    log(f"{phase}: {what}: loss (card, cpu) ({a:.6f}, {b:.6f}), relative "
+        f"{loss_rel:.3e}; gradients, worst leaf {grad_rel:.3e} (tol "
+        f"{SLICE13_TOL})")
+    if not (loss_rel <= SLICE13_TOL and grad_rel <= SLICE13_TOL):
+        fail(f"{phase}: {what} differs ({loss_rel}, {grad_rel})")
+
+
+def _lm_loss_card_vs_cpu(torch, phase, cfg, cpu, ve):
+    from repro_torch.data import lm_batches
+    from repro_torch.train.steps import lm_loss
+    t, y = (torch.from_numpy(a) for a in next(lm_batches(0, 4, 100,
+                                                         cfg.vocab_size)))
+
+    def loss_fn(p, dev):
+        kw = {} if ve is None else {"vision_embeds": ve.to(dev)}
+        return lm_loss(p, t.to(dev), y.to(dev), cfg, **kw)
+
+    _grads_card_vs_cpu(torch, phase, "lm_loss", loss_fn, cpu)
+
+
+def phase_check_ssm(torch):
+    """falcon-mamba-7b SMOKE (f32) on the card and the CPU."""
+    cfg, cpu, _ = _lm_logits_card_vs_cpu(torch, "check-ssm",
+                                         "falcon-mamba-7b", engine=True)
+    _lm_loss_card_vs_cpu(torch, "check-ssm", cfg, cpu, None)
+
+
+def phase_check_vlm(torch):
+    """pixtral-12b SMOKE (f32) on the card and the CPU, with patch
+    embeddings (ServingEngine cannot take them)."""
+    cfg, cpu, ve = _lm_logits_card_vs_cpu(torch, "check-vlm", "pixtral-12b",
+                                          engine=False)
+    _lm_loss_card_vs_cpu(torch, "check-vlm", cfg, cpu, ve)
+
+
+def phase_check_encdec(torch):
+    """whisper-small SMOKE (f32) on the card and the CPU: forward logits,
+    encode + cross_kv + 12 greedy decode steps (logits and tokens), the
+    token cross-entropy's gradients; on the card, decoding against the
+    cached cross K/V equals decoding with them recomputed, bit for bit."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import frame_embeddings, lm_batches
+    from repro_torch.models import encdec, init_params
+    cfg = get_smoke_config("whisper-small")
+    cpu = init_params(torch.Generator().manual_seed(5), cfg, device="cpu")
+    card = _to(cpu, "cuda")
+    B = 4
+    frames = torch.from_numpy(frame_embeddings(5, B, cfg.encoder_seq,
+                                               cfg.d_model))
+    t, y = (torch.from_numpy(a) for a in next(lm_batches(0, B, 24,
+                                                         cfg.vocab_size)))
+    fwd, rows, picks = {}, {}, {}
+    for dev, p in (("cuda", card), ("cpu", cpu)):
+        with torch.no_grad():
+            fwd[dev] = encdec.forward(p, frames.to(dev), t.to(dev), cfg).cpu()
+            enc = encdec.encode(p, frames.to(dev), cfg)
+            cache = encdec.init_dec_cache(cfg, B, 16, cfg.encoder_seq,
+                                          device=dev)
+            cache["xk"], cache["xv"] = encdec.cross_kv(p, enc, cfg)
+            tok, out, pick = t[:, 0].to(dev), [], []
+            for i in range(12):
+                lg, cache = encdec.decode_step(
+                    p, tok, torch.full((B,), i, device=dev), cache, cfg)
+                tok = lg.argmax(-1)
+                out.append(lg)
+                pick.append(tok)
+        rows[dev], picks[dev] = torch.stack(out).cpu(), torch.stack(pick).cpu()
+    f_err, d_err = _rel(fwd["cuda"], fwd["cpu"]), _rel(rows["cuda"],
+                                                       rows["cpu"])
+    same = torch.equal(picks["cuda"], picks["cpu"])
+    log(f"check-encdec: whisper-small SMOKE (f32) card vs CPU: forward "
+        f"logits {f_err:.3e}, 12 decode steps' logits {d_err:.3e} "
+        f"(relative, tol {SLICE13_TOL}); greedy tokens "
+        f"{'identical' if same else 'DIFFER'}")
+    if not (f_err <= SLICE13_TOL and d_err <= SLICE13_TOL and same):
+        fail(f"check-encdec: card and CPU differ ({f_err}, {d_err})")
+
+    with torch.no_grad():
+        enc = encdec.encode(card, frames.cuda(), cfg)
+        kv1, kv2 = encdec.cross_kv(card, enc, cfg), encdec.cross_kv(card, enc,
+                                                                    cfg)
+        exact = all(torch.equal(a, b) for a, b in zip(kv1, kv2))
+        cached = encdec.init_dec_cache(cfg, B, 16, cfg.encoder_seq,
+                                       device="cuda")
+        fresh = encdec.init_dec_cache(cfg, B, 16, cfg.encoder_seq,
+                                      device="cuda")
+        cached["xk"], cached["xv"] = kv1
+        tok = t[:, 0].cuda()
+        for i in range(6):
+            pos = torch.full((B,), i, device="cuda")
+            fresh["xk"], fresh["xv"] = encdec.cross_kv(card, enc, cfg)
+            a, cached = encdec.decode_step(card, tok, pos, cached, cfg)
+            b, fresh = encdec.decode_step(card, tok, pos, fresh, cfg)
+            exact = exact and torch.equal(a, b)
+            tok = a.argmax(-1)
+    log(f"check-encdec: on the card, cross_kv twice and 6 decode steps "
+        f"against cached vs recomputed cross K/V: bit-identical {exact}")
+    if not exact:
+        fail("check-encdec: the cached cross K/V are not exact")
+
+    def loss_fn(p, dev):
+        logits = encdec.forward(p, frames.to(dev), t.to(dev), cfg).float()
+        nll = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                              y.to(dev).reshape(-1).long())
+        return nll, {"loss": nll}
+
+    _grads_card_vs_cpu(torch, "check-encdec", "token cross-entropy through "
+                       "encdec.forward", loss_fn, cpu)
+
+
 def timed(name, fn, *args):
     """fn(*args), logging the phase's wall seconds and its own peak device
     memory: what earlier phases left is collected first, the peak counter
@@ -3813,6 +4445,16 @@ def main() -> int:
                                    KERNELS, train_path)
     by_path["dlm"] = timed("dlm", phase_dlm, torch, KERNELS,
                            (flash_attention, forecast))
+    # slice 13: the ssm (Mamba1), encoder-decoder and vlm families
+    by_path["serve-ssm"] = timed("serve-ssm", phase_serve_ssm, torch, KERNELS,
+                                 ())
+    timed("check-ssm", phase_check_ssm, torch)
+    by_path["serve-encdec"] = timed("serve-encdec", phase_serve_encdec, torch,
+                                    KERNELS, (flash_attention,))
+    timed("check-encdec", phase_check_encdec, torch)
+    by_path["serve-vlm"] = timed("serve-vlm", phase_serve_vlm, torch, KERNELS,
+                                 (flash_attention,))
+    timed("check-vlm", phase_check_vlm, torch)
 
     rows = []
     for name, fn, src, replaces, rep in (

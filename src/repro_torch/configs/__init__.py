@@ -1,22 +1,25 @@
 """Config registry of the port: the architectures ported so far (the DiTs,
-the dense LLMs and the hybrid zamba2; the ssm, moe, encdec and vlm configs
-are ROADMAP.md §A.7)."""
-from . import (dit_audio, dit_t2i, dit_t2v, dit_video, dit_xl, minitron_8b,
-               qwen2_7b, qwen2p5_14b, tinyllama_1p1b, zamba2_2p7b)
+the dense LLMs, the hybrid zamba2, the Mamba1 falcon-mamba, the
+encoder-decoder whisper and the vlm pixtral; the moe configs
+deepseek-v2-236b and arctic-480b are ROADMAP.md §A.7)."""
+from . import (dit_audio, dit_t2i, dit_t2v, dit_video, dit_xl,
+               falcon_mamba_7b, minitron_8b, pixtral_12b, qwen2_7b,
+               qwen2p5_14b, tinyllama_1p1b, whisper_small, zamba2_2p7b)
 from .base import ArchConfig
 
 _MODULES = {"dit-xl": dit_xl, "dit-video": dit_video, "dit-audio": dit_audio,
             "dit-t2i": dit_t2i, "dit-t2v": dit_t2v,
             "tinyllama-1.1b": tinyllama_1p1b, "qwen2-7b": qwen2_7b,
             "qwen2.5-14b": qwen2p5_14b, "minitron-8b": minitron_8b,
-            "zamba2-2.7b": zamba2_2p7b}
+            "zamba2-2.7b": zamba2_2p7b, "falcon-mamba-7b": falcon_mamba_7b,
+            "whisper-small": whisper_small, "pixtral-12b": pixtral_12b}
 ALL_ARCH_IDS = list(_MODULES)
 
 
 def _module(arch_id: str):
     if arch_id not in _MODULES:
         raise KeyError(f"arch '{arch_id}' is not ported to repro_torch yet "
-                       f"(ported: {ALL_ARCH_IDS}); see ROADMAP.md §A")
+                       f"(ported: {ALL_ARCH_IDS}); see ROADMAP.md §A.7")
     return _MODULES[arch_id]
 
 

@@ -7,7 +7,8 @@
 // output in q's dtype, optional causal and sliding-window masks taken from
 // absolute positions with q at the tail of k (q_offset = Sk - Sq), GQA
 // (kv head = h / (H / KH)), ragged Sq and Sk, head dim 1 <= D <= 128, f32 and
-// bf16 inputs.
+// bf16 inputs; and, for bf16 serving with 16-byte rows and pointers, head
+// dim 128 < D <= 160 (pixtral-12b's 160; see "Head dim 160" below).
 //
 // Bound on an H100 SXM: 4 * B * H * (unmasked query-key pairs) * D
 // operations against the bytes of q, k, v and o moved once.  In bf16 the
@@ -51,6 +52,13 @@
 // - Where D * element size is not a multiple of 16 bytes or a pointer is not
 //   16-byte aligned, the same kernel stages element by element (template
 //   flag kVec = false) at the widest padding, 128.
+// - Head dim 160: one more instantiation, bf16 with 16-byte staging at
+//   DP = kDWide, reached only from the serving entry point (kLse = false)
+//   for 128 < D <= 160, so every instantiation up to kDMax keeps its code.
+//   Its ring is 2 stages x (K, V) x 64 x 168 x 2 B = 86 KB (the opt-in
+//   above 48 KB) and its O accumulator alone is 80 f32 a thread; the bound
+//   and the walk are the same as at D 128.  f32, the kLse instantiations
+//   and the backward stop at 128.
 // - Training (template flag kLse): the epilogue also writes each row's
 //   log-sum-exp (natural log, (B, H, Sq) f32) for the backward
 //   (flash_attention_bwd.cu).  Those instantiations are built from
@@ -77,6 +85,7 @@ constexpr int kBK = 64;               // keys per tile
 constexpr int kStages = 2;            // K/V tiles in the cp.async ring
 static_assert(kBQ <= 2 * kBK, "Q is staged in one stage of the ring");
 constexpr int kDMax = 128;
+constexpr int kDWide = 160;           // the bf16 serving instantiation above kDMax
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -473,13 +482,22 @@ template <bool kLse>
 int run(const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B,
         int Sq, int Sk, int H, int KH, int D, int causal, int window, float scale,
         void* stream) {
-  if (D < 1 || D > kDMax || KH < 1 || H % KH != 0 || B < 1 || Sq < 1 || Sk < 1 ||
-      B > 65535 || H > 65535)
+  if (D < 1 || KH < 1 || H % KH != 0 || B < 1 || Sq < 1 || Sk < 1 || B > 65535 ||
+      H > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int elem = dtype == 0 ? 4 : 2;
   const bool vec = (D * elem) % 16 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(o);
+  if (D > kDMax) {
+    // bf16 serving with 16-byte rows and pointers only (pixtral-12b's 160)
+    if constexpr (!kLse) {
+      if (dtype == 1 && D <= kDWide && vec)
+        return (int)launch_dp<__nv_bfloat16, kDWide, true, false>(
+            q, k, v, o, lse, B, Sq, Sk, H, KH, D, causal, window, scale, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0)
     return (int)launch<float, kLse>(vec, q, k, v, o, lse, B, Sq, Sk, H, KH, D, causal, window,
                                     scale, s);
@@ -494,7 +512,8 @@ int run(const void* q, const void* k, const void* v, void* o, float* lse, int dt
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  All four
 // tensors are contiguous: q and o (B, Sq, H, D), k and v (B, Sk, KH, D).
 // 16-byte copies need 16-byte rows and pointers; anything else stages
-// element by element in the same kernel.
+// element by element in the same kernel.  128 < D <= 160 takes bf16 with
+// 16-byte rows and pointers only (flash_attention_fwd; not the _lse entry).
 #ifndef FLASH_ATTENTION_LSE
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int B, int Sq, int Sk, int H, int KH, int D,

@@ -9,7 +9,9 @@ CUDA tensors launch `csrc/flash_attention.cu` (serving),
 `csrc/flash_attention_lse.cu` (the same kernels writing the row
 log-sum-exp, under grad) and `csrc/flash_attention_bwd.cu` (its f32
 half built from `csrc/flash_attention_bwd_f32.cu`), or raise:
-there is no fallback on the card.  The forward runs bf16 inputs
+there is no fallback on the card.  Head dims up to `MAX_HEAD_DIM` (128)
+everywhere; up to `MAX_HEAD_DIM_BF16_SERVING` (160, pixtral-12b) on the
+serving path alone, for bf16 with 16-byte rows and pointers.  The forward runs bf16 inputs
 on bf16 tensor-core products (P rounded to bf16 before P V, as
 `blocked_attention` does) and f32 inputs as 3xTF32; its C entry point picks
 16-byte or element-by-element staging from D and the pointers' alignment.
@@ -39,6 +41,8 @@ from .ref import attention_bwd_ref, attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+#: the serving forward's one wider instantiation (bf16, 16-byte staging)
+MAX_HEAD_DIM_BF16_SERVING = 160
 #: the launch puts the batch on gridDim.z (csrc/flash_attention.cu:425)
 MAX_GRID_Z = 65535
 
@@ -122,13 +126,29 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     if {t.device.type for t in (q, k, v)} == {"cpu"}:
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     _check_cuda("flash_attention", (q, k, v))
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
+        _check_wide_head_dim(q, k, v, grad)
     check_grid(B)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if grad:
         return _FlashAttention.apply(q, k, v, causal, window, scale)
     return _forward(q, k, v, causal, window, scale, None)
+
+
+def _check_wide_head_dim(q, k, v, grad):
+    """Raise unless the serving forward's head-dim-160 instantiation takes
+    these tensors: bf16, no gradient, D <= 160, 16-byte rows and
+    pointers."""
+    D = q.shape[-1]
+    if q.dtype != torch.bfloat16 or grad or D > MAX_HEAD_DIM_BF16_SERVING:
+        raise ValueError(
+            f"flash_attention: head dim {D} > {MAX_HEAD_DIM} (only the bf16 "
+            f"serving forward goes to {MAX_HEAD_DIM_BF16_SERVING}; got "
+            f"{q.dtype}{', under grad' if grad else ''})")
+    if D % 8 or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM} "
+                         f"needs 16-byte rows and 16-byte aligned tensors")
 
 
 def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,

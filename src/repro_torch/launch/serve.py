@@ -5,9 +5,11 @@
     python -m repro_torch.launch.serve --smoke --device cpu
 
 `--arch` defaults to JAX's tinyllama-1.1b and takes the port's LLMs: the
-dense tinyllama-1.1b, qwen2-7b, qwen2.5-14b and minitron-8b, and the
-hybrid zamba2-2.7b.  Random weights drawn from `--seed`; runs on the GPU
-unless `--device cpu`.
+dense tinyllama-1.1b, qwen2-7b, qwen2.5-14b and minitron-8b, the hybrid
+zamba2-2.7b and the Mamba1 falcon-mamba-7b.  whisper-small and pixtral-12b
+exit with the entry points that drive them (JAX's launcher fails on them
+too).  Random weights drawn from `--seed`; runs on the GPU unless
+`--device cpu`.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.configs import ALL_ARCH_IDS, get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
 from repro_torch.serving import ServingEngine
+from repro_torch.serving.engine import engine_refusal
 
 
 def main(argv=None):
@@ -40,6 +43,8 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.is_dit:
         raise SystemExit("dit-xl serves via repro_torch.serving.diffusion")
+    if engine_refusal(cfg):
+        raise SystemExit(engine_refusal(cfg))
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(gen, cfg, device=dev)

@@ -8,10 +8,13 @@
 `--arch` takes the port's configs on which JAX's launcher trains, and
 defaults to JAX's tinyllama-1.1b: the dense LMs (tinyllama-1.1b, qwen2-7b,
 qwen2.5-14b, minitron-8b), the hybrid LM zamba2-2.7b (its SSD scans
-differentiate through the scan's backward kernel on the card) and the
+differentiate through the scan's backward kernel on the card), the Mamba1
+LM falcon-mamba-7b (its plain PyTorch scan differentiates) and the
 class-conditioned DiTs (dit-xl, dit-audio and dit-t2i, whose prompt-less
 forward runs the zero-table text branch).  JAX's launcher fails on the
-video DiTs (it calls the image DiT's forward on their params), so the port
+video DiTs (it calls the image DiT's forward on their params), on
+whisper-small (it runs the decoder LM's forward on an encoder-decoder) and
+on pixtral-12b (its batches carry no vision embeddings), so the port
 raises for them.  Random weights from `--seed`; the LM batches of step n
 are `lm_batches(seed, ...)`'s, and the diffusion draws of step n come from
 a generator seeded with (seed + 1, n).
@@ -52,6 +55,16 @@ def train(arch: str, *, smoke: bool = False, steps: int = 100, batch: int = 8,
             f"{cfg.name}: the video DiTs do not train through this launcher "
             f"(JAX's launcher fails on them as well: it runs the image DiT's "
             f"forward on video params)")
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name}: an encoder-decoder does not train through this "
+            f"launcher (JAX's fails on it as well): differentiate a loss of "
+            f"repro_torch.models.encdec.forward(params, frames, tokens, cfg)")
+    if cfg.family == "vlm":
+        raise ValueError(
+            f"{cfg.name}: the launcher's batches carry no vision embeddings "
+            f"(JAX's fail on it as well): train it with make_lm_train_step "
+            f"on batches with \"vision_embeds\"")
     dev = resolve_device(device)
     log_fn(f"training {cfg.name} ({cfg.family}) for {steps} steps on {dev}")
     if state is None:

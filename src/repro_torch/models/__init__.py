@@ -1,7 +1,8 @@
-"""Model zoo of the port: so far the DiT (image latents and audio mel
-latents, class- or text-conditioned), the factorized spatio-temporal video
-DiT (with or without text), and the dense (GQA) and hybrid (Mamba2 + shared
-attention) decoder LMs."""
+"""Model zoo of the port: the DiT (image latents and audio mel latents,
+class- or text-conditioned), the factorized spatio-temporal video DiT (with
+or without text), the dense (GQA), hybrid (Mamba2 + shared attention), ssm
+(Mamba1) and vlm (patch embeddings + dense decoder) decoder LMs, and the
+Whisper-style encoder-decoder (`encdec`)."""
 from __future__ import annotations
 
 import math
@@ -27,6 +28,8 @@ def init_params(generator: torch.Generator, cfg, dtype=None, device=None):
 
 
 def _init(generator, cfg, dtype, dev):
+    if cfg.is_encoder_decoder:
+        return encdec.init_encdec(generator, cfg, dtype, dev)
     if not cfg.is_dit:
         return transformer.init_lm(generator, cfg, dtype, dev)
     if cfg.dit_num_frames > 0:

@@ -1,20 +1,26 @@
-"""Decoder LM of the port: the `dense` (Llama-style GQA) and `hybrid`
-(zamba2) families of the JAX `models/transformer.py`.  The ssm, moe and vlm
-families are not ported yet and raise (ROADMAP.md §A.7).
+"""Decoder LM of the port: the `dense` (Llama-style GQA), `hybrid`
+(zamba2), `ssm` (falcon-mamba, Mamba1; or Mamba2 layers alone) and `vlm`
+(pixtral: the dense decoder over projected patch embeddings prepended to
+the text) families of the JAX `models/transformer.py`.  The moe family is
+not ported yet and raises (ROADMAP.md §A.7); the encoder-decoder (family
+"audio") is `models/encdec.py`.
 
 Entry points, plain functions of (params, inputs, cfg):
 
-  init_lm(generator, cfg)                          -> params
-  forward(params, tokens, cfg, collect_kv=...)     -> logits[, caches]
-  prefill(params, tokens, cfg, cache_len)          -> (logits, cache)
-  decode_step(params, token, pos, cache, cfg)      -> (logits, cache)
+  init_lm(generator, cfg)                                    -> params
+  forward(params, tokens, cfg, vision_embeds=, collect_kv=)  -> logits[, caches]
+  prefill(params, tokens, cfg, cache_len, vision_embeds=)    -> (logits, cache)
+  decode_step(params, token, pos, cache, cfg)                -> (logits, cache)
 
 Per-layer params are stacked on a leading layer axis, as in JAX; the port
 walks the layers in a Python loop where JAX scans (one unbind per stacked
 leaf, so that under autograd each leaf gets one stacked gradient).  A dense
 layer is pre-norm attention then a pre-norm SwiGLU MLP.  A hybrid model
 runs `hybrid_attn_every` Mamba2 layers, then the one shared attention+MLP
-block, `num_layers // hybrid_attn_every` times.  Prefill attention goes
+block, `num_layers // hybrid_attn_every` times.  An ssm model is a stack of
+pre-norm Mamba1 (or Mamba2) layers.  A vlm forward prepends
+`vision_embeds @ vision_proj` to the token embeddings, so its sequence is
+`num_vision_tokens` longer than the text.  Prefill attention goes
 through the flash kernel; one-token decode attends with
 `blocked_attention`.  KV caches are rolling buffers of capacity
 `cache_len` with absolute positions stored beside them.  `decode_step`
@@ -30,17 +36,30 @@ from repro_torch.core.engine import layer_list
 from .layers import (attention_decode, attention_forward, dense_init, dot,
                      embed_init, init_attention, init_mlp, mlp_forward,
                      rms_norm)
-from .ssm import init_mamba2, mamba2_decode, mamba2_forward
+from .ssm import (init_mamba1, init_mamba2, mamba1_decode, mamba1_forward,
+                  mamba2_decode, mamba2_forward)
 
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "hybrid", "ssm", "vlm")
+ATTN_FAMILIES = ("dense", "vlm")       # a stack of attention+MLP layers
 
 
 def _require_ported(cfg):
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"'{cfg.name}' is an encoder-decoder: drive it through "
+            f"repro_torch.models.encdec (encode, cross_kv, decode_step)")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"repro_torch ports the {' and '.join(FAMILIES)} LLM families "
-            f"('{cfg.name}' is '{cfg.family}'); the ssm, moe and vlm "
-            f"families are ROADMAP.md §A.7")
+            f"repro_torch ports the {', '.join(FAMILIES)} LLM families "
+            f"('{cfg.name}' is '{cfg.family}'); the moe family is "
+            f"ROADMAP.md §A.7")
+
+
+def _mamba(cfg):
+    """(init, forward, decode) of an ssm or hybrid model's layers."""
+    if cfg.family == "ssm" and cfg.mamba_version == 1:
+        return init_mamba1, mamba1_forward, mamba1_decode
+    return init_mamba2, mamba2_forward, mamba2_decode
 
 
 def _stacked(n, make):
@@ -84,10 +103,10 @@ def _attn_mlp_block(generator, cfg, dtype, device):
 
 def _init_block(generator, cfg, dtype, device):
     """One layer's params (unstacked)."""
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         return _attn_mlp_block(generator, cfg, dtype, device)
     return {"ln1": _ones(cfg, dtype, device),
-            "mamba": init_mamba2(generator, cfg, dtype, device)}
+            "mamba": _mamba(cfg)[0](generator, cfg, dtype, device)}
 
 
 def init_lm(generator, cfg, dtype=None, device=None):
@@ -106,6 +125,9 @@ def init_lm(generator, cfg, dtype=None, device=None):
     if cfg.family == "hybrid":
         # one *shared* attention+MLP block reused at every application point
         params["shared_attn"] = _attn_mlp_block(generator, cfg, dtype, device)
+    if cfg.family == "vlm":
+        params["vision_proj"] = dense_init(generator, cfg.vision_dim, d, dtype,
+                                           device=device)
     return params
 
 
@@ -120,22 +142,45 @@ def _attn_mlp(p, x, cfg):
     return x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), kv
 
 
-def forward(params, tokens, cfg, *, collect_kv=False):
-    """Full-sequence forward.  tokens: (B, S) integer.
-
-    Returns logits (B, S, vocab), or (logits, caches) with collect_kv:
-    dense, (k, v) per layer; hybrid, per attention point (Mamba2 caches of
-    its segment, (k, v)).  JAX also returns the MoE losses, which these
-    families do not have."""
-    _require_ported(cfg)
+def _embed_inputs(params, tokens, cfg, vision_embeds=None):
+    """Token embeddings; a vlm prepends the projected patch embeddings
+    (cast to the embeddings' dtype first, as JAX does)."""
     x = params["embed"][tokens]
+    if cfg.family == "vlm":
+        if vision_embeds is None:
+            raise ValueError(f"{cfg.name} needs vision_embeds (B, "
+                             f"{cfg.num_vision_tokens}, {cfg.vision_dim}): "
+                             f"the stub patch embeddings")
+        v = dot(vision_embeds.to(x.dtype), params["vision_proj"])
+        x = torch.cat([v, x], dim=1)
+    return x
+
+
+def forward(params, tokens, cfg, *, vision_embeds=None, collect_kv=False):
+    """Full-sequence forward.  tokens: (B, S) integer; vision_embeds (B,
+    num_vision_tokens, vision_dim) for a vlm.
+
+    Returns logits (B, S', vocab), S' = S (+ num_vision_tokens for a vlm),
+    or (logits, caches) with collect_kv: dense and vlm, (k, v) per layer;
+    ssm, the Mamba cache of each layer; hybrid, per attention point (Mamba2
+    caches of its segment, (k, v)).  JAX also returns the MoE losses, which
+    these families do not have."""
+    _require_ported(cfg)
+    x = _embed_inputs(params, tokens, cfg, vision_embeds)
     blocks = layer_list(params["blocks"])
     caches = []
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         for p in blocks:
             x, kv = _attn_mlp(p, x, cfg)
             if collect_kv:
                 caches.append(kv)
+    elif cfg.family == "ssm":
+        fwd = _mamba(cfg)[1]
+        for p in blocks:
+            h, c = fwd(p["mamba"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
+            x = x + h
+            if collect_kv:
+                caches.append(c)
     else:
         k = cfg.hybrid_attn_every
         for g in range(hybrid_points(cfg)):
@@ -159,22 +204,28 @@ def init_cache(cfg, batch: int, cache_len: int, device=None):
     dtype = getattr(torch, cfg.dtype)
     L, B, W = cfg.num_layers, batch, cache_len
     pos = torch.full((B, W), -1, dtype=torch.long, device=device)
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         kv = (L, B, W, cfg.num_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(kv, dtype=dtype, device=device),
                 "v": torch.zeros(kv, dtype=dtype, device=device), "pos": pos}
     din = cfg.ssm_expand * cfg.d_model
+    if cfg.family == "ssm" and cfg.mamba_version == 1:
+        return {"conv": torch.zeros((L, B, cfg.ssm_conv, din), dtype=dtype,
+                                    device=device),
+                "state": torch.zeros((L, B, din, cfg.ssm_state),
+                                     dtype=torch.float32, device=device)}
     nh = din // cfg.ssm_head_dim
-    kv = (hybrid_points(cfg), B, W, cfg.num_kv_heads, cfg.head_dim)
-    return {
+    cache = {
         "conv": torch.zeros((L, B, cfg.ssm_conv, din + 2 * cfg.ssm_state),
                             dtype=dtype, device=device),
         "state": torch.zeros((L, B, nh, cfg.ssm_head_dim, cfg.ssm_state),
                              dtype=torch.float32, device=device),
-        "k": torch.zeros(kv, dtype=dtype, device=device),
-        "v": torch.zeros(kv, dtype=dtype, device=device),
-        "pos": pos,
     }
+    if cfg.family == "ssm":
+        return cache
+    kv = (hybrid_points(cfg), B, W, cfg.num_kv_heads, cfg.head_dim)
+    return dict(cache, k=torch.zeros(kv, dtype=dtype, device=device),
+                v=torch.zeros(kv, dtype=dtype, device=device), pos=pos)
 
 
 def _attn_mlp_decode(p, x, cfg, cache, i, pos):
@@ -191,9 +242,17 @@ def decode_step(params, token, pos, cache, cfg):
     _require_ported(cfg)
     x = params["embed"][token][:, None, :]                      # (B, 1, d)
     blocks = layer_list(params["blocks"])
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         for i, p in enumerate(blocks):
             x = _attn_mlp_decode(p, x, cfg, cache, i, pos)
+    elif cfg.family == "ssm":
+        dec = _mamba(cfg)[2]
+        for i, p in enumerate(blocks):
+            h, conv, state = dec(p["mamba"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                                 cfg, cache["conv"][i], cache["state"][i])
+            cache["conv"][i] = conv
+            cache["state"][i] = state
+            x = x + h
     else:
         k = cfg.hybrid_attn_every
         for g in range(hybrid_points(cfg)):
@@ -210,15 +269,24 @@ def decode_step(params, token, pos, cache, cfg):
     return dot(x, params["lm_head"])[:, 0], cache
 
 
-def prefill(params, tokens, cfg, cache_len: int):
-    """Returns (logits (B, S, vocab), cache ready for decode at pos = S)."""
-    logits, collected = forward(params, tokens, cfg, collect_kv=True)
-    B, S = tokens.shape
+def prefill(params, tokens, cfg, cache_len: int, *, vision_embeds=None):
+    """Returns (logits (B, S, vocab), cache ready for decode at pos = S);
+    a vlm's S counts its `num_vision_tokens` patch positions too."""
+    logits, collected = forward(params, tokens, cfg,
+                                vision_embeds=vision_embeds, collect_kv=True)
+    B = tokens.shape[0]
+    S = tokens.shape[1] + (cfg.num_vision_tokens if cfg.family == "vlm"
+                           else 0)
     cache = init_cache(cfg, B, cache_len, device=tokens.device)
+    if cfg.family == "ssm":
+        cache["state"] = torch.stack([c["state"] for c in collected])
+        cache["conv"] = torch.stack([c["conv"] for c in collected]).to(
+            cache["conv"].dtype)
+        return logits, cache
     keep = min(S, cache_len)
     src = torch.arange(S - keep, S, device=tokens.device)
     slots = src % cache_len
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         kvs = collected
     else:
         mamba = [c for states, _ in collected for c in states]

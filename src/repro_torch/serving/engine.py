@@ -26,6 +26,21 @@ from repro_torch.models import decode_step, prefill
 from repro_torch.serving.common import RequestQueue
 
 
+def engine_refusal(cfg) -> Optional[str]:
+    """Why ServingEngine cannot take `cfg` (JAX's cannot either), naming
+    the entry points that drive it; None if it can."""
+    if cfg.is_encoder_decoder:
+        return (f"{cfg.name} is an encoder-decoder, which ServingEngine does "
+                f"not serve: drive it with repro_torch.models.encdec "
+                f"(encode, cross_kv once, then decode_step)")
+    if cfg.family == "vlm":
+        return (f"{cfg.name} needs vision_embeds, which ServingEngine's "
+                f"prefill does not pass: drive it with "
+                f"repro_torch.models.prefill(..., vision_embeds=...), then "
+                f"decode_step")
+    return None
+
+
 @dataclass
 class GenerationResult:
     request_id: int
@@ -41,6 +56,9 @@ class ServingEngine:
                  max_prompt: int = 256, temperature: float = 0.0,
                  eos_id: Optional[int] = None, sync_every: int = 8,
                  device: DeviceLike = None):
+        refusal = engine_refusal(cfg)
+        if refusal:
+            raise ValueError(refusal)
         self.device = resolve_device(device)
         if tree_device(params) != self.device:
             raise ValueError(f"params live on {tree_device(params)}, the "

@@ -58,13 +58,15 @@ def init_train_state(generator: torch.Generator, cfg, dtype=None,
 
 def lm_loss(params, tokens, targets, cfg, *, vision_embeds=None,
             aux_weight: float = 0.01, z_weight: float = 1e-3):
-    """Causal-LM cross-entropy.  The port's LM families (dense and hybrid)
-    have no MoE losses, so the load-balance and router-z terms are 0, as
-    JAX's are for them."""
-    if vision_embeds is not None:
-        raise NotImplementedError("vision inputs belong to the vlm family, "
-                                  "not ported yet (ROADMAP.md §A.7)")
-    logits = transformer.forward(params, tokens, cfg).float()
+    """Causal-LM cross-entropy; a vlm takes `vision_embeds`, and its
+    vision positions carry no targets (their logits are dropped).  The
+    port's LM families (dense, hybrid, ssm, vlm) have no MoE losses, so the
+    load-balance and router-z terms are 0, as JAX's are for them."""
+    logits = transformer.forward(params, tokens, cfg,
+                                 vision_embeds=vision_embeds)
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.num_vision_tokens:]
+    logits = logits.float()
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     loss = nll.mean()
@@ -166,16 +168,15 @@ def _optimize(state: TrainState, grads, metrics, *, peak_lr, warmup,
 def make_lm_train_step(cfg, *, peak_lr=3e-4, warmup=100, total_steps=10_000,
                        accum: int = 1, max_grad_norm: float = 1.0,
                        weight_decay: float = 0.1):
-    """batch: {"tokens", "targets"} (B, S) integer tensors."""
+    """batch: {"tokens", "targets"} (B, S) integer tensors, and a vlm's
+    "vision_embeds" (B, num_vision_tokens, vision_dim)."""
     def loss_fn(params, b):
-        return lm_loss(params, b["tokens"], b["targets"], cfg)
+        return lm_loss(params, b["tokens"], b["targets"], cfg,
+                       vision_embeds=b.get("vision_embeds"))
 
     def step(state: TrainState, batch):
-        if batch.get("vision_embeds") is not None:
-            raise NotImplementedError("vision inputs belong to the vlm "
-                                      "family, not ported yet (ROADMAP.md "
-                                      "§A.7)")
-        mb = {"tokens": batch["tokens"], "targets": batch["targets"]}
+        mb = {k: batch[k] for k in ("tokens", "targets", "vision_embeds")
+              if batch.get(k) is not None}
         grads, metrics = _accumulated_grads(loss_fn, state.params, mb, accum)
         return _optimize(state, grads, metrics, peak_lr=peak_lr,
                          warmup=warmup, total_steps=total_steps,

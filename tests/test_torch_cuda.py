@@ -785,3 +785,138 @@ def test_ssd_scan_trains_through_the_backward_kernel(cuda):
     assert torch.equal(gbuf[..., h * p:h * p + n], dB)
     assert torch.equal(gbuf[..., h * p + n:], dC)
     assert torch.equal(gdt, ddt) and torch.equal(gA, dA)
+
+
+# the bf16 serving forward's head-dim-160 instantiation (pixtral-12b)
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal,window", [
+    (2, 1088, 1088, 32, 8, 160, True, 0),      # pixtral-12b prefill
+    (1, 200, 300, 4, 2, 160, True, 64),        # q at the tail, a window
+    (2, 77, 77, 4, 4, 136, False, 0),          # D pads 136 -> 160
+    (1, 64, 32, 2, 2, 160, True, 0),           # fully masked causal rows
+])
+def test_flash_kernel_at_head_dim_160(cuda, B, Sq, Sk, H, KH, D, causal,
+                                      window):
+    """Tolerance 2e-2 abs, the bf16 gate (output rounding)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((B, Sq, H, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, Sk, KH, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, Sk, KH, D), generator=g, device=cuda).bfloat16()
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert float((out.float() - ref.float()).abs().max()) <= 2e-2
+
+
+def test_head_dim_160_is_the_bf16_serving_path_only(cuda):
+    """Above 128 the wrapper raises, launching nothing, for f32, under
+    grad, above 160, and without 16-byte rows or pointers."""
+    def bf16(D, offset=0):
+        flat = torch.zeros((64 * 2 * D + offset,), device=cuda,
+                           dtype=torch.bfloat16)
+        return flat[offset:].view(1, 64, 2, D)
+
+    before = flash_attention.launches
+    for q in (bf16(160).float(), bf16(176), bf16(132), bf16(160, offset=1)):
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(q, q, q)
+    q = torch.zeros((1, 64, 2, 160), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(ValueError, match="under grad"):
+        flash_attention(q, q, q)
+    assert flash_attention.launches == before
+
+
+def _smoke_pair(arch, seed=5):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    cfg = get_smoke_config(arch)
+    cpu = init_params(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    return cfg, cpu, _to_device(cpu, "cuda")
+
+
+def _rel(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "pixtral-12b"])
+def test_ssm_and_vlm_smoke_card_match_cpu(cuda, arch):
+    """f32 SMOKE on the card against the CPU: the forward's and a prefill +
+    4 decode steps' logits 1e-4 relative, greedy tokens equal, `lm_loss`'s
+    gradients 1e-4 relative per leaf (pixtral with patch embeddings)."""
+    import numpy as np
+    from repro_torch.data import lm_batches, patch_embeddings
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.train.steps import _value_and_grad, lm_loss
+    cfg, cpu, card = _smoke_pair(arch)
+    t, y = (torch.from_numpy(a) for a in next(lm_batches(0, 4, 100,
+                                                         cfg.vocab_size)))
+    kw = {}
+    if cfg.family == "vlm":
+        kw["vision_embeds"] = torch.from_numpy(patch_embeddings(
+            5, 4, cfg.num_vision_tokens, cfg.vision_dim))
+    S = t.shape[1] + (cfg.num_vision_tokens if kw else 0)
+    out = {}
+    for dev, p in (("cuda", card), ("cpu", cpu)):
+        k = {n: v.to(dev) for n, v in kw.items()}
+        with torch.no_grad():
+            f = forward(p, t.to(dev), cfg, **k)
+            lg, cache = prefill(p, t.to(dev), cfg, 128, **k)
+            rows, tok = [lg[:, -1]], lg[:, -1].argmax(-1)
+            for i in range(4):
+                lg, cache = decode_step(p, tok, torch.full((4,), S + i,
+                                                           device=dev),
+                                        cache, cfg)
+                rows.append(lg)
+                tok = lg.argmax(-1)
+        grads, _ = _value_and_grad(
+            lambda q, _: lm_loss(q, t.to(dev), y.to(dev), cfg, **k), p, None)
+        out[dev] = (f, torch.stack(rows), grads)
+    assert _rel(out["cuda"][0], out["cpu"][0]) <= 1e-4
+    assert _rel(out["cuda"][1], out["cpu"][1]) <= 1e-4
+    assert torch.equal(out["cuda"][1].argmax(-1).cpu(),
+                       out["cpu"][1].argmax(-1))
+    from repro_torch.tree import tree_leaves
+    for a, b in zip(tree_leaves(out["cuda"][2]), tree_leaves(out["cpu"][2])):
+        assert _rel(a, b) <= 1e-4
+    assert np.isfinite(float(out["cuda"][1].abs().max()))
+
+
+def test_encdec_smoke_card_matches_cpu(cuda):
+    """whisper-small SMOKE (f32): the forward's logits 1e-4 relative, 8
+    greedy decode steps from one cross_kv equal in tokens and 1e-4 in
+    logits; on the card, decoding against the cached cross K/V equals
+    decoding with them recomputed, bit for bit."""
+    from repro_torch.data import frame_embeddings
+    from repro_torch.models import encdec
+    cfg, cpu, card = _smoke_pair("whisper-small")
+    B = 2
+    frames = torch.from_numpy(frame_embeddings(5, B, cfg.encoder_seq,
+                                               cfg.d_model))
+    toks = torch.arange(1, 13).repeat(B, 1)
+    out = {}
+    for dev, p in (("cuda", card), ("cpu", cpu)):
+        with torch.no_grad():
+            f = encdec.forward(p, frames.to(dev), toks.to(dev), cfg)
+            enc = encdec.encode(p, frames.to(dev), cfg)
+            cache = encdec.init_dec_cache(cfg, B, 16, cfg.encoder_seq,
+                                          device=dev)
+            cache["xk"], cache["xv"] = encdec.cross_kv(p, enc, cfg)
+            fresh = dict(cache, k=cache["k"].clone(), v=cache["v"].clone(),
+                         pos=cache["pos"].clone())
+            tok, rows = toks[:, 0].to(dev), []
+            for i in range(8):
+                pos = torch.full((B,), i, device=dev)
+                lg, cache = encdec.decode_step(p, tok, pos, cache, cfg)
+                fresh["xk"], fresh["xv"] = encdec.cross_kv(p, enc, cfg)
+                again, fresh = encdec.decode_step(p, tok, pos, fresh, cfg)
+                assert torch.equal(lg, again)
+                rows.append(lg)
+                tok = lg.argmax(-1)
+        out[dev] = (f, torch.stack(rows))
+    assert _rel(out["cuda"][0], out["cpu"][0]) <= 1e-4
+    assert _rel(out["cuda"][1], out["cpu"][1]) <= 1e-4
+    assert torch.equal(out["cuda"][1].argmax(-1).cpu(),
+                       out["cpu"][1].argmax(-1))

@@ -13,7 +13,8 @@ the operand rounding of each path:
   Q K^T and P V, P included.
 - bf16 inputs: Q K^T of bf16 values summed in f32; P rounded to bf16
   before P V (what `mma.sync` m16n8k16 takes, and what JAX's
-  `blocked_attention` does); the row sum l keeps the f32 P.
+  `blocked_attention` does); the row sum l keeps the f32 P.  Also at head
+  dim 160, which only the bf16 serving instantiation takes.
 
 Tolerances:
 - 3xTF32 against the f32 references (the port's `attention_ref`, JAX's
@@ -164,7 +165,11 @@ def test_plain_tf32_would_miss_the_f32_tolerance():
     assert float((out - ref).abs().max()) > 1e-4
 
 
-@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal,window", CASES)
+# the bf16 serving path alone goes to head dim 160 (pixtral-12b: GQA 4)
+BF16_CASES = CASES + [(1, 130, 130, 8, 2, 160, True, 0)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal,window", BF16_CASES)
 def test_bf16_p_stays_within_the_bf16_tolerance(B, Sq, Sk, H, KH, D, causal,
                                                 window):
     q, k, v = _qkv(B, Sq, Sk, H, KH, D, seed=D + Sq + 1)

@@ -250,10 +250,13 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
 
 
 def test_unported_families_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("falcon-mamba-7b")
-    ssm_only = dataclasses.replace(get_smoke_config(ARCH), family="ssm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(torch.Generator().manual_seed(0), ssm_only, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward({}, torch.zeros((1, 2), dtype=torch.long), ssm_only)
+    """The moe configs are not registered, and a moe-family config raises
+    in the model code; both name ROADMAP §A.7."""
+    for arch in ("deepseek-v2-236b", "arctic-480b"):
+        with pytest.raises(KeyError, match="ROADMAP.md §A.7"):
+            get_config(arch)
+    moe = dataclasses.replace(get_smoke_config(ARCH), family="moe")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.7"):
+        init_params(torch.Generator().manual_seed(0), moe, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.7"):
+        forward({}, torch.zeros((1, 2), dtype=torch.long), moe)

@@ -231,12 +231,13 @@ def test_launchers_default_to_tinyllama(capsys):
 
 
 def test_the_families_still_missing_raise():
-    for family in ("ssm", "moe", "vlm"):
-        cfg = dataclasses.replace(get_smoke_config("tinyllama-1.1b"),
-                                  family=family)
-        with pytest.raises(NotImplementedError, match="A.7"):
-            models.init_params(torch.Generator().manual_seed(0), cfg,
-                               device="cpu")
+    """moe is the one LM family still missing (ssm and vlm are ported:
+    tests/test_torch_mamba1.py, tests/test_torch_vlm.py)."""
+    cfg = dataclasses.replace(get_smoke_config("tinyllama-1.1b"),
+                              family="moe")
+    with pytest.raises(NotImplementedError, match="A.7"):
+        models.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-2.7b"])

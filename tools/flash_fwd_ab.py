@@ -14,11 +14,14 @@ then prints, against the first tree:
   instantiation (`flash_fwd`; `ssd_cb_kernel` and `ssd_scan_kernel`;
   `flash_bwd_*`; `ssd_bwd_*`), and those where they differ (the backward
   kernels' shared memory is dynamic: their source notes give its bytes);
-- for flash, the SASS of the main paths' instantiations (f32 D 72 and bf16
-  D 80, 16-byte staging) with constant-bank offsets masked: the count of
-  differing instructions;
+- for flash, the SASS of every instantiation the first tree has, with
+  constant-bank offsets masked: those whose instructions differ, with
+  the count, and the instantiations only a later tree has;
 - at the kernel's shapes (flash: DiT-XL f32 and bf16, B 8, S 256, H 16,
-  D 72; zamba2 prefill bf16, B 4, S 512, H 32, D 80, causal.  ssd:
+  D 72; zamba2 prefill bf16, B 4, S 512, H 32, D 80, causal; the dense
+  prefills of tinyllama (32 / 4 heads of 64) and qwen2-7b (28 / 4 of 128),
+  causal; whisper-small's encoder (B 4, S 1500, 12 heads of 64) and its
+  cross-attention (448 queries over 1500 keys), bf16.  ssd:
   chip_smoke's ssd phase, zamba2 prefill b 4, s 512, h 80, p = n = 64 in
   f32 and on bf16 views of the conv output, b 1 on bf16 views, a ragged
   s = 500 in f32.  flash-bwd and ssd-bwd: chip_smoke's flash-bwd and
@@ -52,13 +55,14 @@ OUT = ROOT / "build" / "flash_fwd_ab"
 P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
-def flash_case(torch, gen, B, S, H, D, causal, dt):
+def flash_case(torch, gen, B, Sq, Sk, H, KH, D, causal, dt):
     dtype = getattr(torch, dt)
-    q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
-               .to(dtype) for _ in range(3))
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, Sk, KH, D), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
     o = torch.empty_like(q)
     return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             int(dt == "bfloat16"), B, S, S, H, H, D, causal, 0,
+             int(dt == "bfloat16"), B, Sq, Sk, H, KH, D, causal, 0,
              1.0 / math.sqrt(D)), (o,), (q, k, v))
 
 
@@ -179,18 +183,22 @@ KERNELS = {
         "cu": "flash_attention/csrc/flash_attention.cu",
         "entry": "flash_attention_fwd", "argtypes": [P] * 4 + [I] * 9 + [F],
         "instantiation": r"flash_fwdI\w+?Lb\dE",
-        "sass": ("flash_fwdIfLi72ELb1E", "flash_fwdI13__nv_bfloat16Li80ELb1E"),
+        "sass": True,
         "case": flash_case, "seed": 0,
-        "shapes": [  # name, B, S, H, D, causal, dtype
-            ("dit-xl f32", 8, 256, 16, 72, 0, "float32"),
-            ("dit-xl bf16", 8, 256, 16, 72, 0, "bfloat16"),
-            ("zamba2 prefill bf16", 4, 512, 32, 80, 1, "bfloat16"),
+        "shapes": [  # name, B, Sq, Sk, H, KH, D, causal, dtype
+            ("dit-xl f32", 8, 256, 256, 16, 16, 72, 0, "float32"),
+            ("dit-xl bf16", 8, 256, 256, 16, 16, 72, 0, "bfloat16"),
+            ("zamba2 prefill bf16", 4, 512, 512, 32, 32, 80, 1, "bfloat16"),
+            ("tinyllama prefill", 4, 512, 512, 32, 4, 64, 1, "bfloat16"),
+            ("qwen2-7b prefill", 4, 512, 512, 28, 4, 128, 1, "bfloat16"),
+            ("whisper encoder", 4, 1500, 1500, 12, 12, 64, 0, "bfloat16"),
+            ("whisper cross", 4, 448, 1500, 12, 12, 64, 0, "bfloat16"),
         ]},
     "ssd": {
         "cu": "ssd/csrc/ssd.cu",
         "entry": "ssd_fwd", "argtypes": [P] * 8 + [I] * 6 + [L] * 7,
         "instantiation": r"ssd_(?:cb|scan)_kernel\w+?Lb\dE",
-        "sass": (), "case": ssd_case, "seed": 2,
+        "case": ssd_case, "seed": 2,
         "shapes": [  # name, b, s, h, p, n, bf16 views of one conv output
             ("zamba2 prefill f32", 4, 512, 80, 64, 64, False),
             ("zamba2 prefill bf16 xBC views", 4, 512, 80, 64, 64, True),
@@ -202,14 +210,14 @@ KERNELS = {
         "entry": "flash_attention_bwd",
         "argtypes": lambda cu: [P] * 10 + [I] * 9 + [F],
         "instantiation": r"flash_bwd_\w+?E(?:E|Lb\dE)",
-        "sass": (), "case": flash_bwd_case, "seed": 0, "backward": True,
+        "case": flash_bwd_case, "seed": 0, "backward": True,
         "shapes": "BWD_CASES"},
     "ssd-bwd": {
         "cu": "ssd/csrc/ssd_bwd.cu",
         "entry": "ssd_bwd", "argtypes": lambda cu: ssd_bwd_argtypes(
             ssd_bwd_variant(cu)), "variant": ssd_bwd_variant,
         "instantiation": r"(?<=\d)ssd_bwd_[a-z]+_kernel\w*?E",
-        "sass": (), "case": ssd_bwd_case, "seed": 3, "backward": True,
+        "case": ssd_bwd_case, "seed": 3, "backward": True,
         "shapes": "SSD_BWD_CASES"},
 }
 
@@ -245,7 +253,9 @@ def build(kernel, srcs, nvcc, flags):
     return out
 
 
-def sass(lib: Path, tag: str):
+def sass_blocks(lib: Path):
+    """{function name: its SASS instructions, constant-bank offsets
+    masked}, or None without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
@@ -261,8 +271,37 @@ def sass(lib: Path, tag: str):
             if ins:
                 blocks[name].append(re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]",
                                            "c[param]", ins))
-    hits = [v for k, v in blocks.items() if tag in k]
-    return hits[0] if hits else None
+    return blocks
+
+
+def n_differ(a, b) -> int:
+    return sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+
+
+def compare_all_sass(kernel, ref_lib, lib, label):
+    """Every instantiation of the first tree against the same one of
+    `lib` (names without the anonymous namespace, which differs by
+    tree)."""
+    a, b = sass_blocks(ref_lib), sass_blocks(lib)
+    if a is None or b is None:
+        print(f"{label}: SASS not compared (no cuobjdump)", flush=True)
+        return
+
+    def by_inst(blocks):
+        out = {}
+        for name, ins in blocks.items():
+            m = re.search(kernel["instantiation"], name)
+            if m:
+                out[m.group(0)] = ins
+        return out
+
+    a, b = by_inst(a), by_inst(b)
+    differ = {k: n_differ(v, b[k]) for k, v in a.items() if k in b
+              and n_differ(v, b[k])}
+    print(f"{label}: SASS of the {len(a)} instantiations of src0: "
+          f"{sum(k in b for k in a)} also here, differing (offsets masked) "
+          f"{differ}; missing here {[k for k in a if k not in b]}; only "
+          f"here {[k for k in b if k not in a]}", flush=True)
 
 
 def main() -> int:
@@ -291,13 +330,8 @@ def main() -> int:
                 if ref_regs.get(k) != v}
         print(f"{label} ({args.src[labels.index(label)]}): registers/spill/"
               f"static smem {regs}; differing from src0: {diff}", flush=True)
-        for tag in kernel["sass"]:
-            a, b = sass(ref_lib, tag), sass(lib, tag)
-            same = None if a is None or b is None else (
-                sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b)))
-            print(f"{label} {tag}: registers/spill {regs.get(tag)}; SASS "
-                  f"instructions {None if b is None else len(b)}, differing "
-                  f"from src0 (offsets masked) {same}", flush=True)
+        if kernel.get("sass"):
+            compare_all_sass(kernel, ref_lib, lib, label)
     fns, variants = {}, {}
     for label in labels:
         lib, cu, _ = built[label]
