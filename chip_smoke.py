@@ -25,7 +25,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
               whisper-small encoder (4 x 1500 frames, 12 heads of 64) and
               cross-attention (448 queries over 1500 keys), and the
               pixtral-12b prefill (2 x 1088 positions, 32 / 8 heads of
-              160, causal: the bf16 serving instantiation at D 160); kernel,
+              160, causal: the bf16 serving instantiation at D 160), the
+              arctic-480b prefill (4 x 512, 56 / 8 heads of 128) and
+              deepseek-v2's MLA prefill (4 x 512 and a ragged 4 x 500, 128
+              heads of q/k 192 over v 128: the split instantiation, its
+              registers and spills from the build log); kernel,
               plain and scaled_dot_product_attention (yardstick only)
               times, and the CUDA kernels SDPA runs at each shape with
               their device time; at the zamba2 shape also SDPA with
@@ -282,6 +286,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
               decode ms, peak
   40. check-vlm pixtral-12b SMOKE (f32) with patch embeddings on the card
               and the CPU, as check-ssm without the engine
+  41. serve-moe arctic-480b (2 of its 35 layers) and then
+              deepseek-v2-236b (8 of 60) at full width (published widths,
+              experts, top-k, capacity factor and MLA ranks; bf16 params,
+              f32 routers, random weights from seed 0; the depth cut
+              because neither fits one card, logged with the sizes),
+              behind ServingEngine: 4 slots, 4 greedy requests of 64-500
+              prompt tokens (max_prompt 512), 16 new tokens; every logit
+              finite, one flash launch a layer a prefill (deepseek's all
+              of the split 192-over-128 kernel by the profiler's names);
+              tok/s, prefill and decode ms, peak under the card's, the
+              MoE's share of a prefill's and a decode step's device time
+              (CUDA events at its edges), the (token, choice) pairs
+              dropped past capacity, the idle share
+  42. check-moe arctic-480b and deepseek-v2-236b SMOKE (f32) on the card
+              and the CPU: forward, prefill and decode logits and
+              ServingEngine's tokens (as check-ssm), the forward's MoE
+              losses, each layer's routing at capacity factors 8 and 0.5
+              identical (once every top-k margin is >= 1e-4 relative),
+              lm_loss and its MoE terms within 1e-5, its gradients within
+              1e-4, and one AdamW step (the step from the same gradients
+              and its moments within 1e-4)
 
 Each served phase sets every launch count to 0 just before it and reads the
 counts just after; every phase builds the models it serves and drops them
@@ -322,6 +347,7 @@ PEAK_FLOPS = {"float32": 67e12,  # f32 outside the tensor cores
               "bf16_x_f32_2xtf32": 495e12 / 2}
 SSD_KERNELS = ("ssd_cb_kernel", "ssd_scan_kernel")   # one ssd_scan call
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # flash: max |kernel - plain|
+MLA_DV = 128       # deepseek-v2's v head dim under q/k's 192 (the mla cases)
 # flash at the video and audio DiTs' shapes: a few times the largest error
 # of sound runs (5.96e-6 spatial, 3.34e-6 temporal), below what a one-pass
 # TF32 kernel gives there (tf32_control, logged and checked per case)
@@ -444,6 +470,13 @@ def phase_flash(torch, F):
         ("whisper cross", 4, 448, 1500, 12, 12, 64, False, 0, "bfloat16", 0),
         ("pixtral prefill", 2, 1088, 1088, 32, 8, 160, True, 0, "bfloat16",
          0),
+        # the moe family's prefill (serve-moe: 4 slots x 512 tokens): arctic
+        # GQA 56 / 8 heads of 128; deepseek-v2's MLA, 128 heads of q/k 192
+        # over v 128 (MLA_DV), the split instantiation, and a ragged S 500
+        ("arctic prefill", 4, 512, 512, 56, 8, 128, True, 0, "bfloat16", 0),
+        ("mla prefill", 4, 512, 512, 128, 128, 192, True, 0, "bfloat16", 0),
+        ("mla ragged 500", 4, 500, 500, 128, 128, 192, True, 0, "bfloat16",
+         0),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -455,13 +488,14 @@ def phase_flash(torch, F):
     report = None
     for name, B, Sq, Sk, H, KH, D, causal, window, dt, offset in cases:
         dtype = getattr(torch, dt)
+        Dv = MLA_DV if name.startswith("mla") else D
         q = randn((B, Sq, H, D), dtype, offset)
         k = randn((B, Sk, KH, D), dtype, offset)
-        v = randn((B, Sk, KH, D), dtype, offset)
+        v = randn((B, Sk, KH, Dv), dtype, offset)
         out = flash_attention(q, k, v, causal=causal, window=window)
         ref = attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        if out.dtype != dtype or out.shape != q.shape:
+        if out.dtype != dtype or out.shape != q.shape[:3] + (Dv,):
             fail(f"flash {name}: got {out.dtype} {tuple(out.shape)}")
         err = float((out.float() - ref.float()).abs().max())
         tol = CASE_TOL.get(name, TOL[dt])
@@ -492,10 +526,11 @@ def phase_flash(torch, F):
         lib_ms = cuda_ms(torch, sdpa)
         # the work these inputs need: the unmasked (query, key) pairs only
         pairs = Sq * Sk if mask is None else int(mask.sum())
-        nbytes = 2 * (B * Sq * H * D + B * Sk * KH * D) * q.element_size()
+        nbytes = (B * Sq * H + B * Sk * KH) * (D + Dv) * q.element_size()
         peak = PEAK_FLOPS["float32_3xtf32" if dt == "float32" else dt]
-        b_ms, by = bound(nbytes, 4.0 * B * H * pairs * D, peak)
+        b_ms, by = bound(nbytes, 2.0 * B * H * pairs * (D + Dv), peak)
         log(f"flash {name}: B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} D={D} "
+            + (f"Dv={Dv} " if Dv != D else "") +
             f"causal={causal} window={window} {dt}: max_abs_err={err:.3e} "
             f"(tol {tol}) ms={ms:.4f} device_ms={dev_ms} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
@@ -527,6 +562,12 @@ def phase_flash(torch, F):
                             "bound_by": by, "plain_ms": plain_ms,
                             "library_ms": lib_ms,
                             "library_device_ms": sdpa_dev_ms}
+        elif name.startswith(("arctic", "mla")):
+            report.setdefault("moe", {})[name] = {
+                "ms": ms, "device_ms": dev_ms, "max_abs_err": err,
+                "tolerance": f"{tol} abs", "bound_ms": b_ms, "bound_by": by,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_device_ms": sdpa_dev_ms, "library_kernels": kernels}
         elif name.endswith(" prefill") and name != "zamba2 prefill":
             report.setdefault("dense", {})[name] = {
                 "ms": ms, "device_ms": dev_ms, "max_abs_err": err,
@@ -544,6 +585,12 @@ def phase_flash(torch, F):
                                 "library_ms": lib_ms,
                                 "library_is_causal_ms": c_ms,
                                 "library_is_causal_device_ms": c_dev_ms}
+    usage = ptxas_usage(SPLIT_KERNEL)
+    log(f"flash: the split instantiation (bf16, q/k 192 over v 128): "
+        f"registers, spill store and load bytes {usage}")
+    if usage is None:
+        fail("flash: ptxas reported no split (192 over 128) instantiation")
+    report["moe"]["split_registers_spills"] = usage
     return report
 
 
@@ -4280,6 +4327,368 @@ def phase_check_encdec(torch):
                        "encdec.forward", loss_fn, cpu)
 
 
+# ----------------------------------------------------------------------
+# slice 14: the moe family (arctic-480b with GQA, deepseek-v2-236b with MLA)
+# ----------------------------------------------------------------------
+
+# (arch, layers served): neither model fits one 80 GB card whole, so the
+# depth is cut (widths, experts, top-k, capacity factor and MLA ranks stay
+# as published); arctic's 2 layers are 54.6 GB of bf16, deepseek's 8 are 64.8
+MOE_SERVE = (("arctic-480b", 2), ("deepseek-v2-236b", 8))
+MOE_NEW = 16                 # new tokens a request
+MOE_INIT_EXTRA_GB = 1.0      # init's peak above the params it holds
+MOE_LOSS_TOL = 1e-5          # check-moe: lm_loss and its MoE terms, relative
+MOE_MARGIN = 1e-4            # least relative gap of the k-th and (k+1)-th prob
+SPLIT_KERNEL = "flash_fwdI13__nv_bfloat16Li192ELb1ELb0ELi128E"
+
+
+def ptxas_usage(fragment: str):
+    """(registers, spill store bytes, spill load bytes) ptxas reported for
+    the kernel whose mangled name holds `fragment` (None if absent)."""
+    import re
+    from repro_torch.kernels import _build
+    m = re.search(rf"Function properties for \S*{fragment}\S*\n\s*\d+ bytes "
+                  rf"stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                  rf"loads\n.*?Used (\d+) registers", _build.build_log())
+    return None if m is None else (int(m.group(3)), int(m.group(1)),
+                                   int(m.group(2)))
+
+
+def moe_spans(torch, fn):
+    """fn() with every `transformer.moe_forward` call bounded by CUDA events:
+    (device ms inside the MoE layers, device ms of all of fn(), the calls,
+    the (token, choice) pairs dropped past capacity, fn()'s result).  fn()
+    must not wait on the host inside (a prefill or a decode step does not),
+    so the events bound exactly the MoE's kernels in stream order."""
+    from repro_torch.models import transformer
+    spans, drops, orig = [], [], transformer.moe_forward
+
+    def timed_moe(*a, **k):
+        a0, b0 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a0.record()
+        out = orig(*a, **k)
+        b0.record()
+        spans.append((a0, b0))
+        drops.append(out[1]["dropped"])
+        return out
+
+    transformer.moe_forward = timed_moe
+    try:
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+    finally:
+        transformer.moe_forward = orig
+    return (sum(a0.elapsed_time(b0) for a0, b0 in spans),
+            start.elapsed_time(end), len(spans),
+            int(torch.stack(drops).sum()), out)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _serve_moe(torch, kernels, path, arch, depth):
+    """Full-width `arch` cut to `depth` layers behind ServingEngine: 4
+    slots, 4 greedy requests of 64-500 prompt tokens (max_prompt 512),
+    MOE_NEW tokens each; then a prefill and decode steps on their own,
+    the MoE's share of their device time, the drops, the flash kernels
+    by name and the idle share."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, params_shape, \
+        prefill
+    from repro_torch.models.moe import capacity
+    from repro_torch.serving import ServingEngine
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=depth)
+    slots, max_prompt, cache_len = 4, 512, 1024
+    full_gb = _tree_bytes(params_shape(full)) / 1e9
+    layer_gb = (_tree_bytes(params_shape(dataclasses.replace(
+        full, num_layers=2))) - _tree_bytes(params_shape(
+            dataclasses.replace(full, num_layers=1)))) / 1e9
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    held_gb = _tree_bytes(params) / 1e9
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    attn = (f"MLA (rank {cfg.kv_lora_rank}, q/k head dim "
+            f"{cfg.qk_nope_head_dim}+{cfg.qk_rope_head_dim} over v "
+            f"{cfg.v_head_dim})" if cfg.use_mla else
+            f"GQA {cfg.num_heads} over {cfg.num_kv_heads} heads of "
+            f"{cfg.head_dim}")
+    log(f"serve-moe: {arch} {depth} of {full.num_layers} layers, d_model="
+        f"{cfg.d_model}, {attn}, {cfg.num_experts} experts of d_ff "
+        f"{cfg.d_ff} top-{cfg.experts_per_token}, capacity factor "
+        f"{cfg.capacity_factor}, shared {cfg.num_shared_experts}, dense "
+        f"residual {cfg.dense_ff}, vocab {cfg.vocab_size}; params="
+        f"{n_params} ({held_gb:.2f} GB, bf16 with f32 routers), init "
+        f"{init_s:.2f}s, init peak {init_peak:.2f} GB. Depth cut: the full "
+        f"model is {full_gb:.1f} GB of params ({layer_gb:.2f} GB a layer), "
+        f"the card {card_gb:.1f} GB; {depth} layers and the embeddings fit "
+        f"beside the activations")
+    if init_peak > held_gb + MOE_INIT_EXTRA_GB:
+        fail(f"serve-moe: {arch}: init peaked at {init_peak:.2f} GB, over "
+             f"{MOE_INIT_EXTRA_GB} GB above its {held_gb:.2f} GB of params")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 501, size=slots)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in lens]
+    eng = ServingEngine(params, cfg, slots=slots, max_prompt=max_prompt,
+                        cache_len=cache_len, device="cuda")
+    eng.generate(prompts, max_new_tokens=2)                 # warm-up
+    flags = _watch_logits(eng)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, launches = _count_launches(
+        kernels, path, "serve-moe",
+        lambda: eng.generate(prompts, max_new_tokens=MOE_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(res) != len(prompts) or any(
+            len(r.tokens) != MOE_NEW or not all(0 <= t < cfg.vocab_size
+                                                for t in r.tokens)
+            for r in res):
+        fail(f"serve-moe: {arch}: "
+             f"{[(r.request_id, r.tokens[:4]) for r in res]}")
+    if not bool(torch.stack(flags).all()):
+        fail(f"serve-moe: {arch}: a logit was not finite")
+    if launches["flash_attention"] != depth:
+        fail(f"serve-moe: {arch}: flash launched "
+             f"{launches['flash_attention']} times, want {depth}")
+    if peak >= card_gb:
+        fail(f"serve-moe: {arch}: peak {peak:.2f} GB >= the card's")
+    ntok = sum(len(r.tokens) for r in res)
+    log(f"serve-moe: {arch}: {len(res)} requests (prompts {lens.tolist()}) "
+        f"x {MOE_NEW} tokens in {wall:.3f}s wall, {ntok / wall:.1f} tok/s, "
+        f"{len(flags)} logit rows finite, peak_mem_gb={peak:.2f}, launches "
+        f"{launches}")
+
+    toks = torch.from_numpy(np.stack([np.resize(p, max_prompt)
+                                      for p in prompts])).cuda()
+    with torch.no_grad():
+        (logits, cache), prefill_ms = _sync_ms(
+            torch, lambda: prefill(params, toks, cfg, cache_len))
+        if not bool(logits.isfinite().all()):
+            fail(f"serve-moe: {arch}: a prefill logit was not finite")
+        tok = logits[:, -1].argmax(-1)
+        del logits
+        pos = torch.full((slots,), max_prompt, device="cuda")
+
+        def steps(n):
+            nonlocal tok, pos
+            for _ in range(n):
+                lg, _ = decode_step(params, tok, pos, cache, cfg)
+                tok, pos = lg.argmax(-1), pos + 1
+
+        _, decode_ms = _sync_ms(torch, lambda: steps(8))
+        log(f"serve-moe: {arch}: prefill {slots}x{max_prompt} tokens "
+            f"{prefill_ms:.2f} ms; decode {decode_ms / 8:.2f} ms a step "
+            f"({slots} slots, cache_len {cache_len})")
+        moe_ms, pre_ms, calls, dropped, (lg, _) = moe_spans(
+            torch, lambda: prefill(params, toks, cfg, cache_len))
+        del lg
+        log(f"serve-moe: {arch}: prefill: the MoE layers (CUDA events at "
+            f"their edges, {calls} calls) {moe_ms:.2f} ms of "
+            f"{pre_ms:.2f} device ms (share {moe_ms / pre_ms:.4f}); "
+            f"{dropped} of "
+            f"{slots * max_prompt * cfg.experts_per_token * depth} "
+            f"(token, choice) pairs dropped past capacity (capacity "
+            f"{capacity(cfg, slots * max_prompt)} a layer)")
+        d_moe, d_ms, d_calls, d_drop, _ = moe_spans(torch, lambda: steps(1))
+        log(f"serve-moe: {arch}: a decode step: the MoE {d_moe:.2f} ms of "
+            f"{d_ms:.2f} device ms (share {d_moe / d_ms:.4f}, {d_calls} "
+            f"calls); {d_drop} of {slots * cfg.experts_per_token * depth} "
+            f"pairs dropped (capacity {capacity(cfg, slots)})")
+        evts, _ = profile(torch, lambda: prefill(params, toks, cfg,
+                                                 cache_len))
+        by_name = {e.key[:90]: e.count for e in evts if "flash_fwd" in e.key
+                   and str(e.device_type).endswith("CUDA")}
+        log(f"serve-moe: {arch}: profiled prefill: flash kernels by name "
+            f"{by_name}")
+        split = sum(n for k, n in by_name.items() if "192" in k)
+        want = depth if cfg.use_mla else 0
+        if sum(by_name.values()) != depth or split != want:
+            fail(f"serve-moe: {arch}: flash kernels {by_name}, want {depth} "
+                 f"launches, {want} of the split (192 over 128) kernel")
+        log_profile(torch, f"serve-moe {arch} prefill",
+                    lambda: prefill(params, toks, cfg, cache_len))
+        log_profile(torch, f"serve-moe {arch} decode x4", lambda: steps(4))
+    del params, eng, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_moe(torch, kernels, path):
+    """arctic-480b (2 of 35 layers), then deepseek-v2-236b (8 of 60), at
+    full width with random bf16 weights from seed 0, one at a time, each
+    dropped before the next."""
+    total = dict.fromkeys((k.__name__ for k in kernels), 0)
+    for arch, depth in MOE_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = _serve_moe(torch, kernels, path, arch, depth)
+        total = {k: total[k] + v for k, v in launches.items()}
+    return total
+
+
+def _moe_routing_card_vs_cpu(torch, arch, cfg, cpu):
+    """Each layer's MoE on one (4, 100, d) input at the config's capacity
+    factor and at 0.5 (drops): routing identical on the card and the CPU
+    (top-k experts, queue positions, keep) once every token's k-th and
+    (k+1)-th CPU probabilities are MOE_MARGIN relative apart; outputs and
+    losses within SLICE13_TOL relative; the same drops."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.engine import layer_list
+    from repro_torch.models import moe
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (4, 100, cfg.d_model)).astype(np.float32))
+    worst, least_gap, drops = 0.0, 1.0, []
+    for cf in (cfg.capacity_factor, 0.5):
+        c = dataclasses.replace(cfg, capacity_factor=cf)
+        for p in layer_list(cpu["blocks"]):
+            pm = p["moe"]
+            got = {}
+            for dev, q in (("cuda", _to(pm, "cuda")), ("cpu", pm)):
+                with torch.no_grad():
+                    xd = x.to(dev)
+                    logits = xd.reshape(-1, c.d_model) @ q["router"]
+                    r = moe.route(logits, c.experts_per_token,
+                                  moe.capacity(c, 400))
+                    y, aux = moe.moe_forward(q, xd, c)
+                got[dev] = ([t.cpu() for t in r], y.cpu(),
+                            {k: v.cpu() for k, v in aux.items()})
+            probs = got["cpu"][0][0]
+            top = probs.sort(-1, descending=True).values
+            k = c.experts_per_token
+            gap = float(((top[:, k - 1] - top[:, k]) / top[:, k - 1]).min())
+            least_gap = min(least_gap, gap)
+            if gap < MOE_MARGIN:
+                fail(f"check-moe: {arch}: a token's top-{k} margin {gap:.2e} "
+                     f"< {MOE_MARGIN}: the routing comparison would hang on "
+                     f"the sum order")
+            same = all(torch.equal(a, b) for a, b in zip(got["cuda"][0][2:],
+                                                         got["cpu"][0][2:]))
+            if not same:
+                fail(f"check-moe: {arch}: routing differs at capacity factor "
+                     f"{cf}")
+            worst = max(worst, _rel(got["cuda"][1], got["cpu"][1]),
+                        *(_rel(got["cuda"][2][n], got["cpu"][2][n])
+                          for n in ("load_balance_loss", "router_z_loss")))
+            if int(got["cuda"][2]["dropped"]) != int(got["cpu"][2]["dropped"]):
+                fail(f"check-moe: {arch}: drops differ")
+            drops.append(int(got["cpu"][2]["dropped"]))
+    log(f"check-moe: {arch}: routing identical on the card and the CPU at "
+        f"capacity factors {cfg.capacity_factor} and 0.5 (least top-k margin "
+        f"{least_gap:.2e} >= {MOE_MARGIN}; drops per layer {drops}); MoE "
+        f"outputs and losses {worst:.3e} relative (tol {SLICE13_TOL})")
+    if not worst <= SLICE13_TOL or not any(drops):
+        fail(f"check-moe: {arch}: MoE outputs differ by {worst} or no drops "
+             f"at capacity factor 0.5")
+
+
+def phase_check_moe(torch):
+    """arctic-480b and deepseek-v2-236b SMOKE (f32) on the card and the
+    CPU: forward, prefill and decode logits, ServingEngine's tokens, the
+    forward's MoE losses, the routing, lm_loss with its MoE terms and its
+    gradients, one AdamW step."""
+    from repro_torch.data import lm_batches
+    from repro_torch.models import forward
+    from repro_torch.train.steps import _value_and_grad, lm_loss
+    for arch, _ in MOE_SERVE:
+        cfg, cpu, _ = _lm_logits_card_vs_cpu(torch, "check-moe", arch,
+                                             engine=True)
+        card = _to(cpu, "cuda")
+        t, y = (torch.from_numpy(a) for a in next(lm_batches(0, 4, 100,
+                                                             cfg.vocab_size)))
+        aux = {}
+        for dev, p in (("cuda", card), ("cpu", cpu)):
+            with torch.no_grad():
+                aux[dev] = forward(p, t.to(dev), cfg, with_aux=True)[1]
+        aux_rel = max(_rel(aux["cuda"][n], aux["cpu"][n])
+                      for n in ("load_balance_loss", "router_z_loss"))
+        log(f"check-moe: {arch}: the forward's summed MoE losses "
+            f"{aux_rel:.3e} relative (tol {SLICE13_TOL}), drops "
+            f"{int(aux['cuda']['dropped'])} / {int(aux['cpu']['dropped'])}")
+        if not (aux_rel <= SLICE13_TOL
+                and int(aux["cuda"]["dropped"]) == int(aux["cpu"]["dropped"])):
+            fail(f"check-moe: {arch}: the forward's aux differs")
+        _moe_routing_card_vs_cpu(torch, arch, cfg, cpu)
+
+        def loss_fn(p, dev):
+            return lm_loss(p, t.to(dev), y.to(dev), cfg)
+
+        g_cpu, m_cpu = _value_and_grad(lambda p, _: loss_fn(p, "cpu"), cpu,
+                                       None)
+        g_gpu, m_gpu = _value_and_grad(lambda p, _: loss_fn(p, "cuda"), card,
+                                       None)
+        m_rel = max(abs(float(m_gpu[k]) - float(m_cpu[k]))
+                    / abs(float(m_cpu[k])) for k in m_cpu)
+        g_rel = _tree_rel(torch, g_gpu, g_cpu)
+        log(f"check-moe: {arch}: lm_loss {float(m_cpu['loss']):.6f}, "
+            f"lb_loss {float(m_cpu['lb_loss']):.6f}, z_loss "
+            f"{float(m_cpu['z_loss']):.6f}: card vs CPU {m_rel:.3e} relative "
+            f"(tol {MOE_LOSS_TOL}); gradients, worst leaf {g_rel:.3e} (tol "
+            f"{SLICE13_TOL})")
+        if not (m_rel <= MOE_LOSS_TOL and g_rel <= SLICE13_TOL):
+            fail(f"check-moe: {arch}: lm_loss or its gradients differ "
+                 f"({m_rel}, {g_rel})")
+        _adamw_step_card_vs_cpu(torch, arch)
+
+
+def _adamw_step_card_vs_cpu(torch, arch):
+    """One AdamW step of `arch` SMOKE (f32) from one state and batch (8 x
+    100) on the card and the CPU, held in its two conditioned parts: the
+    gradients within CHECK_TRAIN_TOL per leaf, and the step applied to the
+    CPU's gradients on both devices (params and moments within
+    CHECK_TRAIN_TOL).  The step from each device's own gradients follows:
+    its moments are gated too; its params are logged, not gated, because
+    AdamW's first update is lr * g / (|g| + eps), about lr * sign(g), and
+    a gradient element near 0 flips sign within the gradients' own
+    agreement (tools/adamw_first_step.py on the CPU: noise of 1e-6 of each
+    leaf's largest gradient moves deepseek-v2 SMOKE's params 3.7e-3
+    relative, arctic's 4.2e-4, tinyllama's 3.1e-4; the moments 6e-6)."""
+    from repro_torch.data import lm_batches
+    from repro_torch.train.steps import _optimize, _value_and_grad, lm_loss
+    from repro_torch.tree import tree_map
+    cfg, cpu, card = _lm_state_pair(torch, arch)
+    own = tree_map(lambda t: t.clone(), card)
+    t, y = (torch.from_numpy(a) for a in next(lm_batches(0, 8, 100,
+                                                         cfg.vocab_size)))
+    g_cpu, m = _value_and_grad(lambda p, _: lm_loss(p, t, y, cfg),
+                               cpu.params, None)
+    g_gpu, _ = _value_and_grad(lambda p, _: lm_loss(p, t.cuda(), y.cuda(),
+                                                    cfg), card.params, None)
+    kw = dict(peak_lr=3e-4, warmup=0, total_steps=1, max_grad_norm=1.0,
+              weight_decay=0.1)
+    g_rel = _tree_rel(torch, g_gpu, g_cpu)
+    cpu, _ = _optimize(cpu, g_cpu, m, **kw)
+    card, _ = _optimize(card, _to(g_cpu, "cuda"), m, **kw)
+    own, _ = _optimize(own, g_gpu, m, **kw)
+    same_g = _tree_rel(torch, card, cpu)
+    own_mom = max(_tree_rel(torch, own.opt.mu, cpu.opt.mu),
+                  _tree_rel(torch, own.opt.nu, cpu.opt.nu))
+    own_par = _tree_rel(torch, own.params, cpu.params)
+    log(f"check-moe: {arch} SMOKE one AdamW step at 8 x 100: gradients "
+        f"{g_rel:.3e}; the step from the CPU's gradients, params and "
+        f"moments {same_g:.3e}; from each device's own, moments "
+        f"{own_mom:.3e} (each tol {CHECK_TRAIN_TOL}), params {own_par:.3e} "
+        f"(not gated: the first update is about lr * sign(g))")
+    if not max(g_rel, same_g, own_mom) <= CHECK_TRAIN_TOL:
+        fail(f"check-moe: {arch}: the AdamW step differs ({g_rel}, {same_g}, "
+             f"{own_mom})")
+
+
 def timed(name, fn, *args):
     """fn(*args), logging the phase's wall seconds and its own peak device
     memory: what earlier phases left is collected first, the peak counter
@@ -4455,6 +4864,10 @@ def main() -> int:
     by_path["serve-vlm"] = timed("serve-vlm", phase_serve_vlm, torch, KERNELS,
                                  (flash_attention,))
     timed("check-vlm", phase_check_vlm, torch)
+    # slice 14: the moe family
+    by_path["serve-moe"] = timed("serve-moe", phase_serve_moe, torch, KERNELS,
+                                 (flash_attention,))
+    timed("check-moe", phase_check_moe, torch)
 
     rows = []
     for name, fn, src, replaces, rep in (

@@ -2,8 +2,9 @@
 package's params, converted leaf by leaf with `numpy.asarray`) -> nested
 dicts of torch tensors on a given device.
 
-Keys, the `(in, out)` matrix layout and the stacked per-layer leading axis
-stay as they are.  Weights are bridged rather than re-drawn, because torch
+Keys, the `(in, out)` matrix layout, the stacked per-layer leading axis
+and each leaf's dtype stay as they are (a MoE router stays f32 in a bf16
+tree, as JAX keeps it).  Weights are bridged rather than re-drawn, because torch
 cannot reproduce `jax.random`.  A bfloat16 leaf arrives as an
 `ml_dtypes.bfloat16` numpy array, which `torch.from_numpy` rejects, so its
 bits travel as 16-bit integers and are reinterpreted — the same

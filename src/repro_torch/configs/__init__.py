@@ -1,10 +1,11 @@
-"""Config registry of the port: the architectures ported so far (the DiTs,
-the dense LLMs, the hybrid zamba2, the Mamba1 falcon-mamba, the
-encoder-decoder whisper and the vlm pixtral; the moe configs
-deepseek-v2-236b and arctic-480b are ROADMAP.md §A.7)."""
-from . import (dit_audio, dit_t2i, dit_t2v, dit_video, dit_xl,
-               falcon_mamba_7b, minitron_8b, pixtral_12b, qwen2_7b,
-               qwen2p5_14b, tinyllama_1p1b, whisper_small, zamba2_2p7b)
+"""Config registry of the port: every architecture of the JAX package's
+zoo (the DiTs, the dense LLMs, the moe LLMs arctic-480b and
+deepseek-v2-236b, the hybrid zamba2, the Mamba1 falcon-mamba, the
+encoder-decoder whisper and the vlm pixtral)."""
+from . import (arctic_480b, deepseek_v2_236b, dit_audio, dit_t2i, dit_t2v,
+               dit_video, dit_xl, falcon_mamba_7b, minitron_8b, pixtral_12b,
+               qwen2_7b, qwen2p5_14b, tinyllama_1p1b, whisper_small,
+               zamba2_2p7b)
 from .base import ArchConfig
 
 _MODULES = {"dit-xl": dit_xl, "dit-video": dit_video, "dit-audio": dit_audio,
@@ -12,14 +13,14 @@ _MODULES = {"dit-xl": dit_xl, "dit-video": dit_video, "dit-audio": dit_audio,
             "tinyllama-1.1b": tinyllama_1p1b, "qwen2-7b": qwen2_7b,
             "qwen2.5-14b": qwen2p5_14b, "minitron-8b": minitron_8b,
             "zamba2-2.7b": zamba2_2p7b, "falcon-mamba-7b": falcon_mamba_7b,
-            "whisper-small": whisper_small, "pixtral-12b": pixtral_12b}
+            "whisper-small": whisper_small, "pixtral-12b": pixtral_12b,
+            "arctic-480b": arctic_480b, "deepseek-v2-236b": deepseek_v2_236b}
 ALL_ARCH_IDS = list(_MODULES)
 
 
 def _module(arch_id: str):
     if arch_id not in _MODULES:
-        raise KeyError(f"arch '{arch_id}' is not ported to repro_torch yet "
-                       f"(ported: {ALL_ARCH_IDS}); see ROADMAP.md §A.7")
+        raise KeyError(f"unknown arch '{arch_id}' (known: {ALL_ARCH_IDS})")
     return _MODULES[arch_id]
 
 

@@ -81,6 +81,10 @@ class ArchConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
     @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
     def is_ssm_only(self) -> bool:
         return self.mamba_version > 0 and self.hybrid_attn_every == 0
 

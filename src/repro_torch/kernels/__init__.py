@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
   flash_attention — online-softmax attention (every DiT self-attention and
-                    every LLM prefill attention), and its backward
+                    every LLM prefill attention, MLA's with v's head dim
+                    below q/k's), and its backward
                     (`flash_attention_backward`, every DiT self-attention
                     under training)
   forecast        — fused weighted sum over a finite-difference stack (every

@@ -109,12 +109,14 @@ def build_log() -> str:
 
 def _declare(lib) -> None:
     """Argument and result types of every C entry point: flash_attention_fwd,
-    flash_attention_fwd_lse, flash_attention_bwd, forecast_fwd,
+    flash_attention_fwd_split, flash_attention_fwd_lse, flash_attention_bwd,
+    forecast_fwd,
     forecast_basis_fwd, ssd_fwd and ssd_bwd."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     L = ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
                                         I, F, P]
+    lib.flash_attention_fwd_split.argtypes = [P] * 4 + [I] * 10 + [F, P]
     lib.flash_attention_fwd_lse.argtypes = [P] * 5 + [I] * 9 + [F, P]
     lib.flash_attention_bwd.argtypes = [P] * 10 + [I] * 9 + [F, P]
     lib.forecast_fwd.argtypes = [P, P, P, I, I, I, L, I, P]
@@ -123,7 +125,8 @@ def _declare(lib) -> None:
     lib.ssd_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                             L, L, L, L, L, L, L, P]
     lib.ssd_bwd.argtypes = [P] * 18 + [I] * 7 + [L] * 7 + [P]
-    for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_lse,
+    for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_split,
+               lib.flash_attention_fwd_lse,
                lib.flash_attention_bwd, lib.forecast_fwd,
                lib.forecast_basis_fwd, lib.ssd_fwd, lib.ssd_bwd):
         fn.restype = I

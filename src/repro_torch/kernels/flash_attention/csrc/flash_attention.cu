@@ -8,7 +8,9 @@
 // absolute positions with q at the tail of k (q_offset = Sk - Sq), GQA
 // (kv head = h / (H / KH)), ragged Sq and Sk, head dim 1 <= D <= 128, f32 and
 // bf16 inputs; and, for bf16 serving with 16-byte rows and pointers, head
-// dim 128 < D <= 160 (pixtral-12b's 160; see "Head dim 160" below).
+// dim 128 < D <= 160 (pixtral-12b's 160; see "Head dim 160" below) and a
+// q/k head dim 128 < D <= 192 over a v head dim Dv <= 128 (deepseek-v2's
+// MLA prefill, 192 over 128; see "Split head dim" below).
 //
 // Bound on an H100 SXM: 4 * B * H * (unmasked query-key pairs) * D
 // operations against the bytes of q, k, v and o moved once.  In bf16 the
@@ -59,6 +61,17 @@
 //   above 48 KB) and its O accumulator alone is 80 f32 a thread; the bound
 //   and the walk are the same as at D 128.  f32, the kLse instantiations
 //   and the backward stop at 128.
+// - Split head dim: template parameter DV (default DP) sizes the V tiles,
+//   the O accumulator and the epilogue, while Q K^T runs over DP / 16
+//   k-steps.  One instantiation uses it, bf16 with 16-byte staging at
+//   DP = kDSplit (192), DV = kDvSplit (128), reached only from its own
+//   entry point, flash_attention_fwd_split, which passes Dv (the kernel's
+//   last parameter, after lse, so the other parameters keep their
+//   constant-bank offsets).  Every DV == DP instantiation reads D where it
+//   reads Dv, through constant conditions, so its code is what it was.
+//   A stage of the ring holds K (64 x 200) and V (64 x 136): 86 KB for two
+//   stages; Q (64 x 200) is staged in the last one.  Its O accumulator is
+//   64 f32 a thread (80 at D 160) and its Q fragments 48 registers.
 // - Training (template flag kLse): the epilogue also writes each row's
 //   log-sum-exp (natural log, (B, H, Sq) f32) for the backward
 //   (flash_attention_bwd.cu).  Those instantiations are built from
@@ -86,6 +99,8 @@ constexpr int kStages = 2;            // K/V tiles in the cp.async ring
 static_assert(kBQ <= 2 * kBK, "Q is staged in one stage of the ring");
 constexpr int kDMax = 128;
 constexpr int kDWide = 160;           // the bf16 serving instantiation above kDMax
+constexpr int kDSplit = 192;          // the split instantiation's q/k head dim ...
+constexpr int kDvSplit = 128;         // ... and its v head dim
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -154,18 +169,24 @@ __device__ __forceinline__ void stage_tile(T* dst, const T* src, long long strid
 // offsets in the constant bank: with it in front, the DiT bf16 shape ran
 // 3.2 % slower on an H100 with identical instructions and registers
 // (tools/flash_fwd_ab.py).
-template <typename T, int DP, bool kVec, bool kLse>
+// Dv (the v and o head dim) is read only where DV != DP; elsewhere D.
+template <typename T, int DP, bool kVec, bool kLse, int DV = DP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, int Sq, int Sk, int H, int KH, int D, int causal, int window,
-          float scale_log2, int q_offset, float* __restrict__ lse) {
+          float scale_log2, int q_offset, float* __restrict__ lse, int Dv) {
   constexpr bool kBf16 = sizeof(T) == 2;
+  static_assert(DV == DP || (kBf16 && kVec && !kLse && DV < DP),
+                "a split head dim is bf16 serving with 16-byte staging");
   constexpr int LD = DP + Traits<T>::kRowPad;   // shared row stride, elements
+  constexpr int LDV = DV + Traits<T>::kRowPad;  // ... of the V tiles and O
   constexpr int kTile = kBK * LD;
-  constexpr int kNT = DP / 8;                    // 8-column tiles of the output
+  constexpr int kStage = kTile + kBK * LDV;      // K then V
+  static_assert(kBQ * LD <= kStage, "Q is staged in one stage of the ring");
+  constexpr int kNT = DV / 8;                    // 8-column tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);      // [kStages][K, V][kBK][LD]
-  T* sQ = ring + (kStages - 1) * 2 * kTile;      // Q, staged in the last stage
+  T* ring = reinterpret_cast<T*>(smem_raw);      // [kStages][K, V][kBK][LD | LDV]
+  T* sQ = ring + (kStages - 1) * kStage;         // Q, staged in the last stage
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -174,11 +195,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;         // fragment row group, thread in quad
+  const int DVr = DV == DP ? D : Dv;             // v and o head dim
   const long long q_stride = (long long)H * D;   // between sequence positions
   const long long k_stride = (long long)KH * D;
+  const long long v_stride = DV == DP ? k_stride : (long long)KH * DVr;
+  const long long o_stride = DV == DP ? q_stride : (long long)H * DVr;
   const T* qb = q + ((long long)b * Sq * H + h) * D;
   const T* kb = k + ((long long)b * Sk * KH + kh) * D;
-  const T* vb = v + ((long long)b * Sk * KH + kh) * D;
+  const T* vb = v + ((long long)b * Sk * KH + kh) * DVr;
 
   int kt_lo = 0, kt_hi = (Sk + kBK - 1) / kBK;
   if (q_offset >= 0) {   // every row keeps its diagonal key
@@ -193,9 +217,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   // in flight
   auto stage_kv = [&](int kt) {
     if (kt < kt_hi) {
-      T* dst = ring + ((kt - kt_lo) % kStages) * 2 * kTile;
+      T* dst = ring + ((kt - kt_lo) % kStages) * kStage;
       stage_tile<T, DP, LD, kVec>(dst, kb, k_stride, kt * kBK, Sk, D);
-      stage_tile<T, DP, LD, kVec>(dst + kTile, vb, k_stride, kt * kBK, Sk, D);
+      stage_tile<T, DV, LDV, kVec>(dst + kTile, vb, v_stride, kt * kBK, Sk, DVr);
     }
     cp_async_commit();
   };
@@ -245,7 +269,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     stage_kv(kt + kStages - 1);
 
     const int k0 = kt * kBK;
-    const T* tK = ring + ((kt - kt_lo) % kStages) * 2 * kTile;
+    const T* tK = ring + ((kt - kt_lo) % kStages) * kStage;
     const T* tV = tK + kTile;
     // a tile masked for every row of the warp adds nothing once each row has
     // its own diagonal key (q_offset >= 0); rows past Sq are never stored
@@ -356,9 +380,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
                                  pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                                  pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-          for (int np = 0; np < DP / 16; ++np) {
+          for (int np = 0; np < DV / 16; ++np) {
             uint32_t r[4];
-            ldsm_x4_trans(r, tV + (16 * kk + key) * LD + 16 * np + c);
+            ldsm_x4_trans(r, tV + (16 * kk + key) * LDV + 16 * np + c);
             mma_bf16(acc[2 * np], a, r[0], r[1]);
             mma_bf16(acc[2 * np + 1], a, r[2], r[3]);
           }
@@ -402,23 +426,23 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
             m[r] <= 0.5f * kMasked ? kMasked : (m[r] + __log2f(lr)) * kLn2;
     }
   }
-  T* ob = o + ((long long)b * Sq * H + h) * D;
+  T* ob = o + ((long long)b * Sq * H + h) * DVr;
   if constexpr (kVec) {
     __syncthreads();   // every warp is done with the ring
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
       for (int n = 0; n < kNT; ++n)
-        store2(ring + (w0 + g + 8 * r) * LD + 8 * n + 2 * t, acc[n][2 * r] * inv[r],
+        store2(ring + (w0 + g + 8 * r) * LDV + 8 * n + 2 * t, acc[n][2 * r] * inv[r],
                acc[n][2 * r + 1] * inv[r]);
     __syncthreads();
     constexpr int kE = 16 / sizeof(T);
-    constexpr int kChunks = DP / kE;
+    constexpr int kChunks = DV / kE;
     for (int i = threadIdx.x; i < kBQ * kChunks; i += kThreads) {
       const int r = i / kChunks, c = (i % kChunks) * kE;
-      if (q0 + r < Sq && c < D)
-        *reinterpret_cast<uint4*>(ob + (q0 + r) * q_stride + c) =
-            *reinterpret_cast<const uint4*>(ring + r * LD + c);
+      if (q0 + r < Sq && c < DVr)
+        *reinterpret_cast<uint4*>(ob + (q0 + r) * o_stride + c) =
+            *reinterpret_cast<const uint4*>(ring + r * LDV + c);
     }
   } else {
 #pragma unroll
@@ -428,33 +452,34 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
         const int c = 8 * n + 2 * t;
-        if (c < D) store(ob + s * q_stride + c, acc[n][2 * r] * inv[r]);
-        if (c + 1 < D) store(ob + s * q_stride + c + 1, acc[n][2 * r + 1] * inv[r]);
+        if (c < DVr) store(ob + s * o_stride + c, acc[n][2 * r] * inv[r]);
+        if (c + 1 < DVr) store(ob + s * o_stride + c + 1, acc[n][2 * r + 1] * inv[r]);
       }
     }
   }
 }
 
-template <typename T, int DP, bool kVec, bool kLse>
+template <typename T, int DP, bool kVec, bool kLse, int DV = DP>
 cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                       int Sq, int Sk, int H, int KH, int D, int causal, int window, float scale,
-                      cudaStream_t stream) {
-  constexpr int LD = DP + Traits<T>::kRowPad;
-  constexpr size_t smem = sizeof(T) * kStages * 2 * kBK * LD;   // the ring
+                      cudaStream_t stream, int Dv = 0) {
+  constexpr int LD = DP + Traits<T>::kRowPad, LDV = DV + Traits<T>::kRowPad;
+  constexpr size_t smem = sizeof(T) * kStages * kBK * (LD + LDV);   // the ring
   static_assert(smem <= 232448, "a block has 227 KB of shared memory");
   if (smem > 48 * 1024) {
     static bool raised = false;
     if (!raised) {
       const cudaError_t e = cudaFuncSetAttribute(
-          flash_fwd<T, DP, kVec, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          flash_fwd<T, DP, kVec, kLse, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
       if (e != cudaSuccess) return e;
       raised = true;
     }
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd<T, DP, kVec, kLse><<<grid, kThreads, smem, stream>>>(
+  flash_fwd<T, DP, kVec, kLse, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, KH, D, causal, window, scale * kLog2e, Sk - Sq, lse);
+      static_cast<T*>(o), Sq, Sk, H, KH, D, causal, window, scale * kLog2e, Sk - Sq, lse, Dv);
   return cudaGetLastError();
 }
 
@@ -478,13 +503,16 @@ cudaError_t launch(bool vec, const void* q, const void* k, const void* v, void* 
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+bool valid_shape(int B, int Sq, int Sk, int H, int KH, int D) {
+  return D >= 1 && KH >= 1 && H % KH == 0 && B >= 1 && Sq >= 1 && Sk >= 1 && B <= 65535 &&
+         H <= 65535;
+}
+
 template <bool kLse>
 int run(const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B,
         int Sq, int Sk, int H, int KH, int D, int causal, int window, float scale,
         void* stream) {
-  if (D < 1 || KH < 1 || H % KH != 0 || B < 1 || Sq < 1 || Sk < 1 || B > 65535 ||
-      H > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, Sq, Sk, H, KH, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int elem = dtype == 0 ? 4 : 2;
   const bool vec = (D * elem) % 16 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
@@ -520,6 +548,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int causal, int window, float scale, void* stream) {
   return run<false>(q, k, v, o, nullptr, dtype, B, Sq, Sk, H, KH, D, causal, window, scale,
                     stream);
+}
+
+// A v (and o) head dim Dv below q and k's D: k (B, Sk, KH, D), v (B, Sk,
+// KH, Dv), q (B, Sq, H, D), o (B, Sq, H, Dv); bf16 (dtype 1) only, 128 < D
+// <= 192, 1 <= Dv <= 128, D and Dv multiples of 8, 16-byte aligned pointers.
+extern "C" int flash_attention_fwd_split(const void* q, const void* k, const void* v, void* o,
+                                         int dtype, int B, int Sq, int Sk, int H, int KH,
+                                         int D, int Dv, int causal, int window, float scale,
+                                         void* stream) {
+  if (!valid_shape(B, Sq, Sk, H, KH, D) || dtype != 1 || D <= kDMax || D > kDSplit ||
+      D % 8 != 0 || Dv < 1 || Dv > kDvSplit || Dv % 8 != 0 || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(o))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_dp<__nv_bfloat16, kDSplit, true, false, kDvSplit>(
+      q, k, v, o, nullptr, B, Sq, Sk, H, KH, D, causal, window, scale,
+      static_cast<cudaStream_t>(stream), Dv);
 }
 #else
 // The same, and lse (B, H, Sq) f32 receives each row's log-sum-exp.

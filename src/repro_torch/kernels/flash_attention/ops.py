@@ -11,10 +11,20 @@ log-sum-exp, under grad) and `csrc/flash_attention_bwd.cu` (its f32
 half built from `csrc/flash_attention_bwd_f32.cu`), or raise:
 there is no fallback on the card.  Head dims up to `MAX_HEAD_DIM` (128)
 everywhere; up to `MAX_HEAD_DIM_BF16_SERVING` (160, pixtral-12b) on the
-serving path alone, for bf16 with 16-byte rows and pointers.  The forward runs bf16 inputs
-on bf16 tensor-core products (P rounded to bf16 before P V, as
-`blocked_attention` does) and f32 inputs as 3xTF32; its C entry point picks
-16-byte or element-by-element staging from D and the pointers' alignment.
+serving path alone, for bf16 with 16-byte rows and pointers.
+
+v may have a smaller head dim Dv than q and k (deepseek-v2's MLA: 192
+over 128); the output then has Dv.  bf16 with no gradient and 128 < D <=
+`MAX_HEAD_DIM_SPLIT` (192), Dv <= 128, launches the split instantiation
+(`flash_attention_fwd_split`).  D <= 128, in any dtype or under grad,
+zero-pads v to D, runs the forward (and backward) above and keeps the
+first Dv columns: the zero columns add exactly 0 to each output column
+kept, and their gradient is dropped.  Anything else raises.
+
+The forward runs bf16 inputs on bf16 tensor-core products (P rounded to
+bf16 before P V, as `blocked_attention` does) and f32 inputs as 3xTF32;
+its C entry point picks 16-byte or element-by-element staging from D and
+the pointers' alignment.
 
 Under grad (grad mode on and q, k or v requiring a gradient) a CUDA call
 goes through a `torch.autograd.Function`: the forward also writes each
@@ -26,7 +36,8 @@ differentiable itself.
 `flash_attention.launches` counts forward launches and
 `flash_attention_backward.launches` backward launches (three kernels a
 launch: Delta, dK/dV, dQ); `flash_attention.flops` counts the forward's
-products, 4*B*H*Sq*Sk*D a launch (plain integers).  The FLOPs are counted
+products, 4*B*H*Sq*Sk*D a launch, 2*B*H*Sq*Sk*(D + Dv) for the split
+instantiation (plain integers).  The FLOPs are counted
 on the CUDA path only: a ctypes launch is no aten operator, so
 `FlopCounterMode` cannot see it, while on CPU tensors it counts
 `attention_ref`'s two products as the same 4*B*H*Sq*Sk*D."""
@@ -43,6 +54,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 #: the serving forward's one wider instantiation (bf16, 16-byte staging)
 MAX_HEAD_DIM_BF16_SERVING = 160
+#: the split instantiation: q/k head dim up to 192 over a v head dim up to
+#: MAX_HEAD_DIM (bf16 serving, 16-byte staging)
+MAX_HEAD_DIM_SPLIT = 192
 #: the launch puts the batch on gridDim.z (csrc/flash_attention.cu:425)
 MAX_GRID_Z = 65535
 
@@ -115,11 +129,14 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
-    """q: (B, Sq, H, D); k/v: (B, Sk, KH, D), KH divides H -> (B, Sq, H, D)
-    in q's dtype.  q sits at the tail of the key sequence."""
+    """q: (B, Sq, H, D); k: (B, Sk, KH, D); v: (B, Sk, KH, Dv), Dv <= D,
+    KH divides H -> (B, Sq, H, Dv) in q's dtype.  q sits at the tail of the
+    key sequence."""
     B, Sq, H, D = q.shape
     Bk, Sk, KH, Dk = k.shape
-    if v.shape != k.shape or Bk != B or Dk != D or H % KH != 0:
+    Dv = v.shape[-1]
+    if v.shape[:3] != k.shape[:3] or Bk != B or Dk != D or Dv > D \
+            or H % KH != 0:
         raise ValueError(f"flash_attention: incompatible shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -128,12 +145,47 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     _check_cuda("flash_attention", (q, k, v))
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
+    if Dv < D:
+        return _split_head_dim(q, k, v, causal, window, scale, grad)
     if D > MAX_HEAD_DIM:
         _check_wide_head_dim(q, k, v, grad)
     check_grid(B)
     if grad:
         return _FlashAttention.apply(q, k, v, causal, window, scale)
     return _forward(q, k, v, causal, window, scale, None)
+
+
+def _split_head_dim(q, k, v, causal, window, scale, grad):
+    """A v head dim Dv below D (CUDA tensors): the split instantiation for
+    bf16 serving above 128, else v zero-padded to D through the forward
+    (and backward) of D <= 128, else raise."""
+    B, Sq, H, D = q.shape
+    Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if D <= MAX_HEAD_DIM:
+        o = flash_attention(q, k, torch.nn.functional.pad(v, (0, D - Dv)),
+                            causal=causal, window=window, scale=scale)
+        return o[..., :Dv]
+    if q.dtype != torch.bfloat16 or grad or D > MAX_HEAD_DIM_SPLIT \
+            or Dv > MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention: q/k head dim {D} over v head dim {Dv} runs on "
+            f"the bf16 serving forward alone (D <= {MAX_HEAD_DIM_SPLIT}, Dv "
+            f"<= {MAX_HEAD_DIM}; got {q.dtype}"
+            f"{', under grad' if grad else ''}): a backward above "
+            f"{MAX_HEAD_DIM} is ROADMAP.md §B.1")
+    if D % 8 or Dv % 8 or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"flash_attention: the split head dim ({D} over "
+                         f"{Dv}) needs 16-byte rows and 16-byte aligned "
+                         f"tensors")
+    check_grid(B)
+    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    _build.launch("flash_attention_fwd_split", q.get_device(), q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
+                  B, Sq, Sk, H, KH, D, Dv, int(bool(causal)), int(window),
+                  float(scale))
+    flash_attention.launches += 1
+    flash_attention.flops += 2 * B * H * Sq * Sk * (D + Dv)
+    return o
 
 
 def _check_wide_head_dim(q, k, v, grad):

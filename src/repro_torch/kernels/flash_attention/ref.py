@@ -39,7 +39,8 @@ def _scores(q, k, causal, window, scale):
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                   scale=None):
-    """q: (B, Sq, H, D); k/v: (B, Sk, KH, D); KH divides H.
+    """q: (B, Sq, H, D); k: (B, Sk, KH, D); v: (B, Sk, KH, Dv); KH divides
+    H; returns (B, Sq, H, Dv).
 
     q occupies the last Sq positions of the Sk-long key sequence.  A row
     whose keys are all masked gets a uniform softmax over all Sk keys (the
@@ -49,7 +50,7 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     s, _ = _scores(q, k, causal, window, scale)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(p.dtype))
-    return o.reshape(B, Sq, H, D).to(q.dtype)
+    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
 def attention_lse_ref(q, k, *, causal: bool = True, window: int = 0,

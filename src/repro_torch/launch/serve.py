@@ -5,8 +5,10 @@
     python -m repro_torch.launch.serve --smoke --device cpu
 
 `--arch` defaults to JAX's tinyllama-1.1b and takes the port's LLMs: the
-dense tinyllama-1.1b, qwen2-7b, qwen2.5-14b and minitron-8b, the hybrid
-zamba2-2.7b and the Mamba1 falcon-mamba-7b.  whisper-small and pixtral-12b
+dense tinyllama-1.1b, qwen2-7b, qwen2.5-14b and minitron-8b, the moe
+arctic-480b and deepseek-v2-236b (whole, neither fits one 80 GB card: use
+--smoke, or cut the depth as chip_smoke.py's serve-moe phase does), the
+hybrid zamba2-2.7b and the Mamba1 falcon-mamba-7b.  whisper-small and pixtral-12b
 exit with the entry points that drive them (JAX's launcher fails on them
 too).  Random weights drawn from `--seed`; runs on the GPU unless
 `--device cpu`.

@@ -1,8 +1,9 @@
 """Model zoo of the port: the DiT (image latents and audio mel latents,
 class- or text-conditioned), the factorized spatio-temporal video DiT (with
-or without text), the dense (GQA), hybrid (Mamba2 + shared attention), ssm
-(Mamba1) and vlm (patch embeddings + dense decoder) decoder LMs, and the
-Whisper-style encoder-decoder (`encdec`)."""
+or without text), the dense (GQA), moe (MoE FFNs, with GQA or MLA
+attention), hybrid (Mamba2 + shared attention), ssm (Mamba1) and vlm
+(patch embeddings + dense decoder) decoder LMs, and the Whisper-style
+encoder-decoder (`encdec`)."""
 from __future__ import annotations
 
 import math
@@ -12,7 +13,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves
 
-from . import dit, encdec, layers, ssm, transformer, video_dit
+from . import dit, encdec, layers, mla, moe, ssm, transformer, video_dit
 from .transformer import decode_step, forward, prefill
 
 
@@ -48,10 +49,15 @@ def param_count(cfg) -> int:
 
 
 def active_param_count(cfg) -> int:
-    """Parameters touched per token, the N of MODEL_FLOPS = 6 N_active D.
-    Every ported family is dense in its params, so this is `param_count`;
-    the moe slice (ROADMAP §A.7) subtracts the experts not routed in."""
-    return param_count(cfg)
+    """Parameters touched per token, the N of MODEL_FLOPS = 6 N_active D:
+    a MoE model's without the routed experts a token does not go to."""
+    total = param_count(cfg)
+    if not cfg.is_moe:
+        return total
+    per_expert = 3 * cfg.d_model * cfg.d_ff
+    inactive = ((cfg.num_experts - cfg.experts_per_token) * per_expert
+                * cfg.num_layers)
+    return total - inactive
 
 
 def perturb_zero_init(params, generator: torch.Generator, scale: float = 0.05):
@@ -75,6 +81,6 @@ def perturb_zero_init(params, generator: torch.Generator, scale: float = 0.05):
     return walk(params)
 
 
-__all__ = ["dit", "encdec", "layers", "ssm", "transformer", "video_dit",
+__all__ = ["dit", "encdec", "layers", "mla", "moe", "ssm", "transformer", "video_dit",
            "init_params", "params_shape", "param_count", "active_param_count",
            "perturb_zero_init", "forward", "prefill", "decode_step"]

@@ -35,6 +35,22 @@ def dense_init(generator, in_dim, out_dim, dtype=torch.float32, scale=None,
     return (w * scale).to(dtype)
 
 
+def normal_into(t, generator, scale, block=1 << 24):
+    """Fill `t` with N(0, scale^2) drawn in f32 a block of at most `block`
+    elements (whole rows of its last axis) at a time, so the f32 draw of
+    one block is the only transient; returns `t`.  The meta device draws
+    nothing."""
+    if t.device.type == "meta":
+        return t
+    rows = t.view(-1, t.shape[-1])
+    step = max(block // t.shape[-1], 1)
+    for i in range(0, rows.shape[0], step):
+        part = rows[i:i + step]
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               device=t.device) * scale)
+    return t
+
+
 def embed_init(generator, vocab, dim, dtype=torch.float32, device=None):
     w = torch.randn((vocab, dim), generator=generator, device=device)
     return (w * 0.02).to(dtype)

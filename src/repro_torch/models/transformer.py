@@ -1,14 +1,16 @@
-"""Decoder LM of the port: the `dense` (Llama-style GQA), `hybrid`
-(zamba2), `ssm` (falcon-mamba, Mamba1; or Mamba2 layers alone) and `vlm`
-(pixtral: the dense decoder over projected patch embeddings prepended to
-the text) families of the JAX `models/transformer.py`.  The moe family is
-not ported yet and raises (ROADMAP.md §A.7); the encoder-decoder (family
+"""Decoder LM of the port: the `dense` (Llama-style GQA), `moe` (arctic:
+GQA attention and a top-2 MoE with a dense residual FFN; deepseek-v2: MLA
+and a top-6 MoE with shared experts), `hybrid` (zamba2), `ssm`
+(falcon-mamba, Mamba1; or Mamba2 layers alone) and `vlm` (pixtral: the
+dense decoder over projected patch embeddings prepended to the text)
+families of the JAX `models/transformer.py`; the encoder-decoder (family
 "audio") is `models/encdec.py`.
 
 Entry points, plain functions of (params, inputs, cfg):
 
   init_lm(generator, cfg)                                    -> params
-  forward(params, tokens, cfg, vision_embeds=, collect_kv=)  -> logits[, caches]
+  forward(params, tokens, cfg, vision_embeds=, collect_kv=, with_aux=)
+                                                 -> logits[, aux][, caches]
   prefill(params, tokens, cfg, cache_len, vision_embeds=)    -> (logits, cache)
   decode_step(params, token, pos, cache, cfg)                -> (logits, cache)
 
@@ -20,10 +22,14 @@ runs `hybrid_attn_every` Mamba2 layers, then the one shared attention+MLP
 block, `num_layers // hybrid_attn_every` times.  An ssm model is a stack of
 pre-norm Mamba1 (or Mamba2) layers.  A vlm forward prepends
 `vision_embeds @ vision_proj` to the token embeddings, so its sequence is
-`num_vision_tokens` longer than the text.  Prefill attention goes
-through the flash kernel; one-token decode attends with
-`blocked_attention`.  KV caches are rolling buffers of capacity
-`cache_len` with absolute positions stored beside them.  `decode_step`
+`num_vision_tokens` longer than the text.  A moe layer is pre-norm
+attention (MLA when cfg.use_mla) then a pre-norm MoE FFN
+(`models/moe.py`), whose load-balance and router-z losses `forward` sums
+over the layers (`with_aux`, as JAX returns them).  Prefill attention
+goes through the flash kernel; one-token decode attends with
+`blocked_attention` (MLA: its absorbed form, `models/mla.py`).  KV caches
+are rolling buffers of capacity `cache_len` with absolute positions
+stored beside them.  `decode_step`
 updates the cache in place (JAX returns a new one) so that a step does not
 copy the whole cache.
 """
@@ -35,12 +41,15 @@ from repro_torch.core.engine import layer_list
 
 from .layers import (attention_decode, attention_forward, dense_init, dot,
                      embed_init, init_attention, init_mlp, mlp_forward,
-                     rms_norm)
+                     normal_into, rms_norm)
+from .mla import init_mla, mla_decode, mla_forward
+from .moe import init_experts, init_moe, moe_forward
 from .ssm import (init_mamba1, init_mamba2, mamba1_decode, mamba1_forward,
                   mamba2_decode, mamba2_forward)
 
-FAMILIES = ("dense", "hybrid", "ssm", "vlm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm")
 ATTN_FAMILIES = ("dense", "vlm")       # a stack of attention+MLP layers
+AUX_KEYS = ("load_balance_loss", "router_z_loss", "dropped")
 
 
 def _require_ported(cfg):
@@ -49,10 +58,14 @@ def _require_ported(cfg):
             f"'{cfg.name}' is an encoder-decoder: drive it through "
             f"repro_torch.models.encdec (encode, cross_kv, decode_step)")
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"repro_torch ports the {', '.join(FAMILIES)} LLM families "
-            f"('{cfg.name}' is '{cfg.family}'); the moe family is "
-            f"ROADMAP.md §A.7")
+        raise ValueError(f"'{cfg.name}' is family '{cfg.family}': the "
+                         f"decoder LM families are {', '.join(FAMILIES)}")
+    if cfg.family == "moe" and not 1 <= cfg.experts_per_token \
+            <= cfg.num_experts:
+        raise ValueError(f"'{cfg.name}' is a moe model with "
+                         f"{cfg.num_experts} experts, {cfg.experts_per_token} "
+                         f"a token: it needs 1 <= experts per token <= "
+                         f"experts")
 
 
 def _mamba(cfg):
@@ -102,9 +115,16 @@ def _attn_mlp_block(generator, cfg, dtype, device):
 
 
 def _init_block(generator, cfg, dtype, device):
-    """One layer's params (unstacked)."""
+    """One layer's params (unstacked); a moe layer's without its routed
+    experts, which `init_lm` draws for all layers at once."""
     if cfg.family in ATTN_FAMILIES:
         return _attn_mlp_block(generator, cfg, dtype, device)
+    if cfg.family == "moe":
+        attn = init_mla if cfg.use_mla else init_attention
+        return {"ln1": _ones(cfg, dtype, device),
+                "attn": attn(generator, cfg, dtype, device),
+                "ln2": _ones(cfg, dtype, device),
+                "moe": init_moe(generator, cfg, dtype, device)}
     return {"ln1": _ones(cfg, dtype, device),
             "mamba": _mamba(cfg)[0](generator, cfg, dtype, device)}
 
@@ -115,13 +135,25 @@ def init_lm(generator, cfg, dtype=None, device=None):
     d = cfg.d_model
     blocks = _stacked(cfg.num_layers,
                       lambda: _init_block(generator, cfg, dtype, device))
-    params = {
-        "embed": embed_init(generator, cfg.vocab_size, d, dtype, device),
-        "blocks": blocks,
-        "final_norm": _ones(cfg, dtype, device),
-        "lm_head": dense_init(generator, d, cfg.vocab_size, dtype,
-                              device=device),
-    }
+    if cfg.family == "moe":
+        # straight into their storage, in blocks of rows: one layer's
+        # experts built whole and copied in would not fit beside the
+        # others, and the f32 draw of a whole (102400, 5120) embedding
+        # would stand 4 GB above the params
+        blocks["moe"].update(init_experts(generator, cfg, dtype, device,
+                                          lead=(cfg.num_layers,)))
+
+        def empty(*shape):
+            return torch.empty(shape, dtype=dtype, device=device)
+        embed = normal_into(empty(cfg.vocab_size, d), generator, 0.02)
+        lm_head = normal_into(empty(d, cfg.vocab_size), generator,
+                              1.0 / d ** 0.5)
+    else:
+        embed = embed_init(generator, cfg.vocab_size, d, dtype, device)
+        lm_head = dense_init(generator, d, cfg.vocab_size, dtype,
+                             device=device)
+    params = {"embed": embed, "blocks": blocks,
+              "final_norm": _ones(cfg, dtype, device), "lm_head": lm_head}
     if cfg.family == "hybrid":
         # one *shared* attention+MLP block reused at every application point
         params["shared_attn"] = _attn_mlp_block(generator, cfg, dtype, device)
@@ -156,20 +188,45 @@ def _embed_inputs(params, tokens, cfg, vision_embeds=None):
     return x
 
 
-def forward(params, tokens, cfg, *, vision_embeds=None, collect_kv=False):
+def _moe_layer(p, x, cfg):
+    """A moe layer: attention (MLA or GQA), then the MoE FFN.  Returns (x,
+    the attention's cache entries, the MoE's aux)."""
+    xi = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.use_mla:
+        h, kv = mla_forward(p["attn"], xi, cfg)
+    else:
+        h, kv = attention_forward(p["attn"], xi, cfg)
+    x = x + h
+    mo, aux = moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + mo, kv, aux
+
+
+def forward(params, tokens, cfg, *, vision_embeds=None, collect_kv=False,
+            with_aux=False):
     """Full-sequence forward.  tokens: (B, S) integer; vision_embeds (B,
     num_vision_tokens, vision_dim) for a vlm.
 
-    Returns logits (B, S', vocab), S' = S (+ num_vision_tokens for a vlm),
-    or (logits, caches) with collect_kv: dense and vlm, (k, v) per layer;
-    ssm, the Mamba cache of each layer; hybrid, per attention point (Mamba2
-    caches of its segment, (k, v)).  JAX also returns the MoE losses, which
-    these families do not have."""
+    Returns logits (B, S', vocab), S' = S (+ num_vision_tokens for a vlm);
+    with `with_aux` also aux, JAX's MoE losses summed over the layers
+    (load_balance_loss, router_z_loss; 0 for the other families) and the
+    (token, choice) pairs `dropped` past capacity; with collect_kv also the
+    caches: dense, vlm and arctic, (k, v) per layer; deepseek-v2, (c_kv,
+    k_rope) per layer; ssm, the Mamba cache of each layer; hybrid, per
+    attention point (Mamba2 caches of its segment, (k, v))."""
     _require_ported(cfg)
     x = _embed_inputs(params, tokens, cfg, vision_embeds)
     blocks = layer_list(params["blocks"])
     caches = []
-    if cfg.family in ATTN_FAMILIES:
+    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+           for k in AUX_KEYS}
+    aux["dropped"] = aux["dropped"].long()
+    if cfg.family == "moe":
+        for p in blocks:
+            x, kv, a = _moe_layer(p, x, cfg)
+            aux = {k: aux[k] + a[k] for k in AUX_KEYS}
+            if collect_kv:
+                caches.append(kv)
+    elif cfg.family in ATTN_FAMILIES:
         for p in blocks:
             x, kv = _attn_mlp(p, x, cfg)
             if collect_kv:
@@ -194,8 +251,9 @@ def forward(params, tokens, cfg, *, vision_embeds=None, collect_kv=False):
             if collect_kv:
                 caches.append((states, kv))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = dot(x, params["lm_head"])
-    return (logits, caches) if collect_kv else logits
+    out = (dot(x, params["lm_head"]),) + ((aux,) if with_aux else ()) \
+        + ((caches,) if collect_kv else ())
+    return out if len(out) > 1 else out[0]
 
 
 def init_cache(cfg, batch: int, cache_len: int, device=None):
@@ -204,7 +262,12 @@ def init_cache(cfg, batch: int, cache_len: int, device=None):
     dtype = getattr(torch, cfg.dtype)
     L, B, W = cfg.num_layers, batch, cache_len
     pos = torch.full((B, W), -1, dtype=torch.long, device=device)
-    if cfg.family in ATTN_FAMILIES:
+    if cfg.family == "moe" and cfg.use_mla:
+        return {"ckv": torch.zeros((L, B, W, cfg.kv_lora_rank), dtype=dtype,
+                                   device=device),
+                "kr": torch.zeros((L, B, W, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device), "pos": pos}
+    if cfg.family in ATTN_FAMILIES + ("moe",):
         kv = (L, B, W, cfg.num_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(kv, dtype=dtype, device=device),
                 "v": torch.zeros(kv, dtype=dtype, device=device), "pos": pos}
@@ -236,6 +299,20 @@ def _attn_mlp_decode(p, x, cfg, cache, i, pos):
     return x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
+def _moe_decode(p, x, cfg, cache, i, pos):
+    """One token through a moe layer against cache slot i."""
+    xi = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.use_mla:
+        h = mla_decode(p["attn"], xi, cfg, cache["ckv"][i], cache["kr"][i],
+                       cache["pos"], pos)
+    else:
+        h = attention_decode(p["attn"], xi, cfg, cache["k"][i],
+                             cache["v"][i], cache["pos"], pos)
+    x = x + h
+    return x + moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                           cfg)[0]
+
+
 def decode_step(params, token, pos, cache, cfg):
     """token: (B,) integer; pos: (B,) absolute position.  Returns (logits,
     cache); the cache is updated in place."""
@@ -245,6 +322,9 @@ def decode_step(params, token, pos, cache, cfg):
     if cfg.family in ATTN_FAMILIES:
         for i, p in enumerate(blocks):
             x = _attn_mlp_decode(p, x, cfg, cache, i, pos)
+    elif cfg.family == "moe":
+        for i, p in enumerate(blocks):
+            x = _moe_decode(p, x, cfg, cache, i, pos)
     elif cfg.family == "ssm":
         dec = _mamba(cfg)[2]
         for i, p in enumerate(blocks):
@@ -286,7 +366,8 @@ def prefill(params, tokens, cfg, cache_len: int, *, vision_embeds=None):
     keep = min(S, cache_len)
     src = torch.arange(S - keep, S, device=tokens.device)
     slots = src % cache_len
-    if cfg.family in ATTN_FAMILIES:
+    names = ("ckv", "kr") if cfg.use_mla else ("k", "v")
+    if cfg.family in ATTN_FAMILIES + ("moe",):
         kvs = collected
     else:
         mamba = [c for states, _ in collected for c in states]
@@ -294,8 +375,8 @@ def prefill(params, tokens, cfg, cache_len: int, *, vision_embeds=None):
         cache["conv"] = torch.stack([c["conv"] for c in mamba]).to(
             cache["conv"].dtype)
         kvs = [kv for _, kv in collected]
-    for i, (kk, vv) in enumerate(kvs):
-        cache["k"][i][:, slots] = kk[:, src].to(cache["k"].dtype)
-        cache["v"][i][:, slots] = vv[:, src].to(cache["v"].dtype)
+    for i, pair in enumerate(kvs):
+        for name, t in zip(names, pair):
+            cache[name][i][:, slots] = t[:, src].to(cache[name].dtype)
     cache["pos"][:, slots] = src
     return logits, cache

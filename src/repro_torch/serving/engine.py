@@ -5,7 +5,8 @@ then greedy or temperature decode against the rolling KV cache and SSM
 state of `repro_torch.models`.  Requests are taken from a queue `slots` at
 a time.  Prompts are right-aligned into a `max_prompt` window with token 0
 on the left and no mask, exactly as JAX does: the SSM state sees those
-zeros, and parity with JAX depends on it.
+zeros, and a MoE routes the padding and the empty slots' rows too, where
+they take expert capacity; parity with JAX depends on both.
 
 Tokens and the done mask stay on the device: the host probes the mask once
 every `sync_every` decode steps (only when an EOS id is set) and copies the

@@ -58,21 +58,24 @@ def init_train_state(generator: torch.Generator, cfg, dtype=None,
 
 def lm_loss(params, tokens, targets, cfg, *, vision_embeds=None,
             aux_weight: float = 0.01, z_weight: float = 1e-3):
-    """Causal-LM cross-entropy; a vlm takes `vision_embeds`, and its
-    vision positions carry no targets (their logits are dropped).  The
-    port's LM families (dense, hybrid, ssm, vlm) have no MoE losses, so the
-    load-balance and router-z terms are 0, as JAX's are for them."""
-    logits = transformer.forward(params, tokens, cfg,
-                                 vision_embeds=vision_embeds)
+    """Causal-LM cross-entropy plus `aux_weight` times the MoE
+    load-balance loss and `z_weight` times the router-z loss (both 0 for
+    the families without experts, as JAX's are); a vlm takes
+    `vision_embeds`, and its vision positions carry no targets (their
+    logits are dropped).  The losses' gradients flow through the gates and
+    the router probabilities, not through the top-k selection."""
+    logits, aux = transformer.forward(params, tokens, cfg,
+                                      vision_embeds=vision_embeds,
+                                      with_aux=True)
     if cfg.family == "vlm":
         logits = logits[:, cfg.num_vision_tokens:]
     logits = logits.float()
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     loss = nll.mean()
-    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
-    total = loss + aux_weight * zero + z_weight * zero
-    return total, {"loss": loss, "lb_loss": zero, "z_loss": zero}
+    lb, z = aux["load_balance_loss"], aux["router_z_loss"]
+    total = loss + aux_weight * lb + z_weight * z
+    return total, {"loss": loss, "lb_loss": lb, "z_loss": z}
 
 
 def diffusion_draws(generator: torch.Generator, latents, T: int):

@@ -920,3 +920,118 @@ def test_encdec_smoke_card_matches_cpu(cuda):
     assert _rel(out["cuda"][1], out["cpu"][1]) <= 1e-4
     assert torch.equal(out["cuda"][1].argmax(-1).cpu(),
                        out["cpu"][1].argmax(-1))
+
+
+# the split head dim (deepseek-v2's MLA: q/k 192 over v 128)
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,Dv,causal,window", [
+    (4, 512, 512, 128, 128, 192, 128, True, 0),   # deepseek-v2 prefill
+    (2, 500, 500, 16, 16, 192, 128, True, 0),     # ragged
+    (1, 200, 300, 8, 2, 192, 128, True, 64),      # q at the tail, GQA, window
+    (2, 77, 77, 4, 4, 136, 64, False, 0),         # D pads 136 -> 192, Dv 64
+    (1, 64, 32, 2, 2, 192, 128, True, 0),         # fully masked causal rows
+])
+def test_flash_split_head_dim_matches_plain(cuda, B, Sq, Sk, H, KH, D, Dv,
+                                            causal, window):
+    """bf16 serving, the split instantiation (one launch) against
+    `attention_ref` at 1/sqrt(D): 2e-2 abs, the bf16 gate (output
+    rounding)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn((B, Sq, H, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, Sk, KH, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, Sk, KH, Dv), generator=g, device=cuda).bfloat16()
+    before = flash_attention.launches
+    with torch.no_grad():
+        out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == (B, Sq, H, Dv) and out.dtype == torch.bfloat16
+    assert float((out.float() - ref.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_flash_split_head_dim_pads_v_under_grad(cuda, dtype, tol):
+    """D <= 128 (deepseek-v2 SMOKE's 48 over 32): v zero-padded to D
+    through the forward and backward kernels, the first Dv columns kept;
+    output and gradients against float64 autograd of `attention_ref`, 1e-4
+    abs in f32, 2e-2 in bf16 (the flash backward's gates)."""
+    from repro_torch.kernels import flash_attention_backward
+    g = torch.Generator(device=cuda).manual_seed(9)
+    dt = getattr(torch, dtype)
+    q, k = (torch.randn((2, 100, 4, 48), generator=g, device=cuda).to(dt)
+            .requires_grad_() for _ in range(2))
+    v = torch.randn((2, 100, 4, 32), generator=g, device=cuda).to(dt) \
+        .requires_grad_()
+    do = torch.randn((2, 100, 4, 32), generator=g, device=cuda).to(dt)
+    before = (flash_attention.launches, flash_attention_backward.launches)
+    out = flash_attention(q, k, v, causal=True, scale=0.2)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert (flash_attention.launches, flash_attention_backward.launches) \
+        == (before[0] + 1, before[1] + 1)
+    q64, k64, v64 = (t.detach().double().requires_grad_() for t in (q, k, v))
+    ref = attention_ref(q64, k64, v64, causal=True, scale=0.2)
+    want = torch.autograd.grad(ref, (q64, k64, v64), do.double())
+    assert out.shape == (2, 100, 4, 32)
+    assert float((out.double() - ref).abs().max()) <= tol
+    for a, b in zip(grads, want):
+        assert a.shape == b.shape and a.dtype == dt
+        assert float((a.double() - b).abs().max()) <= tol
+
+
+def test_flash_split_head_dim_refusals(cuda):
+    """Above 128 the split runs bf16 serving alone: f32, under grad, D above
+    192, Dv above 128 and misaligned tensors raise (naming ROADMAP §B.1
+    where the kernel is missing), launching nothing."""
+    def bf16(D, offset=0):
+        flat = torch.zeros((64 * 2 * D + offset,), device=cuda,
+                           dtype=torch.bfloat16)
+        return flat[offset:].view(1, 64, 2, D)
+
+    before = flash_attention.launches
+    for q, v, what in ((bf16(192).float(), bf16(128).float(), "B.1"),
+                       (bf16(200), bf16(128), "B.1"),
+                       (bf16(192), bf16(136), "B.1"),
+                       (bf16(192), bf16(128, offset=1), "16-byte")):
+        with pytest.raises(ValueError, match=what):
+            flash_attention(q, q, v)
+    q = bf16(192).requires_grad_()
+    with pytest.raises(ValueError, match="under grad"):
+        flash_attention(q, q, bf16(128))
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v2-236b"])
+def test_moe_smoke_card_matches_cpu(cuda, arch):
+    """f32 SMOKE on the card against the CPU: the forward's logits and MoE
+    losses and a prefill + 4 decode steps' logits 1e-4 relative, greedy
+    tokens equal, `lm_loss`'s gradients 1e-4 relative per leaf."""
+    from repro_torch.data import lm_batches
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.train.steps import _value_and_grad, lm_loss
+    from repro_torch.tree import tree_leaves
+    cfg, cpu, card = _smoke_pair(arch)
+    t, y = (torch.from_numpy(a) for a in next(lm_batches(0, 4, 100,
+                                                         cfg.vocab_size)))
+    out = {}
+    for dev, p in (("cuda", card), ("cpu", cpu)):
+        with torch.no_grad():
+            f, aux = forward(p, t.to(dev), cfg, with_aux=True)
+            lg, cache = prefill(p, t.to(dev), cfg, 128)
+            rows, tok = [lg[:, -1]], lg[:, -1].argmax(-1)
+            for i in range(4):
+                lg, cache = decode_step(p, tok, torch.full((4,), 100 + i,
+                                                           device=dev),
+                                        cache, cfg)
+                rows.append(lg)
+                tok = lg.argmax(-1)
+        grads, _ = _value_and_grad(
+            lambda q, _: lm_loss(q, t.to(dev), y.to(dev), cfg), p, None)
+        out[dev] = (f, torch.stack(rows), grads, aux)
+    assert _rel(out["cuda"][0], out["cpu"][0]) <= 1e-4
+    assert _rel(out["cuda"][1], out["cpu"][1]) <= 1e-4
+    for key in ("load_balance_loss", "router_z_loss"):
+        assert _rel(out["cuda"][3][key], out["cpu"][3][key]) <= 1e-4
+    assert torch.equal(out["cuda"][1].argmax(-1).cpu(),
+                       out["cpu"][1].argmax(-1))
+    for a, b in zip(tree_leaves(out["cuda"][2]), tree_leaves(out["cpu"][2])):
+        assert _rel(a, b) <= 1e-4

@@ -11,9 +11,10 @@ blue/green swaps, a gate learned from the serving traces) and
 `examples/torch_observability.py` (the mixed pool's trace, cache-event
 JSONL reconciled with telemetry, metrics and program profiles),
 `examples/torch_cached_generation.py` (14 cache policies with CFG 1.5 on a
-reduced DiT-XL, PSNR against exact) and `examples/torch_diffusion_lm.py`
+reduced DiT-XL, PSNR against exact), `examples/torch_diffusion_lm.py`
 (mask-denoising generation on tinyllama SMOKE, exact, FORA, TaylorSeer and
-TeaCache), each at its JAX original's CPU size (a few seconds each here,
+TeaCache) and `examples/torch_serving_llm.py` (the ServingEngine over
+tinyllama, deepseek-v2, falcon-mamba and zamba2 SMOKE), each at its JAX original's CPU size (a few seconds each here,
 the policy zoo about 20 s)."""
 import os
 import subprocess
@@ -34,7 +35,8 @@ ROOT = Path(__file__).resolve().parents[1]
                                     "torch_online_control_plane.py",
                                     "torch_observability.py",
                                     "torch_cached_generation.py",
-                                    "torch_diffusion_lm.py"])
+                                    "torch_diffusion_lm.py",
+                                    "torch_serving_llm.py"])
 def test_example_runs_on_the_cpu(script):
     # two intra-op threads, as the test processes use: beside the other
     # xdist workers an example on every core oversubscribes the CPU

@@ -250,13 +250,20 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
 
 
 def test_unported_families_raise():
-    """The moe configs are not registered, and a moe-family config raises
-    in the model code; both name ROADMAP §A.7."""
+    """Every LLM family of JAX's zoo is ported, the moe configs included
+    (they resolve); a config of a family the zoo does not have raises in
+    the model code, and the expert-parallel MoE names ROADMAP §A.9."""
+    from repro_torch.models import moe
     for arch in ("deepseek-v2-236b", "arctic-480b"):
-        with pytest.raises(KeyError, match="ROADMAP.md §A.7"):
-            get_config(arch)
-    moe = dataclasses.replace(get_smoke_config(ARCH), family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.7"):
-        init_params(torch.Generator().manual_seed(0), moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.7"):
-        forward({}, torch.zeros((1, 2), dtype=torch.long), moe)
+        assert get_config(arch).family == "moe"
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mixtral-8x7b")
+    odd = dataclasses.replace(get_smoke_config(ARCH), family="retnet")
+    with pytest.raises(ValueError, match="retnet"):
+        init_params(torch.Generator().manual_seed(0), odd, device="cpu")
+    with pytest.raises(ValueError, match="retnet"):
+        forward({}, torch.zeros((1, 2), dtype=torch.long), odd)
+    arctic = get_smoke_config("arctic-480b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.9"):
+        moe.moe_forward({}, torch.zeros((1, 2, arctic.d_model)), arctic,
+                        ep={})

@@ -231,11 +231,11 @@ def test_launchers_default_to_tinyllama(capsys):
 
 
 def test_the_families_still_missing_raise():
-    """moe is the one LM family still missing (ssm and vlm are ported:
-    tests/test_torch_mamba1.py, tests/test_torch_vlm.py)."""
+    """No LM family is missing any more (moe: tests/test_torch_moe.py); a
+    dense config relabelled moe has no experts to route to and raises."""
     cfg = dataclasses.replace(get_smoke_config("tinyllama-1.1b"),
                               family="moe")
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(ValueError, match="experts"):
         models.init_params(torch.Generator().manual_seed(0), cfg,
                            device="cpu")
 

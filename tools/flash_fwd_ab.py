@@ -19,8 +19,8 @@ then prints, against the first tree:
   the count, and the instantiations only a later tree has;
 - at the kernel's shapes (flash: DiT-XL f32 and bf16, B 8, S 256, H 16,
   D 72; zamba2 prefill bf16, B 4, S 512, H 32, D 80, causal; the dense
-  prefills of tinyllama (32 / 4 heads of 64) and qwen2-7b (28 / 4 of 128),
-  causal; whisper-small's encoder (B 4, S 1500, 12 heads of 64) and its
+  prefills of tinyllama (32 / 4 heads of 64), qwen2-7b (28 / 4 of 128)
+  and arctic-480b (56 / 8 of 128), causal; whisper-small's encoder (B 4, S 1500, 12 heads of 64) and its
   cross-attention (448 queries over 1500 keys), bf16.  ssd:
   chip_smoke's ssd phase, zamba2 prefill b 4, s 512, h 80, p = n = 64 in
   f32 and on bf16 views of the conv output, b 1 on bf16 views, a ragged
@@ -191,6 +191,7 @@ KERNELS = {
             ("zamba2 prefill bf16", 4, 512, 512, 32, 32, 80, 1, "bfloat16"),
             ("tinyllama prefill", 4, 512, 512, 32, 4, 64, 1, "bfloat16"),
             ("qwen2-7b prefill", 4, 512, 512, 28, 4, 128, 1, "bfloat16"),
+            ("arctic prefill", 4, 512, 512, 56, 8, 128, 1, "bfloat16"),
             ("whisper encoder", 4, 1500, 1500, 12, 12, 64, 0, "bfloat16"),
             ("whisper cross", 4, 448, 1500, 12, 12, 64, 0, "bfloat16"),
         ]},
