@@ -307,6 +307,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
               lm_loss and its MoE terms within 1e-5, its gradients within
               1e-4, and one AdamW step (the step from the same gradients
               and its moments within 1e-4)
+  43. verify  the port's analysis (`repro_torch.analysis`) on the card: the
+              lint of src/repro_torch with every rule (the ir-* rules on
+              the card: the golden engines verified and served under the
+              retrace sentinel, the train step's donation, the launch lint)
+              exits 0; the launch lint's plan of every C launch site at the
+              main paths' shapes, one line each (registers, spill bytes,
+              shared memory, threads, grid, active blocks per SM); two
+              full-width DiT-XL engines of 4 slots (TeaCache with
+              FasterCacheCFG, and TaylorSeer, whose skip ticks forecast)
+              give `warmup(verify=True)` no finding (its cost against a
+              plain warmup logged) and serve 8 requests under a
+              RetraceSentinel with 0 builds, loads and cold programs and a
+              live selftest; a `.item()` injected into one tick fires both
+              sync channels (the operator record and torch's sync debug
+              mode), a `.cpu()` the copy channel; `train_loop(...,
+              verify_donation=True)` runs 2 steps of full-width DiT-XL at
+              batch 8 with every leaf updated in place
 
 Each served phase sets every launch count to 0 just before it and reads the
 counts just after; every phase builds the models it serves and drops them
@@ -4689,6 +4706,197 @@ def _adamw_step_card_vs_cpu(torch, arch):
              f"{own_mom})")
 
 
+VERIFY_STEPS = 16      # the verify phase's engines: max_steps, 4 slots
+
+
+def _verify_engines(cfg, params):
+    """The verify phase's two full-width engines' makers: TeaCache with
+    FasterCacheCFG (the device plan and the uncond rows), and TaylorSeer
+    (host plan; forecast kernel on its skip ticks)."""
+    from repro_torch.core import FasterCacheCFG, make_policy
+    from repro_torch.serving.diffusion import DiffusionServingEngine
+
+    def teacache():
+        return DiffusionServingEngine(
+            params, cfg, make_policy("teacache", delta=TEACACHE_DELTA),
+            slots=4, max_steps=VERIFY_STEPS,
+            cfg_policy=FasterCacheCFG(2, VERIFY_STEPS), device="cuda")
+
+    def taylorseer():
+        return DiffusionServingEngine(params, cfg, "taylorseer", slots=4,
+                                      max_steps=VERIFY_STEPS, device="cuda")
+
+    return {"teacache+fastercache_cfg": teacache, "taylorseer": taylorseer}
+
+
+def _injected_syncs(torch, eng):
+    """Record one tick of `eng` with a `.item()` and then a `.cpu()`
+    injected after it: (issues of the first, issues of the second)."""
+    import numpy as np
+    from repro_torch.analysis.ir.op_checks import check_record, record_program
+    from repro_torch.core import stack_slots
+    S = eng.slots
+    xs = torch.zeros((S, eng.tokens, eng.in_dim), device="cuda")
+    states = stack_slots(eng._fresh, S)
+    z = np.zeros((S,), np.float32)
+    ab = np.full((S,), 0.5, np.float32)
+    steps = np.zeros((S,), np.int32)
+    wc, wu, _, sig = eng._plan_all(states, steps, xs, z)
+    nv = torch.zeros((S, eng.cfg.d_model), device="cuda")
+    nm = torch.zeros((S,), dtype=torch.bool, device="cuda")
+
+    def tick():
+        return eng._tick("full", None, states, steps, xs, z, z, ab, ab, nv,
+                         nm, {}, wc, wu, sig)[0]
+
+    _, rec_item = record_program("inject-item", lambda: tick().sum().item())
+    _, rec_cpu = record_program("inject-cpu", lambda: tick().sum().cpu())
+    return rec_item, rec_cpu, check_record(rec_item), check_record(rec_cpu)
+
+
+def log_findings(label, findings):
+    """One line per distinct (rule, source line, message), with its count."""
+    from collections import Counter
+    groups = Counter((f.rule, f"{f.path}:{f.line}", f.message[:160])
+                     for f in findings)
+    for (rule, where, msg), n in sorted(groups.items()):
+        log(f"{label}: {n}x {where} [{rule}] {msg}")
+
+
+def phase_verify(torch, kernels, path):
+    """The analysis package on the card (see the module docstring, 43)."""
+    from repro_torch.analysis import run_analysis
+    from repro_torch.analysis.ir import RetraceSentinel
+    from repro_torch.analysis.ir.launch_lint import lint_launches
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import linear_schedule
+    from repro_torch.models import init_params, perturb_zero_init
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.steps import (init_train_state,
+                                         make_diffusion_train_step)
+    from repro_torch.tree import tree_leaves
+
+    # 1-2. the lint, every rule on the card, and the launch plans
+    t0 = time.perf_counter()
+    res = run_analysis(root=str(ROOT), device="cuda")
+    lint_s = time.perf_counter() - t0
+    log(f"verify: lint of src/repro_torch on the card in {lint_s:.2f}s: "
+        f"{len(res.findings)} finding(s), {len(res.suppressed)} suppressed, "
+        f"{res.files_scanned} files, rules {res.rules}, not run "
+        f"{res.not_run}")
+    if res.exit_code != 0 or res.not_run:
+        log_findings("verify: lint", res.findings)
+        fail("verify: the lint of src/repro_torch did not exit 0 with every "
+             "rule run")
+    # the launch lint again, for its plans (the lint above reports only
+    # its findings)
+    lint = lint_launches()
+    if lint.issues or not lint.plans:
+        fail(f"verify: the launch lint: {len(lint.issues)} issue(s), "
+             f"{len(lint.plans)} plan(s)")
+    sites = sorted({p.site for p in lint.plans})
+    log(f"verify: launch lint: {lint.captures} calls, {len(lint.plans)} "
+        f"plans, entries {lint.entries}, {len(sites)} sites {sites}")
+    for line in lint.site_lines():
+        log(f"verify: launch site {line}")
+
+    # 3. two full-width DiT-XL engines, verified, served under the sentinel
+    cfg = get_config("dit-xl")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = perturb_zero_init(init_params(gen, cfg, device="cuda"), gen)
+    reqs = serve_requests(cfg)
+    launches, inject_eng = {}, None
+    for name, make in _verify_engines(cfg, params).items():
+        make().warmup()                      # the shapes' first runs
+        torch.cuda.synchronize()
+        plain, verified = make(), make()
+        t0 = time.perf_counter()
+        plain.warmup()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs = verified.warmup(verify=True)
+        torch.cuda.synchronize()
+        verify_s = time.perf_counter() - t0
+        ops = {str(k): r.ops for k, r in verified.program_records.items()}
+        log(f"verify: {name}: warmup() {plain_s:.3f}s, warmup(verify=True) "
+            f"{verify_s:.3f}s ({verify_s / plain_s:.2f}x), programs {runs}, "
+            f"aten ops a run {ops}, findings {len(verified.ir_findings)}")
+        if verified.ir_findings != []:
+            log_findings(f"verify: {name}", verified.ir_findings)
+            fail(f"verify: {name}: warmup(verify=True) found "
+                 f"{len(verified.ir_findings)} issue(s)")
+        live = RetraceSentinel().selftest()
+        t0 = time.perf_counter()
+        with RetraceSentinel() as sentinel:
+            out, n = _count_launches(kernels, path[:1] if name.startswith(
+                "teacache") else path, f"verify {name}",
+                lambda: verified.serve(reqs))
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = {k: launches.get(k, 0) + v for k, v in n.items()}
+        log(f"verify: {name}: {len(out)} requests in {serve_s:.3f}s under "
+            f"the sentinel: count {sentinel.count} {sentinel.compiled_names}"
+            f", selftest {live}, launches {n}")
+        if len(out) != len(reqs) or not all(
+                math.isfinite(float(abs(r.x0).max())) for r in out):
+            fail(f"verify: {name}: {len(out)} of {len(reqs)} requests, or a "
+                 f"non-finite x0")
+        if sentinel.count != 0 or not live:
+            fail(f"verify: {name}: sentinel count {sentinel.count}, selftest "
+                 f"{live}")
+        inject_eng = verified
+        del plain
+    for k in path:
+        if launches[k.__name__] <= 0:
+            fail(f"verify: kernel {k.__name__} was not launched on this path")
+
+    # 4. an injected .item() fires both sync channels; a .cpu() the copies'
+    rec_item, rec_cpu, item_issues, cpu_issues = _injected_syncs(
+        torch, inject_eng)
+    log(f"verify: injected .item(): {len(rec_item.syncs)} operator sync(s) "
+        f"{[e.op for e in rec_item.syncs]}, {len(rec_item.sync_warnings)} "
+        f"sync-debug warning(s); injected .cpu(): "
+        f"{[e.op for e in rec_cpu.syncs]}, {len(rec_cpu.sync_warnings)} "
+        f"warning(s); {len(item_issues)} + {len(cpu_issues)} findings")
+    if not (any(e.kind == "sync" for e in rec_item.syncs)
+            and rec_item.sync_warnings and item_issues):
+        fail("verify: the injected .item() did not fire both sync channels")
+    if not (any(e.kind == "dtoh" for e in rec_cpu.syncs)
+            and rec_cpu.sync_warnings):
+        fail("verify: the injected .cpu() did not fire the copy channel")
+    del inject_eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. the full-width train step updates every leaf in place
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, device="cuda")
+    step_fn = make_diffusion_train_step(cfg, linear_schedule(1000),
+                                        total_steps=10)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batches = ({"latents": torch.randn((TRAIN_BATCH, cfg.dit_tokens,
+                                        cfg.dit_in_dim), generator=g,
+                                       device="cuda"),
+                "labels": torch.randint(0, cfg.dit_num_classes,
+                                        (TRAIN_BATCH,), generator=g,
+                                        device="cuda"),
+                "generator": g} for _ in range(2))
+    leaves = len(tree_leaves(state))
+    t0 = time.perf_counter()
+    state, hist = train_loop(step_fn, state, batches, 2, log_every=1,
+                             log_fn=lambda m: None, verify_donation=True)
+    torch.cuda.synchronize()
+    log(f"verify: train_loop(verify_donation=True): 2 steps of dit-xl at "
+        f"batch {TRAIN_BATCH} in {time.perf_counter() - t0:.3f}s, all "
+        f"{leaves} leaves updated in place; losses "
+        f"{[round(h['loss'], 5) for h in hist]}")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        fail("verify: a train loss is not finite")
+    del state
+    return launches
+
+
 def timed(name, fn, *args):
     """fn(*args), logging the phase's wall seconds and its own peak device
     memory: what earlier phases left is collected first, the peak counter
@@ -4868,6 +5076,9 @@ def main() -> int:
     by_path["serve-moe"] = timed("serve-moe", phase_serve_moe, torch, KERNELS,
                                  (flash_attention,))
     timed("check-moe", phase_check_moe, torch)
+    # slice 15: the analysis package on the card
+    by_path["verify"] = timed("verify", phase_verify, torch, KERNELS,
+                              (flash_attention, forecast))
 
     rows = []
     for name, fn, src, replaces, rep in (

@@ -23,7 +23,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.device import tree_device
+from repro_torch.device import to_device, tree_device
+from repro_torch.obs import watch
 
 from .encoder import (TextEncoderConfig, TokensLike, encode_tokens,
                       pooled_embedding, tokenize)
@@ -46,8 +47,11 @@ class PromptCache:
 
     Host-side by design: admission-time code, never tick code.  The encoder
     runs on the params' device once per unique prompt, and its two outputs
-    come back in one device-to-host copy.  `warmup()` runs the encoder once
-    on dummy operands, so that the first miss builds nothing."""
+    come back in one device-to-host copy (`repro_torch.obs.watch.host_read`,
+    outside the encoder program).  `warmup()` runs the encoder once on
+    dummy operands, so that the first miss builds nothing; `warmup(verify=
+    True)` also records that run's operators (`repro_torch.analysis.ir`)
+    and returns the record."""
 
     def __init__(self, params, tc: TextEncoderConfig, capacity: int = 128,
                  metrics=None, name: str = "default"):
@@ -64,6 +68,7 @@ class PromptCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self._warmed = False
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -87,14 +92,21 @@ class PromptCache:
                 "live PromptCache entries").set(len(self._entries),
                                                 cache=self.name)
 
-    def _encode(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        """(L, d) embedding and (d,) pooled vector stacked into one
-        (L + 1, d) host array: one device-to-host copy."""
-        tid = torch.from_numpy(ids[None]).to(self.device)
-        tm = torch.from_numpy(mask[None]).to(self.device)
+    def _encode_program(self, ids: np.ndarray,
+                        mask: np.ndarray) -> torch.Tensor:
+        """The encoder program: (L, d) embedding and (d,) pooled vector
+        stacked into one (L + 1, d) f32 tensor on the device."""
+        tid = to_device(ids[None], self.device)
+        tm = to_device(mask[None], self.device)
         emb = encode_tokens(self.params, tid, tm, self.tc)
-        both = torch.cat([emb[0], pooled_embedding(emb, tm)], dim=0)
-        return both.float().cpu().numpy()
+        return torch.cat([emb[0], pooled_embedding(emb, tm)], dim=0).float()
+
+    def _encode(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """The encoder program, then its output in one device-to-host
+        copy."""
+        if not self._warmed:
+            watch.emit("program", f"PromptCache[{self.name!r}].text_encoder")
+        return watch.host_read(self._encode_program(ids, mask))
 
     def get(self, prompt: TokensLike) -> PromptEmbedding:
         """Embedding table for `prompt`; the encoder runs only on a miss."""
@@ -115,11 +127,21 @@ class PromptCache:
             self._count("evictions")
         return entry
 
-    def warmup(self) -> None:
-        """Run the encoder once on an all-padding dummy prompt (builds and
-        touches every kernel it needs); counts no hit and no miss."""
+    def warmup(self, verify: bool = False):
+        """Run the encoder program once on an all-padding dummy prompt
+        (builds and touches every kernel it needs); counts no hit and no
+        miss.  `verify=True` runs it under the program verifier's operator
+        recorder and returns the record (else None)."""
         L = self.tc.max_len
-        self._encode(np.zeros((L,), np.int32), np.zeros((L,), bool))
+        args = (np.zeros((L,), np.int32), np.zeros((L,), bool))
+        self._warmed = True
+        if not verify:
+            self._encode_program(*args)
+            return None
+        from repro_torch.analysis.ir.op_checks import record_program
+        _, rec = record_program("text_encoder",
+                                lambda: self._encode_program(*args))
+        return rec
 
     @property
     def stats(self) -> dict:

@@ -23,6 +23,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import to_device
+
 from .metrics import l2_slots, rel_l1_block_slots, rel_l1_slots
 from .policy import CachePolicy, SlotWant, slot_mask, unsqueeze_state
 
@@ -75,7 +77,7 @@ class GatedPolicy(CachePolicy):
     @staticmethod
     def _masks(want, states):
         """The host decision as an (S,) device mask and its int32 form."""
-        m = torch.as_tensor(np.asarray(want, bool), device=states["n"].device)
+        m = to_device(np.asarray(want, bool), states["n"].device)
         return m, m.to(torch.int32)
 
     @staticmethod
@@ -171,7 +173,7 @@ class MagCachePolicy(GatedPolicy):
 
     def _prod(self, states, steps):
         idx = np.clip(np.asarray(steps), 0, len(self.gammas) - 1)
-        g = torch.as_tensor(self.gammas[idx], device=states["prod"].device)
+        g = to_device(self.gammas[idx], states["prod"].device)
         return states["prod"] * g
 
     def gate_slots(self, states, steps, xs, signal=None):

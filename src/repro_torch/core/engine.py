@@ -130,6 +130,7 @@ class DBCacheStack:
         probe_f = probe.float()
         change = rel_l1_block(probe_f, state["prev_probe"])
         # the step's one host read
+        # repro-lint: disable-next-line=host-sync-in-hot-path -- priced: DBCache's one read a step (single-trajectory path, not a serving tick)
         refresh = bool(torch.logical_or(state["n"] == 0,
                                         change > self.threshold))
         cache = state["mid_cache"]

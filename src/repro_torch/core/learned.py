@@ -19,6 +19,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch.device import to_device
+
 from .adaptive import GatedPolicy, _full, _zeros
 
 
@@ -59,7 +61,7 @@ class LazyDiTPolicy(GatedPolicy):
     def _gate(self, device):
         """The gate's tensors on `device`, copied there once."""
         if device not in self._on:
-            self._on[device] = {k: torch.as_tensor(v).to(device)
+            self._on[device] = {k: to_device(v, device)
                                 for k, v in self.gate.items()}
         return self._on[device]
 
@@ -123,6 +125,7 @@ def _sgd(gate, loss_fn, steps: int, lr: float) -> Tuple[Dict, List[float]]:
             for p, gr in zip(g.values(), grads):
                 p -= lr * gr
         losses.append(loss.detach())
+    # repro-lint: disable-next-line=host-sync-in-hot-path -- gate training, once after the loop: the loss history in one copy
     hist = (torch.stack(losses).cpu().tolist() if losses else [])
     return {k: v.detach() for k, v in g.items()}, hist
 

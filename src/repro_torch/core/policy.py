@@ -35,6 +35,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import to_device
+
 ComputeFn = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -70,8 +72,8 @@ def static_plan(policy, num_steps: int) -> Optional[np.ndarray]:
 def slot_mask(mask, like: torch.Tensor) -> torch.Tensor:
     """(S,) host bool mask (or device bool tensor) -> device bool tensor
     broadcastable to `like`."""
-    m = torch.as_tensor(np.asarray(mask, bool) if not torch.is_tensor(mask)
-                        else mask, device=like.device)
+    m = (mask.to(like.device) if torch.is_tensor(mask)
+         else to_device(np.asarray(mask, bool), like.device))
     return m.view((-1,) + (1,) * (like.dim() - 1))
 
 
@@ -122,7 +124,7 @@ class CachePolicy:
     def want_slots(self, states, steps, xs, signal=None) -> SlotWant:
         """Every slot's decision on xs' device; a schedule-only policy's
         are all forced (no threshold: zeros)."""
-        want = torch.as_tensor(self.step_want(steps), device=xs.device)
+        want = to_device(self.step_want(steps), xs.device)
         z = torch.zeros(want.shape, dtype=torch.float32, device=xs.device)
         return SlotWant(want, z, z, z, torch.ones_like(want))
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import to_device
 from repro_torch.kernels.forecast import (basis_coeffs, forecast,
                                           forecast_basis)
 
@@ -43,7 +44,7 @@ def forecast_from_diffs(diffs, u, n_valid, basis: str = "taylor",
 
     u scalar: diffs (order+1, ...) -> (...).  u of shape (S,): diffs
     (S, order+1, ...) -> (S, ...), one kernel launch for all S rows."""
-    u = torch.as_tensor(u, dtype=torch.float32, device=diffs.device)
+    u = to_device(u, diffs.device, torch.float32)
     order = diffs.shape[u.dim()] - 1
     coeffs = basis_coeffs(order, u, basis, sigma, n_valid)
     return forecast(diffs.contiguous(), coeffs.contiguous()).float()
@@ -63,8 +64,7 @@ def forecast_slots(states, steps, ys, want, interval, basis, sigma, dtype,
         y = fc if not want.any() else torch.where(slot_mask(want, fc), ys, fc)
     if not want.any():
         return y, {key: diffs, "n_valid": n_valid, "last_step": last}
-    steps_t = torch.as_tensor(np.asarray(steps), dtype=torch.int32,
-                              device=diffs.device)
+    steps_t = to_device(np.asarray(steps), diffs.device, torch.int32)
     m = slot_mask(want, n_valid)
     return y, {
         key: torch.where(slot_mask(want, diffs),

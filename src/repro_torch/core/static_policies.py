@@ -8,6 +8,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.device import to_device
+
 from .policy import CachePolicy, interval_pred, slot_mask
 
 
@@ -161,7 +163,7 @@ class FasterCacheCFG(CachePolicy):
         w = signals.get("cfg_w")
         if w is None:
             w = step / max(self.num_steps - 1, 1)
-        w = torch.as_tensor(w, dtype=x.dtype, device=x.device)
+        w = to_device(w, x.device, x.dtype)
         prev = state["prev"]
         return (prev + w * (prev - state["prev2"])).to(x.dtype), state
 
@@ -181,7 +183,7 @@ class FasterCacheCFG(CachePolicy):
                 if cfg_w is None:
                     cfg_w = (np.asarray(steps, np.float32)
                              / max(self.num_steps - 1, 1))
-                w = torch.as_tensor(cfg_w, device=xs.device).to(xs.dtype)
+                w = to_device(cfg_w, xs.device).to(xs.dtype)
                 w = w.view((-1,) + (1,) * (xs.dim() - 1))
                 prev = states["prev"]
                 fc = prev + w * (prev - states["prev2"])

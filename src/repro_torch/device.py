@@ -31,3 +31,20 @@ def tree_device(tree) -> Optional[torch.device]:
         if d is not None:
             return d
     return None
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """Host data (a numpy array, a scalar or a CPU tensor) on `device`
+    without a stream sync.
+
+    torch's blocking host-to-device copy from pageable memory ends in a
+    cudaStreamSynchronize: the host waits for every kernel queued before
+    it.  On a CUDA device the data goes through pinned memory instead and
+    is copied with non_blocking=True, which waits for nothing (torch's
+    pinned-memory cache keeps the staging buffer until the copy has run).
+    On the CPU this is torch.as_tensor."""
+    device = torch.device(device)
+    t = torch.as_tensor(a, dtype=dtype)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

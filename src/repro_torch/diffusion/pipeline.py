@@ -38,8 +38,10 @@ import torch
 from repro_torch.core import (CachedStack, CachePolicy, FasterCacheCFG,
                               NoCachePolicy, TemporalPABStack, layer_params,
                               static_plan)
-from repro_torch.device import DeviceLike, resolve_device, tree_device
+from repro_torch.device import (DeviceLike, resolve_device, to_device,
+                                tree_device)
 from repro_torch.models import dit, video_dit
+from repro_torch.obs.watch import host_read
 
 GRANULARITIES = ("model", "block", "deepcache", "pab_video")
 
@@ -466,13 +468,12 @@ def slot_want_fns(params, cfg, policy: CachePolicy,
     def want_all_fn(states, steps, xs, tvals, labels, guided):
         dev = xs.device
         w, sig = want_fn(states["policy"], steps, xs,
-                         torch.as_tensor(tvals, device=dev),
-                         torch.as_tensor(labels, device=dev))
+                         to_device(tvals, dev), to_device(labels, dev))
         rows = [t.float() for t in w]
         if not uncond_on_host:
             rows.append(uncond.want_slots(states["cfg"], steps, xs).want
                         .float())
-        packed = torch.stack(rows).cpu().numpy()
+        packed = host_read(torch.stack(rows))   # the plan's priced read
         wu = uncond.step_want(steps) if uncond_on_host else packed[5] > 0.5
         return WantPlan(packed[0] > 0.5, wu & np.asarray(guided, bool),
                         packed[1], packed[2], packed[3], packed[4] > 0.5, sig)

@@ -14,6 +14,13 @@ Python wrappers raise when it is not 0.  Pointers and the stream travel as
 one host path of every wrapper: the library handle without a lock once it
 is loaded, no device switch when the tensor's device is already current,
 the raw current stream, one ctypes call.
+
+Every entry point `<name>` has a query entry `<name>_plan` with the same
+arguments and a record buffer in place of the stream: it runs the same
+host path and records each launch it would make (`kernels/launch_plan.cuh`;
+read by `repro_torch.analysis.ir.launch_lint`) instead of launching.  A
+build and a load emit `repro_torch.obs.watch` events ("kernel-build",
+"kernel-load"), which the retrace sentinel counts.
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ from pathlib import Path
 from typing import List
 
 import torch
+
+from repro_torch.obs import watch
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_ROOT = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
@@ -91,6 +100,7 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"linking {LIB_NAME} failed:\n{link.stdout}")
         (work / "build.log").write_text(log + link.stdout)
+        watch.emit("kernel-build", str(lib))
         try:
             work.rename(out_dir)
         except OSError:        # another process finished the same build
@@ -107,11 +117,16 @@ def build_log() -> str:
     return path.read_text() if path.exists() else ""
 
 
+#: every C entry point; each has a query entry `<name>_plan`
+ENTRIES = ("flash_attention_fwd", "flash_attention_fwd_split",
+           "flash_attention_fwd_lse", "flash_attention_bwd", "forecast_fwd",
+           "forecast_basis_fwd", "ssd_fwd", "ssd_bwd")
+
+
 def _declare(lib) -> None:
-    """Argument and result types of every C entry point: flash_attention_fwd,
-    flash_attention_fwd_split, flash_attention_fwd_lse, flash_attention_bwd,
-    forecast_fwd,
-    forecast_basis_fwd, ssd_fwd and ssd_bwd."""
+    """Argument and result types of every C entry point (ENTRIES) and of
+    its query entry, which takes the same arguments with the record buffer
+    where the stream was."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     L = ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
@@ -125,11 +140,16 @@ def _declare(lib) -> None:
     lib.ssd_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                             L, L, L, L, L, L, L, P]
     lib.ssd_bwd.argtypes = [P] * 18 + [I] * 7 + [L] * 7 + [P]
-    for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_split,
-               lib.flash_attention_fwd_lse,
-               lib.flash_attention_bwd, lib.forecast_fwd,
-               lib.forecast_basis_fwd, lib.ssd_fwd, lib.ssd_bwd):
-        fn.restype = I
+    for name in ENTRIES:
+        fn, query = getattr(lib, name), getattr(lib, name + "_plan")
+        query.argtypes = fn.argtypes
+        fn.restype = query.restype = I
+
+
+def _dlopen(path) -> ctypes.CDLL:
+    """Load a shared library, announcing the load to `watch` listeners."""
+    watch.emit("kernel-load", str(path))
+    return ctypes.CDLL(str(path))
 
 
 def load():
@@ -139,7 +159,7 @@ def load():
         return _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = _dlopen(build())
             _declare(lib)
             _lib = lib
     return _lib

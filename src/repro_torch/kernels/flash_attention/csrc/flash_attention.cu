@@ -87,6 +87,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "launch_plan.cuh"
 #include "tc_helpers.cuh"
 
 namespace {
@@ -477,10 +478,10 @@ cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o, floa
     }
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd<T, DP, kVec, kLse, DV><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, KH, D, causal, window, scale * kLog2e, Sk - Sq, lse, Dv);
-  return cudaGetLastError();
+  return PLAN_LAUNCH("flash_fwd", flash_fwd<T, DP, kVec, kLse, DV>, grid, dim3(kThreads), smem,
+                     stream, static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KH, D, causal,
+                     window, scale * kLog2e, Sk - Sq, lse, Dv);
 }
 
 // The head dim rounds up to the next instantiated width: a multiple of the
@@ -565,6 +566,26 @@ extern "C" int flash_attention_fwd_split(const void* q, const void* k, const voi
       q, k, v, o, nullptr, B, Sq, Sk, H, KH, D, causal, window, scale,
       static_cast<cudaStream_t>(stream), Dv);
 }
+
+// Query entries (launch_plan.cuh): the entry's arguments with `plans` in
+// place of the stream; the plan each launch site would launch goes to
+// `plans` and nothing launches.
+extern "C" int flash_attention_fwd_plan(const void* q, const void* k, const void* v, void* o,
+                                        int dtype, int B, int Sq, int Sk, int H, int KH, int D,
+                                        int causal, int window, float scale, long long* plans) {
+  plan::Scope scope(plans);
+  return flash_attention_fwd(q, k, v, o, dtype, B, Sq, Sk, H, KH, D, causal, window, scale,
+                             nullptr);
+}
+
+extern "C" int flash_attention_fwd_split_plan(const void* q, const void* k, const void* v,
+                                              void* o, int dtype, int B, int Sq, int Sk, int H,
+                                              int KH, int D, int Dv, int causal, int window,
+                                              float scale, long long* plans) {
+  plan::Scope scope(plans);
+  return flash_attention_fwd_split(q, k, v, o, dtype, B, Sq, Sk, H, KH, D, Dv, causal, window,
+                                   scale, nullptr);
+}
 #else
 // The same, and lse (B, H, Sq) f32 receives each row's log-sum-exp.
 extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
@@ -573,5 +594,14 @@ extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void*
                                        void* stream) {
   return run<true>(q, k, v, o, static_cast<float*>(lse), dtype, B, Sq, Sk, H, KH, D, causal,
                    window, scale, stream);
+}
+
+extern "C" int flash_attention_fwd_lse_plan(const void* q, const void* k, const void* v, void* o,
+                                            void* lse, int dtype, int B, int Sq, int Sk, int H,
+                                            int KH, int D, int causal, int window, float scale,
+                                            long long* plans) {
+  plan::Scope scope(plans);
+  return flash_attention_fwd_lse(q, k, v, o, lse, dtype, B, Sq, Sk, H, KH, D, causal, window,
+                                 scale, nullptr);
 }
 #endif

@@ -82,6 +82,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch_plan.cuh"
 #include "tc_helpers.cuh"
 
 namespace {
@@ -570,16 +571,16 @@ cudaError_t launch_dp(const void* q, const void* k, const void* v, const void* d
     raised = true;
   }
   const dim3 grid_kv((a.Sk + kBK - 1) / kBK, a.KH, B);
-  flash_bwd_dkdv<T, DP, kVec><<<grid_kv, kThreads, smem, stream>>>(
+  cudaError_t e = PLAN_LAUNCH(
+      "flash_bwd_dkdv", flash_bwd_dkdv<T, DP, kVec>, grid_kv, dim3(kThreads), smem, stream,
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dO), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), a);
-  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 grid_q((a.Sq + kBQ - 1) / kBQ, a.H, B);
-  flash_bwd_dq<T, DP, kVec><<<grid_q, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dO), lse, delta, static_cast<T*>(dq), a);
-  return cudaGetLastError();
+  return PLAN_LAUNCH("flash_bwd_dq", flash_bwd_dq<T, DP, kVec>, grid_q, dim3(kThreads), smem,
+                     stream, static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<const T*>(dO), lse, delta,
+                     static_cast<T*>(dq), a);
 }
 
 // The element-by-element path at the next of 32, 64 or 128 columns.
@@ -622,9 +623,10 @@ int run(const void* q, const void* k, const void* v, const void* o, const void* 
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   const long long rows = (long long)B * Sq * H;
-  flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dO), dl, rows, Sq, H, D);
-  const cudaError_t e = cudaGetLastError();
+  const cudaError_t e =
+      PLAN_LAUNCH("flash_bwd_delta", flash_bwd_delta<T>, dim3((unsigned)((rows + 7) / 8)),
+                  dim3(256), 0, s, static_cast<const T*>(o), static_cast<const T*>(dO), dl, rows,
+                  Sq, H, D);
   if (e != cudaSuccess) return (int)e;
   const bool vec = (D * (int)sizeof(T)) % 16 == 0 && aligned16(q) && aligned16(k) &&
                    aligned16(v) && aligned16(dO) && aligned16(dq) && aligned16(dk) &&
@@ -657,6 +659,19 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     return run<__nv_bfloat16>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Sq, Sk, H, KH, D,
                               causal, window, scale, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// Query entry (launch_plan.cuh): flash_attention_bwd's arguments with
+// `plans` in place of the stream; records the three launches (the f32
+// half's through the same buffer) and launches nothing.
+extern "C" int flash_attention_bwd_plan(const void* q, const void* k, const void* v,
+                                        const void* o, const void* dO, const void* lse,
+                                        void* delta, void* dq, void* dk, void* dv, int dtype,
+                                        int B, int Sq, int Sk, int H, int KH, int D, int causal,
+                                        int window, float scale, long long* plans) {
+  plan::Scope scope(plans);
+  return flash_attention_bwd(q, k, v, o, dO, lse, delta, dq, dk, dv, dtype, B, Sq, Sk, H, KH, D,
+                             causal, window, scale, nullptr);
 }
 #else
 // The f32 half of flash_attention_bwd (flash_attention_bwd_f32.cu).

@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "launch_plan.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -157,10 +159,9 @@ cudaError_t launch(const void* d, const float* c, void* o, int batch, int m1, lo
                    int interval, double sigma, cudaStream_t stream) {
   const long long items = (n + VEC - 1) / VEC;
   const dim3 grid((unsigned)((items + kThreads - 1) / kThreads), batch);
-  forecast_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(d), c, static_cast<T*>(o), m1, n, basis, steps, last, n_valid,
-      interval, sigma);
-  return cudaGetLastError();
+  return PLAN_LAUNCH("forecast_kernel", forecast_kernel<T, VEC>, grid, dim3(kThreads), 0, stream,
+                     static_cast<const T*>(d), c, static_cast<T*>(o), m1, n, basis, steps, last,
+                     n_valid, interval, sigma);
 }
 
 int dispatch(const void* d, const float* c, void* o, int dtype, int batch, int m1,
@@ -211,4 +212,21 @@ extern "C" int forecast_basis_fwd(const void* d, const void* steps, const void* 
   return dispatch(d, nullptr, o, dtype, batch, m1, n, vec, basis, st,
                   static_cast<const int*>(last), static_cast<const int*>(n_valid), interval,
                   sigma, stream);
+}
+
+// Query entries (launch_plan.cuh): each entry's arguments with `plans` in
+// place of the stream; the launch is recorded, not made.
+extern "C" int forecast_fwd_plan(const void* d, const void* c, void* o, int dtype, int batch,
+                                 int m1, long long n, int vec, long long* plans) {
+  plan::Scope scope(plans);
+  return forecast_fwd(d, c, o, dtype, batch, m1, n, vec, nullptr);
+}
+
+extern "C" int forecast_basis_fwd_plan(const void* d, const void* steps, const void* last,
+                                       const void* n_valid, void* o, int dtype, int batch,
+                                       int m1, long long n, int vec, int basis, int interval,
+                                       double sigma, long long* plans) {
+  plan::Scope scope(plans);
+  return forecast_basis_fwd(d, steps, last, n_valid, o, dtype, batch, m1, n, vec, basis,
+                            interval, sigma, nullptr);
 }

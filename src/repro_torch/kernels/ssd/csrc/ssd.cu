@@ -73,6 +73,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch_plan.cuh"
 #include "tc_helpers.cuh"
 
 namespace {
@@ -454,9 +455,9 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
   const T* Bt = static_cast<const T*>(B);
   const T* Ct = static_cast<const T*>(C);
   constexpr int cb_smem = 2 * kT * Ld<T>::c * sizeof(T);
-  ssd_cb_kernel<T, kVec><<<dim3(nt, b), kThreads, cb_smem, stream>>>(Bt, Ct, cb, s, n, st[3],
-                                                                      st[4], st[5], st[6]);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = PLAN_LAUNCH("ssd_cb_kernel", ssd_cb_kernel<T, kVec>, dim3(nt, b),
+                              dim3(kThreads), cb_smem, stream, Bt, Ct, cb, s, n, st[3], st[4],
+                              st[5], st[6]);
   if (e != cudaSuccess) return e;
   constexpr int smem = ScanSmem<T>::kBytes;
   static bool raised = false;
@@ -467,10 +468,9 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
     raised = true;
   }
   const dim3 grid((p + kPG - 1) / kPG, h, b);
-  ssd_scan_kernel<T, kVec><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, A, Bt, Ct, cb, y, hout, s, h, p, n, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6]);
-  return cudaGetLastError();
+  return PLAN_LAUNCH("ssd_scan_kernel", ssd_scan_kernel<T, kVec>, grid, dim3(kThreads), smem,
+                     stream, static_cast<const T*>(x), dt, A, Bt, Ct, cb, y, hout, s, h, p, n,
+                     st[0], st[1], st[2], st[3], st[4], st[5], st[6]);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -510,4 +510,16 @@ extern "C" int ssd_fwd(const void* x, const void* dt, const void* A, const void*
                                                  st, q)
                    : launch<__nv_bfloat16, false>(x, dtf, Af, B, C, cbf, yf, hf, b, s, h, p, n,
                                                   st, q));
+}
+
+// Query entry (launch_plan.cuh): ssd_fwd's arguments with `plans` in place
+// of the stream; both launches are recorded, none made.
+extern "C" int ssd_fwd_plan(const void* x, const void* dt, const void* A, const void* B,
+                            const void* C, void* cb, void* y, void* hout, int dtype, int b, int s,
+                            int h, int p, int n, long long xs_b, long long xs_t, long long xs_h,
+                            long long bs_b, long long bs_t, long long cs_b, long long cs_t,
+                            long long* plans) {
+  plan::Scope scope(plans);
+  return ssd_fwd(x, dt, A, B, C, cb, y, hout, dtype, b, s, h, p, n, xs_b, xs_t, xs_h, bs_b, bs_t,
+                 cs_b, cs_t, nullptr);
 }

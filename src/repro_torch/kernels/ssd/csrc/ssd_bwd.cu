@@ -78,6 +78,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch_plan.cuh"
 #include "tc_helpers.cuh"
 
 namespace {
@@ -635,29 +636,30 @@ cudaError_t launch(const Args& r, cudaStream_t stream) {
     raised = true;
   }
   if (nt > 1) {
-    ssd_bwd_state_kernel<T, kVec><<<dim3(nt, r.h, r.b), 128, StateSmem<T>::kBytes, stream>>>(
-        x, r.dt, r.A, B, C, r.dy, r.hst, r.gst, r.decay, r.s, r.h, r.p, r.n, s[0], s[1], s[2],
-        s[3], s[4], s[5], s[6]);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    e = PLAN_LAUNCH("ssd_bwd_state_kernel", ssd_bwd_state_kernel<T, kVec>, dim3(nt, r.h, r.b),
+                    dim3(128), StateSmem<T>::kBytes, stream, x, r.dt, r.A, B, C, r.dy, r.hst,
+                    r.gst, r.decay, r.s, r.h, r.p, r.n, s[0], s[1], s[2], s[3], s[4], s[5],
+                    s[6]);
+    if (e != cudaSuccess) return e;
     if (nt > 2 || r.dhf != nullptr) {
       const int pn = r.p * r.n;
-      ssd_bwd_pass_kernel<<<dim3((pn + 255) / 256, r.h, r.b), 256, 0, stream>>>(
-          r.hst, r.gst, r.decay, r.dhf, nt, r.h, pn);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      e = PLAN_LAUNCH("ssd_bwd_pass_kernel", ssd_bwd_pass_kernel,
+                      dim3((pn + 255) / 256, r.h, r.b), dim3(256), 0, stream, r.hst, r.gst,
+                      r.decay, r.dhf, nt, r.h, pn);
+      if (e != cudaSuccess) return e;
     }
   }
-  ssd_bwd_tile_kernel<T, kVec><<<dim3(nt, ngroups, r.b), kTileThreads, TileSmem<T>::kBytes,
-                                 stream>>>(
-      x, r.dt, r.A, B, C, r.dy, r.dhf, r.hst, r.gst, static_cast<T*>(r.dx), r.ddt, r.dbp, r.dcp,
-      r.dapart, r.s, r.h, r.p, r.n, r.group, s[0], s[1], s[2], s[3], s[4], s[5], s[6]);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  e = PLAN_LAUNCH("ssd_bwd_tile_kernel", ssd_bwd_tile_kernel<T, kVec>, dim3(nt, ngroups, r.b),
+                  dim3(kTileThreads), TileSmem<T>::kBytes, stream, x, r.dt, r.A, B, C, r.dy,
+                  r.dhf, r.hst, r.gst, static_cast<T*>(r.dx), r.ddt, r.dbp, r.dcp, r.dapart, r.s,
+                  r.h, r.p, r.n, r.group, s[0], s[1], s[2], s[3], s[4], s[5], s[6]);
+  if (e != cudaSuccess) return e;
   const long long rows_n = (long long)r.b * r.s * r.n;
   const long long blocks = (rows_n + 255) / 256 + 1;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  ssd_bwd_reduce_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
-      r.dbp, r.dcp, r.dapart, static_cast<T*>(r.dB), static_cast<T*>(r.dC), r.dA, rows_n,
-      ngroups, r.n, r.h, r.b * nt);
-  return cudaGetLastError();
+  return PLAN_LAUNCH("ssd_bwd_reduce_kernel", ssd_bwd_reduce_kernel<T>, dim3((unsigned)blocks),
+                     dim3(256), 0, stream, r.dbp, r.dcp, r.dapart, static_cast<T*>(r.dB),
+                     static_cast<T*>(r.dC), r.dA, rows_n, ngroups, r.n, r.h, r.b * nt);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -697,4 +699,18 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void*
   if (dtype == 0)
     return (int)(vec ? launch<float, true>(r, q) : launch<float, false>(r, q));
   return (int)(vec ? launch<__nv_bfloat16, true>(r, q) : launch<__nv_bfloat16, false>(r, q));
+}
+
+// Query entry (launch_plan.cuh): ssd_bwd's arguments with `plans` in place
+// of the stream; every launch is recorded, none made.
+extern "C" int ssd_bwd_plan(const void* x, const void* dt, const void* A, const void* B,
+                            const void* C, const void* dy, const void* dhf, void* hst, void* gst,
+                            void* decay, void* dx, void* ddt, void* dbp, void* dcp,
+                            void* dapart, void* dB, void* dC, void* dA, int dtype, int b, int s,
+                            int h, int p, int n, int group, long long xs_b, long long xs_t,
+                            long long xs_h, long long bs_b, long long bs_t, long long cs_b,
+                            long long cs_t, long long* plans) {
+  plan::Scope scope(plans);
+  return ssd_bwd(x, dt, A, B, C, dy, dhf, hst, gst, decay, dx, ddt, dbp, dcp, dapart, dB, dC, dA,
+                 dtype, b, s, h, p, n, group, xs_b, xs_t, xs_h, bs_b, bs_t, cs_b, cs_t, nullptr);
 }

@@ -86,6 +86,9 @@ class MixedModalityEngine:
             raise ValueError("each modality pool needs its own engine "
                              "instance (an engine hosts one session)")
         self.pools: Dict[str, DiffusionServingEngine] = dict(pools)
+        #: findings of the last warmup(verify=True) over every pool: None =
+        #: never verified, [] = verified clean
+        self.ir_findings: Optional[List] = None
         #: MixedTelemetry of the most recent serve() call
         self.telemetry: Optional[MixedTelemetry] = None
 
@@ -114,15 +117,14 @@ class MixedModalityEngine:
         modality shape), so the kernels are built and every batch shape is
         touched before the first mixed tick, and profile them into each
         pool's `program_profile`.  Returns {modality: the buckets run}
-        (JAX returns the profiles).  `verify=True` asks for JAX's
-        compiled-IR contract checks, which have no counterpart in the port
-        (ROADMAP.md §A.8)."""
+        (JAX returns the profiles).  `verify=True` verifies every pool's
+        programs (`DiffusionServingEngine.warmup(verify=True)`) and sets
+        `self.ir_findings` to all their findings ([] = every pool clean)."""
+        runs = {m: eng.warmup(verify=verify) for m, eng in self.pools.items()}
         if verify:
-            raise NotImplementedError(
-                "warmup(verify=True) runs the JAX package's compiled-IR "
-                "checks (XLA only); the port's counterparts are ROADMAP.md "
-                "§A.8")
-        return {m: eng.warmup() for m, eng in self.pools.items()}
+            self.ir_findings = [f for _, eng in sorted(self.pools.items())
+                                for f in eng.ir_findings]
+        return runs
 
     def serve(self, requests: Sequence[DiffusionRequest],
               max_ticks: Optional[int] = None,

@@ -12,6 +12,9 @@ JAX `repro.obs`).
   profiling  — per-program first-run seconds and FLOPs captured by
                engine.warmup(), the measured redundancy ratio (FLOPs
                avoided / dense FLOPs), opt-in torch.profiler traces
+  watch      — the events the program verifier and the retrace sentinel
+               (repro_torch.analysis.ir) listen to, and `host_read`, the
+               priced device-to-host read
 
 Metric names follow JAX's `repro_<subsystem>_<metric>_<unit>`.
 Instrumentation is opt-in: no registry is consulted unless one is passed,

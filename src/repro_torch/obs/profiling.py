@@ -43,7 +43,8 @@ class ProgramProfile:
     compile_seconds: float
     flops: float                # products counted by count_flops
     bytes_accessed: float       # nan: no cost model reports bytes
-    #: JAX's compiled-IR findings; the port has no IR checks (§A.8)
+    #: the program's findings from warmup(verify=True)
+    #: (repro_torch.analysis.ir); () = clean or not verified
     ir_findings: Tuple = ()
 
     def as_dict(self) -> Dict:

@@ -65,10 +65,12 @@ def adamw_update(grads: Tree, state: AdamWState, params: Tree, *, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1):
     """One AdamW step in f32, each param cast back to its own dtype.  `lr`
-    is a float or a 0-d tensor (a schedule's value).  Updates `state`'s
-    moments and `params` in place; returns (params, AdamWState(step + 1,
-    mu, nu))."""
-    step = state.step + 1
+    is a float or a 0-d tensor (a schedule's value).  Updates every leaf in
+    place — the params, both moments and the step counter, so a train step
+    holds no second copy of any (train_loop(verify_donation=True) checks
+    it); returns (params, AdamWState(step, mu, nu)) over the same
+    tensors."""
+    step = state.step.add_(1)
     stepf = step.float()
     b1t = 1.0 - torch.pow(torch.as_tensor(b1, dtype=torch.float32,
                                           device=step.device), stepf)

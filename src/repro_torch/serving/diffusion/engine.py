@@ -46,9 +46,17 @@ attention K/V for all slots at once (`_build_text_tables`), so no tick
 projects text.  A negative prompt's pooled embedding rides the
 null-vector path.  Not ported yet (ROADMAP.md §A.10): CUDA-graph capture
 per bucket.
+
+Verification.  `warmup(verify=True)` also runs each program once under the
+program verifier (`repro_torch.analysis.ir`): tick and text programs make
+no host sync, the device plan exactly its one priced read, none a float64
+tensor; findings land on `engine.ir_findings` and the programs' profiles.
+Every program a session runs is checked against the keys warmup ran, so a
+`RetraceSentinel` sees a program that first runs inside a live tick.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Union
@@ -59,11 +67,13 @@ import torch
 from repro_torch.core import (CachePolicy, SlotBatchedPolicy,
                               cache_state_bytes, make_policy, stack_slots,
                               static_plan)
-from repro_torch.device import DeviceLike, resolve_device, tree_device
+from repro_torch.device import (DeviceLike, resolve_device, to_device,
+                                tree_device)
 from repro_torch.diffusion.pipeline import (slot_compact_denoise_fns,
                                             slot_want_fns)
 from repro_torch.diffusion.schedules import NoiseSchedule, linear_schedule
 from repro_torch.models import dit
+from repro_torch.obs import watch
 from repro_torch.obs.clock import monotonic
 from repro_torch.obs.profiling import ProgramProfile, profile_program
 
@@ -213,8 +223,8 @@ class ServeSession:
         """The negative-prompt tables on the device (once per admission
         wave, never per tick)."""
         dev = self.engine.device
-        self._null_vecs = torch.as_tensor(self.engine._null_vecs, device=dev)
-        self._null_mask = torch.as_tensor(self.engine._null_mask, device=dev)
+        self._null_vecs = to_device(self.engine._null_vecs, dev)
+        self._null_mask = to_device(self.engine._null_mask, dev)
 
     @property
     def done(self) -> bool:
@@ -295,6 +305,7 @@ class ServeSession:
             rows_done, rows_pad = n_c + n_u, bucket - n_c - n_u
         else:
             gather, rows_done, rows_pad = None, dense_rows, 0
+        eng._note_program(bucket if eng.row_compaction else kind)
         t0 = monotonic()
         self.xs, self.states = eng._tick(
             kind, gather, self.states, idx, self.xs, tvals, cfg_ws, ab_t,
@@ -505,11 +516,20 @@ class DiffusionServingEngine:
         #: keyed by bucket (compacted) or tick kind (dense), plus "want"
         #: for the device plan pass
         self.program_profile: Dict[object, ProgramProfile] = {}
+        #: one OpRecord per program (same keys), from warmup(verify=True)
+        #: or `_capture_program_records()`
+        self.program_records: Dict[object, object] = {}
+        #: findings of the last warmup(verify=True): None = never verified,
+        #: [] = verified clean
+        self.ir_findings: Optional[List] = None
+        self._warm_keys: set = set()
+        self._warm_runs: List = []
         self._session_active = False
 
     # ------------------------------------------------------------------
     def _sync(self) -> None:
         if self.device.type == "cuda":
+            # repro-lint: disable-next-line=host-sync-in-hot-path -- priced: the one synchronize a tick, which times the tick
             torch.cuda.synchronize(self.device)
 
     def _initial_noise(self, req: DiffusionRequest) -> torch.Tensor:
@@ -519,7 +539,7 @@ class DiffusionServingEngine:
             if tuple(noise.shape) != shape:
                 raise ValueError(f"noise_fn gave {tuple(noise.shape)} for "
                                  f"request {req.request_id}, want {shape}")
-            return noise.to(device=self.device, dtype=torch.float32)
+            return to_device(noise, self.device, torch.float32)
         gen = torch.Generator(device=self.device)
         gen.manual_seed((int(req.seed) * 2**32 + int(req.request_id)) % 2**63)
         return torch.randn(shape, generator=gen, device=self.device)
@@ -544,7 +564,8 @@ class DiffusionServingEngine:
         re-zeroed under their masks (the no-op branch must hold
         bit-exactly), then every layer's K/V for all 2S rows in one
         `text_kv`.  Runs once per admission wave, never in a tick."""
-        packed = torch.from_numpy(self._txt_host).to(self.device)
+        self._note_program("text_kv")
+        packed = to_device(self._txt_host, self.device)
         tm = packed[..., -1] > 0.5
         te = torch.where(tm[..., None], packed[..., :-1], 0.0)
         tk, tv = dit.text_kv(self.params, te, self.cfg)
@@ -559,8 +580,8 @@ class DiffusionServingEngine:
         decisions, and the per-slot DDIM update."""
         dev = self.device
 
-        def dev_t(a):
-            return torch.as_tensor(a, device=dev)
+        def dev_t(a):   # host tables in, without a stream sync
+            return to_device(a, dev)
 
         if kind == "skip":
             y_c = y_u = torch.zeros_like(xs)
@@ -597,7 +618,13 @@ class DiffusionServingEngine:
             | {min(1 << (n - 1).bit_length(), 2 * S)
                for n in range(1, 2 * S + 1)})
 
-    def warmup(self) -> List:
+    def _note_program(self, key) -> None:
+        """A program is about to run at `key`: announce it to a retrace
+        sentinel when warmup never ran that key."""
+        if key not in self._warm_keys:
+            watch.emit("program", f"{self.cfg.name}[{key!r}]")
+
+    def warmup(self, verify: bool = False) -> List:
         """Run the plan and every tick program once on dummy operands —
         each bucket of the compacted engine, or the dense engine's three
         kinds — so the kernels are built on first use and every batch shape
@@ -617,7 +644,24 @@ class DiffusionServingEngine:
         `repro_torch.obs.profiling.count_flops`, `bytes_accessed` nan.  A
         later warmup runs the programs again and leaves the profiles as
         they are.  (JAX's warmup returns the profiles; the port keeps
-        returning the runs and holds the profiles on the engine.)"""
+        returning the runs and holds the profiles on the engine.)
+
+        `verify=True` also runs each program once under the operator
+        recorder (`repro_torch.analysis.ir.op_checks`) and checks the
+        records (`verify_programs_by_key`): `self.ir_findings` becomes the
+        findings ([] = clean) and each profile carries its program's.  A
+        warmup with verify=True after one that recorded verifies from the
+        records and runs nothing again.  Without verify, no dispatch mode
+        is entered."""
+        if not (verify and self.program_records):
+            self._run_programs(record=verify)
+        if verify:
+            self._run_verification()
+        return list(self._warm_runs)
+
+    def _run_programs(self, record: bool) -> None:
+        """warmup's body: run (profile on the first time; record when
+        asked) every program."""
         S = self.slots
         xs = torch.zeros((S, self.tokens, self.in_dim), device=self.device)
         states = stack_slots(self._fresh, S)
@@ -627,11 +671,21 @@ class DiffusionServingEngine:
         nv = torch.zeros((S, self.cfg.d_model), device=self.device)
         nm = torch.zeros((S,), dtype=torch.bool, device=self.device)
         profiles = self.program_profile
+        if record:
+            from repro_torch.analysis.ir.op_checks import record_program
 
         def run(key, fn):
+            self._warm_keys.add(key)
             if key in profiles:
-                return fn()
-            out, profiles[key] = profile_program(key, fn, self._sync)
+                out = fn()
+            else:
+                out, profiles[key] = profile_program(key, fn, self._sync)
+            if record:
+                if key == "text_encoder":
+                    self.program_records[key] = self.conditioner.warmup(
+                        verify=True)
+                else:
+                    _, self.program_records[key] = record_program(key, fn)
             return out
 
         plan = lambda: self._plan_all(states, steps, xs, zf)  # noqa: E731
@@ -659,7 +713,37 @@ class DiffusionServingEngine:
                 run("text_encoder", self.conditioner.warmup)
                 runs.append("text_encoder")
         self._sync()
-        return runs
+        self._warm_runs = runs
+
+    def _capture_program_records(self) -> Dict[object, object]:
+        """One OpRecord per warmup program key, recording them now when no
+        warmup did."""
+        if not self.program_records:
+            self._run_programs(record=True)
+        return self.program_records
+
+    def _program_sites(self) -> Dict[object, Callable]:
+        """The function each program key runs (the fallback anchor of a
+        finding without a user frame)."""
+        sites = {k: self._tick for k in self.program_records}
+        sites.update(want=self._plan_all, text_kv=self._build_text_tables)
+        if self.conditioner is not None:
+            sites["text_encoder"] = self.conditioner._encode_program
+        return sites
+
+    def _run_verification(self) -> None:
+        """verify_programs_by_key over the records: findings land on
+        self.ir_findings and on the matching program profiles.  The
+        analysis package is imported here only: serving without verify
+        never loads it."""
+        from repro_torch.analysis.ir.verify import verify_programs_by_key
+        by_key = verify_programs_by_key(self)
+        self.ir_findings = [
+            f for _, fs in sorted(by_key.items(), key=lambda kv: str(kv[0]))
+            for f in fs]
+        for k, prof in list(self.program_profile.items()):
+            self.program_profile[k] = dataclasses.replace(
+                prof, ir_findings=tuple(by_key.get(k, ())))
 
     # ------------------------------------------------------------------
     def _check_request(self, req: DiffusionRequest) -> None:
@@ -750,6 +834,7 @@ class DiffusionServingEngine:
         if self._static_plan is not None and self._static_cfg_plan is not None:
             return (self._static_plan[steps],
                     self._static_cfg_plan[steps] & self._guided, None, None)
+        self._note_program("want")
         plan = self._want_all(states, steps, xs, tvals, self._labels,
                               self._guided)
         wc = (plan.want_cond if self._static_plan is None

@@ -111,7 +111,8 @@ class ServingEngine:
                     if (since_probe >= self.sync_every
                             and step + 1 < max_new_tokens):
                         since_probe = 0
-                        if bool(done.all()):  # one scalar sync per sync_every steps
+                        # repro-lint: disable-next-line=host-sync-in-hot-path -- priced: the strided EOS probe, one scalar per sync_every steps
+                        if bool(done.all()):
                             break
                 if step + 1 < max_new_tokens:
                     logits, cache = decode_step(self.params, tok, pos, cache,
@@ -120,6 +121,7 @@ class ServingEngine:
                     pos = pos + 1
             if emitted:
                 # one bulk transfer per chunk, outside the per-token loop
+                # repro-lint: disable-next-line=host-sync-in-hot-path -- priced: a chunk's tokens in one copy after its decode loop
                 toks_host = torch.stack(emitted, dim=1).cpu().numpy()
                 for row, ridx in enumerate(chunk):
                     row_toks = toks_host[row]

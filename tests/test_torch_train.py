@@ -410,9 +410,11 @@ def test_train_loop_history_and_checkpoints_match_jax(dit, tmp_path):
     assert sorted(os.listdir(tmp_path / "port")) \
         == sorted(os.listdir(tmp_path / "jax")) == ["step_00000002",
                                                     "step_00000004"]
-    with pytest.raises(NotImplementedError, match="A.8"):
-        train_loop(tstep, _port_like(dit["state"]), iter([]), 1,
-                   verify_donation=True)
+    # verify_donation: the first step recorded, every leaf in place
+    state = _port_like(dit["state"])
+    out, _ = train_loop(tstep, state, iter([_batch(dit, 0)]), 1,
+                        log_fn=lines.append, verify_donation=True)
+    assert out.opt.step is state.opt.step and int(out.opt.step) == 1
 
 
 @pytest.mark.parametrize("arch", ["dit-xl", "dit-audio", "dit-t2i"])

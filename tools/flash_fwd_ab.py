@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""A kernel of the port (the flash forward, the SSD scan, or either
-backward) built from several source trees, compared on one CUDA card.
+"""A kernel of the port (the flash forward, the SSD scan, either backward,
+or the forecast kernel) built from several source trees, compared on one
+CUDA card.
 
-    python3 tools/flash_fwd_ab.py [--kernel flash|ssd|flash-bwd|ssd-bwd] --src build/parent/src --src src [--src src --src build/parent/src]
+    python3 tools/flash_fwd_ab.py [--kernel flash|ssd|flash-bwd|ssd-bwd|forecast] --src build/parent/src --src src [--src src --src build/parent/src]
 
 Builds the kernel's sources of each tree (under `repro_torch/kernels`:
 `flash_attention/csrc/flash_attention.cu`, `ssd/csrc/ssd.cu`,
-`flash_attention/csrc/flash_attention_bwd*.cu` or `ssd/csrc/ssd_bwd.cu`;
+`flash_attention/csrc/flash_attention_bwd*.cu`, `ssd/csrc/ssd_bwd.cu` or
+`forecast/csrc/forecast.cu`;
 one nvcc per tree, all started together, into `build/flash_fwd_ab/`),
 then prints, against the first tree:
 
@@ -14,9 +16,9 @@ then prints, against the first tree:
   instantiation (`flash_fwd`; `ssd_cb_kernel` and `ssd_scan_kernel`;
   `flash_bwd_*`; `ssd_bwd_*`), and those where they differ (the backward
   kernels' shared memory is dynamic: their source notes give its bytes);
-- for flash, the SASS of every instantiation the first tree has, with
-  constant-bank offsets masked: those whose instructions differ, with
-  the count, and the instantiations only a later tree has;
+- the SASS of every instantiation the first tree has, with constant-bank
+  offsets masked: those whose instructions differ, with the count, and
+  the instantiations only a later tree has;
 - at the kernel's shapes (flash: DiT-XL f32 and bf16, B 8, S 256, H 16,
   D 72; zamba2 prefill bf16, B 4, S 512, H 32, D 80, causal; the dense
   prefills of tinyllama (32 / 4 heads of 64), qwen2-7b (28 / 4 of 128)
@@ -25,11 +27,14 @@ then prints, against the first tree:
   chip_smoke's ssd phase, zamba2 prefill b 4, s 512, h 80, p = n = 64 in
   f32 and on bf16 views of the conv output, b 1 on bf16 views, a ragged
   s = 500 in f32.  flash-bwd and ssd-bwd: chip_smoke's flash-bwd and
-  ssd-bwd phases' shapes), for a forward whether the outputs are bitwise
-  equal, for a backward each tree's largest error against float64
-  autograd of the plain version (flash: max abs, or the excess over one
-  bf16 rounding where chip_smoke gates so; ssd: the largest of each
-  gradient's error over its largest value), and the device ms per call:
+  ssd-bwd phases' shapes.  forecast: the serving skip tick's 4 slots x 3
+  x 4096 in f32 and bf16, the video pool's 2 x 3 x 65536, and an n that
+  takes the element-by-element path), whether the outputs are bitwise
+  equal across the trees, for a backward also each tree's largest error
+  against float64 autograd of the plain version (flash: max abs, or the
+  excess over one bf16 rounding where chip_smoke gates so; ssd: the
+  largest of each gradient's error over its largest value), and the
+  device ms per call:
   CUDA events around a CUDA graph of `reps` back-to-back calls, each tree
   in order and then in reverse, three rounds; a tree given twice shows the
   spread of one build.
@@ -167,6 +172,16 @@ def ssd_bwd_case(torch, gen, name, b, s, h, p, n, xbc, dh):
     return call, error, (*ins, dy, dhf)
 
 
+def forecast_case(torch, gen, batch, m1, n, dt):
+    dtype = getattr(torch, dt)
+    d = torch.randn((batch, m1, n), generator=gen, device="cuda").to(dtype)
+    c = torch.randn((batch, m1), generator=gen, device="cuda")
+    o = torch.empty((batch, n), dtype=dtype, device="cuda")
+    vec = int(n % (16 // d.element_size()) == 0)
+    return ((d.data_ptr(), c.data_ptr(), o.data_ptr(),
+             int(dt == "bfloat16"), batch, m1, n, vec), (o,), (d, c))
+
+
 def ssd_bwd_variant(cu: Path) -> str:
     """The argument list of a tree's ssd_bwd: with head groups (the
     tensor-core kernels) or per head (the earlier SIMT kernels)."""
@@ -183,7 +198,6 @@ KERNELS = {
         "cu": "flash_attention/csrc/flash_attention.cu",
         "entry": "flash_attention_fwd", "argtypes": [P] * 4 + [I] * 9 + [F],
         "instantiation": r"flash_fwdI\w+?Lb\dE",
-        "sass": True,
         "case": flash_case, "seed": 0,
         "shapes": [  # name, B, Sq, Sk, H, KH, D, causal, dtype
             ("dit-xl f32", 8, 256, 256, 16, 16, 72, 0, "float32"),
@@ -220,6 +234,17 @@ KERNELS = {
         "instantiation": r"(?<=\d)ssd_bwd_[a-z]+_kernel\w*?E",
         "case": ssd_bwd_case, "seed": 3, "backward": True,
         "shapes": "SSD_BWD_CASES"},
+    "forecast": {
+        "cu": "forecast/csrc/forecast.cu",
+        "entry": "forecast_fwd", "argtypes": [P] * 3 + [I] * 3 + [L, I],
+        "instantiation": r"forecast_kernelI\w+?Li\d+E",
+        "case": forecast_case, "seed": 4,
+        "shapes": [  # name, batch, m + 1, n, dtype
+            ("serving 4 slots f32", 4, 3, 256 * 16, "float32"),
+            ("serving 4 slots bf16", 4, 3, 256 * 16, "bfloat16"),
+            ("dit-video pool", 2, 3, 4096 * 16, "float32"),
+            ("element by element", 4, 3, 4097, "float32"),
+        ]},
 }
 
 
@@ -331,8 +356,7 @@ def main() -> int:
                 if ref_regs.get(k) != v}
         print(f"{label} ({args.src[labels.index(label)]}): registers/spill/"
               f"static smem {regs}; differing from src0: {diff}", flush=True)
-        if kernel.get("sass"):
-            compare_all_sass(kernel, ref_lib, lib, label)
+        compare_all_sass(kernel, ref_lib, lib, label)
     fns, variants = {}, {}
     for label in labels:
         lib, cu, _ = built[label]
@@ -367,13 +391,12 @@ def main() -> int:
             run(label)
             torch.cuda.synchronize()
             outs[label] = [t.clone() for t in calls[label][1]]
+        check = "outputs bitwise equal " + str(all(
+            torch.equal(a, b) for x in labels
+            for a, b in zip(outs[labels[0]], outs[x])))
         if backward:
-            check = "error against float64 " + ", ".join(
+            check += "; error against float64 " + ", ".join(
                 f"{x} {error(outs[x]):.3e}" for x in labels)
-        else:
-            check = "outputs bitwise equal " + str(all(
-                torch.equal(a, b) for x in labels
-                for a, b in zip(outs[labels[0]], outs[x])))
 
         def time_ms(label):
             run(label)
