@@ -82,8 +82,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
               skip ticks); every x0 finite, each request's first step
               computes, its computed steps equal the ticks the plan gave its
               row, TeaCache saves rows; req/s, ticks by kind, tick ms, the
-              plan's host ms and device-to-host copies per tick (profiler),
-              the device's idle share
+              plan's host ms and device-to-host copies per tick (profiler,
+              and the plan's own dispatch as a count of what the profile
+              must hold: a profile short of it lost CUPTI records and is
+              taken again, three at most), the device's idle share
   10. check    a reduced DiT served on the card (kernels) and on the CPU
               (plain versions) from the same weights and noise under each of
               the 13 policies of slice 5 and TaylorSeer: the same computed
@@ -119,7 +121,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
               max_steps=16), 4 unguided requests of 8 and 16 steps, under
               TaylorSeer (forecast kernel on its skip ticks) and then
               teacache_video (frames 16, max; the device want pass with 1
-              DtoH a tick, counted from the profiler); 56 flash launches per
+              DtoH a tick, counted from the profiler and the plan's
+              dispatch); 56 flash launches per
               backbone pass (28 spatial + 28 temporal); req/s, latency,
               ticks by kind, rows, peak memory, idle share
   15. denoise-video CachedDenoiser on the same model, batch 1, 16 DDIM
@@ -324,6 +327,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
               mode), a `.cpu()` the copy channel; `train_loop(...,
               verify_donation=True)` runs 2 steps of full-width DiT-XL at
               batch 8 with every leaf updated in place
+  44. dist    a world-size-1 NCCL process group on the card
+              (`tcp://localhost`, a free port; no gloo fallback):
+              `make_host_mesh()` and a (1, 1, 1) ("data", "attn", "ffn")
+              mesh on "cuda"; full-width qwen2-7b (bf16, seed 0) prefill's
+              forward over 4 x 512 tokens with DTensor params from
+              `params_sharding` and batch-sharded tokens, then full-width
+              DiT-XL's denoiser step at batch 8 the same way: logits / eps
+              and the K/V within 1e-4 relative of the unsharded forward of
+              the same weights (the difference logged; 0 expected); the
+              collectives CommDebugMode counts; the flash launches on
+              local shards; the prefill's device memory above its
+              arguments
+  45. dist-moe deepseek-v2-236b at full width cut to 2 of its 60 layers,
+              on the (1, 1, 1) mesh: the first layer's MoE through
+              `moe_forward_ep` (NCCL's all_to_all_single on the 1-rank ep
+              group) against `moe_forward` on the same input, every
+              token's top-k margin >= 1e-4 relative asserted first: y, the
+              losses and the drops within 1e-5; then `transformer.forward
+              (..., ep=...)` on DTensors against the unsharded forward
+              (logits and aux within 1e-5; the MLA prefill's split flash
+              kernel on local shards)
+  46. dryrun  `python -m repro_torch.launch.dryrun --arch tinyllama-1.1b
+              --shape train_4k` in a subprocess (the CPU, by design: fake
+              process group at 256 ranks, fake tensors, this machine's
+              torch): status ok, the roofline, fits 80 GB; and qwen2-7b's
+              prefill at 4 x 512 traced the same way on a (1, 1, 1) fake
+              world: its bytes per device beside the dist phase's; it
+              waits for the subprocesses, so perf-dit's times do not
+              share the host with them
+  47. perf-dit the three variants of `launch/perf_dit.py` (uncached,
+              TaylorSeer refresh, the static skip) at full width on the
+              card at decode_32k's per-rank batch on dit-xl's logical mesh
+              (128 over data 32 = 4): CUDA-event ms per variant (the
+              median of 4 rounds of 10 calls, the variants in turns) and
+              the amortised N = 4 ms, beside the dry run's per-rank roofline
+              terms of the same variant (the perf_dit CLI, run on the CPU
+              in a subprocess beside dist); the forecast launches of the
+              skip
 
 Each served phase sets every launch count to 0 just before it and reads the
 counts just after; every phase builds the models it serves and drops them
@@ -344,8 +385,10 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
+import textwrap
 import time
 from pathlib import Path
 
@@ -1192,18 +1235,51 @@ def least_margin(log):
     return float(min(rel)) if rel else None
 
 
-def plan_readbacks(torch, eng, reqs):
+def plan_readbacks(torch, eng, reqs, attempts: int = 3):
+    """`profile_plan` until its device record is whole: a profile whose
+    Memcpy DtoH events inside the plan are fewer than the device-to-host
+    copies the plan dispatched on the host lost CUPTI records (the program
+    made the copies; the profiler dropped their records), and is taken
+    again, `attempts` profiles at most.  Returns the first whole
+    profile's counts, or the last profile's, with every profile's in-plan
+    device count in `dtoh_in_plan_tries`.  A profile never shows copies
+    that were not made, so the callers' want of exactly so many a tick is
+    held on a whole record."""
+    tries = []
+    for _ in range(attempts):
+        rb = profile_plan(torch, eng, reqs)
+        tries.append(rb["dtoh_in_plan"])
+        if rb["dtoh_in_plan"] >= rb["host_dtoh_in_plan"]:
+            break
+        log(f"plan_readbacks: the profile holds {rb['dtoh_in_plan']} "
+            f"device-to-host copies in the plan of the "
+            f"{rb['host_dtoh_in_plan']} dispatched ({rb['dtoh_total']} linked "
+            f"in all, {rb['dtoh_device_events']} device events): CUPTI "
+            f"records lost, profiling again")
+    rb["dtoh_in_plan_tries"] = tries
+    return rb
+
+
+def profile_plan(torch, eng, reqs):
     """Serve `reqs` under the profiler with each plan call marked: the
     device-to-host copies (the profiler's Memcpy DtoH events) issued inside
     a plan call and in all, the plan calls, and the device's idle share of
-    the profiled wall time."""
+    the profiled wall time.  `host_dtoh_in_plan` counts the same copies on
+    the host, as the plan dispatches them (an `OpRecorder` around each plan
+    call: copies from a CUDA tensor into a CPU one)."""
     from torch.profiler import ProfilerActivity, record_function
     from torch.profiler import profile as prof_ctx
+    from repro_torch.analysis.ir.op_checks import OpRecorder
     plan = eng._plan_all
+    host = []
 
     def marked(*args):
-        with record_function("repro_plan"):
-            return plan(*args)
+        with record_function("repro_plan"), \
+                OpRecorder(sync_debug=False) as rec:
+            out = plan(*args)
+        host.append(sum(ev.kind == "dtoh" for ev in
+                        rec.record.priced + rec.record.syncs))
+        return out
 
     eng._plan_all = marked
     try:
@@ -1217,17 +1293,24 @@ def plan_readbacks(torch, eng, reqs):
     finally:
         del eng._plan_all           # the class's method again (see drive)
     evts = prof.events()
-
-    def in_plan(e):
-        while e is not None and e.name != "repro_plan":
-            e = e.cpu_parent
-        return e is not None
-
     # each device copy is linked to the operator that issued it (its
-    # `kernels`); the plan's are those under a `repro_plan` range
+    # `kernels`); the plan's are those that start inside a `repro_plan`
+    # range on its thread.  Not by walking `cpu_parent`: the profiler
+    # nests by time with CUPTI's runtime events among the operators, and
+    # one that overlaps its operator's end cuts the chain (one of 32 plan
+    # copies lost its `repro_plan` ancestor so in a card run).
     issued = [(e, sum("Memcpy DtoH" in k.name for k in e.kernels))
               for e in evts if str(e.device_type).endswith("CPU")]
-    plan_calls = sum(e.name == "repro_plan" for e, _ in issued)
+    plans = {}
+    for e, _ in issued:
+        if e.name == "repro_plan":
+            plans.setdefault(e.thread, []).append(e.time_range)
+    plan_calls = sum(map(len, plans.values()))
+
+    def in_plan(e):
+        return any(r.start <= e.time_range.start < r.end
+                   for r in plans.get(e.thread, ()))
+
     busy = sum(_self_device_us(e) for e in prof.key_averages()
                if _self_device_us(e) > 0
                and str(e.device_type).endswith("CUDA")) / 1e3
@@ -1237,6 +1320,7 @@ def plan_readbacks(torch, eng, reqs):
             key = f"{e.name}{' in plan' if in_plan(e) else ''}"
             by_op[key] = by_op.get(key, 0) + n
     return {"dtoh_in_plan": sum(n for e, n in issued if n and in_plan(e)),
+            "host_dtoh_in_plan": sum(host),
             "dtoh_by_op": by_op,
             "dtoh_total": sum(n for _, n in issued),
             "dtoh_device_events": sum("Memcpy DtoH" in e.name for e in evts
@@ -1246,6 +1330,23 @@ def plan_readbacks(torch, eng, reqs):
             "ticks": eng.telemetry.summary()["ticks"],
             "idle_share": 1 - busy / (wall * 1e3), "busy_ms": busy,
             "wall_ms": wall * 1e3}
+
+
+def check_plan_copies(label, rb, want):
+    """Fail unless the plan made `want` device-to-host copies a tick, on
+    the host (as dispatched) and on the device (the profile's record);
+    return the counts as a log fragment."""
+    want_n = want * rb["ticks"]
+    note = (f"{rb['dtoh_in_plan']} on the device and "
+            f"{rb['host_dtoh_in_plan']} dispatched in {rb['plan_calls']} "
+            f"plan calls over {rb['ticks']} ticks (want {want} a tick; "
+            f"profiles {rb['dtoh_in_plan_tries']})")
+    if rb["dtoh_in_plan"] != want_n or rb["host_dtoh_in_plan"] != want_n:
+        fail(f"{label}: plan device-to-host copies: {note}; "
+             f"{rb['dtoh_total']} DtoH linked to operators, "
+             f"{rb['dtoh_device_events']} DtoH device events, by operator "
+             f"{rb['dtoh_by_op']}")
+    return note
 
 
 def phase_serve_adaptive(torch, kernels, flash, forecast):
@@ -1312,17 +1413,16 @@ def phase_serve_adaptive(torch, kernels, flash, forecast):
             f"plan_host_ms_per_tick={plan_ms:.4f} "
             f"plan_dtoh_per_tick={per_tick:.3f} "
             f"({rb['dtoh_in_plan']} in {rb['plan_calls']} plan calls, "
-            f"{rb['ticks']} ticks; {rb['dtoh_total']} DtoH issued in "
+            f"{rb['ticks']} ticks; {rb['host_dtoh_in_plan']} dispatched, "
+            f"profiles {rb['dtoh_in_plan_tries']}; {rb['dtoh_total']} DtoH "
+            f"issued in "
             f"all, {len(reqs)} of them the results; "
             f"{rb['dtoh_device_events']} DtoH device events; by "
             f"operator {rb['dtoh_by_op']}) "
             f"idle_share={rb['idle_share']:.3f} (profiled wall "
             f"{rb['wall_ms']:.1f} ms, device kernels "
             f"{rb['busy_ms']:.1f} ms) launches {launches}")
-        want = 1 if name == "teacache" else 0
-        if rb["dtoh_in_plan"] != want * rb["ticks"]:
-            fail(f"{phase}: {rb['dtoh_in_plan']} device-to-host copies in "
-                 f"the plan over {rb['ticks']} ticks, want {want} a tick")
+        check_plan_copies(phase, rb, 1 if name == "teacache" else 0)
         out[phase] = launches
         del eng
     del params
@@ -1636,15 +1736,8 @@ def phase_check_cfg(torch):
         if compact:
             rb = plan_readbacks(torch, engs["cuda"], reqs)
             want = 1 if name == "teacache" else 0
-            extra = (f", plan DtoH copies {rb['dtoh_in_plan']} in "
-                     f"{rb['ticks']} ticks (want {want} a tick)")
-            if rb["dtoh_in_plan"] != want * rb["ticks"]:
-                fail(f"check-cfg {label}: {rb['dtoh_in_plan']} device-to-"
-                     f"host copies in the plan over {rb['ticks']} ticks, "
-                     f"want {want} a tick ({rb['plan_calls']} plan calls; "
-                     f"{rb['dtoh_total']} DtoH linked to operators, "
-                     f"{rb['dtoh_device_events']} DtoH device events; by "
-                     f"operator {rb['dtoh_by_op']})")
+            extra = (f", plan DtoH copies "
+                     f"{check_plan_copies(f'check-cfg {label}', rb, want)}")
         log(f"check-cfg {label}: reduced DiT served on the card vs the CPU: "
             f"(cond, uncond) computed steps {steps['cpu']} identical, "
             f"{len(kinds)} tick kinds identical (full {kinds.count('full')}, "
@@ -1805,15 +1898,12 @@ def phase_serve_video(torch, kernels, flash, forecast, params, cfg):
             log_profile(torch, phase, lambda: eng.serve(reqs))
         else:
             rb = plan_readbacks(torch, eng, reqs)
-            log(f"{phase}: plan DtoH copies {rb['dtoh_in_plan']} in "
-                f"{rb['plan_calls']} plan calls over {rb['ticks']} ticks "
-                f"({rb['dtoh_total']} DtoH in all, by operator "
-                f"{rb['dtoh_by_op']}); idle_share={rb['idle_share']:.3f} "
-                f"(profiled wall {rb['wall_ms']:.1f} ms, device kernels "
+            note = check_plan_copies(phase, rb, 1)
+            log(f"{phase}: plan DtoH copies {note} ({rb['dtoh_total']} DtoH "
+                f"in all, by operator {rb['dtoh_by_op']}); "
+                f"idle_share={rb['idle_share']:.3f} (profiled wall "
+                f"{rb['wall_ms']:.1f} ms, device kernels "
                 f"{rb['busy_ms']:.1f} ms)")
-            if rb["dtoh_in_plan"] != rb["ticks"]:
-                fail(f"{phase}: {rb['dtoh_in_plan']} device-to-host copies "
-                     f"in the plan over {rb['ticks']} ticks, want 1 a tick")
         out[phase] = launches
         del eng
     torch.cuda.empty_cache()
@@ -4897,6 +4987,387 @@ def phase_verify(torch, kernels, path):
     return launches
 
 
+DIST_TOL = 1e-4          # dist: sharded against unsharded forward, relative
+EP_TOL = 1e-5            # dist-moe: moe_forward_ep against moe_forward
+DIST_TOKENS = (4, 512)   # qwen2-7b prefill
+DIST_DIT_BATCH = 8
+EP_DEPTH = 2             # deepseek-v2-236b layers in dist-moe (serve-moe: 8)
+EP_TOKENS = (2, 64)      # the MoE layer's input in dist-moe
+DRYRUN_TIMEOUT = 900
+PERF_DIT_ROUNDS = 4      # perf-dit: timing rounds, in turns
+
+
+def nccl_world(torch):
+    """A world-size-1 NCCL process group on the card (a free localhost
+    port); fails rather than fall back to another backend."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+    except Exception as e:         # the phase fails; no gloo on the card
+        fail(f"dist: NCCL process group: {type(e).__name__}: {e}")
+    if dist.get_backend() != "nccl":
+        fail(f"dist: backend {dist.get_backend()}, not nccl")
+    return dist
+
+
+def logical_mesh_1(torch):
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1, 1), ("data", "attn", "ffn"))
+    if mesh.device_type != "cuda":
+        fail(f"dist: the mesh is on {mesh.device_type}, not cuda")
+    return mesh
+
+
+def _comm_counts(comm):
+    return {str(k).split(".")[-1]: v
+            for k, v in comm.get_comm_counts().items()}
+
+
+def phase_dist(torch, kernels, path):
+    """Sharded forwards on the card at world size 1 (module docstring,
+    44).  Returns (launches, the qwen2-7b prefill's peak GB)."""
+    import numpy as np
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import dit, init_params, transformer
+    host = make_host_mesh()
+    mesh = logical_mesh_1(torch)
+    log(f"dist: NCCL world 1; host mesh {host.mesh_dim_names} "
+        f"{tuple(host.shape)} on {host.device_type}, logical mesh "
+        f"{mesh.mesh_dim_names} {tuple(mesh.shape)} on {mesh.device_type}")
+    total = dict.fromkeys((k.__name__ for k in kernels), 0)
+
+    # qwen2-7b prefill (the prefill case's forward: logits and the K/V)
+    cfg = get_config("qwen2-7b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, DIST_TOKENS)).cuda()
+    with torch.no_grad():
+        ref, ref_kv = transformer.forward(params, toks, cfg, collect_kv=True)
+        dp = shd.distribute(params, shd.params_sharding(params, mesh), mesh)
+        dt = shd.distribute({"t": toks}, shd.inputs_sharding({"t": toks},
+                                                             mesh), mesh)["t"]
+        args_gb = (_tree_bytes(params) + toks.numel() * 8) / 1e9
+        del params
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+
+        def run():
+            with CommDebugMode() as comm, implicit_replication():
+                out = transformer.forward(dp, dt, cfg, collect_kv=True)
+            return out, comm
+
+        (out, comm), launches = _count_launches(kernels, path, "dist", run)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        logits, kv = out
+        err = _rel(logits.full_tensor(), ref)
+        kv_err = max(_rel(a.full_tensor(), b) for pair_a, pair_b in
+                     zip(kv, ref_kv) for a, b in zip(pair_a, pair_b))
+    counts = _comm_counts(comm)
+    act_gb = peak_gb - base / 1e9
+    log(f"dist: qwen2-7b prefill {DIST_TOKENS[0]}x{DIST_TOKENS[1]} on DTensor "
+        f"params (logits {tuple(logits.placements)}): logits {err:.3e} "
+        f"relative, K/V {kv_err:.3e} (tol {DIST_TOL}); collectives {counts} "
+        f"({cfg.num_layers} layers: 2 a layer + the embedding's 1); flash "
+        f"{launches['flash_attention']}; card peak {peak_gb:.2f} GB, "
+        f"{act_gb:.2f} GB of it above the {base / 1e9:.2f} GB resident (the "
+        f"DTensor params and tokens, {args_gb:.2f} GB, and the reference's "
+        f"logits and K/V)")
+    if not (err <= DIST_TOL and kv_err <= DIST_TOL):
+        fail(f"dist: qwen2-7b sharded forward differs ({err}, {kv_err})")
+    if counts.get("all_reduce") != 2 * cfg.num_layers + 1 or \
+            set(counts) - {"all_reduce"}:
+        fail(f"dist: qwen2-7b collectives {counts}")
+    if launches["flash_attention"] != cfg.num_layers:
+        fail(f"dist: flash launched {launches['flash_attention']} times")
+    total = {k: total[k] + v for k, v in launches.items()}
+    del dp, dt, ref, ref_kv, out, logits, kv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # DiT-XL: one denoiser step
+    cfg, params = full_dit(torch)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    B = DIST_DIT_BATCH
+    lat = torch.randn((B, cfg.dit_patch_tokens, cfg.dit_in_dim),
+                      generator=g, device="cuda").to(torch.bfloat16)
+    t = torch.rand((B,), generator=g, device="cuda") * 999
+    y = torch.randint(0, cfg.dit_num_classes, (B,), generator=g,
+                      device="cuda")
+    batch = {"latents": lat, "t": t, "labels": y}
+    with torch.no_grad():
+        ref = dit.forward(params, lat, t, y, cfg)
+        dp = shd.distribute(params, shd.params_sharding(params, mesh), mesh)
+        db = shd.distribute(batch, shd.inputs_sharding(batch, mesh), mesh)
+
+        def run_dit():
+            with CommDebugMode() as comm, implicit_replication():
+                out = dit.forward(dp, db["latents"], db["t"], db["labels"],
+                                  cfg)
+            return out, comm
+
+        (eps, comm), launches = _count_launches(kernels, path, "dist",
+                                                run_dit)
+        err = _rel(eps.full_tensor(), ref)
+    log(f"dist: DiT-XL denoiser step at batch {B} on DTensor params: eps "
+        f"{err:.3e} relative (tol {DIST_TOL}); collectives "
+        f"{_comm_counts(comm)}; flash {launches['flash_attention']}")
+    if not err <= DIST_TOL:
+        fail(f"dist: DiT-XL sharded forward differs ({err})")
+    if launches["flash_attention"] != cfg.num_layers:
+        fail(f"dist: DiT flash launched {launches['flash_attention']} times")
+    total = {k: total[k] + v for k, v in launches.items()}
+    del params, dp, db, eps, ref
+    return total, (args_gb, act_gb)
+
+
+def _top_k_margin(torch, logits, k):
+    """Least relative gap of every token's k-th and (k+1)-th probability."""
+    top = torch.softmax(logits.float(), -1).sort(-1, descending=True).values
+    return float(((top[:, k - 1] - top[:, k]) / top[:, k - 1]).min())
+
+
+def phase_dist_moe(torch, kernels, path):
+    """Expert parallelism on the card at world size 1 (module docstring,
+    45)."""
+    import dataclasses
+    import numpy as np
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import layer_list
+    from repro_torch.launch.specs import _ep_kwargs
+    from repro_torch.models import init_params, moe, transformer
+    mesh = logical_mesh_1(torch)
+    ep = _ep_kwargs(mesh)
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              num_layers=EP_DEPTH)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    dp = shd.distribute(params, shd.params_sharding(params, mesh), mesh)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(
+        (*EP_TOKENS, cfg.d_model)).astype(np.float32)).cuda().to(
+            torch.bfloat16)
+    p0 = layer_list(params["blocks"])[0]["moe"]
+    d0 = layer_list(dp["blocks"])[0]["moe"]
+    with torch.no_grad():
+        margin = _top_k_margin(torch, x.reshape(-1, cfg.d_model).float()
+                               @ p0["router"], cfg.experts_per_token)
+        if margin < MOE_MARGIN:
+            fail(f"dist-moe: a token's top-{cfg.experts_per_token} margin "
+                 f"{margin:.2e} < {MOE_MARGIN}")
+        y, aux = moe.moe_forward(p0, x, cfg)
+        dx = shd.distribute({"x": x}, shd.inputs_sharding({"x": x}, mesh),
+                            mesh)["x"]
+        with CommDebugMode() as comm, implicit_replication():
+            ye, auxe = moe.moe_forward(d0, dx, cfg, ep=ep)
+        errs = {"y": _rel(ye.full_tensor(), y)}
+        errs.update({k: _rel(auxe[k].full_tensor(), aux[k])
+                     for k in ("load_balance_loss", "router_z_loss")})
+        drops = (int(auxe["dropped"].full_tensor()), int(aux["dropped"]))
+    log(f"dist-moe: deepseek-v2-236b MoE layer (full width: "
+        f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top-"
+        f"{cfg.experts_per_token}, capacity factor {cfg.capacity_factor}) on "
+        f"{EP_TOKENS[0]}x{EP_TOKENS[1]} tokens: least top-k margin "
+        f"{margin:.2e} >= {MOE_MARGIN}; moe_forward_ep against moe_forward "
+        f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tol {EP_TOL}), drops "
+        f"{drops}; collectives {_comm_counts(comm)}")
+    if max(errs.values()) > EP_TOL or drops[0] != drops[1]:
+        fail(f"dist-moe: moe_forward_ep differs from moe_forward ({errs}, "
+             f"drops {drops})")
+    if _comm_counts(comm).get("all_to_all_single") != 2:
+        fail(f"dist-moe: collectives {_comm_counts(comm)}, want 2 "
+             f"all_to_all_single")
+
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         EP_TOKENS)).cuda()
+    with torch.no_grad():
+        ref, ref_aux = transformer.forward(params, toks, cfg, with_aux=True)
+        dt = shd.distribute({"t": toks}, shd.inputs_sharding({"t": toks},
+                                                             mesh), mesh)["t"]
+
+        def run():
+            with implicit_replication():
+                return transformer.forward(dp, dt, cfg, with_aux=True, ep=ep)
+
+        (logits, aux_e), launches = _count_launches(kernels, path,
+                                                    "dist-moe", run)
+        err = _rel(logits.full_tensor(), ref)
+        aux_err = max(_rel(aux_e[k].full_tensor(), ref_aux[k])
+                      for k in ("load_balance_loss", "router_z_loss"))
+    log(f"dist-moe: deepseek-v2-236b {EP_DEPTH} layers forward with ep= on "
+        f"DTensors against the unsharded forward: logits {err:.3e}, aux "
+        f"{aux_err:.3e} relative (tol {EP_TOL}); flash (MLA split) "
+        f"{launches['flash_attention']}")
+    if not (err <= EP_TOL and aux_err <= EP_TOL):
+        fail(f"dist-moe: the ep forward differs ({err}, {aux_err})")
+    del params, dp
+    return launches
+
+
+def start_dryruns(out: Path):
+    """The dryrun phase's two CPU subprocesses, started now so that they
+    run beside the card's phases: the dry-run CLI, and qwen2-7b's prefill
+    traced on a (1, 1, 1) fake world."""
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    qwen = textwrap.dedent(f"""
+        import json, torch
+        from repro_torch import sharding as shd
+        from repro_torch.configs import get_config
+        from repro_torch.launch.dryrun import init_fake_world, trace
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.specs import _params_specs, _sds
+        from torch.distributed.tensor.experimental import implicit_replication
+        from repro_torch.models import transformer
+        cfg = get_config("qwen2-7b")
+        init_fake_world(1)
+        mesh = make_mesh((1, 1, 1), ("data", "attn", "ffn"), device="cpu")
+        pspec = _params_specs(cfg)
+        toks = _sds({DIST_TOKENS}, torch.long)
+        def fn(p, t):
+            with implicit_replication():
+                return transformer.forward(p, t, cfg, collect_kv=True)
+        counter, arg, outb, s = trace(fn, (pspec, toks),
+            (shd.params_sharding(pspec, mesh), shd.inputs_sharding(toks,
+             mesh)), mesh)
+        print(json.dumps({{"bytes_per_device": arg + counter.peak,
+                          "argument_bytes": arg, "peak": counter.peak,
+                          "trace_s": s}}))
+    """)
+    return {
+        "tinyllama": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "tinyllama-1.1b", "--shape", "train_4k", "--out", str(out)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
+        "qwen": subprocess.Popen([sys.executable, "-c", qwen], cwd=ROOT,
+                                 env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True),
+        "perf_dit": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.perf_dit", "--out",
+             str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)}
+
+
+def collect(procs, name):
+    """Wait for one of start_dryruns' subprocesses (killed at the
+    timeout); its stdout, or fail."""
+    p = procs[name]
+    try:
+        so, se = p.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        fail(f"dryrun: {name} did not end in {DRYRUN_TIMEOUT}s")
+    if p.returncode != 0:
+        fail(f"dryrun: {name} exited {p.returncode}: {se[-3000:]}")
+    return so
+
+
+def phase_perf_dit(torch, kernels, path, out: Path):
+    """perf_dit's three variants on the card (module docstring, 46)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import perf_dit
+    cfg, params = full_dit(torch)
+    B = perf_dit.per_rank_batch(cfg)
+    pol = perf_dit.policy()
+    state, batch = perf_dit.variant_inputs(cfg, B, pol,
+                                           device=torch.device("cuda"))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    batch = {"latents": torch.randn(batch["latents"].shape, generator=g,
+                                    device="cuda").to(torch.bfloat16),
+             "t": torch.rand((B,), generator=g, device="cuda") * 999,
+             "labels": torch.randint(0, cfg.dit_num_classes, (B,),
+                                     generator=g, device="cuda")}
+    fns = {k: perf_dit.variant_fn(k, cfg, pol) for k in perf_dit.VARIANTS}
+    with torch.no_grad():
+        _, warm = fns["refresh"](params, state, batch)   # n_valid 1: skips
+        args = {"uncached": state, "refresh": state, "skip": warm}
+
+        def run():
+            return {k: fn(params, args[k], batch) for k, fn in fns.items()}
+
+        outs, launches = _count_launches(kernels, path, "perf-dit", run)
+        # host-paced at batch 4: 4 rounds in turns (forward order, then
+        # reversed), the median of each variant's rounds
+        rounds = {k: [] for k in fns}
+        for r in range(PERF_DIT_ROUNDS):
+            for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                rounds[k].append(cuda_ms(
+                    torch, lambda k=k: fns[k](params, args[k], batch),
+                    reps=10))
+        ms = {k: statistics.median(v) for k, v in rounds.items()}
+    log(f"perf-dit: CUDA-event ms a call, {PERF_DIT_ROUNDS} rounds of 10 in "
+        f"turns: { {k: [round(t, 4) for t in v] for k, v in rounds.items()} }")
+    for k, (y, _) in outs.items():
+        if not bool(torch.isfinite(y.float()).all()):
+            fail(f"perf-dit: {k}: eps not finite")
+    if launches["forecast"] != 1:
+        fail(f"perf-dit: forecast launched {launches['forecast']} times "
+             f"(the skip variant: 1)")
+    rec = json.load(open(out / "perf_dit_decode.json"))
+    amort = (ms["refresh"] + 3 * ms["skip"]) / 4
+    for row in rec["variants"]:
+        k = row["kind"]
+        log(f"perf-dit: {k}: {ms[k]:.4f} ms on the card (B {B}, world 1, "
+            f"all {cfg.num_heads} heads) beside the dry run's terms per rank "
+            f"of {rec['mesh']} (B {rec['per_rank_batch']}, tp 8): compute "
+            f"{row['compute_s'] * 1e3:.4f} ms, memory "
+            f"{row['memory_s'] * 1e3:.4f} ms, collective "
+            f"{row['collective_s'] * 1e3:.4f} ms")
+    log(f"perf-dit: amortised N=4 {amort:.4f} ms (medians) against uncached "
+        f"{ms['uncached']:.4f} ms ({ms['uncached'] / amort:.2f}x); the dry "
+        f"run's amortised terms {rec['amortized_N4']}, speed-up of the "
+        f"terms {rec['speedup_terms']}; launches {launches}")
+    del params
+    return launches
+
+
+def phase_dryrun(torch, procs, out: Path, dist_gb):
+    """The dry run on this machine's CPU (module docstring, 47); it waits
+    for the subprocesses, so that perf-dit's timings after it share the
+    host with nothing of this script's."""
+    collect(procs, "tinyllama")
+    rec = json.load(open(out / "dryrun_tinyllama-1.1b_train_4k_sp.json"))
+    if rec["status"] != "ok" or not rec["fits_80gb_hbm"] or \
+            rec["roofline"]["dominant"] not in ("compute", "memory",
+                                                "collective"):
+        fail(f"dryrun: tinyllama-1.1b train_4k: {rec}")
+    rl = rec["roofline"]
+    log(f"dryrun: tinyllama-1.1b train_4k on {rec['mesh']} (fake process "
+        f"group, torch {torch.__version__}): ok in {rec['lower_s']} s of "
+        f"tracing ({rec.get('traced_microbatches', 'whole')}); per rank "
+        f"{rec['bytes_per_device'] / 1e9:.2f} GB (fits 80 GB), flops "
+        f"{rl['flops']:.4e}, hbm bytes {rl['hbm_bytes']:.4e}, collectives "
+        f"{rl['coll_bytes']}; compute {rl['compute_s']:.4f} s, memory "
+        f"{rl['memory_s']:.4f} s, collective {rl['collective_s']:.4f} s "
+        f"(H100 SXM data-sheet peaks): {rl['dominant']}")
+    q = json.loads(collect(procs, "qwen").strip().splitlines()[-1])
+    collect(procs, "perf_dit")
+    log(f"dryrun: qwen2-7b prefill {DIST_TOKENS[0]}x{DIST_TOKENS[1]} on a "
+        f"(1, 1, 1) fake world: {q['bytes_per_device'] / 1e9:.2f} GB per "
+        f"device ({q['argument_bytes'] / 1e9:.2f} GB of arguments, "
+        f"{q['peak'] / 1e9:.2f} GB of activation peak, the plain "
+        f"attention's score chunks included) beside the dist phase on the "
+        f"card: {dist_gb[0]:.2f} GB of arguments, {dist_gb[1]:.2f} GB of "
+        f"peak above the resident")
+
 def timed(name, fn, *args):
     """fn(*args), logging the phase's wall seconds and its own peak device
     memory: what earlier phases left is collected first, the peak counter
@@ -5079,6 +5550,28 @@ def main() -> int:
     # slice 15: the analysis package on the card
     by_path["verify"] = timed("verify", phase_verify, torch, KERNELS,
                               (flash_attention, forecast))
+    # slice 16: distribution on a world-size-1 NCCL group; the dry runs
+    # (CPU subprocesses) run beside the card's phases
+    dry_out = ROOT / "dryrun_out" / "chip_smoke"
+    procs = start_dryruns(dry_out)
+    try:
+        nccl_world(torch)
+        by_path["dist"], dist_gb = timed("dist", phase_dist, torch,
+                                         KERNELS, (flash_attention,))
+        by_path["dist-moe"] = timed("dist-moe", phase_dist_moe, torch,
+                                    KERNELS, (flash_attention,))
+        timed("dryrun", phase_dryrun, torch, procs, dry_out, dist_gb)
+        by_path["perf-dit"] = timed("perf-dit", phase_perf_dit, torch,
+                                    KERNELS, (flash_attention, forecast),
+                                    dry_out)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        import torch.distributed as tdist
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
 
     rows = []
     for name, fn, src, replaces, rep in (

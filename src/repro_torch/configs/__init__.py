@@ -6,7 +6,7 @@ from . import (arctic_480b, deepseek_v2_236b, dit_audio, dit_t2i, dit_t2v,
                dit_video, dit_xl, falcon_mamba_7b, minitron_8b, pixtral_12b,
                qwen2_7b, qwen2p5_14b, tinyllama_1p1b, whisper_small,
                zamba2_2p7b)
-from .base import ArchConfig
+from .base import INPUT_SHAPES, ArchConfig, InputShape
 
 _MODULES = {"dit-xl": dit_xl, "dit-video": dit_video, "dit-audio": dit_audio,
             "dit-t2i": dit_t2i, "dit-t2v": dit_t2v,
@@ -16,6 +16,10 @@ _MODULES = {"dit-xl": dit_xl, "dit-video": dit_video, "dit-audio": dit_audio,
             "whisper-small": whisper_small, "pixtral-12b": pixtral_12b,
             "arctic-480b": arctic_480b, "deepseek-v2-236b": deepseek_v2_236b}
 ALL_ARCH_IDS = list(_MODULES)
+#: the ten language architectures (JAX's ARCH_IDS), in its registry's order
+ARCH_IDS = ["zamba2-2.7b", "qwen2-7b", "qwen2.5-14b", "arctic-480b",
+            "minitron-8b", "pixtral-12b", "deepseek-v2-236b",
+            "falcon-mamba-7b", "tinyllama-1.1b", "whisper-small"]
 
 
 def _module(arch_id: str):
@@ -32,4 +36,5 @@ def get_smoke_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).SMOKE
 
 
-__all__ = ["ArchConfig", "ALL_ARCH_IDS", "get_config", "get_smoke_config"]
+__all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "ARCH_IDS",
+           "ALL_ARCH_IDS", "get_config", "get_smoke_config"]

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import spmd
 from repro_torch.device import to_device
 from repro_torch.kernels.forecast import (basis_coeffs, forecast,
                                           forecast_basis)
@@ -47,7 +48,8 @@ def forecast_from_diffs(diffs, u, n_valid, basis: str = "taylor",
     u = to_device(u, diffs.device, torch.float32)
     order = diffs.shape[u.dim()] - 1
     coeffs = basis_coeffs(order, u, basis, sigma, n_valid)
-    return forecast(diffs.contiguous(), coeffs.contiguous()).float()
+    return spmd.forecast(forecast, diffs.contiguous(),
+                         coeffs.contiguous()).float()
 
 
 def forecast_slots(states, steps, ys, want, interval, basis, sigma, dtype,
@@ -110,9 +112,9 @@ class PredictivePolicy(CachePolicy):
                 "n_valid": state["n_valid"] + 1,
                 "last_step": torch.full_like(state["last_step"], step),
             }
-        y = forecast_basis(state["diffs"], step, state["last_step"],
-                           state["n_valid"], self.interval, self.basis,
-                           self.sigma)
+        y = spmd.forecast(forecast_basis, state["diffs"], step,
+                          state["last_step"], state["n_valid"],
+                          self.interval, self.basis, self.sigma)
         return y.to(x.dtype), state
 
     def apply_slots(self, states, steps, xs, ys, *, want=None, signal=None):

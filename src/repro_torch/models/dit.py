@@ -22,7 +22,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spmd
 from repro_torch.core.engine import layer_list
 from repro_torch.kernels import flash_attention
 
@@ -159,11 +161,12 @@ def cross_attn_branch(p, x, c, tk, tv, tm, cfg):
     H, hd = cfg.num_heads, cfg.head_dim
     s, sc, g = _adaln(c, p["cross_ada_w"], p["cross_ada_b"], 3)
     h = _modulate(layer_norm(x), s, sc)
-    q = dot(h, p["cross"]["wq"]).reshape(B, T, H, hd)
-    k = tk.reshape(B, -1, H, hd).to(q.dtype)
-    v = tv.reshape(B, -1, H, hd).to(q.dtype)
-    o = cross_attention(q, k, v, tm)
-    return g[:, None, :] * dot(o.reshape(B, T, H * hd), p["cross"]["wo"])
+    q = spmd.split_heads(dot(h, p["cross"]["wq"]), H)
+    k = spmd.split_heads(tk, H).to(q.dtype)
+    v = spmd.split_heads(tv, H).to(q.dtype)
+    o = spmd.attention(cross_attention, q, k, v, tm)
+    return g[:, None, :] * spmd.reduce_partial(
+        dot(o.reshape(B, T, H * hd), p["cross"]["wo"]))
 
 
 def cross_attn_embed_branch(p, x, c, te, tm, cfg):
@@ -187,11 +190,11 @@ def dit_block(p, x, c, cfg, txt=None):
     s1, sc1, g1, s2, sc2, g2 = _adaln(c, p["ada_w"], p["ada_b"], 6)
     h = _modulate(layer_norm(x), s1, sc1)
     H, hd = cfg.num_heads, cfg.head_dim
-    q = dot(h, p["attn"]["wq"]).reshape(B, T, H, hd)
-    k = dot(h, p["attn"]["wk"]).reshape(B, T, H, hd)
-    v = dot(h, p["attn"]["wv"]).reshape(B, T, H, hd)
-    o = flash_attention(q, k, v, causal=False)
-    x = x + g1[:, None, :] * dot(o.reshape(B, T, H * hd), p["attn"]["wo"])
+    q, k, v = (spmd.split_heads(dot(h, p["attn"][w]), H)
+               for w in ("wq", "wk", "wv"))
+    o = spmd.attention(flash_attention, q, k, v, causal=False)
+    x = x + g1[:, None, :] * spmd.reduce_partial(
+        dot(o.reshape(B, T, H * hd), p["attn"]["wo"]))
     if txt is not None:
         x = x + cross_attn_branch(p, x, c, *txt, cfg)
     h = _modulate(layer_norm(x), s2, sc2)
@@ -244,8 +247,10 @@ def resolve_txt(params, cfg, batch, *, txt_kv=None, txt_mask=None,
 
 
 def forward(params, latents, t, y, cfg, *, y_embed=None, txt_kv=None,
-            txt_mask=None, txt_embed=None):
+            txt_mask=None, txt_embed=None, remat=False):
     """latents: (B, T, in_dim); t: (B,); y: (B,) -> noise prediction.
+    `remat=True` recomputes each block's activations in the backward
+    (`torch.utils.checkpoint`, JAX's `jax.checkpoint`).
 
     Text conditioning (cfg.dit_text_len > 0): pass either `txt_kv` (the
     per-layer K/V pair from text_kv, the serving path) or `txt_embed`
@@ -259,5 +264,6 @@ def forward(params, latents, t, y, cfg, *, y_embed=None, txt_kv=None,
                                  dtype=x.dtype, device=x.device)
     for i, p in enumerate(layer_list(params["blocks"])):
         txt = None if tk is None else (tk[:, i], tv[:, i], tm)
-        x = dit_block(p, x, c, cfg, txt=txt)
+        x = (checkpoint(dit_block, p, x, c, cfg, txt, use_reentrant=False)
+             if remat else dit_block(p, x, c, cfg, txt=txt))
     return final_layer(params, x, c, cfg)

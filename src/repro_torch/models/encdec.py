@@ -32,10 +32,11 @@ import math
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.core.engine import layer_list
 from repro_torch.kernels import flash_attention
 
-from .layers import (blocked_attention, dense_init, dot, embed_init, init_mlp,
+from .layers import (decode_attention, dense_init, dot, embed_init, init_mlp,
                      layer_norm, mlp_forward)
 from .transformer import _stacked
 
@@ -103,8 +104,7 @@ def _ln(x, p):
 
 
 def _heads(x, w, cfg):
-    B, S, _ = x.shape
-    return dot(x, w).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    return spmd.split_heads(dot(x, w), cfg.num_heads)
 
 
 def _attn(p, xq, xkv, cfg, causal):
@@ -112,8 +112,8 @@ def _attn(p, xq, xkv, cfg, causal):
     B, Sq, _ = xq.shape
     q, k, v = _heads(xq, p["wq"], cfg), _heads(xkv, p["wk"], cfg), \
         _heads(xkv, p["wv"], cfg)
-    o = flash_attention(q, k, v, causal=causal)
-    return dot(o.reshape(B, Sq, -1), p["wo"])
+    o = spmd.attention(flash_attention, q, k, v, causal=causal)
+    return spmd.reduce_partial(dot(o.reshape(B, Sq, -1), p["wo"]))
 
 
 def _positions(S, like):
@@ -182,26 +182,29 @@ def decode_step(params, token, pos, cache, cfg):
     (logits (B, vocab), cache); the cache is updated in place."""
     B = token.shape[0]
     W = cache["k"].shape[2]
-    x = params["embed"][token][:, None, :]
+    x = spmd.embed(params["embed"], token)[:, None, :]
     x = x + sinusoidal_positions(pos[:, None], cfg.d_model).to(x.dtype)
     slot = pos % W
     bidx = torch.arange(B, device=token.device)
-    cache["pos"][bidx, slot] = pos.to(cache["pos"].dtype)
+    spmd.put_rows(cache["pos"], bidx, slot, pos.to(cache["pos"].dtype))
     for i, p in enumerate(layer_list(params["dec_blocks"])):
         ck, cv = cache["k"][i], cache["v"][i]
         # self-attention with the rolling cache
         h = _ln(x, p["ln1"])
         q = _heads(h, p["self"]["wq"], cfg)
-        ck[bidx, slot] = _heads(h, p["self"]["wk"], cfg)[:, 0].to(ck.dtype)
-        cv[bidx, slot] = _heads(h, p["self"]["wv"], cfg)[:, 0].to(cv.dtype)
-        o = blocked_attention(q, ck, cv, causal=True,
-                              q_positions=pos[:, None],
-                              k_positions=cache["pos"])
-        x = x + dot(o.reshape(B, 1, -1), p["self"]["wo"])
+        spmd.put_rows(ck, bidx, slot,
+                      _heads(h, p["self"]["wk"], cfg)[:, 0].to(ck.dtype))
+        spmd.put_rows(cv, bidx, slot,
+                      _heads(h, p["self"]["wv"], cfg)[:, 0].to(cv.dtype))
+        o = decode_attention(q, ck, cv, pos[:, None], cache["pos"],
+                             causal=True)
+        x = x + spmd.reduce_partial(dot(o.reshape(B, 1, -1),
+                                        p["self"]["wo"]))
         # cross-attention against the exact cached K/V
         q = _heads(_ln(x, p["ln2"]), p["cross"]["wq"], cfg)
-        o = blocked_attention(q, cache["xk"][i], cache["xv"][i], causal=False)
-        x = x + dot(o.reshape(B, 1, -1), p["cross"]["wo"])
+        o = decode_attention(q, cache["xk"][i], cache["xv"][i], causal=False)
+        x = x + spmd.reduce_partial(dot(o.reshape(B, 1, -1),
+                                        p["cross"]["wo"]))
         x = x + mlp_forward(p["mlp"], _ln(x, p["ln3"]))
     x = _ln(x, params["dec_ln"])
     return dot(x, params["lm_head"])[:, 0], cache

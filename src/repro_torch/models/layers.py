@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spmd
 from repro_torch.kernels import flash_attention
 
 
@@ -139,6 +140,20 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_positions=None,
     return out.reshape(B, Sq, H, Dv)
 
 
+def _positioned(q, k, v, q_positions, k_positions, **kw):
+    return blocked_attention(q, k, v, q_positions=q_positions,
+                             k_positions=k_positions, **kw)
+
+
+def decode_attention(q, k, v, q_positions=None, k_positions=None, **kw):
+    """`blocked_attention` of a decode step against a cache; on DTensors
+    on each rank's shards (`spmd.attention`)."""
+    if q_positions is None:
+        return spmd.attention(blocked_attention, q, k, v, **kw)
+    return spmd.attention(_positioned, q, k, v, q_positions, k_positions,
+                          **kw)
+
+
 def init_attention(generator, cfg, dtype=torch.float32, device=None):
     d, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {"wq": dense_init(generator, d, H * hd, dtype, device=device),
@@ -152,13 +167,12 @@ def init_attention(generator, cfg, dtype=torch.float32, device=None):
 
 
 def attention_qkv(p, x, cfg):
-    B, S, _ = x.shape
-    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, KH = cfg.num_heads, cfg.num_kv_heads
     q, k, v = dot(x, p["wq"]), dot(x, p["wk"]), dot(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, KH, hd),
-            v.reshape(B, S, KH, hd))
+    return (spmd.split_heads(q, H), spmd.split_heads(k, KH),
+            spmd.split_heads(v, KH))
 
 
 def attention_forward(p, x, cfg):
@@ -170,9 +184,9 @@ def attention_forward(p, x, cfg):
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=True, window=cfg.sliding_window)
-    return dot(o.reshape(B, S, -1), p["wo"]), (k, v)
+    o = spmd.attention(flash_attention, q.contiguous(), k.contiguous(),
+                       v.contiguous(), causal=True, window=cfg.sliding_window)
+    return spmd.reduce_partial(dot(o.reshape(B, S, -1), p["wo"])), (k, v)
 
 
 def attention_decode(p, x, cfg, cache_k, cache_v, cache_pos, pos):
@@ -188,13 +202,12 @@ def attention_decode(p, x, cfg, cache_k, cache_v, cache_pos, pos):
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     slot = pos % W
     bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
-    cache_pos[bidx, slot] = pos.to(cache_pos.dtype)
-    o = blocked_attention(q, cache_k, cache_v, causal=True,
-                          window=cfg.sliding_window,
-                          q_positions=pos[:, None], k_positions=cache_pos)
-    return dot(o.reshape(B, 1, -1), p["wo"])
+    spmd.put_rows(cache_k, bidx, slot, k[:, 0].to(cache_k.dtype))
+    spmd.put_rows(cache_v, bidx, slot, v[:, 0].to(cache_v.dtype))
+    spmd.put_rows(cache_pos, bidx, slot, pos.to(cache_pos.dtype))
+    o = decode_attention(q, cache_k, cache_v, pos[:, None], cache_pos,
+                         causal=True, window=cfg.sliding_window)
+    return spmd.reduce_partial(dot(o.reshape(B, 1, -1), p["wo"]))
 
 
 def init_mlp(generator, d_model, d_ff, dtype=torch.float32, gated=True,
@@ -215,4 +228,4 @@ def mlp_forward(p, x):
         h = F.silu(dot(x, p["w_gate"])) * dot(x, p["w_up"])
     else:
         h = F.gelu(dot(x, p["w_up"]), approximate="tanh")
-    return dot(h, p["w_down"])
+    return spmd.reduce_partial(dot(h, p["w_down"]))

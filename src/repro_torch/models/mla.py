@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.kernels import flash_attention
 
 from .layers import apply_rope, dense_init, dot
@@ -49,9 +50,8 @@ def init_mla(generator, cfg, dtype=torch.float32, device=None):
 
 
 def _project_q(p, x, cfg, positions):
-    B, S, _ = x.shape
-    H, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = dot(x, p["wq"]).reshape(B, S, H, dn + dr)
+    dn = cfg.qk_nope_head_dim
+    q = spmd.split_heads(dot(x, p["wq"]), cfg.num_heads)
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
 
@@ -82,10 +82,11 @@ def mla_forward(p, x, cfg):
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)
                    .to(k_nope.dtype)], -1)
     q = torch.cat([q_nope, q_rope], -1)
-    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=True, window=cfg.sliding_window,
-                        scale=1.0 / math.sqrt(dn + dr))
-    return dot(o.reshape(B, S, -1), p["wo"]), (c_kv, k_rope)
+    o = spmd.attention(flash_attention, q.contiguous(), k.contiguous(),
+                       v.contiguous(), causal=True, window=cfg.sliding_window,
+                       scale=1.0 / math.sqrt(dn + dr))
+    return spmd.reduce_partial(dot(o.reshape(B, S, -1), p["wo"])), \
+        (c_kv, k_rope)
 
 
 def mla_decode(p, x, cfg, cache_ckv, cache_kr, cache_pos, pos):
@@ -100,9 +101,9 @@ def mla_decode(p, x, cfg, cache_ckv, cache_kr, cache_pos, pos):
     c_kv, k_rope = _latents(p, x, cfg, pos[:, None])
     slot = pos % W
     bidx = torch.arange(B, device=x.device)
-    cache_ckv[bidx, slot] = c_kv[:, 0].to(cache_ckv.dtype)
-    cache_kr[bidx, slot] = k_rope[:, 0].to(cache_kr.dtype)
-    cache_pos[bidx, slot] = pos.to(cache_pos.dtype)
+    spmd.put_rows(cache_ckv, bidx, slot, c_kv[:, 0].to(cache_ckv.dtype))
+    spmd.put_rows(cache_kr, bidx, slot, k_rope[:, 0].to(cache_kr.dtype))
+    spmd.put_rows(cache_pos, bidx, slot, pos.to(cache_pos.dtype))
 
     # absorbed query: works on the latents directly
     q_abs = _einsum("bohd,hrd->bohr", q_nope, p["w_uk"])[:, 0].float()
@@ -139,7 +140,7 @@ def mla_decode(p, x, cfg, cache_ckv, cache_kr, cache_pos, pos):
     ctx = acc / torch.clamp(l, min=1e-30)[..., None]          # (B, H, r)
     o = torch.einsum("bhr,hrd->bhd", ctx.to(p["w_uv"].dtype).float(),
                      p["w_uv"].float())
-    return dot(o.reshape(B, 1, -1).to(x.dtype), p["wo"])
+    return spmd.reduce_partial(dot(o.reshape(B, 1, -1).to(x.dtype), p["wo"]))
 
 
 __all__ = ["CHUNK", "init_mla", "mla_forward", "mla_decode"]

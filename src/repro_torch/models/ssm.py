@@ -29,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spmd
 from repro_torch.kernels import ssd_scan
 
 from .layers import dense_init, dot, rms_norm
@@ -234,7 +235,8 @@ def mamba2_forward(p, u, cfg):
     dt = F.softplus(dt_raw + p["dt_bias"]).float()
     A = -torch.exp(p["A_log"].float())
     # x, B_, C_: views of xBC, read by the scan in place and in xBC's dtype
-    y, h_fin = ssd_scan(x, dt, A, B_, C_)
+    y, h_fin = spmd.batch_local(ssd_scan, (x, dt, A, B_, C_), unbatched=(2,),
+                                outputs=2)
     # D x in f32, as D (bf16 params) times the f32 cast of x gives it
     y = y + p["D"].float()[None, None, :, None] * x
     y = y.reshape(B, S, din).to(u.dtype)

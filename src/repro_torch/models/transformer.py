@@ -9,10 +9,19 @@ families of the JAX `models/transformer.py`; the encoder-decoder (family
 Entry points, plain functions of (params, inputs, cfg):
 
   init_lm(generator, cfg)                                    -> params
-  forward(params, tokens, cfg, vision_embeds=, collect_kv=, with_aux=)
-                                                 -> logits[, aux][, caches]
-  prefill(params, tokens, cfg, cache_len, vision_embeds=)    -> (logits, cache)
-  decode_step(params, token, pos, cache, cfg)                -> (logits, cache)
+  forward(params, tokens, cfg, vision_embeds=, collect_kv=, with_aux=,
+          remat=, ep=)                           -> logits[, aux][, caches]
+  prefill(params, tokens, cfg, cache_len, vision_embeds=, ep=)
+                                                             -> (logits, cache)
+  decode_step(params, token, pos, cache, cfg, ep=)           -> (logits, cache)
+
+`remat=True` checkpoints each layer (`torch.utils.checkpoint`, JAX's
+`jax.checkpoint`: the train cases' memory knob).  `ep` (a dict of
+`moe_forward_ep` keyword arguments: mesh, batch_ax, ep_axis, inner_axes)
+runs a moe model's MoE layers expert-parallel (JAX's `_moe_layer`).  On
+DTensor params and inputs (`sharding.distribute`) the functions run
+sharded; call them under `implicit_replication()`, so that the plain
+tensors they make (positions, masks) count as replicated.
 
 Per-layer params are stacked on a leading layer axis, as in JAX; the port
 walks the layers in a Python loop where JAX scans (one unbind per stacked
@@ -36,7 +45,9 @@ copy the whole cache.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spmd
 from repro_torch.core.engine import layer_list
 
 from .layers import (attention_decode, attention_forward, dense_init, dot,
@@ -177,7 +188,7 @@ def _attn_mlp(p, x, cfg):
 def _embed_inputs(params, tokens, cfg, vision_embeds=None):
     """Token embeddings; a vlm prepends the projected patch embeddings
     (cast to the embeddings' dtype first, as JAX does)."""
-    x = params["embed"][tokens]
+    x = spmd.embed(params["embed"], tokens)
     if cfg.family == "vlm":
         if vision_embeds is None:
             raise ValueError(f"{cfg.name} needs vision_embeds (B, "
@@ -188,21 +199,33 @@ def _embed_inputs(params, tokens, cfg, vision_embeds=None):
     return x
 
 
-def _moe_layer(p, x, cfg):
-    """A moe layer: attention (MLA or GQA), then the MoE FFN.  Returns (x,
-    the attention's cache entries, the MoE's aux)."""
+def _layer(fn, remat, *args):
+    """fn(*args), its activations recomputed in the backward when remat."""
+    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
+
+def _moe_layer(p, x, cfg, ep=None):
+    """A moe layer: attention (MLA or GQA), then the MoE FFN (expert
+    parallel with `ep`).  Returns (x, the attention's cache entries, the
+    MoE's aux)."""
     xi = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         h, kv = mla_forward(p["attn"], xi, cfg)
     else:
         h, kv = attention_forward(p["attn"], xi, cfg)
     x = x + h
-    mo, aux = moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    mo, aux = moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
+                          ep=ep)
     return x + mo, kv, aux
 
 
+def _mamba_layer(fwd, p, x, cfg):
+    h, c = fwd(p["mamba"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
+    return x + h, c
+
+
 def forward(params, tokens, cfg, *, vision_embeds=None, collect_kv=False,
-            with_aux=False):
+            with_aux=False, remat=False, ep=None):
     """Full-sequence forward.  tokens: (B, S) integer; vision_embeds (B,
     num_vision_tokens, vision_dim) for a vlm.
 
@@ -222,20 +245,19 @@ def forward(params, tokens, cfg, *, vision_embeds=None, collect_kv=False,
     aux["dropped"] = aux["dropped"].long()
     if cfg.family == "moe":
         for p in blocks:
-            x, kv, a = _moe_layer(p, x, cfg)
+            x, kv, a = _layer(_moe_layer, remat, p, x, cfg, ep)
             aux = {k: aux[k] + a[k] for k in AUX_KEYS}
             if collect_kv:
                 caches.append(kv)
     elif cfg.family in ATTN_FAMILIES:
         for p in blocks:
-            x, kv = _attn_mlp(p, x, cfg)
+            x, kv = _layer(_attn_mlp, remat, p, x, cfg)
             if collect_kv:
                 caches.append(kv)
     elif cfg.family == "ssm":
         fwd = _mamba(cfg)[1]
         for p in blocks:
-            h, c = fwd(p["mamba"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
-            x = x + h
+            x, c = _layer(_mamba_layer, remat, fwd, p, x, cfg)
             if collect_kv:
                 caches.append(c)
     else:
@@ -243,11 +265,9 @@ def forward(params, tokens, cfg, *, vision_embeds=None, collect_kv=False,
         for g in range(hybrid_points(cfg)):
             states = []
             for p in blocks[g * k:(g + 1) * k]:
-                h, c = mamba2_forward(p["mamba"],
-                                      rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
-                x = x + h
+                x, c = _layer(_mamba_layer, remat, mamba2_forward, p, x, cfg)
                 states.append(c)
-            x, kv = _attn_mlp(params["shared_attn"], x, cfg)
+            x, kv = _layer(_attn_mlp, remat, params["shared_attn"], x, cfg)
             if collect_kv:
                 caches.append((states, kv))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -299,7 +319,7 @@ def _attn_mlp_decode(p, x, cfg, cache, i, pos):
     return x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
-def _moe_decode(p, x, cfg, cache, i, pos):
+def _moe_decode(p, x, cfg, cache, i, pos, ep=None):
     """One token through a moe layer against cache slot i."""
     xi = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
@@ -310,28 +330,28 @@ def _moe_decode(p, x, cfg, cache, i, pos):
                              cache["v"][i], cache["pos"], pos)
     x = x + h
     return x + moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps),
-                           cfg)[0]
+                           cfg, ep=ep)[0]
 
 
-def decode_step(params, token, pos, cache, cfg):
+def decode_step(params, token, pos, cache, cfg, *, ep=None):
     """token: (B,) integer; pos: (B,) absolute position.  Returns (logits,
     cache); the cache is updated in place."""
     _require_ported(cfg)
-    x = params["embed"][token][:, None, :]                      # (B, 1, d)
+    x = spmd.embed(params["embed"], token)[:, None, :]          # (B, 1, d)
     blocks = layer_list(params["blocks"])
     if cfg.family in ATTN_FAMILIES:
         for i, p in enumerate(blocks):
             x = _attn_mlp_decode(p, x, cfg, cache, i, pos)
     elif cfg.family == "moe":
         for i, p in enumerate(blocks):
-            x = _moe_decode(p, x, cfg, cache, i, pos)
+            x = _moe_decode(p, x, cfg, cache, i, pos, ep)
     elif cfg.family == "ssm":
         dec = _mamba(cfg)[2]
         for i, p in enumerate(blocks):
             h, conv, state = dec(p["mamba"], rms_norm(x, p["ln1"], cfg.norm_eps),
                                  cfg, cache["conv"][i], cache["state"][i])
-            cache["conv"][i] = conv
-            cache["state"][i] = state
+            spmd.put(cache["conv"], i, conv)
+            spmd.put(cache["state"], i, state)
             x = x + h
     else:
         k = cfg.hybrid_attn_every
@@ -341,19 +361,21 @@ def decode_step(params, token, pos, cache, cfg):
                 h, conv, state = mamba2_decode(
                     p["mamba"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
                     cache["conv"][i], cache["state"][i])
-                cache["conv"][i] = conv
-                cache["state"][i] = state
+                spmd.put(cache["conv"], i, conv)
+                spmd.put(cache["state"], i, state)
                 x = x + h
             x = _attn_mlp_decode(params["shared_attn"], x, cfg, cache, g, pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return dot(x, params["lm_head"])[:, 0], cache
 
 
-def prefill(params, tokens, cfg, cache_len: int, *, vision_embeds=None):
+def prefill(params, tokens, cfg, cache_len: int, *, vision_embeds=None,
+            ep=None):
     """Returns (logits (B, S, vocab), cache ready for decode at pos = S);
     a vlm's S counts its `num_vision_tokens` patch positions too."""
     logits, collected = forward(params, tokens, cfg,
-                                vision_embeds=vision_embeds, collect_kv=True)
+                                vision_embeds=vision_embeds, collect_kv=True,
+                                ep=ep)
     B = tokens.shape[0]
     S = tokens.shape[1] + (cfg.num_vision_tokens if cfg.family == "vlm"
                            else 0)

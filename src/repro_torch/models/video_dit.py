@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spmd
 from repro_torch.core.engine import layer_params
 from repro_torch.kernels import flash_attention
 
@@ -107,7 +108,7 @@ def _branch_mod(p, c, name):
     project that branch's third."""
     i = BRANCHES.index(name)
     cols = slice(3 * i * c.shape[-1], 3 * (i + 1) * c.shape[-1])
-    return (dot(F.silu(c), p["ada_w"][:, cols])
+    return (dot(F.silu(c), spmd.gathered(p["ada_w"], 1)[:, cols])
             + p["ada_b"][cols]).chunk(3, dim=-1)
 
 
@@ -117,11 +118,11 @@ def _attend(ap, h, fold, unfold, cfg):
     hf = fold(h)
     B, T, _ = hf.shape
     H, hd = cfg.num_heads, cfg.head_dim
-    q = dot(hf, ap["wq"]).reshape(B, T, H, hd)
-    k = dot(hf, ap["wk"]).reshape(B, T, H, hd)
-    v = dot(hf, ap["wv"]).reshape(B, T, H, hd)
-    o = flash_attention(q, k, v, causal=False)
-    return unfold(dot(o.reshape(B, T, H * hd), ap["wo"]))
+    q, k, v = (spmd.split_heads(dot(hf, ap[w]), H)
+               for w in ("wq", "wk", "wv"))
+    o = spmd.attention(flash_attention, q, k, v, causal=False)
+    return unfold(spmd.reduce_partial(dot(o.reshape(B, T, H * hd),
+                                          ap["wo"])))
 
 
 def _norm_mod(x, shift, scale):

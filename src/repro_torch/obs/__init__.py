@@ -20,7 +20,7 @@ Metric names follow JAX's `repro_<subsystem>_<metric>_<unit>`.
 Instrumentation is opt-in: no registry is consulted unless one is passed,
 so hooks-off serving pays nothing.
 """
-from .clock import monotonic, wall
+from .clock import monotonic, monotonic_ns, wall
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       default_registry)
 from .profiling import (ProgramProfile, count_flops, flops_per_row,
@@ -30,7 +30,7 @@ from .trace import (TraceRecorder, load_cache_events, load_probes,
                     validate_chrome_trace)
 
 __all__ = [
-    "monotonic", "wall",
+    "monotonic", "monotonic_ns", "wall",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "default_registry",
     "ProgramProfile", "count_flops", "flops_per_row", "profiler_trace",
     "redundancy_ratio",

@@ -12,12 +12,17 @@ from __future__ import annotations
 
 import time
 
-__all__ = ["monotonic", "wall"]
+__all__ = ["monotonic", "monotonic_ns", "wall"]
 
 
 def monotonic() -> float:
     """Monotonic seconds (arbitrary epoch) — use for ALL duration math."""
     return time.perf_counter()
+
+
+def monotonic_ns() -> int:
+    """Monotonic nanoseconds — for exporters that want integer ticks."""
+    return time.perf_counter_ns()
 
 
 def wall() -> float:

@@ -248,7 +248,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.transformer, repro_torch.data, "
             "repro_torch.optim, repro_torch.checkpoint, repro_torch.train, "
             "repro_torch.launch.train, repro_torch.tree, "
-            "repro_torch.diffusion.dlm; "
+            "repro_torch.diffusion.dlm, repro_torch.sharding, "
+            "repro_torch.spmd, repro_torch.launch.mesh, "
+            "repro_torch.launch.specs, repro_torch.launch.roofline, "
+            "repro_torch.launch.dryrun, repro_torch.launch.perf_dit; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad")

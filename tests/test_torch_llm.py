@@ -252,7 +252,8 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
 def test_unported_families_raise():
     """Every LLM family of JAX's zoo is ported, the moe configs included
     (they resolve); a config of a family the zoo does not have raises in
-    the model code, and the expert-parallel MoE names ROADMAP §A.9."""
+    the model code, and the expert-parallel MoE refuses a plain tensor
+    (it runs on DTensors: tests/test_torch_distributed.py)."""
     from repro_torch.models import moe
     for arch in ("deepseek-v2-236b", "arctic-480b"):
         assert get_config(arch).family == "moe"
@@ -264,6 +265,6 @@ def test_unported_families_raise():
     with pytest.raises(ValueError, match="retnet"):
         forward({}, torch.zeros((1, 2), dtype=torch.long), odd)
     arctic = get_smoke_config("arctic-480b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.9"):
+    with pytest.raises(TypeError, match="DTensor"):
         moe.moe_forward({}, torch.zeros((1, 2, arctic.d_model)), arctic,
-                        ep={})
+                        ep={"mesh": None})

@@ -182,14 +182,16 @@ def test_moe_bf16_params_match_jax(lm):
 
 
 def test_expert_parallel_raises_and_experts_draw_in_place():
-    """`ep=` names ROADMAP §A.9; the stacked experts are drawn in blocks
-    straight into their (L, E, in, out) storage, N(0, 1/fan_in), no two
-    matrices alike."""
+    """`ep=` dispatches to `moe_forward_ep`, which refuses a plain x (it
+    runs on DTensors: tests/test_torch_distributed.py); the stacked experts
+    are drawn in blocks straight into their (L, E, in, out) storage, N(0,
+    1/fan_in), no two matrices alike."""
     cfg = get_smoke_config("arctic-480b")
     params = models.init_params(torch.Generator().manual_seed(0), cfg,
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="§A.9"):
-        moe.moe_forward({}, torch.zeros((1, 2, cfg.d_model)), cfg, ep={})
+    with pytest.raises(TypeError, match="DTensor"):
+        moe.moe_forward({}, torch.zeros((1, 2, cfg.d_model)), cfg,
+                        ep={"mesh": None})
     w = params["blocks"]["moe"]["w_gate"]
     assert tuple(w.shape) == (cfg.num_layers, cfg.num_experts, cfg.d_model,
                               cfg.d_ff)

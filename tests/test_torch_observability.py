@@ -318,3 +318,16 @@ def test_profiler_trace(tmp_path):
     assert len(files) == 1
     with open(files[0]) as f:
         assert "traceEvents" in json.load(f)
+
+
+def test_monotonic_ns_is_integer_and_never_goes_back():
+    """obs.monotonic_ns (JAX's repro.obs.monotonic_ns): integer
+    nanoseconds on the monotonic clock's axis, never decreasing."""
+    from repro.obs import monotonic_ns as jax_monotonic_ns
+    from repro_torch.obs import monotonic, monotonic_ns
+    ticks = [monotonic_ns() for _ in range(1000)]
+    assert all(isinstance(t, int) for t in ticks)
+    assert all(b >= a for a, b in zip(ticks, ticks[1:]))
+    s, ns = monotonic(), monotonic_ns()
+    assert abs(ns / 1e9 - s) < 1.0           # one axis with monotonic()
+    assert isinstance(jax_monotonic_ns(), int)
