@@ -327,6 +327,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
               mode), a `.cpu()` the copy channel; `train_loop(...,
               verify_donation=True)` runs 2 steps of full-width DiT-XL at
               batch 8 with every leaf updated in place
+  43b. graphs every program captured per shape key in CUDA graphs against
+              the same work run eagerly: full-width DiT-XL under TaylorSeer
+              and under TeaCache + FasterCacheCFG(4) (4 slots, 8 requests)
+              and dit-t2i prompted with FasterCacheCFG(4), each a warmed
+              engine (graphs) against an unwarmed one: x0 bitwise (else
+              within 1e-5 relative), computed steps, rows, tick kinds and
+              plan decisions identical, equal launches, 0 builds, captures
+              or cold programs under a RetraceSentinel around the warmed
+              engine's ticks, tick ms and idle share both ways, capture
+              seconds per key, graphs and pool bytes, the prompt encoder
+              captured and replayed; zamba2-2.7b and tinyllama-1.1b
+              behind ServingEngine with and without capture: greedy tokens
+              equal to a plain prefill / decode_step loop, no capture in a
+              second generate, decode ms a step, idle share and peak
+              memory both ways; DiT-XL trained 8 steps by
+              train_loop(jit=True) against jit=False: params within 1e-4
+              relative, equal launches, ms a step and idle share both ways
   44. dist    a world-size-1 NCCL process group on the card
               (`tcp://localhost`, a free port; no gloo fallback):
               `make_host_mesh()` and a (1, 1, 1) ("data", "attn", "ffn")
@@ -374,9 +391,10 @@ the last line {"ok": true, "device": {...}}.  Needs one CUDA card; it
 imports nothing of JAX.
 
     python3 chip_smoke.py --flash-only
+    python3 chip_smoke.py --graphs-only
 
-runs phases 1-4 alone and prints no result line (a quick check of the
-flash kernels).
+run phases 1-4 alone (a quick check of the flash kernels), or the build,
+forecast and graphs phases alone; neither prints a result line.
 """
 from __future__ import annotations
 
@@ -840,14 +858,17 @@ def phase_forecast(torch, slots: int):
                 d = torch.randn(lead + (n,), generator=gen,
                                 device="cuda").to(dtype)
                 rows = 1 if batch is None else batch
-                # host steps, device last_step and n_valid, as a skip tick
-                # holds them; u = steps / interval from 0.25 up
-                steps = np.array([1, 2, 3, 5, 6, 7, 9, 10][:rows])
+                # steps, last_step and n_valid on the device, as a skip
+                # tick holds them (the steps in the engine's static
+                # buffer); u = steps / interval from 0.25 up
+                host_steps = np.array([1, 2, 3, 5, 6, 7, 9, 10][:rows])
+                steps = torch.from_numpy(host_steps.astype(np.int32)).cuda()
                 nv = torch.arange(rows, device="cuda", dtype=torch.int32) \
                     % (m1 + 1)
                 last = torch.zeros((rows,), dtype=torch.int32, device="cuda")
                 if batch is None:
-                    steps, nv, last = int(steps[0]), nv[0] + 2, last[0]
+                    steps, nv, last = steps[0], nv[0] + 2, last[0]
+                    host_steps = int(host_steps[0])
                 u = (torch.as_tensor(steps, dtype=torch.int32, device="cuda")
                      - last).float() / float(interval)
                 c = basis_coeffs(m1 - 1, u, basis, n_valid=nv)
@@ -855,8 +876,12 @@ def phase_forecast(torch, slots: int):
                 def fused():
                     return forecast_basis(d, steps, last, nv, interval, basis)
 
+                def fused_host():   # host steps: one staged copy a call
+                    return forecast_basis(d, host_steps, last, nv, interval,
+                                          basis)
+
                 def chain():   # the skip tick before the fused entry point
-                    uu = (torch.as_tensor(steps, dtype=torch.int32,
+                    uu = (torch.as_tensor(host_steps, dtype=torch.int32,
                                           device="cuda") - last).float() \
                         / float(interval)
                     return forecast(d, basis_coeffs(m1 - 1, uu, basis,
@@ -878,6 +903,7 @@ def phase_forecast(torch, slots: int):
                                    "forecast_kernel")
                 fused_ms = cuda_ms(torch, fused, reps=50)
                 fused_dev_ms = device_ms(torch, fused, "forecast_kernel")
+                fused_host_ms = cuda_ms(torch, fused_host, reps=50)
                 chain_ms = cuda_ms(torch, chain, reps=50)
                 plain_ms = cuda_ms(torch, lambda: forecast_ref(d, c), reps=50)
                 nbytes = (rows * (m1 + 1) * n) * d.element_size() + c.numel() * 4
@@ -890,7 +916,8 @@ def phase_forecast(torch, slots: int):
                 log(f"forecast {name} {tuple(d.shape)} {dt} {basis}: "
                     f"max_abs_err={err:.3e} fused {err_f:.3e} (tol {tol:.3e}) "
                     f"ms={ms:.4f} device_ms={dev_ms} fused_ms={fused_ms:.4f} "
-                    f"fused_device_ms={fused_dev_ms} chain_ms={chain_ms:.4f} "
+                    f"fused_device_ms={fused_dev_ms} fused_host_steps_ms="
+                    f"{fused_host_ms:.4f} chain_ms={chain_ms:.4f} "
                     f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({by}) "
                     f"library_ms={lib_ms}")
                 if max(err, err_f) > tol:
@@ -907,6 +934,7 @@ def phase_forecast(torch, slots: int):
                               "bound_by": by, "library_ms": lib_ms,
                               "device_ms": dev_ms, "fused_ms": fused_ms,
                               "fused_device_ms": fused_dev_ms,
+                              "fused_host_steps_ms": fused_host_ms,
                               "chain_ms": chain_ms,
                               "shape": f"{name} {tuple(d.shape)} {dt}",
                               "tolerance": f"{tol:.3e} abs"}
@@ -929,9 +957,15 @@ def phase_forecast(torch, slots: int):
               "last_step": torch.zeros((S,), dtype=torch.int32, device="cuda")}
     steps = np.array([1, 2, 3, 5, 6, 7, 9, 10][:S])
     xs = torch.zeros((S, 256, 16), device="cuda")
-    # with the plan's host decision (no slot computes), as the engine
-    # passes it: without one, apply_slots reads its own from the device
-    skip = np.zeros((S,), bool)
+    # with the plan's host decision (no slot computes) and the steps as
+    # the engine passes them (Staged: the host array and its static device
+    # buffer); without a decision, apply_slots reads its own from the device
+    from repro_torch.device import Staged
+    skip = Staged(np.zeros((S,), bool),
+                  torch.zeros((S,), dtype=torch.bool, device="cuda"),
+                  ("want_c",))
+    steps = Staged(steps, torch.from_numpy(steps.astype(np.int32)).cuda(),
+                   ("steps",))
     tick = lambda: pol.apply_slots(states, steps, xs, xs,  # noqa: E731
                                    want=skip)
     tick()
@@ -2216,8 +2250,9 @@ def cross_attn_profile(torch, fn):
 
 def log_cross_share(torch, label, fn):
     cross, linked, by_name, pwall = cross_attn_profile(torch, fn)
+    share = cross / linked if linked else math.nan
     log(f"{label}: profiled: cross-attention {cross:.1f} ms of {linked:.1f} "
-        f"ms of kernels linked to operators (share {cross / linked:.4f}); "
+        f"ms of kernels linked to operators (share {share:.4f}); "
         f"device events by name {by_name:.1f} ms; idle share "
         f"{1 - by_name / pwall:.3f} (profiled wall {pwall:.1f} ms)")
 
@@ -2272,6 +2307,12 @@ def check_prompt_moves_x0(phase, eng, steps):
         fail(f"{phase}: two prompts gave the same x0 ({diff})")
 
 
+def text_kv_replays(eng) -> int:
+    """Replays of the engine's "text_kv" program (a CUDA-graph replay runs
+    no Python, so `counting` does not see it)."""
+    return sum(p.replays for _, p, _ in eng._programs.get("text_kv", ()))
+
+
 def check_text_counts(phase, eng, cond, res, builds, kv_calls, misses):
     """Text-table builds equal the admission waves, the only text_kv calls
     are those builds (none in a tick), the encoder ran once per unique
@@ -2309,16 +2350,19 @@ def phase_serve_t2i(torch, kernels, flash, forecast, F, cfg_summary):
         wall = time.perf_counter() - t0
     eng, cond, res = out["engine"], out["conditioner"], out["results"]
     tel, s = eng.telemetry, eng.telemetry.summary()
-    # the first warmup runs each program twice: its timed first run, then
-    # once under the FLOP counter (engine.program_profile)
-    warm = 2 * sum(1 for r in out["warmup"] if isinstance(r, int) and r > 0)
+    # warmup runs each backbone program once per compiled graph (its eager
+    # run under the FLOP counter; a capture launches nothing) and replays
+    # a graph for each input class it already covers (engine.warmup_runs)
+    warm = sum(n for k, n in eng.warmup_runs.items()
+               if isinstance(k, int) and k > 0)
     if launches["flash_attention"] != L * (tel.ticks_backbone + warm):
         fail(f"serve-t2i: {launches['flash_attention']} flash launches for "
              f"{tel.ticks_backbone} served + {warm} warmup backbone passes, "
              f"want {L} each")
     unique = len(set(example.PROMPTS) | {example.NEG_PROMPT})
     waves = check_text_counts("serve-t2i", eng, cond, res,
-                              eng.text_table_builds, kv.calls - 2, unique)
+                              eng.text_table_builds,
+                              kv.calls - 2 + text_kv_replays(eng), unique)
     log(f"serve-t2i: example run {wall:.3f}s wall (warmup included): "
         f"{s['requests']} requests, throughput_rps={s['throughput_rps']:.4f} "
         f"latency_p50_s={s['latency_p50_s']:.3f} "
@@ -2341,13 +2385,15 @@ def phase_serve_t2i(torch, kernels, flash, forecast, F, cfg_summary):
     # the example's queue again, tick by tick: the plan's rows
     reqs = example.requests()
     eng.text_table_builds, misses = 0, cond.misses
+    replays = text_kv_replays(eng)
     with counting(dit, "text_kv") as kv:
         (res2, trace), launches = _count_launches(
             kernels, (flash,), "serve-t2i drive",
             lambda: drive(eng, reqs, record=True))
     check_rows("serve-t2i drive", res2, reqs, trace)
     check_text_counts("serve-t2i drive", eng, cond, res2,
-                      eng.text_table_builds, kv.calls, misses)
+                      eng.text_table_builds,
+                      kv.calls + text_kv_replays(eng) - replays, misses)
     if launches["flash_attention"] != L * eng.telemetry.ticks_backbone:
         fail(f"serve-t2i drive: {launches['flash_attention']} flash launches "
              f"in {eng.telemetry.ticks_backbone} backbone passes")
@@ -2365,6 +2411,7 @@ def phase_serve_t2i(torch, kernels, flash, forecast, F, cfg_summary):
     eng.warmup()
     reqs = text_requests(cfg, 8, (8, 16), guided=CFG_GUIDED, neg=CFG_VECTOR)
     misses = cond.misses + 0
+    replays = text_kv_replays(eng)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with counting(dit, "text_kv") as kv:
@@ -2382,7 +2429,9 @@ def phase_serve_t2i(torch, kernels, flash, forecast, F, cfg_summary):
         fail(f"serve-t2i-taylorseer: {launches['flash_attention']} flash "
              f"launches in {tel.ticks_backbone} backbone passes")
     waves = check_text_counts("serve-t2i-taylorseer", eng, cond, res,
-                              eng.text_table_builds, kv.calls, misses)
+                              eng.text_table_builds,
+                              kv.calls + text_kv_replays(eng) - replays,
+                              misses)
     table_mb = 4 * L * cfg.dit_text_len * cfg.d_model * 4 / 1e6
     log(f"serve-t2i-taylorseer: {s['requests']} requests "
         f"({s['guided_requests']} guided, one negative prompt) in "
@@ -2403,6 +2452,8 @@ def phase_serve_t2i(torch, kernels, flash, forecast, F, cfg_summary):
         f"{table_mb:.1f} peak_mem_gb={peak:.2f} (of which {held:.2f} held "
         f"by earlier phases) launches {launches}")
     out_paths["serve-t2i-taylorseer"] = launches
+    # eagerly: a graph replay has no operator for the profiler to mark
+    eng.release_programs()
     log_cross_share(torch, "serve-t2i-taylorseer", lambda: eng.serve(reqs))
     check_prompt_moves_x0("serve-t2i", eng, 8)
     time_cross_attention(torch, F, "serve-t2i", cfg, 8, cfg.dit_tokens)
@@ -2532,6 +2583,7 @@ def phase_serve_t2v(torch, kernels, flash, forecast, F):
     warm_s = time.perf_counter() - t0
     reqs = text_requests(cfg, 4, (8, 16), modality="t2v")
     passes = 2 * cfg.num_layers
+    replays = text_kv_replays(eng)
     torch.cuda.reset_peak_memory_stats()
     with counting(dit, "text_kv") as kv:
         t0 = time.perf_counter()
@@ -2554,7 +2606,8 @@ def phase_serve_t2v(torch, kernels, flash, forecast, F):
         fail(f"serve-t2v: {launches['flash_attention']} flash launches in "
              f"{tel.ticks_backbone} backbone passes, want {passes} each")
     waves = check_text_counts("serve-t2v", eng, cond, res,
-                              eng.text_table_builds, kv.calls, 3)
+                              eng.text_table_builds,
+                              kv.calls + text_kv_replays(eng) - replays, 3)
     log(f"serve-t2v: {s['requests']} prompted requests in {wall:.3f}s wall "
         f"(warmup {warm_s:.2f}s), throughput_rps={s['throughput_rps']:.4f} "
         f"latency_p50_s={s['latency_p50_s']:.3f} "
@@ -2569,6 +2622,7 @@ def phase_serve_t2v(torch, kernels, flash, forecast, F):
         f"{waves}, text_kv calls {kv.calls}) peak_mem_gb={peak:.2f} (of "
         f"which {held:.2f} held by earlier phases) launches {launches}")
     out_paths = {"serve-t2v": launches}
+    eng.release_programs()      # eagerly (see serve-t2i)
     log_cross_share(torch, "serve-t2v", lambda: eng.serve(reqs))
     check_prompt_moves_x0("serve-t2v", eng, 8)
     del eng
@@ -4616,17 +4670,31 @@ def _serve_moe(torch, kernels, path, arch, depth):
             f"{d_ms:.2f} device ms (share {d_moe / d_ms:.4f}, {d_calls} "
             f"calls); {d_drop} of {slots * cfg.experts_per_token * depth} "
             f"pairs dropped (capacity {capacity(cfg, slots)})")
-        evts, _ = profile(torch, lambda: prefill(params, toks, cfg,
-                                                 cache_len))
-        by_name = {e.key[:90]: e.count for e in evts if "flash_fwd" in e.key
-                   and str(e.device_type).endswith("CUDA")}
+        # a profile holding fewer flash kernels than the wrapper launched
+        # lost CUPTI records (the program made them): profiled again, three
+        # profiles at most, as profile_plan does for the plan's copies
+        flash = next(k for k in kernels if k.__name__ == "flash_attention")
+        for _ in range(3):
+            before = flash.launches
+            evts, _ = profile(torch, lambda: prefill(params, toks, cfg,
+                                                     cache_len))
+            host = flash.launches - before
+            by_name = {e.key[:90]: e.count for e in evts
+                       if "flash_fwd" in e.key
+                       and str(e.device_type).endswith("CUDA")}
+            if sum(by_name.values()) >= host:
+                break
+            log(f"serve-moe: {arch}: the profile holds "
+                f"{sum(by_name.values())} flash kernels of the {host} "
+                f"launched: CUPTI records lost, profiling again")
         log(f"serve-moe: {arch}: profiled prefill: flash kernels by name "
-            f"{by_name}")
+            f"{by_name} ({host} launched)")
         split = sum(n for k, n in by_name.items() if "192" in k)
         want = depth if cfg.use_mla else 0
-        if sum(by_name.values()) != depth or split != want:
-            fail(f"serve-moe: {arch}: flash kernels {by_name}, want {depth} "
-                 f"launches, {want} of the split (192 over 128) kernel")
+        if sum(by_name.values()) != depth or host != depth or split != want:
+            fail(f"serve-moe: {arch}: flash kernels {by_name} ({host} "
+                 f"launched), want {depth} launches, {want} of the split "
+                 f"(192 over 128) kernel")
         log_profile(torch, f"serve-moe {arch} prefill",
                     lambda: prefill(params, toks, cfg, cache_len))
         log_profile(torch, f"serve-moe {arch} decode x4", lambda: steps(4))
@@ -4821,13 +4889,17 @@ def _verify_engines(cfg, params):
 
 def _injected_syncs(torch, eng):
     """Record one tick of `eng` with a `.item()` and then a `.cpu()`
-    injected after it: (issues of the first, issues of the second)."""
+    injected after it: (issues of the first, issues of the second).  The
+    tick's inputs go into the engine's static latents and states, fresh
+    slots of zeros, which the plan reads."""
     import numpy as np
     from repro_torch.analysis.ir.op_checks import check_record, record_program
-    from repro_torch.core import stack_slots
+    from repro_torch.core import SlotBatchedPolicy
     S = eng.slots
-    xs = torch.zeros((S, eng.tokens, eng.in_dim), device="cuda")
-    states = stack_slots(eng._fresh, S)
+    xs, states = eng._xs, eng._states
+    xs.zero_()
+    for slot in range(S):
+        SlotBatchedPolicy.reset_slot(states, slot, eng._fresh)
     z = np.zeros((S,), np.float32)
     ab = np.full((S,), 0.5, np.float32)
     steps = np.zeros((S,), np.int32)
@@ -5368,6 +5440,398 @@ def phase_dryrun(torch, procs, out: Path, dist_gb):
         f"card: {dist_gb[0]:.2f} GB of arguments, {dist_gb[1]:.2f} GB of "
         f"peak above the resident")
 
+GRAPH_TOL = 1e-5          # graphs: x0 of a warmed engine vs an unwarmed one
+GRAPH_LLM = (("zamba2-2.7b", ("flash_attention", "ssd_scan")),
+             ("tinyllama-1.1b", ("flash_attention",)))
+GRAPH_DECODE_STEPS = 8    # graphs: decode steps timed per engine (4 profiled)
+
+
+#: the trace categories of work on the device's timeline (ranges, user
+#: annotations and synchronizations lie there too, and are not work)
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _idle_share(torch, fn):
+    """(device busy ms, profiled wall ms, idle share) of fn().  Busy is the
+    union of the intervals of the kernels, copies and fills in the
+    exported trace of the device's activity (streams that overlap count
+    once); it fails when the profile holds no device work or more than
+    the wall."""
+    import tempfile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as prof_ctx
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        trace = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events if e.get("cat") in DEVICE_WORK)
+    busy, end = 0.0, -math.inf
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    busy /= 1e3
+    if not spans or busy > wall:
+        fail(f"idle share: {len(spans)} device work events, busy "
+             f"{busy:.3f} ms in a profiled wall of {wall:.3f} ms")
+    return busy, wall, 1 - busy / wall
+
+
+def _graph_serve_pair(torch, kernels, path, label, make, reqs):
+    """The same traffic through an unwarmed engine (every program eager)
+    and a warmed one (every program a CUDA graph): x0 bitwise or within
+    GRAPH_TOL relative, computed steps and rows, tick kinds and plan
+    decisions identical, launch counts equal, no build, capture or cold
+    program under a RetraceSentinel around the warmed engine's ticks; tick
+    ms and idle share both ways, capture seconds, graphs and pool bytes.
+    Returns the warmed run's launch counts.  The idle share comes from a
+    profile of the first four requests (profiling the whole traffic would
+    take most of the phase); the plan's one copy a tick on warmed engines
+    is held by serve-adaptive, check-cfg and serve-video."""
+    from repro_torch.analysis.ir.retrace import RetraceSentinel
+    runs, short, t_pair = {}, reqs[:4], time.perf_counter()
+    for mode in ("eager", "graphs"):
+        eng = make()
+        warm_s = None
+        if mode == "graphs":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.warmup()
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+        with RetraceSentinel() as sen:
+            (res, trace), launches = _count_launches(
+                kernels, path, f"{label} {mode}",
+                lambda: drive(eng, reqs, record=True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        ticks = eng.telemetry.summary()["ticks"]
+        tick_ms = (time.perf_counter() - t0) * 1e3 / ticks
+        idle = _idle_share(torch, lambda: eng.serve(short))[2]
+        stats = eng.graph_stats()
+        runs[mode] = dict(res=res, trace=trace, launches=launches,
+                          sentinel=sen.count, names=sen.compiled_names,
+                          tick_ms=tick_ms, idle=idle, stats=stats,
+                          warm_s=warm_s, ticks=ticks)
+        prof = eng.program_profile
+        if mode == "graphs":
+            if stats["graphs"] != stats["programs"] or not stats["graphs"]:
+                fail(f"{label}: {stats['graphs']} CUDA graphs of "
+                     f"{stats['programs']} programs")
+            caps = stats["capture_seconds"]
+            log(f"{label} graphs: warmup {warm_s:.2f}s, {stats['graphs']} "
+                f"graphs over keys {sorted(map(str, prof))}, pool_bytes="
+                f"{stats['pool_bytes']}, capture seconds per key (first "
+                f"graph) " + ", ".join(f"{k!r} {p.compile_seconds:.4f}"
+                                       for k, p in prof.items())
+                + f"; all graphs {sum(caps.values()):.3f}s (max "
+                f"{max(caps.values()):.4f}s)")
+        del eng
+    e, g = runs["eager"], runs["graphs"]
+    worst, bitwise = 0.0, True
+    for a, b in zip(g["res"], e["res"]):
+        bitwise &= bool((a.x0 == b.x0).all())
+        worst = max(worst, float(abs(a.x0 - b.x0).max())
+                    / max(float(abs(b.x0).max()), 1e-30))
+        if (a.record.computed_steps, a.record.uncond_computed_steps) != (
+                b.record.computed_steps, b.record.uncond_computed_steps):
+            fail(f"{label}: request {a.request_id} computed "
+                 f"{a.record.computed_steps}/{a.record.uncond_computed_steps}"
+                 f" steps on graphs, {b.record.computed_steps}/"
+                 f"{b.record.uncond_computed_steps} eagerly")
+    if worst > GRAPH_TOL:
+        fail(f"{label}: x0 differs by {worst:.3e} relative (> {GRAPH_TOL})")
+    for k in ("kinds", "rows", "urows"):
+        if g["trace"][k] != e["trace"][k]:
+            fail(f"{label}: {k} differ between graphs and eager")
+    plans = [[(list(p.want_cond), list(p.want_uncond))
+              for _, p in r["trace"]["plans"]] for r in (g, e)]
+    if plans[0] != plans[1]:
+        fail(f"{label}: the device plans decided differently")
+    if g["launches"] != e["launches"]:
+        fail(f"{label}: launches {g['launches']} on graphs, "
+             f"{e['launches']} eagerly")
+    if g["sentinel"] != 0:
+        fail(f"{label}: {g['sentinel']} builds, captures or cold programs "
+             f"while serving on graphs: {g['names'][:5]}")
+    log(f"{label}: x0 bitwise equal {bitwise} (largest relative "
+        f"difference {worst:.3e}), computed steps, rows, tick kinds and "
+        f"{len(g['trace']['plans'])} device plans identical, launches "
+        f"equal {g['launches']}; sentinel around the served ticks: graphs "
+        f"{g['sentinel']}, eager {e['sentinel']} (cold programs); tick_ms "
+        f"graphs {g['tick_ms']:.3f} eager {e['tick_ms']:.3f} over "
+        f"{g['ticks']} ticks; idle share graphs {g['idle']:.3f} eager "
+        f"{e['idle']:.3f} (profiled: the first 4 requests); "
+        f"{time.perf_counter() - t_pair:.1f}s for the pair")
+    return g["launches"]
+
+
+def _graph_llm(torch, kernels, arch, path):
+    """`arch` at full width: a plain prefill / decode_step loop run
+    eagerly, then ServingEngine, whose first generate captures prefill and
+    decode: greedy tokens equal, launches equal, no capture in a second
+    generate; decode ms a step, device kernel ms, idle share and peak
+    memory both ways, capture seconds and pool bytes of both graphs."""
+    import numpy as np
+    from repro_torch.analysis.ir.retrace import RetraceSentinel
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServingEngine
+    cfg = get_config(arch)
+    slots, max_prompt, cache_len, new = 4, 512, 1024, 8
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in rng.integers(64, 501, size=slots)]
+    toks = np.zeros((slots, max_prompt), np.int64)
+    for row, p in enumerate(prompts):
+        toks[row, -len(p):] = p
+    toks = torch.from_numpy(toks).cuda()
+    st = {}
+
+    def plain():
+        """The engine's work on one chunk, as plain calls: prefill (the
+        last position's logits), then decode steps."""
+        logits, st["cache"] = prefill(params, toks, cfg, cache_len,
+                                      last_only=True)
+        st["tok"] = logits[:, -1].argmax(-1)
+        st["pos"] = torch.full((slots,), max_prompt, device="cuda")
+        out = [st["tok"]]
+        for _ in range(new - 1):
+            eager_decode()
+            st["tok"] = st["logits"].argmax(-1)
+            out.append(st["tok"])
+        return torch.stack(out, 1).cpu().numpy()
+
+    def eager_decode():
+        """The decode program's work: a step, its positions advanced."""
+        st["logits"], _ = decode_step(params, st["tok"], st["pos"],
+                                      st["cache"], cfg)
+        st["pos"].add_(1)
+
+    out, launches = {}, {}
+    for mode in ("eager", "graphs"):
+        eng = ServingEngine(params, cfg, slots=slots, max_prompt=max_prompt,
+                            cache_len=cache_len, device="cuda") \
+            if mode == "graphs" else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if eng is None:
+                ref, launches[mode] = _count_launches(
+                    kernels, path, f"graphs {arch} {mode}", plain)
+                ref, first = ref.tolist(), None
+            else:
+                first = eng.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if eng is not None:
+            with RetraceSentinel() as sen:
+                res, launches[mode] = _count_launches(
+                    kernels, path, f"graphs {arch} {mode}",
+                    lambda: eng.generate(prompts, max_new_tokens=new))
+            for r in first + res:
+                if r.tokens != ref[r.request_id]:
+                    fail(f"graphs {arch}: request {r.request_id}'s greedy "
+                         f"tokens differ from the plain prefill/decode_step "
+                         f"loop")
+            if sen.count:
+                fail(f"graphs {arch}: {sen.count} builds or captures in a "
+                     f"second generate: {sen.compiled_names[:4]}")
+            decode = lambda: eng._run("decode", eng._decode_static)  # noqa: E731
+        else:
+            decode = eager_decode
+        with torch.no_grad():
+            decode()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_DECODE_STEPS):
+                decode()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / GRAPH_DECODE_STEPS
+            busy, pwall, idle = _idle_share(torch, lambda: [
+                decode() for _ in range(4)])
+        out[mode] = (ms, idle, peak, first_s, busy / 4)
+        if eng is None:
+            what = "plain loop (prefill + 7 decode steps)"
+        else:
+            what = "first generate (captures " + ", ".join(
+                f"{k}: {p.compile_seconds:.4f}s pool_bytes="
+                f"{eng.programs[k].pool_bytes}"
+                for k, p in eng.program_profile.items()) + \
+                "), tokens equal the plain loop's"
+        log(f"graphs {arch} {mode}: {what} {first_s:.3f}s; decode "
+            f"{ms:.3f} ms a step (host clock, {slots} slots, cache_len "
+            f"{cache_len}), device kernels {busy / 4:.3f} ms a step, idle "
+            f"share {idle:.3f} (4 steps profiled, {pwall:.3f} ms); "
+            f"peak_mem_gb={peak:.2f}; launches {launches[mode]}")
+        del eng
+        st.clear()
+    if launches["graphs"] != launches["eager"]:
+        fail(f"graphs {arch}: launches {launches['graphs']} on graphs, "
+             f"{launches['eager']} eagerly")
+    del params
+    torch.cuda.empty_cache()
+    return launches["graphs"], out
+
+
+def _graph_train(torch, kernels, path):
+    """DiT-XL trained 8 steps through train_loop with jit=True (the step
+    captured after its first eager run) and jit=False from one state:
+    params within CHECK_TRAIN_TOL relative, launches equal; ms a step and
+    idle share both ways."""
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import linear_schedule
+    from repro_torch.optim.adamw import CHUNK, global_norm
+    from repro_torch.train.loop import StepProgram, train_loop
+    from repro_torch.train.steps import (diffusion_batches, init_train_state,
+                                         make_diffusion_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("dit-xl")
+    eager = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, device="cuda")
+    graphs = tree_map(lambda t: t.clone(), eager)
+    step_fn = make_diffusion_train_step(cfg, linear_schedule(1000),
+                                        peak_lr=3e-4, warmup=0,
+                                        total_steps=TRAIN_STEPS)
+    launches, ms = {}, {}
+    for mode, state in (("eager", eager), ("graphs", graphs)):
+        stamps = []
+
+        def batches():
+            for b in diffusion_batches(0, TRAIN_BATCH, cfg, "cuda"):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                yield b
+
+        (_, hist), launches[mode] = _count_launches(
+            kernels, path, f"graphs train {mode}", lambda: train_loop(
+                step_fn, state, batches(), TRAIN_STEPS,
+                log_every=TRAIN_STEPS, log_fn=lambda m: None,
+                jit=mode == "graphs"))
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        # a stamp as each batch is fetched (the loop fetches one past its
+        # last step) and one at the end: step n ran between stamps n and n+1
+        steps = [(b - a) * 1e3
+                 for a, b in zip(stamps, stamps[1:])][:TRAIN_STEPS]
+        ms[mode] = (statistics.median(steps[2:]), steps)
+    rel = max(float((a.float() - b.float()).abs().max())
+              / max(float(b.float().abs().max()), 1e-30)
+              for a, b in zip(tree_leaves(graphs), tree_leaves(eager)))
+    if not rel <= CHECK_TRAIN_TOL:
+        fail(f"graphs train: jit=True and jit=False params differ by {rel}")
+    if launches["graphs"] != launches["eager"]:
+        fail(f"graphs train: launches {launches['graphs']} on graphs, "
+             f"{launches['eager']} eagerly")
+    batch = step_fn.prepare_batch(next(diffusion_batches(
+        0, TRAIN_BATCH, cfg, "cuda", start_step=TRAIN_STEPS)))
+    _, metrics = step_fn(graphs, batch)
+    prog = StepProgram(step_fn, graphs, batch, metrics)
+    idle = {"eager": _idle_share(torch, lambda: step_fn(eager, batch)),
+            "graphs": _idle_share(torch, lambda: prog(batch))}
+    for mode in ("graphs", "eager"):
+        busy, pwall, share = idle[mode]
+        log(f"graphs train {mode}: ms a step {ms[mode][0]:.1f} (median of "
+            f"steps 3-{TRAIN_STEPS}, host clock; all {[round(x, 1) for x in ms[mode][1]]}); "
+            f"profiled step wall {pwall:.1f} ms, device kernels {busy:.1f} "
+            f"ms, idle share {share:.3f}; launches {launches[mode]}")
+    log(f"graphs train: {TRAIN_STEPS} steps jit=True against jit=False: "
+        f"params and moments within {rel:.3e} relative (tol "
+        f"{CHECK_TRAIN_TOL}); capture {prog.profile.compile_seconds:.3f}s, "
+        f"pool_bytes {prog.program.pool_bytes}")
+    # the clip's global norm sums a leaf above adamw.CHUNK elements slice
+    # by slice: its effect against one reduction a leaf, on the first
+    # moments (the gradients' average) and the params
+    for name, tree in (("first moments", graphs.opt.mu),
+                       ("params", graphs.params)):
+        leaves = tree_leaves(tree)
+        sliced = float(global_norm(tree))
+        whole = float(torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                                     for x in leaves)))
+        big = sum(x.numel() > CHUNK for x in leaves)
+        log(f"graphs train: global_norm of the {name} ({big} of "
+            f"{len(leaves)} leaves above {CHUNK} elements) {sliced!r}, one "
+            f"reduction a leaf {whole!r}, relative difference "
+            f"{abs(sliced - whole) / whole:.3e}")
+    del eager, graphs, prog
+    torch.cuda.empty_cache()
+    return launches["graphs"]
+
+
+def phase_graphs(torch, kernels, path):
+    """Every program of the served and trained paths captured per shape
+    key (engine.warmup, the first generate, train_loop(jit=True)) against
+    the same work run eagerly."""
+    from repro_torch.core import FasterCacheCFG
+    from repro_torch.modalities import make_workload
+    from repro_torch.serving.diffusion import DiffusionServingEngine
+    total = {k.__name__: 0 for k in kernels}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] += n
+
+    t0 = time.perf_counter()
+    cfg, params = full_dit(torch)
+    for label, pol, cfg_pol, reqs in (
+            ("graphs dit-xl taylorseer", "taylorseer", None,
+             serve_requests(cfg)),
+            ("graphs dit-xl teacache+fastercache_cfg", "teacache",
+             FasterCacheCFG(4, 16), cfg_requests(cfg, torch))):
+        add(_graph_serve_pair(
+            torch, kernels, path[:1] + (path[1:2] if pol == "taylorseer"
+                                        else ()), label,
+            lambda: DiffusionServingEngine(params, cfg, pol, slots=4,
+                                           max_steps=16, cfg_policy=cfg_pol,
+                                           device="cuda"), reqs))
+    del params
+    torch.cuda.empty_cache()
+    cfg, params = full_text(torch, "dit-t2i")
+    wl = make_workload("t2i", cfg=cfg, params=params)
+    reqs = text_requests(cfg, 8, (8, 16), guided=CFG_GUIDED, neg=CFG_VECTOR)
+    conds = []
+
+    def make_t2i():
+        conds.append(wl.conditioner())
+        return wl.engine("taylorseer", slots=4, max_steps=16,
+                         cfg_policy=FasterCacheCFG(4, 16),
+                         conditioner=conds[-1])
+
+    add(_graph_serve_pair(torch, kernels, path[:2], "graphs dit-t2i", make_t2i,
+                          reqs))
+    if conds[-1]._program is None or conds[-1]._program.graph is None \
+            or not conds[-1]._program.replays:
+        fail("graphs dit-t2i: the prompt encoder was not captured and "
+             "replayed")
+    del params, wl, conds
+    torch.cuda.empty_cache()
+    log(f"graphs: DiT serving {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for arch, names in GRAPH_LLM:
+        add(_graph_llm(torch, kernels, arch, tuple(
+            k for k in kernels if k.__name__ in names))[0])
+    log(f"graphs: LLM serving {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    add(_graph_train(torch, kernels, (path[0], path[3])))
+    log(f"graphs: train {time.perf_counter() - t0:.1f}s")
+    return total
+
+
 def timed(name, fn, *args):
     """fn(*args), logging the phase's wall seconds and its own peak device
     memory: what earlier phases left is collected first, the peak counter
@@ -5467,6 +5931,13 @@ def main() -> int:
 
     (flash_attention, forecast, ssd_scan, flash_attention_backward,
      ssd_scan_backward) = KERNELS
+    if "--graphs-only" in sys.argv[1:]:
+        timed("forecast", phase_forecast, torch, 4)
+        timed("graphs", phase_graphs, torch, KERNELS,
+              (flash_attention, forecast, ssd_scan,
+               flash_attention_backward))
+        log(card)
+        return 0
     flash = timed("flash", phase_flash, torch, F)
     flash_bwd = timed("flash-bwd", phase_flash_bwd, torch, F)
     if "--flash-only" in sys.argv[1:]:
@@ -5550,6 +6021,10 @@ def main() -> int:
     # slice 15: the analysis package on the card
     by_path["verify"] = timed("verify", phase_verify, torch, KERNELS,
                               (flash_attention, forecast))
+    # slice 17: every program captured per shape key in CUDA graphs
+    by_path["graphs"] = timed("graphs", phase_graphs, torch, KERNELS,
+                              (flash_attention, forecast, ssd_scan,
+                               flash_attention_backward))
     # slice 16: distribution on a world-size-1 NCCL group; the dry runs
     # (CPU subprocesses) run beside the card's phases
     dry_out = ROOT / "dryrun_out" / "chip_smoke"

@@ -24,18 +24,23 @@ Rules (each one module under `repro_torch.analysis.rules`):
                                (the counterpart of JAX's rng-key-reuse)
   policy-registry-conformance  every make_policy entry keeps the serving
                                contract the engine assumes
+  jit-hygiene                  a CUDA-graph capture in a loop outside
+                               warmup; mutable defaults, mutable module
+                               globals or host value reads in a captured
+                               function (what the graph would freeze)
+  pytree-registration          a dataclass with tensor fields handed to
+                               a captured program's static buffers
+                               (repro_torch.tree cannot see into it)
   ir-host-sync, ir-dtype       what each warmup program's run dispatches
                                (repro_torch.analysis.ir)
+  ir-const-bloat               no program makes a tensor from host data
+                               or reads an undeclared large tensor (what
+                               its graph would pin)
   ir-donation                  the train step updates every leaf in place
-  ir-retrace                   serving after warmup builds, loads and
-                               runs nothing warmup did not
+  ir-retrace                   serving after warmup builds, loads,
+                               captures and runs nothing warmup did not
   ir-launch                    every kernel launch's operands and plan
                                (on the card only)
-
-JAX's jit-hygiene, pytree-registration and ir-const-bloat check what
-jax.jit bakes into a compiled executable; the eager port compiles
-nothing, and their counterparts come with CUDA-graph capture (ROADMAP
-§A.10).
 
 Usage:
 

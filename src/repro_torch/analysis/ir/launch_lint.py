@@ -72,7 +72,7 @@ ENTRY_ARGS: Dict[str, Tuple[str, ...]] = {
                             "scale"),
     "forecast_fwd": ("d:T", "c:f32", "o:T", "dtype", "batch", "m1", "n",
                      "vec"),
-    "forecast_basis_fwd": ("d:T", "steps:host", "last:i32", "n_valid:i32",
+    "forecast_basis_fwd": ("d:T", "steps:i32", "last:i32", "n_valid:i32",
                            "o:T", "dtype", "batch", "m1", "n", "vec", "basis",
                            "interval", "sigma"),
     "ssd_fwd": ("x:Ts", "dt:f32", "A:f32", "B:Ts", "C:Ts", "cb:f32", "y:f32",

@@ -19,7 +19,13 @@ operator a run makes (after autograd, before the kernels) and keeps:
     train step's donation check reads);
   * the priced reads: `repro_torch.obs.watch.host_read` calls, and the
     copies and scalar reads made inside them, which are the designed read
-    of a program and not a stray sync.
+    of a program and not a stray sync;
+  * for the checks of captured programs: the operator sequence (name,
+    and the shapes and dtypes of the tensor arguments), tensors made from
+    host data (`aten.lift_fresh`: `torch.tensor`, `torch.as_tensor` of a
+    numpy array, `torch.from_numpy`; a CUDA graph would freeze their
+    values), and every storage the run read that no operator of the run
+    made (what a graph of the program pins beyond its temporaries).
 
 On the card the recorder also turns on `torch.cuda.set_sync_debug_mode`
 for the run: every synchronizing CUDA call torch makes warns, and each
@@ -57,7 +63,8 @@ from repro_torch.obs import watch
 
 __all__ = ["OpIssue", "OpEvent", "OpRecord", "OpRecorder", "record_program",
            "check_record", "inplace_report", "check_donation",
-           "DonationError", "SYNC_OPS", "DATA_DEPENDENT_OPS"]
+           "check_const_bloat", "DonationError", "SYNC_OPS",
+           "DATA_DEPENDENT_OPS", "HOST_DATA_OPS", "CONST_THRESHOLD"]
 
 #: operators that read a device value on the host
 SYNC_OPS = frozenset({"_local_scalar_dense", "is_nonzero", "equal", "item"})
@@ -73,6 +80,11 @@ _INDEX_OPS = frozenset({"index", "index_put", "index_put_",
 _COPY_OPS = frozenset({"_to_copy", "copy_", "_copy_from",
                        "_copy_from_and_resize"})
 _WIDE = (torch.float64, torch.complex128)
+#: operators that make a tensor from host data
+HOST_DATA_OPS = frozenset({"lift_fresh", "lift_fresh_copy"})
+#: undeclared storages a program reads above this many bytes are flagged
+#: (JAX's const-bloat threshold); small tables and scalars are normal
+CONST_THRESHOLD = 1 << 16
 
 _TORCH_DIR = os.path.dirname(os.path.abspath(torch.__file__))
 _STDLIB_DIR = os.path.dirname(os.path.abspath(os.__file__))
@@ -120,6 +132,12 @@ class OpRecord:
     sync_warnings: List[OpEvent] = field(default_factory=list)  # card only
     wide: List[OpEvent] = field(default_factory=list)
     written: Set[int] = field(default_factory=set)            # storage ptrs
+    #: (op name, ((shape, dtype) of each tensor argument, ...)) in order
+    sequence: List[Tuple] = field(default_factory=list)
+    host_data: List[OpEvent] = field(default_factory=list)
+    #: storage ptr -> (bytes, shape, dtype) of storages read but not made
+    reads: Dict[int, Tuple] = field(default_factory=dict)
+    produced: Set[int] = field(default_factory=set)           # storage ptrs
 
 
 def _user_frame() -> Tuple[str, int]:
@@ -197,11 +215,31 @@ class OpRecorder(TorchDispatchMode):
     # -- the dispatch hook ----------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
         rec = self.record
+        sig = []
+        for t in tree_leaves((args, kwargs)):
+            if isinstance(t, torch.Tensor):
+                sig.append((tuple(t.shape), str(t.dtype)))
+                st = t.untyped_storage()
+                ptr = st.data_ptr()
+                if ptr and ptr not in rec.produced and ptr not in rec.reads:
+                    rec.reads[ptr] = (st.nbytes(), tuple(t.shape),
+                                      str(t.dtype))
+        out = func(*args, **kwargs)
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                rec.produced.add(t.untyped_storage().data_ptr())
         rec.ops += 1
         name = func._overloadpacket.__name__
         rec.op_counts[name] += 1
+        rec.sequence.append((name, tuple(sig)))
+        if name in HOST_DATA_OPS:
+            rec.host_data.append(OpEvent(str(func), "host-data",
+                                         "a tensor made from host data",
+                                         *_user_frame()))
+            for t in tree_leaves(out):       # reported as host data only
+                if isinstance(t, torch.Tensor):
+                    rec.reads.pop(t.untyped_storage().data_ptr(), None)
         kind, detail = self._classify(name, func, args, kwargs, out)
         if kind is not None:
             ev = OpEvent(str(func), kind, detail, *_user_frame())
@@ -293,6 +331,33 @@ def check_record(record: OpRecord, *, priced_reads: int = 0,
         issues.append(OpIssue(
             "dtype", f"{label}: '{e.op}' {e.detail} — a wide dtype on the "
             f"device path", e.file, e.line))
+    return issues
+
+
+def check_const_bloat(record: OpRecord, declared=(), *,
+                      threshold: int = CONST_THRESHOLD,
+                      label: str = "program") -> List[OpIssue]:
+    """The captured-program contract over one record: no tensor made from
+    host data inside the program (a CUDA graph freezes its value), and no
+    storage above `threshold` bytes read that the run did not make and
+    the owner does not declare (`declared`: tensors — the param leaves and
+    the static buffers).  Such a storage is pinned by the graph: a closed-
+    over table that belongs in a static buffer, or freed memory the replay
+    would read."""
+    issues = [OpIssue("const-bloat", f"{label}: {e.detail} ({e.op}) inside "
+                      f"the captured program — a replay would see the value "
+                      f"of the capture", e.file, e.line)
+              for e in record.host_data]
+    known = {t.untyped_storage().data_ptr() for t in declared
+             if isinstance(t, torch.Tensor)}
+    for ptr, (nbytes, shape, dtype) in sorted(record.reads.items()):
+        if ptr in known or nbytes <= threshold:
+            continue
+        issues.append(OpIssue(
+            "const-bloat", f"{label}: reads an undeclared {dtype} tensor "
+            f"of shape {shape} ({nbytes} bytes > {threshold}) that it did "
+            f"not make: a captured graph pins it — make it a param, a "
+            f"static buffer or an argument"))
     return issues
 
 

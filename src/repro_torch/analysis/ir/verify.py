@@ -17,6 +17,10 @@ The contract:
                  engine's schedule tables are float32 where they cross to
                  the device (the per-slot alpha-bar and timestep tables,
                  and the NoiseSchedule's exposed tables, as JAX checks)
+  ir-const-bloat no program makes a tensor from host data, or reads a
+                 storage above 64 KiB that it did not make and that is
+                 neither a param leaf nor one of the engine's static
+                 buffers (what its CUDA graph would pin)
 
 Findings anchor on the user frame that dispatched the operator (so
 `# repro-lint: disable=ir-*` inline suppressions work), else on the
@@ -27,15 +31,15 @@ from __future__ import annotations
 
 import inspect
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..base import Finding
-from .op_checks import OpIssue, check_record
+from .op_checks import OpIssue, check_const_bloat, check_record
 
 __all__ = ["verify_programs", "verify_programs_by_key", "issue_to_finding",
-           "PRICED_READS"]
+           "PRICED_READS", "param_leaf_specs"]
 
 _CATEGORY_RULE = {
     "host-sync": "ir-host-sync",
@@ -43,6 +47,7 @@ _CATEGORY_RULE = {
     "donation": "ir-donation",
     "launch": "ir-launch",
     "retrace": "ir-retrace",
+    "const-bloat": "ir-const-bloat",
 }
 
 #: priced reads each program key makes (every other program: none)
@@ -100,6 +105,27 @@ def _def_site(fn) -> tuple:
         return "", 0
 
 
+def param_leaf_specs(params) -> Tuple[Tuple[tuple, str], ...]:
+    """(shape, dtype-name) multiset of a param tree's leaves: what an
+    engine program is supposed to read besides its static buffers."""
+    from repro_torch.tree import tree_leaves
+    return tuple((tuple(getattr(leaf, "shape", ())),
+                  str(getattr(leaf, "dtype", "")).replace("torch.", ""))
+                 for leaf in tree_leaves(params))
+
+
+def engine_declared(engine) -> List:
+    """The tensors an engine's programs are declared to read: its param
+    leaves and static buffers, and its conditioner's."""
+    from repro_torch.tree import tree_leaves
+    out = tree_leaves(engine.params) + list(engine.static_buffers())
+    cond = getattr(engine, "conditioner", None)
+    if cond is not None:
+        out += tree_leaves(cond.params) + list(cond._in.dev.values()) \
+            + [cond._out]
+    return out
+
+
 def _engine_level_issues(engine) -> List[OpIssue]:
     """The tables gathered into every tick: an f64 table would re-promote
     the per-request DDIM coefficients off the f32 path."""
@@ -128,9 +154,11 @@ def verify_programs_by_key(engine, *, root: Optional[str] = None
     records = engine._capture_program_records()
     sites = engine._program_sites()
     by_key: Dict[object, List[Finding]] = {}
+    declared = engine_declared(engine)
     for key, rec in sorted(records.items(), key=lambda kv: str(kv[0])):
         issues = check_record(rec, priced_reads=PRICED_READS.get(key, 0),
                               label=f"program {key!r}")
+        issues += check_const_bloat(rec, declared, label=f"program {key!r}")
         file, line = _def_site(sites.get(key))
         by_key[key] = [issue_to_finding(i, root, fallback_file=file,
                                         fallback_line=line)

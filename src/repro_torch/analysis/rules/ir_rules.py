@@ -1,9 +1,10 @@
-"""The five ir-* rules: runtime program verification surfaced through the
+"""The six ir-* rules: runtime program verification surfaced through the
 ordinary rule registry, so `--rule 'ir-*'`, inline suppressions, the
 fingerprinted baseline and JSON reports apply to them exactly as to AST
 findings (the counterpart of the JAX package's `rules/ir_rules.py`).
 
-ir-host-sync, ir-dtype and ir-retrace share one cached golden context
+ir-host-sync, ir-dtype, ir-const-bloat and ir-retrace share one cached
+golden context
 per device (repro_torch.analysis.ir.golden): tiny image + video + t2i
 engines warmed with `warmup(verify=True)` and served through a mixed
 session under the retrace sentinel.  ir-donation drives the real DiT train
@@ -97,6 +98,22 @@ class IRDtypeRule(ProjectRule):
     rationale = ("an f64 intermediate doubles hot-path memory traffic and "
                  "runs at 1/64 of the f32 rate on the card; it enters "
                  "through host numpy tables promoted on the device path")
+
+    def check_project(self, root: str, device: str = "cuda"
+                      ) -> List[Finding]:
+        return _program_findings(self.id, root, device)
+
+
+@register
+class IRConstBloatRule(ProjectRule):
+    id = "ir-const-bloat"
+    description = ("a warmup program that makes a tensor from host data, "
+                   "or reads a storage above 64 KiB that is neither a "
+                   "param leaf nor a static buffer of its engine")
+    rationale = ("a CUDA graph replays its capture: a tensor made from host "
+                 "data inside it keeps the capture's value, and an "
+                 "undeclared tensor it reads is pinned by every graph of "
+                 "the program (one per bucket) — or freed under it")
 
     def check_project(self, root: str, device: str = "cuda"
                       ) -> List[Finding]:

@@ -17,14 +17,16 @@ MetricsRegistry (`repro_conditioning_prompt_cache_*`, JAX's names).
 from __future__ import annotations
 
 import hashlib
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from repro_torch.device import to_device, tree_device
+from repro_torch.device import StaticInputs, tree_device
 from repro_torch.obs import watch
+from repro_torch.obs.profiling import compile_program
 
 from .encoder import (TextEncoderConfig, TokensLike, encode_tokens,
                       pooled_embedding, tokenize)
@@ -48,10 +50,13 @@ class PromptCache:
     Host-side by design: admission-time code, never tick code.  The encoder
     runs on the params' device once per unique prompt, and its two outputs
     come back in one device-to-host copy (`repro_torch.obs.watch.host_read`,
-    outside the encoder program).  `warmup()` runs the encoder once on
-    dummy operands, so that the first miss builds nothing; `warmup(verify=
-    True)` also records that run's operators (`repro_torch.analysis.ir`)
-    and returns the record."""
+    outside the encoder program).  The program reads the prompt from static
+    buffers and writes one static output.  `warmup()` compiles it
+    (`repro_torch.obs.profiling.compile_program`: a CUDA graph on the
+    card, on the cache's own pool; `program_profile` its profile), so that
+    the first miss builds and captures nothing; `warmup(verify=True)` also
+    records one run's operators (`repro_torch.analysis.ir`) and returns the
+    record.  Before a warmup the program runs eagerly."""
 
     def __init__(self, params, tc: TextEncoderConfig, capacity: int = 128,
                  metrics=None, name: str = "default"):
@@ -69,6 +74,15 @@ class PromptCache:
         self.misses = 0
         self.evictions = 0
         self._warmed = False
+        L = tc.max_len
+        self._in = StaticInputs(self.device)
+        self._in.alloc("ids", (1, L), torch.int32)
+        self._in.alloc("mask", (1, L), torch.bool)
+        self._out = torch.zeros((L + 1, tc.d_model), device=self.device)
+        self._program = None
+        self._pool = None
+        #: the encoder program's ProgramProfile, set by warmup()
+        self.program_profile = None
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -92,14 +106,26 @@ class PromptCache:
                 "live PromptCache entries").set(len(self._entries),
                                                 cache=self.name)
 
+    def _encode_static(self) -> None:
+        """The encoder program over the static prompt buffers: (L, d)
+        embedding and (d,) pooled vector stacked into the static (L + 1,
+        d) f32 output."""
+        tid, tm = self._in.dev["ids"], self._in.dev["mask"]
+        emb = encode_tokens(self.params, tid, tm, self.tc)
+        self._out.copy_(torch.cat([emb[0], pooled_embedding(emb, tm)],
+                                  dim=0).float())
+
     def _encode_program(self, ids: np.ndarray,
                         mask: np.ndarray) -> torch.Tensor:
-        """The encoder program: (L, d) embedding and (d,) pooled vector
-        stacked into one (L + 1, d) f32 tensor on the device."""
-        tid = to_device(ids[None], self.device)
-        tm = to_device(mask[None], self.device)
-        emb = encode_tokens(self.params, tid, tm, self.tc)
-        return torch.cat([emb[0], pooled_embedding(emb, tm)], dim=0).float()
+        """The prompt into the static buffers, then the encoder program
+        (its graph once warmed); the static output."""
+        self._in.put("ids", ids[None])
+        self._in.put("mask", mask[None])
+        if self._program is not None:
+            self._program.run()
+        else:
+            self._encode_static()
+        return self._out
 
     def _encode(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """The encoder program, then its output in one device-to-host
@@ -128,20 +154,35 @@ class PromptCache:
         return entry
 
     def warmup(self, verify: bool = False):
-        """Run the encoder program once on an all-padding dummy prompt
-        (builds and touches every kernel it needs); counts no hit and no
-        miss.  `verify=True` runs it under the program verifier's operator
+        """Compile the encoder program on an all-padding dummy prompt
+        (builds every kernel it needs and, on the card, captures it), or
+        replay it when compiled before; counts no hit and no miss.
+        `verify=True` also runs it under the program verifier's operator
         recorder and returns the record (else None)."""
         L = self.tc.max_len
-        args = (np.zeros((L,), np.int32), np.zeros((L,), bool))
+        self._in.put("ids", np.zeros((1, L), np.int32))
+        self._in.put("mask", np.zeros((1, L), bool))
         self._warmed = True
+        if self._program is None:
+            if self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+            me = weakref.proxy(self)     # no cycle through the program
+            self._program, self.program_profile = compile_program(
+                lambda: me._encode_static(), key="text_encoder",
+                device=self.device, pool=self._pool)
+        else:
+            self._program.run()
         if not verify:
-            self._encode_program(*args)
             return None
         from repro_torch.analysis.ir.op_checks import record_program
-        _, rec = record_program("text_encoder",
-                                lambda: self._encode_program(*args))
+        _, rec = record_program("text_encoder", self._encode_static)
         return rec
+
+    def param_leaf_specs(self):
+        """(shape, dtype-name) of the encoder's param leaves: what the
+        engine declares to the ir-const-bloat check for this program."""
+        from repro_torch.analysis.ir.verify import param_leaf_specs
+        return param_leaf_specs(self.params)
 
     @property
     def stats(self) -> dict:

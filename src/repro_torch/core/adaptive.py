@@ -26,7 +26,8 @@ import torch
 from repro_torch.device import to_device
 
 from .metrics import l2_slots, rel_l1_block_slots, rel_l1_slots
-from .policy import CachePolicy, SlotWant, slot_mask, unsqueeze_state
+from .policy import (CachePolicy, SlotWant, slot_mask, table_at,
+                     unsqueeze_state)
 
 
 def _zeros(shape, device, dtype=torch.float32):
@@ -77,7 +78,7 @@ class GatedPolicy(CachePolicy):
     @staticmethod
     def _masks(want, states):
         """The host decision as an (S,) device mask and its int32 form."""
-        m = to_device(np.asarray(want, bool), states["n"].device)
+        m = to_device(want, states["n"].device, torch.bool)
         return m, m.to(torch.int32)
 
     @staticmethod
@@ -162,6 +163,7 @@ class MagCachePolicy(GatedPolicy):
             t = np.arange(num_steps)
             gammas = 1.0 - 0.05 * np.exp(-3.0 * t / max(num_steps - 1, 1))
         self.gammas = np.asarray(gammas, np.float32)
+        self._gammas_on = {}
 
     def init_state(self, shape, dtype=torch.float32, *, device):
         return {
@@ -172,8 +174,8 @@ class MagCachePolicy(GatedPolicy):
         }
 
     def _prod(self, states, steps):
-        idx = np.clip(np.asarray(steps), 0, len(self.gammas) - 1)
-        g = to_device(self.gammas[idx], states["prod"].device)
+        g = table_at(self.gammas, steps, states["prod"].device,
+                     self._gammas_on)
         return states["prod"] * g
 
     def gate_slots(self, states, steps, xs, signal=None):

@@ -16,7 +16,12 @@ to drive it:
         axis, `steps` is a host (S,) int array, and `ys_computed` holds each
         slot's fresh backbone output (zeros where none was gathered).
         `want` is the plan's host (S,) compute decision per slot and
-        `signal` the (S, ...) signal the plan computed.  Each slot keeps its
+        `signal` the (S, ...) signal the plan computed.  Under the serving
+        engine `steps` and `want` arrive as `repro_torch.device.Staged`
+        values (host array + static device buffer): device code reads the
+        buffer, so a captured tick replays on the inputs of the tick that
+        replays it, and the host branches (`want.any()`, `want.all()`)
+        are the engine's program key.  Each slot keeps its
         own branch's output and state, selected by masks over the slot
         axis — what `lax.cond` under `vmap` does in JAX, where both branches
         are evaluated.  A branch that no slot takes is not run; that is
@@ -35,7 +40,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.device import to_device
+from repro_torch.device import Staged, to_device
 
 ComputeFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -51,10 +56,28 @@ class SlotWant(NamedTuple):
 
 def interval_pred(step, interval: int):
     """The shared `step % interval == 0` compute predicate: a bool for an
-    int step, a bool array for an array of steps."""
+    int step, a bool array for an array of steps, a Staged mask (host and
+    device) for Staged steps."""
     if isinstance(step, (int, np.integer)):
         return int(step) % interval == 0
+    if isinstance(step, Staged):
+        return step.derive(step.host % interval == 0,
+                           step.dev % interval == 0, interval)
     return np.asarray(step) % interval == 0
+
+
+def table_at(table: np.ndarray, steps, device, cache: Dict) -> torch.Tensor:
+    """table[clip(steps)] on `device`: a host gather for host steps; for
+    Staged steps a device gather from the table's device copy (kept in
+    `cache`, made on first use), so a captured program reads the steps of
+    the tick that replays it."""
+    n = len(table)
+    if not isinstance(steps, Staged):
+        return to_device(table[np.clip(np.asarray(steps), 0, n - 1)], device)
+    dev = cache.get(device)
+    if dev is None:
+        dev = cache[device] = to_device(table, device)
+    return dev[steps.dev.long().clamp(0, n - 1)]
 
 
 def static_plan(policy, num_steps: int) -> Optional[np.ndarray]:
@@ -72,8 +95,12 @@ def static_plan(policy, num_steps: int) -> Optional[np.ndarray]:
 def slot_mask(mask, like: torch.Tensor) -> torch.Tensor:
     """(S,) host bool mask (or device bool tensor) -> device bool tensor
     broadcastable to `like`."""
-    m = (mask.to(like.device) if torch.is_tensor(mask)
-         else to_device(np.asarray(mask, bool), like.device))
+    if isinstance(mask, Staged):
+        m = mask.dev
+    elif torch.is_tensor(mask):
+        m = mask.to(like.device)
+    else:
+        m = to_device(np.asarray(mask, bool), like.device)
     return m.view((-1,) + (1,) * (like.dim() - 1))
 
 
@@ -129,8 +156,11 @@ class CachePolicy:
         return SlotWant(want, z, z, z, torch.ones_like(want))
 
     def _slot_want(self, states, steps, xs, signal, want) -> np.ndarray:
-        """The plan's host decision, or, called without one, this policy's
-        own (one device read for a state-dependent policy)."""
+        """The plan's host decision (a Staged one passes through), or,
+        called without one, this policy's own (one device read for a
+        state-dependent policy)."""
+        if isinstance(want, Staged):
+            return want
         if want is not None:
             return np.asarray(want, bool).reshape(-1)
         w = self.want_slots(states, steps, xs, signal).want

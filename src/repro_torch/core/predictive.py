@@ -15,7 +15,6 @@ on the same kernel.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch import spmd
@@ -66,7 +65,7 @@ def forecast_slots(states, steps, ys, want, interval, basis, sigma, dtype,
         y = fc if not want.any() else torch.where(slot_mask(want, fc), ys, fc)
     if not want.any():
         return y, {key: diffs, "n_valid": n_valid, "last_step": last}
-    steps_t = to_device(np.asarray(steps), diffs.device, torch.int32)
+    steps_t = to_device(steps, diffs.device, torch.int32)
     m = slot_mask(want, n_valid)
     return y, {
         key: torch.where(slot_mask(want, diffs),

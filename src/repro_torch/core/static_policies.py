@@ -8,7 +8,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.device import to_device
+from repro_torch.device import Staged, to_device
 
 from .policy import CachePolicy, interval_pred, slot_mask
 
@@ -180,7 +180,9 @@ class FasterCacheCFG(CachePolicy):
             if lowfreq:
                 fc = cond_out.float() - states["delta_low"]
             else:
-                if cfg_w is None:
+                if cfg_w is None and isinstance(steps, Staged):
+                    cfg_w = steps.dev.float() / max(self.num_steps - 1, 1)
+                elif cfg_w is None:
                     cfg_w = (np.asarray(steps, np.float32)
                              / max(self.num_steps - 1, 1))
                 w = to_device(cfg_w, xs.device).to(xs.dtype)

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import numpy as np
 import torch
 
 from .policy import CachePolicy, interval_pred, slot_mask
@@ -90,7 +89,7 @@ class ToCaPolicy(CachePolicy):
         return self._partial(state, x, recompute, y_full)
 
     def apply_slots(self, states, steps, xs, ys, *, want=None, signal=None):
-        full = interval_pred(np.asarray(steps), self.interval)
+        full = interval_pred(steps, self.interval)
         xf = xs.float()
         n = states["n"] + 1
         if full.all():

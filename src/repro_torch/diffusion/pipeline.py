@@ -460,24 +460,46 @@ def slot_want_fns(params, cfg, policy: CachePolicy,
     from its own `want_slots` on the device; either way it is masked by the
     guided flag.  Everything the device decided is packed into one tensor
     and read back in ONE device-to-host copy.  The signal stays on the
-    device for the tick's `apply_fn`."""
+    device for the tick's `apply_fn`.
+
+    The pass splits in two, so that the serving engine can capture the
+    device half: `want_all_fn.device(states, steps, xs, tvals, labels) ->
+    (packed (want_all_fn.rows, S) f32, signal)` makes no host read (a
+    step-only cond policy's rows are its forced zeros there, its want row
+    comes from the host in the read), and `want_all_fn.read(packed_host,
+    steps, guided, signal) -> WantPlan` is the host half."""
     uncond = cfg_policy if cfg_policy is not None else NoCachePolicy()
     uncond_on_host = static_plan(uncond, 1) is not None
+    cond_on_host = static_plan(policy, 1) is not None
     _, _, want_fn = slot_denoise_fns(params, cfg, policy)
 
-    def want_all_fn(states, steps, xs, tvals, labels, guided):
+    def device_fn(states, steps, xs, tvals, labels):
         dev = xs.device
-        w, sig = want_fn(states["policy"], steps, xs,
-                         to_device(tvals, dev), to_device(labels, dev))
-        rows = [t.float() for t in w]
+        if cond_on_host:
+            z = torch.zeros((xs.shape[0],), dtype=torch.float32, device=dev)
+            rows, sig = [z, z, z, z, torch.ones_like(z)], None
+        else:
+            w, sig = want_fn(states["policy"], steps, xs,
+                             to_device(tvals, dev), to_device(labels, dev))
+            rows = [t.float() for t in w]
         if not uncond_on_host:
             rows.append(uncond.want_slots(states["cfg"], steps, xs).want
                         .float())
-        packed = host_read(torch.stack(rows))   # the plan's priced read
-        wu = uncond.step_want(steps) if uncond_on_host else packed[5] > 0.5
-        return WantPlan(packed[0] > 0.5, wu & np.asarray(guided, bool),
-                        packed[1], packed[2], packed[3], packed[4] > 0.5, sig)
+        return torch.stack(rows), sig
 
+    def read(packed, steps, guided, signal):
+        wc = policy.step_want(steps) if cond_on_host else packed[0] > 0.5
+        wu = uncond.step_want(steps) if uncond_on_host else packed[5] > 0.5
+        return WantPlan(wc, wu & np.asarray(guided, bool), packed[1],
+                        packed[2], packed[3], packed[4] > 0.5, signal)
+
+    def want_all_fn(states, steps, xs, tvals, labels, guided):
+        packed, sig = device_fn(states, steps, xs, tvals, labels)
+        return read(host_read(packed), steps, guided, sig)  # the priced read
+
+    want_all_fn.device = device_fn
+    want_all_fn.read = read
+    want_all_fn.rows = 5 + (not uncond_on_host)
     return want_all_fn
 
 

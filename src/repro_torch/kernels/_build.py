@@ -135,8 +135,8 @@ def _declare(lib) -> None:
     lib.flash_attention_fwd_lse.argtypes = [P] * 5 + [I] * 9 + [F, P]
     lib.flash_attention_bwd.argtypes = [P] * 10 + [I] * 9 + [F, P]
     lib.forecast_fwd.argtypes = [P, P, P, I, I, I, L, I, P]
-    lib.forecast_basis_fwd.argtypes = [P, ctypes.c_char_p, P, P, P, I, I, I,
-                                       L, I, I, I, ctypes.c_double, P]
+    lib.forecast_basis_fwd.argtypes = [P, P, P, P, P, I, I, I, L, I, I, I,
+                                       ctypes.c_double, P]
     lib.ssd_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                             L, L, L, L, L, L, L, P]
     lib.ssd_bwd.argtypes = [P] * 18 + [I] * 7 + [L] * 7 + [P]

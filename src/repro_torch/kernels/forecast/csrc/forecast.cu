@@ -18,10 +18,12 @@
 //                       basis_coeffs (round-to-nearest intrinsics keep the
 //                       compiler from contracting them into FMAs).  A skip
 //                       tick of the serving engine is then one launch.
-//                       The host steps travel by value: forecast_basis_fwd
-//                       copies them into a kernel argument of kMaxSlots
-//                       ints, so no host-to-device copy and no sync;
-//                       last_step and n_valid are read from the device.
+//                       The steps, last_step and n_valid are all read from
+//                       device memory: a CUDA graph replays the launch
+//                       with its arguments frozen, so a step passed by
+//                       value would stay the capturing tick's forever.  The
+//                       serving engine refills its static steps buffer
+//                       before each replay.
 //
 // Bound on an H100 SXM: bytes.  It reads (m+1) * N elements and writes N,
 // with 2 (m+1) operations per written element, so the card's 3.35 TB/s
@@ -49,10 +51,6 @@ constexpr int kMaxM1 = 8;       // order + 1
 constexpr int kMaxSlots = 64;   // slots of one forecast_basis launch
 
 enum Basis { kGiven = -1, kTaylor = 0, kNewton = 1, kHermite = 2, kAb = 3, kFoca = 4 };
-
-struct Steps {
-  int v[kMaxSlots];
-};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -113,7 +111,8 @@ __device__ __forceinline__ void basis_weights(int basis, float u, int n_valid, i
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 forecast_kernel(const T* __restrict__ d, const float* __restrict__ c, T* __restrict__ o,
-                int m1, long long n, int basis, Steps steps, const int* __restrict__ last,
+                int m1, long long n, int basis, const int* __restrict__ steps,
+                const int* __restrict__ last,
                 const int* __restrict__ n_valid, int interval, double sigma) {
   const int b = blockIdx.y;
   const long long n0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * VEC;
@@ -123,7 +122,7 @@ forecast_kernel(const T* __restrict__ d, const float* __restrict__ c, T* __restr
 #pragma unroll
     for (int i = 0; i < kMaxM1; ++i) cf[i] = i < m1 ? c[(long long)b * m1 + i] : 0.f;
   } else {
-    const float u = __fdiv_rn((float)(steps.v[b] - last[b]), (float)interval);
+    const float u = __fdiv_rn((float)(steps[b] - last[b]), (float)interval);
     basis_weights(basis, u, n_valid[b], m1, sigma, cf);
   }
   const T* db = d + (long long)b * m1 * n + n0;
@@ -155,7 +154,7 @@ forecast_kernel(const T* __restrict__ d, const float* __restrict__ c, T* __restr
 
 template <typename T, int VEC>
 cudaError_t launch(const void* d, const float* c, void* o, int batch, int m1, long long n,
-                   int basis, const Steps& steps, const int* last, const int* n_valid,
+                   int basis, const int* steps, const int* last, const int* n_valid,
                    int interval, double sigma, cudaStream_t stream) {
   const long long items = (n + VEC - 1) / VEC;
   const dim3 grid((unsigned)((items + kThreads - 1) / kThreads), batch);
@@ -165,7 +164,7 @@ cudaError_t launch(const void* d, const float* c, void* o, int batch, int m1, lo
 }
 
 int dispatch(const void* d, const float* c, void* o, int dtype, int batch, int m1,
-             long long n, int vec, int basis, const Steps& st, const int* last,
+             long long n, int vec, int basis, const int* st, const int* last,
              const int* n_valid, int interval, double sigma, void* stream) {
   if (batch < 1 || batch > 65535 || m1 < 1 || m1 > kMaxM1 || n < 1)
     return (int)cudaErrorInvalidValue;
@@ -191,27 +190,23 @@ int dispatch(const void* d, const float* c, void* o, int dtype, int batch, int m
 // 16-byte aligned d and o.  m1 at most kMaxM1.
 extern "C" int forecast_fwd(const void* d, const void* c, void* o, int dtype, int batch,
                             int m1, long long n, int vec, void* stream) {
-  static const Steps none{};
-  return dispatch(d, static_cast<const float*>(c), o, dtype, batch, m1, n, vec, kGiven, none,
+  return dispatch(d, static_cast<const float*>(c), o, dtype, batch, m1, n, vec, kGiven, nullptr,
                   nullptr, nullptr, 1, 0.0, stream);
 }
 
 // As forecast_fwd, with the weights of `basis` (0 taylor, 1 newton, 2
 // hermite, 3 ab, 4 foca; sigma for hermite) at u = (steps[b] - last[b]) /
-// interval, masked by n_valid[b]: steps is a host array of `batch` int32
-// (at most kMaxSlots), last and n_valid device arrays of `batch` int32.
+// interval, masked by n_valid[b]: steps, last and n_valid are device arrays
+// of `batch` int32 (at most kMaxSlots slots).
 extern "C" int forecast_basis_fwd(const void* d, const void* steps, const void* last,
                                   const void* n_valid, void* o, int dtype, int batch, int m1,
                                   long long n, int vec, int basis, int interval, double sigma,
                                   void* stream) {
   if (batch > kMaxSlots || basis < kTaylor || basis > kFoca || interval < 1)
     return (int)cudaErrorInvalidValue;
-  Steps st;
-  const int* host = static_cast<const int*>(steps);
-  for (int b = 0; b < batch; ++b) st.v[b] = host[b];
-  return dispatch(d, nullptr, o, dtype, batch, m1, n, vec, basis, st,
-                  static_cast<const int*>(last), static_cast<const int*>(n_valid), interval,
-                  sigma, stream);
+  return dispatch(d, nullptr, o, dtype, batch, m1, n, vec, basis,
+                  static_cast<const int*>(steps), static_cast<const int*>(last),
+                  static_cast<const int*>(n_valid), interval, sigma, stream);
 }
 
 // Query entries (launch_plan.cuh): each entry's arguments with `plans` in

@@ -21,8 +21,9 @@ raises: the kernel has no backward, and no training path runs it.  The
 CPU path stays differentiable through `forecast_ref`."""
 from __future__ import annotations
 
-import numpy as np
 import torch
+
+from repro_torch.device import to_device
 
 from .. import _build
 from .ref import basis_coeffs, forecast_ref
@@ -107,10 +108,14 @@ def forecast_basis(diffs, steps, last_step, n_valid, interval: int,
     interval, its weights from `basis_coeffs(order, u, basis, sigma,
     n_valid)`, in one launch.
 
-    Batched: diffs (S, m+1, ...), steps (S,) host ints, last_step and
-    n_valid (S,) int32 on diffs' device -> (S, ...).  Unbatched: diffs
-    (m+1, ...), a host int step, 0-d last_step and n_valid -> (...).
-    Output in diffs' dtype, accumulated in f32."""
+    Batched: diffs (S, m+1, ...), steps, last_step and n_valid (S,) int32
+    on diffs' device -> (S, ...).  Unbatched: diffs (m+1, ...), 0-d steps,
+    last_step and n_valid -> (...).  The kernel reads all three from
+    device memory, so a captured launch reads the steps its replay finds
+    there; `steps` given as host data (an int, a numpy array) is copied to
+    the device first (`repro_torch.device.to_device`, no sync), and a
+    `Staged` input gives its device buffer.  Output in diffs' dtype,
+    accumulated in f32."""
     code_b = _BASES.get(basis)
     if code_b is None:
         raise ValueError(f"forecast_basis: unknown basis {basis}")
@@ -130,7 +135,7 @@ def forecast_basis(diffs, steps, last_step, n_valid, interval: int,
                              f"device or all be on the CPU (got "
                              f"{diffs.device}, {last_step.device}, "
                              f"{n_valid.device})")
-        u = (torch.as_tensor(steps, dtype=torch.int32)
+        u = (to_device(steps, diffs.device, torch.int32)
              - last_step).float() / float(interval)
         return forecast_ref(diffs, basis_coeffs(m1 - 1, u, basis, sigma,
                                                 n_valid))
@@ -149,14 +154,14 @@ def forecast_basis(diffs, steps, last_step, n_valid, interval: int,
         raise ValueError(f"forecast_basis: {m1} weights (at most "
                          f"{MAX_ORDER1}), {S} slots (at most {MAX_SLOTS}), "
                          f"interval {interval}")
-    # the host steps go by value: their bytes, read by the C entry point
-    steps = np.asarray(steps, dtype=np.int32)
-    if steps.size != S:
-        raise ValueError(f"forecast_basis: {steps.size} steps for {S} slots")
+    steps = to_device(steps, diffs.device, torch.int32)
+    if steps.numel() != S or not steps.is_contiguous():
+        raise ValueError(f"forecast_basis: {steps.numel()} steps for {S} "
+                         f"slots (contiguous int32 on diffs' device)")
     out = diffs.new_empty((S, *shape[2:]) if batched else shape[1:])
     n = out.numel() // S
     ptr = diffs.data_ptr()
-    _build.launch("forecast_basis_fwd", dev, ptr, steps.tobytes(),
+    _build.launch("forecast_basis_fwd", dev, ptr, steps.data_ptr(),
                   last_step.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
                   code, S, m1, n, _vec(ptr, code, n), code_b, int(interval),
                   float(sigma))

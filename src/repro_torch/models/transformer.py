@@ -10,9 +10,9 @@ Entry points, plain functions of (params, inputs, cfg):
 
   init_lm(generator, cfg)                                    -> params
   forward(params, tokens, cfg, vision_embeds=, collect_kv=, with_aux=,
-          remat=, ep=)                           -> logits[, aux][, caches]
-  prefill(params, tokens, cfg, cache_len, vision_embeds=, ep=)
-                                                             -> (logits, cache)
+          remat=, ep=, last_only=)               -> logits[, aux][, caches]
+  prefill(params, tokens, cfg, cache_len, vision_embeds=, ep=, cache=,
+          last_only=)                                        -> (logits, cache)
   decode_step(params, token, pos, cache, cfg, ep=)           -> (logits, cache)
 
 `remat=True` checkpoints each layer (`torch.utils.checkpoint`, JAX's
@@ -225,11 +225,12 @@ def _mamba_layer(fwd, p, x, cfg):
 
 
 def forward(params, tokens, cfg, *, vision_embeds=None, collect_kv=False,
-            with_aux=False, remat=False, ep=None):
+            with_aux=False, remat=False, ep=None, last_only=False):
     """Full-sequence forward.  tokens: (B, S) integer; vision_embeds (B,
     num_vision_tokens, vision_dim) for a vlm.
 
-    Returns logits (B, S', vocab), S' = S (+ num_vision_tokens for a vlm);
+    Returns logits (B, S', vocab), S' = S (+ num_vision_tokens for a vlm),
+    or with `last_only` the last position's, (B, 1, vocab);
     with `with_aux` also aux, JAX's MoE losses summed over the layers
     (load_balance_loss, router_z_loss; 0 for the other families) and the
     (token, choice) pairs `dropped` past capacity; with collect_kv also the
@@ -271,6 +272,8 @@ def forward(params, tokens, cfg, *, vision_embeds=None, collect_kv=False,
             if collect_kv:
                 caches.append((states, kv))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
     out = (dot(x, params["lm_head"]),) + ((aux,) if with_aux else ()) \
         + ((caches,) if collect_kv else ())
     return out if len(out) > 1 else out[0]
@@ -369,21 +372,33 @@ def decode_step(params, token, pos, cache, cfg, *, ep=None):
     return dot(x, params["lm_head"])[:, 0], cache
 
 
+def _put_mamba(cache, mamba) -> None:
+    """Each layer's Mamba cache into its entry of the stacked cache."""
+    for i, c in enumerate(mamba):
+        spmd.put(cache["state"], i, c["state"])
+        spmd.put(cache["conv"], i, c["conv"])
+
+
 def prefill(params, tokens, cfg, cache_len: int, *, vision_embeds=None,
-            ep=None):
+            ep=None, cache=None, last_only=False):
     """Returns (logits (B, S, vocab), cache ready for decode at pos = S);
-    a vlm's S counts its `num_vision_tokens` patch positions too."""
+    a vlm's S counts its `num_vision_tokens` patch positions too.  A given
+    `cache` (init_cache's at (B, cache_len)) is reset and written in place
+    instead of a new one; `last_only` keeps the last position's logits,
+    (B, 1, vocab)."""
     logits, collected = forward(params, tokens, cfg,
                                 vision_embeds=vision_embeds, collect_kv=True,
-                                ep=ep)
+                                ep=ep, last_only=last_only)
     B = tokens.shape[0]
     S = tokens.shape[1] + (cfg.num_vision_tokens if cfg.family == "vlm"
                            else 0)
-    cache = init_cache(cfg, B, cache_len, device=tokens.device)
+    if cache is None:
+        cache = init_cache(cfg, B, cache_len, device=tokens.device)
+    else:
+        for name, t in cache.items():
+            t.fill_(-1 if name == "pos" else 0)
     if cfg.family == "ssm":
-        cache["state"] = torch.stack([c["state"] for c in collected])
-        cache["conv"] = torch.stack([c["conv"] for c in collected]).to(
-            cache["conv"].dtype)
+        _put_mamba(cache, collected)
         return logits, cache
     keep = min(S, cache_len)
     src = torch.arange(S - keep, S, device=tokens.device)
@@ -392,10 +407,7 @@ def prefill(params, tokens, cfg, cache_len: int, *, vision_embeds=None,
     if cfg.family in ATTN_FAMILIES + ("moe",):
         kvs = collected
     else:
-        mamba = [c for states, _ in collected for c in states]
-        cache["state"] = torch.stack([c["state"] for c in mamba])
-        cache["conv"] = torch.stack([c["conv"] for c in mamba]).to(
-            cache["conv"].dtype)
+        _put_mamba(cache, [c for states, _ in collected for c in states])
         kvs = [kv for _, kv in collected]
     for i, pair in enumerate(kvs):
         for name, t in zip(names, pair):

@@ -9,9 +9,10 @@ JAX `repro.obs`).
                cache-event JSONL that rebuilds a SignalTraceLog from disk
   metrics    — MetricsRegistry: labelled counters / gauges / histograms,
                Prometheus text exposition + JSON snapshots, an event ring
-  profiling  — per-program first-run seconds and FLOPs captured by
-               engine.warmup(), the measured redundancy ratio (FLOPs
-               avoided / dense FLOPs), opt-in torch.profiler traces
+  profiling  — `compile_program` (a CUDA graph per program and shape
+               key; the `Program` that replays it), each program's
+               capture seconds and FLOPs, the measured redundancy ratio
+               (FLOPs avoided / dense FLOPs), opt-in torch.profiler traces
   watch      — the events the program verifier and the retrace sentinel
                (repro_torch.analysis.ir) listen to, and `host_read`, the
                priced device-to-host read
@@ -23,8 +24,9 @@ so hooks-off serving pays nothing.
 from .clock import monotonic, monotonic_ns, wall
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       default_registry)
-from .profiling import (ProgramProfile, count_flops, flops_per_row,
-                        profiler_trace, redundancy_ratio)
+from .profiling import (Program, ProgramIR, ProgramProfile, capture_ir,
+                        compile_program, count_flops, flops_per_row,
+                        profiler_trace, program_cost, redundancy_ratio)
 from .trace import (TraceRecorder, load_cache_events, load_probes,
                     policy_signature, signal_trace_from_files,
                     validate_chrome_trace)
@@ -32,8 +34,9 @@ from .trace import (TraceRecorder, load_cache_events, load_probes,
 __all__ = [
     "monotonic", "monotonic_ns", "wall",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "default_registry",
-    "ProgramProfile", "count_flops", "flops_per_row", "profiler_trace",
-    "redundancy_ratio",
+    "Program", "ProgramIR", "ProgramProfile", "capture_ir",
+    "compile_program", "count_flops", "flops_per_row", "profiler_trace",
+    "program_cost", "redundancy_ratio",
     "TraceRecorder", "load_cache_events", "load_probes", "policy_signature",
     "signal_trace_from_files", "validate_chrome_trace",
 ]

@@ -1,11 +1,28 @@
-"""Program profiling: per-program first-run time and FLOPs, the measured
-redundancy ratio, and profiler trace contexts — the device-independent part
-of the JAX `obs/profiling.py`.
+"""Program capture and profiling: each program of the served and trained
+paths compiled once per shape key into a CUDA graph (`compile_program`,
+the counterpart of JAX's AOT compile), per-program capture time and FLOPs,
+the measured redundancy ratio, and profiler trace contexts — the port of
+the JAX `obs/profiling.py`.
+
+`compile_program(fn, key=..., device=...)` runs `fn` (a function of no
+arguments that reads and writes only static buffers) eagerly once on a
+side stream under `count_flops`, so that its kernels are built and
+cuBLAS has its handles, then captures it into a `torch.cuda.CUDAGraph` on
+the owner's one memory pool.  The returned `Program` replays the graph;
+on the CPU, where CUDA graphs do not exist, it calls `fn`.  Memory rule:
+every value that outlives a replay lives outside the pool (the static
+buffers), so a replay reads nothing another graph allocated and the
+graphs of one pool replay in any order.  A replay calls no kernel
+wrapper, so the capture records the launches and FLOPs each wrapper
+counted inside it (`repro_torch.kernels.KERNELS`' `launches` / `flops`),
+takes them back off the counters, and every replay adds them: the
+counters count device launches either way.  Each capture is announced to
+`repro_torch.obs.watch` ("capture"), which the retrace sentinel counts.
 
 The survey's redundancy claim — caching works because consecutive steps
 recompute nearly identical activations — is usually reported in *rows* or
-*steps* saved.  This module turns it into FLOPs: `engine.warmup()` runs
-each bucket-size tick program once, keeping its first-run seconds and its
+*steps* saved.  This module turns it into FLOPs: `engine.warmup()` compiles
+each bucket-size tick program, keeping its capture seconds and its
 FLOPs (`count_flops`: `torch.utils.flop_counter.FlopCounterMode` plus what
 the hand-written kernels report), and `redundancy_ratio` combines those
 with telemetry row counters into the measured ratio
@@ -21,16 +38,21 @@ unless a directory is given.
 """
 from __future__ import annotations
 
+import dataclasses
+import inspect
 import math
 import os
 from contextlib import contextmanager
-from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
 
+from . import watch
 from .clock import monotonic
 
-__all__ = ["ProgramProfile", "count_flops", "profile_program",
-           "flops_per_row", "redundancy_ratio", "profiler_trace"]
+__all__ = ["ProgramProfile", "ProgramIR", "Program", "count_flops",
+           "compile_program", "capture_ir",
+           "program_cost", "flops_per_row", "redundancy_ratio",
+           "profiler_trace"]
 
 
 @dataclass(frozen=True)
@@ -38,8 +60,8 @@ class ProgramProfile:
     """One program's cost card (engine.warmup fills one per bucket size /
     dense tick kind, plus "want" for the device plan pass)."""
     key: object                 # bucket size (int) or tick kind (str)
-    #: synced wall seconds of the program's first run, kernel builds
-    #: included (the port compiles nothing ahead of time)
+    #: synced wall seconds of the program's CUDA-graph capture (on the
+    #: CPU, of its first run, kernel builds included)
     compile_seconds: float
     flops: float                # products counted by count_flops
     bytes_accessed: float       # nan: no cost model reports bytes
@@ -72,18 +94,159 @@ def count_flops(fn: Callable[[], object]) -> float:
                  + sum(k.flops - b for k, b in zip(kernels, before)))
 
 
-def profile_program(key, fn: Callable[[], object],
-                    sync: Callable[[], None]):
-    """Run fn() once timed (synced by `sync`: the first run, kernel builds
-    included), then once more under `count_flops`.  Returns (the first
-    run's result, ProgramProfile)."""
+@dataclass(frozen=True)
+class ProgramIR:
+    """What the port keeps of one compiled program for the checks (the
+    counterpart of JAX's ProgramIR, which holds a jaxpr and StableHLO):
+    the operator record of one eager run (`analysis.ir.op_checks`), the
+    Python def site of the captured function, the (shape, dtype-name)
+    specs of the param leaves the owner declares it reads, and the bytes
+    its CUDA graph's capture added to the pool (0 on the CPU)."""
+    key: object
+    record: object                              # op_checks.OpRecord
+    fn_file: str = ""
+    fn_line: int = 0
+    declared_param_specs: Tuple = ()
+    pool_bytes: int = 0
+
+
+def _def_site(fn) -> Tuple[str, int]:
+    try:
+        fn = inspect.unwrap(getattr(fn, "__func__", fn))
+        return inspect.getsourcefile(fn) or "", inspect.getsourcelines(fn)[1]
+    except (TypeError, OSError):
+        return "", 0
+
+
+def capture_ir(fn: Callable[[], object], *, key=None,
+               declared_param_specs=(), pool_bytes: int = 0) -> ProgramIR:
+    """Run fn() once under the operator recorder and keep its record."""
+    from repro_torch.analysis.ir.op_checks import record_program
+    _, rec = record_program(key, fn)
+    file, line = _def_site(fn)
+    return ProgramIR(key=key, record=rec, fn_file=file, fn_line=line,
+                     declared_param_specs=tuple(declared_param_specs),
+                     pool_bytes=int(pool_bytes))
+
+
+def program_cost(profile: "ProgramProfile") -> Dict[str, float]:
+    """{"flops", "bytes_accessed"} of a compiled program: its FLOPs from
+    `count_flops`; bytes nan (no cost model reports them)."""
+    return {"flops": float(profile.flops), "bytes_accessed": math.nan}
+
+
+def _counters() -> List[Tuple[object, str]]:
+    from repro_torch.kernels import KERNELS
+    return [(k, a) for k in KERNELS for a in ("launches", "flops")
+            if hasattr(k, a)]
+
+
+@dataclass
+class Program:
+    """One compiled program: `run()` replays its CUDA graph and adds the
+    launches and FLOPs its capture recorded to the wrappers' counters; on
+    the CPU it calls the function."""
+    key: object
+    fn: Callable[[], object]
+    graph: object = None                        # torch.cuda.CUDAGraph
+    counts: List = field(default_factory=list)  # [(wrapper, attr, delta)]
+    replays: int = 0
+    #: bytes the capture added to the pool's reservation (0 on the CPU,
+    #: and for a graph that reused what earlier captures reserved)
+    pool_bytes: int = 0
+
+    def run(self) -> None:
+        if self.graph is None:
+            self.fn()
+            return
+        self.graph.replay()
+        self.replays += 1
+        for k, attr, d in self.counts:
+            setattr(k, attr, getattr(k, attr) + d)
+
+
+_SIDE_STREAMS: Dict = {}
+
+
+def _side_stream(device):
+    """One side stream per device for every compile: each new stream
+    would get cuBLAS workspaces of its own that live for the process."""
+    import torch
+    stream = _SIDE_STREAMS.get(device)
+    if stream is None:
+        stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def compile_program(fn: Callable[[], object], *, key, device, pool=None,
+                    eager: bool = True, want_record: bool = False,
+                    declared_param_specs=()):
+    """Compile fn (no arguments; it reads and writes static buffers) at
+    `key` on `device`: one eager run under `count_flops` (skipped with
+    eager=False, when the caller's own first run warmed it: the profile's
+    FLOPs are then nan), one recorded run with want_record=True, then
+    on the card a capture into a CUDA graph on `pool` (a
+    `torch.cuda.graph_pool_handle()`).  Returns (Program, ProgramProfile),
+    plus the ProgramIR with want_record=True.  compile_seconds is the
+    capture's synced seconds (on the CPU the eager run's)."""
+    import torch
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    side = _side_stream(device) if cuda else None
+    flops = math.nan
     t0 = monotonic()
-    out = fn()
-    sync()
+    if eager:
+        if cuda:
+            torch.cuda.synchronize(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                flops = count_flops(fn)
+            torch.cuda.synchronize(device)
+        else:
+            flops = count_flops(fn)
     seconds = monotonic() - t0
-    return out, ProgramProfile(key=key, compile_seconds=seconds,
-                               flops=count_flops(fn),
-                               bytes_accessed=math.nan)
+    ir = None
+    if want_record:
+        ir = capture_ir(fn, key=key,
+                        declared_param_specs=declared_param_specs)
+    watch.emit("capture", key)
+    prog = Program(key, fn)
+    if cuda:
+        free, _ = torch.cuda.mem_get_info(device)
+        if torch.cuda.memory_reserved(device) \
+                - torch.cuda.memory_allocated(device) > free:
+            # more cached in the default pool than is free: the eager
+            # run's blocks back to the card before the graph's own pool
+            # takes the program's temporaries (a large model's step)
+            torch.cuda.empty_cache()
+        counters = _counters()
+        before = [getattr(k, a) for k, a in counters]
+        reserved = torch.cuda.memory_reserved(device)
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize(device)
+        t0 = monotonic()
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool)
+            try:
+                fn()
+            finally:
+                graph.capture_end()
+        torch.cuda.synchronize(device)
+        seconds = monotonic() - t0
+        prog.graph = graph
+        for (k, a), b in zip(counters, before):
+            d = getattr(k, a) - b
+            setattr(k, a, b)
+            if d:
+                prog.counts.append((k, a, d))
+        pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        prog.pool_bytes = int(pool_bytes)
+        if ir is not None:
+            ir = dataclasses.replace(ir, pool_bytes=int(pool_bytes))
+    profile = ProgramProfile(key=key, compile_seconds=seconds, flops=flops,
+                             bytes_accessed=math.nan)
+    return (prog, profile, ir) if want_record else (prog, profile)
 
 
 def flops_per_row(profiles: Dict) -> float:

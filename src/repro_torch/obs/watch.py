@@ -42,11 +42,13 @@ def emit(kind: str, detail: object = None) -> None:
 
 
 def host_read(t):
-    """t's values as a host numpy array: the priced device-to-host read."""
+    """t's values as a host numpy array of its own (never a view of a CPU
+    tensor: the programs' outputs are static buffers that the next run
+    overwrites): the priced device-to-host read."""
     if _LISTENERS:
         emit("priced-read", 1)
     try:
-        return t.cpu().numpy()
+        return t.to("cpu", copy=True).numpy()
     finally:
         if _LISTENERS:
             emit("priced-read", -1)

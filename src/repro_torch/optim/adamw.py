@@ -6,10 +6,15 @@ function stays on the params' device: the step count, the norm, the scale
 and the learning rate are 0-d tensors, never read back to the host.
 
 Held differences from JAX, same function:
-- `adamw_update` updates the moments and the params in place, one leaf at
-  a time, so that a step of full-width DiT-XL holds one leaf's f32
-  temporaries rather than a second copy of the moments.  It returns the
-  same tensors (JAX returns new arrays).
+- `adamw_update` updates the moments and the params in place, one slice
+  of at most `CHUNK` elements of a leaf at a time (a stacked leaf along
+  its layer axis), so that a step holds one slice's f32 temporaries
+  rather than a second copy of the moments, and a captured step, which
+  cannot release its pool's segments to fit a larger block, never asks
+  for a leaf-sized one.  It returns the same tensors (JAX returns new
+  arrays).  With `grad_scale` it also applies the clipping scale slice by
+  slice (`clip_by_global_norm`'s product, element for element), so the
+  train step never holds the clipped f32 gradients of the whole tree.
 - `clip_by_global_norm` scales in f32 and returns f32 gradients, as JAX's
   promotion of a bf16 array times an f32 0-d array does (torch would keep
   bf16)."""
@@ -44,46 +49,75 @@ def adamw_init(params: Tree, moment_dtype=torch.float32) -> AdamWState:
         mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
+#: elements of the slice of a leaf that the optimizer reads at a time
+CHUNK = 1 << 26
+
+
+def _slices(t: torch.Tensor):
+    """Views of t of at most CHUNK elements along its first axis (t
+    itself when it is that small)."""
+    if t.dim() == 0 or t.numel() <= CHUNK:
+        return [t]
+    rows = max(1, CHUNK // max(t[0].numel(), 1))
+    return [t[i:i + rows] for i in range(0, t.shape[0], rows)]
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, summed leaf by
-    leaf in JAX's flattening order."""
+    leaf in JAX's flattening order.  A leaf above CHUNK elements is summed
+    slice by slice into its own partial first, so no leaf-sized f32 copy
+    is made: its sum is that of its slices' sums, another order of the
+    same terms than one reduction over the leaf."""
     total = 0
     for leaf in tree_leaves(tree):
-        total = total + torch.sum(torch.square(leaf.float()))
+        leaf_sum = 0
+        for part in _slices(leaf):
+            leaf_sum = leaf_sum + torch.sum(torch.square(part.float()))
+        total = total + leaf_sum
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def clip_scale(grads: Tree, max_norm: float):
+    """(min(1, max_norm / (norm + 1e-8)), norm): the clipping scale."""
+    norm = global_norm(grads)
+    return torch.clamp(max_norm / (norm + 1e-8), max=1.0), norm
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float):
     """(grads scaled by min(1, max_norm / (norm + 1e-8)) in f32, norm)."""
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / (norm + 1e-8), max=1.0)
+    scale, norm = clip_scale(grads, max_norm)
     return tree_map(lambda g: g.float() * scale, grads), norm
 
 
 @torch.no_grad()
 def adamw_update(grads: Tree, state: AdamWState, params: Tree, *, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1):
+                 weight_decay: float = 0.1, grad_scale=None):
     """One AdamW step in f32, each param cast back to its own dtype.  `lr`
-    is a float or a 0-d tensor (a schedule's value).  Updates every leaf in
-    place — the params, both moments and the step counter, so a train step
-    holds no second copy of any (train_loop(verify_donation=True) checks
-    it); returns (params, AdamWState(step, mu, nu)) over the same
-    tensors."""
+    is a float or a 0-d tensor (a schedule's value); `grad_scale` (a 0-d
+    f32 tensor, `clip_scale`'s) multiplies each f32 gradient first.
+    Updates every leaf in place, slice by slice — the params, both moments
+    and the step counter, so a train step holds no second copy of any
+    (train_loop(verify_donation=True) checks it); returns (params,
+    AdamWState(step, mu, nu)) over the same tensors."""
     step = state.step.add_(1)
     stepf = step.float()
-    b1t = 1.0 - torch.pow(torch.as_tensor(b1, dtype=torch.float32,
-                                          device=step.device), stepf)
-    b2t = 1.0 - torch.pow(torch.as_tensor(b2, dtype=torch.float32,
-                                          device=step.device), stepf)
-    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
-                          tree_leaves(state.nu), tree_leaves(params)):
-        gf = g.float()
-        m.copy_(b1 * m + (1.0 - b1) * gf)
-        v.copy_(b2 * v + (1.0 - b2) * torch.square(gf))
-        pf = p.float()
-        delta = (m / b1t) / (torch.sqrt(v / b2t) + eps) + weight_decay * pf
-        p.copy_((pf - lr * delta).to(p.dtype))
+    # the betas as device fills, not host copies: a captured step holds
+    # no host-to-device copy
+    b1t = 1.0 - torch.pow(torch.full((), b1, dtype=torch.float32,
+                                     device=step.device), stepf)
+    b2t = 1.0 - torch.pow(torch.full((), b2, dtype=torch.float32,
+                                     device=step.device), stepf)
+    for leaves in zip(tree_leaves(grads), tree_leaves(state.mu),
+                      tree_leaves(state.nu), tree_leaves(params)):
+        for g, m, v, p in zip(*map(_slices, leaves)):
+            gf = g.float() if grad_scale is None else g.float() * grad_scale
+            m.copy_(b1 * m + (1.0 - b1) * gf)
+            v.copy_(b2 * v + (1.0 - b2) * torch.square(gf))
+            pf = p.float()
+            delta = (m / b1t) / (torch.sqrt(v / b2t) + eps) \
+                + weight_decay * pf
+            p.copy_((pf - lr * delta).to(p.dtype))
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
 
 

@@ -44,8 +44,38 @@ embeddings sit in host tables; each admission wave copies them to the
 device in one host-to-device copy and projects every layer's cross-
 attention K/V for all slots at once (`_build_text_tables`), so no tick
 projects text.  A negative prompt's pooled embedding rides the
-null-vector path.  Not ported yet (ROADMAP.md §A.10): CUDA-graph capture
-per bucket.
+null-vector path.
+
+Programs.  Every program of the engine reads and writes static buffers
+that live outside any graph pool: the latents and cache states, the text
+tables, the plan's packed decisions and signal, and `StaticInputs` for the
+tick's host values (per-slot timesteps, alpha-bars, progress weights,
+steps, the plan's masks and a bucket's gather rows, refilled before each
+tick; labels, nulls, scales and negative-prompt vectors, refilled per
+admission wave).  `warmup()` compiles each program once
+(`repro_torch.obs.profiling.compile_program`): on the card a CUDA graph on
+the engine's one memory pool, the counterpart of JAX's AOT compile per
+bucket; on the CPU nothing is captured and the same function runs.  The
+programs: every tick bucket (or the dense engine's three kinds), "want"
+(the device half of the plan: its one host read stays outside the graph,
+inside the plan), "text_kv" and the conditioner's encoder.  An engine that
+was never warmed runs every program eagerly (JAX compiles lazily there).
+
+A graph's key is the bucket (or kind) AND the host branches its policies
+took: `want.any()` / `want.all()` of the plan's cond and uncond masks and,
+for ToCa, `(steps % interval == 0).any()` / `.all()`.  A policy asks
+through `repro_torch.device.Staged`, which records each answer; a graph
+replays only where every recorded answer holds again, and warmup captures,
+per bucket, a graph for each class of inputs (none / some / all of each
+mask, steps all on / none on / some on the interval) that no earlier graph
+covers.  Keys per policy, for each bucket: fora, delta_dit, pab,
+blockcache, clusca, the predictive family (taylorseer, newtonseer,
+hicache, abcache, foca, freqca, speca) and the gated ones (teacache,
+magcache, easycache, foresight, lazydit, teacache_video) the none / some
+/ all class of want_c the bucket allows; FasterCacheCFG adds that of
+want_u; naive guidance (no cfg_policy) and none add nothing; ToCa keys on
+its steps class alone.  A tick whose branches no graph covers runs
+eagerly and `_note_program` reports it.
 
 Verification.  `warmup(verify=True)` also runs each program once under the
 program verifier (`repro_torch.analysis.ir`): tick and text programs make
@@ -58,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
@@ -67,15 +98,18 @@ import torch
 from repro_torch.core import (CachePolicy, SlotBatchedPolicy,
                               cache_state_bytes, make_policy, stack_slots,
                               static_plan)
-from repro_torch.device import (DeviceLike, resolve_device, to_device,
-                                tree_device)
+from repro_torch.device import (DeviceLike, StaticInputs, branch_log,
+                                guards_hold, resolve_device, to_device,
+                                tree_copy_, tree_device)
 from repro_torch.diffusion.pipeline import (slot_compact_denoise_fns,
                                             slot_want_fns)
 from repro_torch.diffusion.schedules import NoiseSchedule, linear_schedule
 from repro_torch.models import dit
 from repro_torch.obs import watch
 from repro_torch.obs.clock import monotonic
-from repro_torch.obs.profiling import ProgramProfile, profile_program
+from repro_torch.obs.profiling import (ProgramProfile, capture_ir,
+                                       compile_program)
+from repro_torch.tree import tree_leaves
 
 from .scheduler import DiffusionRequest, SlotScheduler
 from .telemetry import RequestRecord, ServingTelemetry
@@ -195,13 +229,12 @@ class ServeSession:
         self.recs: Dict[int, RequestRecord] = {
             r.request_id: self._record(r) for r in requests}
         self.sched.submit_all(requests)
-        self.xs = torch.zeros((engine.slots, engine.tokens, engine.in_dim),
-                              dtype=torch.float32, device=engine.device)
-        self.states = stack_slots(engine._fresh, engine.slots)
-        self._upload_nulls()
-        # the per-slot text K/V tables: all-masked until the first
-        # admission wave builds them ({} on a text-free engine)
-        self._txt = engine._empty_txt()
+        # the engine's static latents, cache states and (all-masked until
+        # the first admission wave builds them; {} on a text-free engine)
+        # per-slot text K/V tables, reset in place: the captured programs
+        # read these buffers
+        engine._reset_static()
+        self.xs, self.states = engine._xs, engine._states
         self.results: Dict[int, DiffusionResult] = {}
         self.ticks = 0
         self._finished = False
@@ -218,13 +251,6 @@ class ServeSession:
         return RequestRecord(r.request_id, r.num_steps, r.traffic_class,
                              cfg_scale=r.cfg_scale, modality=r.modality,
                              enqueue_time=monotonic())
-
-    def _upload_nulls(self) -> None:
-        """The negative-prompt tables on the device (once per admission
-        wave, never per tick)."""
-        dev = self.engine.device
-        self._null_vecs = to_device(self.engine._null_vecs, dev)
-        self._null_mask = to_device(self.engine._null_mask, dev)
 
     @property
     def done(self) -> bool:
@@ -270,10 +296,10 @@ class ServeSession:
             rec.admit_tick = self.ticks
             rec.slot = slot.index
         if admitted:
-            self._upload_nulls()
+            eng._upload_tables()
             if eng.text_enabled:
                 # one projection of every slot's text K/V per admission wave
-                self._txt = eng._build_text_tables()
+                eng._build_text_tables()
                 eng.text_table_builds += 1
 
         active = np.asarray(sched.active_mask())
@@ -304,13 +330,10 @@ class ServeSession:
             bucket, *gather = compact_rows(want_c, want_u, eng.slots)
             rows_done, rows_pad = n_c + n_u, bucket - n_c - n_u
         else:
-            gather, rows_done, rows_pad = None, dense_rows, 0
-        eng._note_program(bucket if eng.row_compaction else kind)
+            bucket, gather, rows_done, rows_pad = None, None, dense_rows, 0
         t0 = monotonic()
-        self.xs, self.states = eng._tick(
-            kind, gather, self.states, idx, self.xs, tvals, cfg_ws, ab_t,
-            ab_n, self._null_vecs, self._null_mask, self._txt, plan_c, plan_u,
-            signal)
+        eng._run_tick(kind, bucket, gather, idx, tvals, cfg_ws, ab_t, ab_n,
+                      plan_c, plan_u)
         eng._sync()
         tick_s = monotonic() - t0
         if eng.row_compaction:
@@ -473,7 +496,7 @@ class DiffusionServingEngine:
         (self._compact_backbone, self._backbone2, self._backbone,
          self._apply) = slot_compact_denoise_fns(params, cfg, self.policy,
                                                  cfg_policy)
-        self._want_all = slot_want_fns(params, cfg, self.policy, cfg_policy)
+        self._want = slot_want_fns(params, cfg, self.policy, cfg_policy)
         feat = (self.tokens, self.in_dim)
         self._fresh = {
             "policy": self.batched.init_slot_state(
@@ -525,10 +548,220 @@ class DiffusionServingEngine:
         self._warm_keys: set = set()
         self._warm_runs: List = []
         self._session_active = False
+        self._alloc_static()
+
+    # -- static buffers -------------------------------------------------
+    def _alloc_static(self) -> None:
+        """The buffers every program reads and writes, outside any graph
+        pool: a replay reads nothing another graph allocated, so the
+        graphs share one pool and replay in any order."""
+        S, cfg, dev = self.slots, self.cfg, self.device
+        f32, i32, i64 = torch.float32, torch.int32, torch.int64
+        self._in = StaticInputs(dev)
+        for name, dtype in (("tvals", f32), ("cfg_ws", f32), ("ab_t", f32),
+                            ("ab_n", f32), ("scales", f32), ("steps", i32),
+                            ("want_c", torch.bool), ("want_u", torch.bool),
+                            ("labels", i64), ("nulls", i64),
+                            ("null_mask", torch.bool)):
+            self._in.alloc(name, (S,), dtype)
+        self._in.alloc("null_vecs", (S, cfg.d_model), f32)
+        self._xs = torch.zeros((S, self.tokens, self.in_dim), device=dev)
+        self._states = stack_slots(self._fresh, S)
+        self._plan_buf = torch.zeros((self._want.rows, S), device=dev)
+        #: the plan's signal (S, T, d_model), made by the first plan of a
+        #: policy that reads one (never inside a capture)
+        self._signal: Optional[torch.Tensor] = None
+        self._txt: Dict[str, torch.Tensor] = {}
+        if self.text_enabled:
+            self._in.alloc("txt_host", self._txt_host.shape, f32)
+            kv = (2 * S, cfg.num_layers, cfg.dit_text_len,
+                  cfg.num_heads * cfg.head_dim)
+            self._txt = {"k": torch.zeros(kv, device=dev),
+                         "v": torch.zeros(kv, device=dev),
+                         "mask": torch.zeros((2 * S, cfg.dit_text_len),
+                                             dtype=torch.bool, device=dev)}
+        #: compiled programs by key: [(guards, Program, ProgramProfile)]
+        self._programs: Dict[object, List] = {}
+        #: one ProgramIR per program key from warmup(verify=True)
+        self.program_ir: Dict[object, object] = {}
+        #: runs of each program key that warmup executed on the device
+        #: (each compile's eager run and each recorded run; a capture
+        #: executes nothing)
+        self.warmup_runs: Dict[object, int] = {}
+        self._pool = None
+
+    def _reset_static(self) -> None:
+        """A fresh pool in place: zero latents, fresh cache states, the
+        per-request tables as the host holds them, all-masked text."""
+        self._xs.zero_()
+        tree_copy_(self._states, stack_slots(self._fresh, self.slots))
+        self._upload_tables()
+        self._empty_txt()
+
+    def _upload_tables(self) -> None:
+        """The per-request tables on the device (once per admission wave,
+        never per tick)."""
+        for name, tab in (("labels", self._labels), ("nulls", self._nulls),
+                          ("scales", self._scales),
+                          ("null_vecs", self._null_vecs),
+                          ("null_mask", self._null_mask)):
+            self._in.put(name, tab)
+
+    def static_buffers(self) -> List[torch.Tensor]:
+        """Every tensor the programs may read besides the params: the
+        static inputs, latents, states, text tables and plan outputs."""
+        out = list(self._in.dev.values()) + [self._xs, self._plan_buf]
+        out += tree_leaves(self._states) + list(self._txt.values())
+        if self._signal is not None:
+            out.append(self._signal)
+        return out
+
+    def release_programs(self) -> None:
+        """Drop every compiled program; the engine's graph pool is freed
+        with its last graph (the engine then runs eagerly)."""
+        self._programs = {}
+        self._pool = None
+        self._warm_keys = set()
+
+    def graph_stats(self) -> Dict:
+        """Programs compiled, CUDA graphs among them, capture seconds per
+        program (key and guard classes) and the bytes the captures added
+        to the engine's pool."""
+        progs = [(k, g, p, prof) for k, lst in self._programs.items()
+                 for g, p, prof in lst]
+        return {"programs": len(progs),
+                "graphs": sum(p.graph is not None for _, _, p, _ in progs),
+                "capture_seconds": {
+                    f"{k!r}{sorted(g)}": prof.compile_seconds
+                    for k, g, _, prof in progs},
+                "pool_bytes": sum(p.pool_bytes for _, _, p, _ in progs),
+                "replays": sum(p.replays for _, _, p, _ in progs)}
+
+    # -- programs ----------------------------------------------------------
+    def _find_program(self, key):
+        for guards, prog, _ in self._programs.get(key, ()):
+            if guards_hold(guards, self._in.host):
+                return prog
+        return None
+
+    def _run_program(self, key, fn: Callable[[], None]) -> None:
+        """Replay the program of `key` whose branches the staged inputs
+        take; with none, announce a cold program and run fn eagerly."""
+        prog = self._find_program(key)
+        if prog is not None:
+            prog.run()
+            return
+        self._note_program(key if key not in self._warm_keys
+                           else (key, "branches no program took"))
+        fn()
+
+    def _compile(self, key, fn: Callable[[], None], record: bool,
+                 record_fn: Optional[Callable] = None) -> None:
+        """Compile fn at `key` for the branches the staged inputs take
+        now, unless a program of `key` already takes them.  The first
+        program of a key is its profile; with `record` also its operator
+        record (of `record_fn` where the program's contract covers more
+        than the captured part)."""
+        self._warm_keys.add(key)
+        runs = 0
+        prog = self._find_program(key)
+        if prog is None:
+            runs = 1
+            guards: set = set()
+
+            def logged():
+                with branch_log() as log:
+                    fn()
+                guards.update(log)
+
+            if self.device.type == "cuda" and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            prog, prof = compile_program(logged, key=key, device=self.device,
+                                         pool=self._pool)
+            self._programs.setdefault(key, []).append(
+                (frozenset(guards), prog, prof))
+            self.program_profile.setdefault(key, prof)
+        if record and key not in self.program_records:
+            runs += 1
+            ir = capture_ir(record_fn or fn, key=key,
+                            declared_param_specs=self.param_leaf_specs(),
+                            pool_bytes=prog.pool_bytes)
+            self.program_ir[key] = ir
+            self.program_records[key] = ir.record
+        self.warmup_runs[key] = self.warmup_runs.get(key, 0) + runs
+
+    def param_leaf_specs(self):
+        """(shape, dtype-name) of the param leaves the programs read."""
+        from repro_torch.analysis.ir.verify import param_leaf_specs
+        return param_leaf_specs(self.params)
+
+    def _want_all(self, steps, tvals, guided):
+        """The plan's device pass: steps and timesteps into their static
+        buffers, the "want" program over the engine's static latents and
+        states (its graph, when warmup compiled it), then the one priced
+        read."""
+        self._in.put("steps", steps)
+        self._in.put("tvals", tvals)
+        self._run_program("want", self._want_static)
+        return self._want.read(watch.host_read(self._plan_buf), steps,
+                               guided, self._signal)
+
+    def _want_static(self) -> None:
+        """The "want" program: the device half of the plan over the static
+        buffers into the packed plan and the signal."""
+        i = self._in
+        packed, sig = self._want.device(self._states, i.staged("steps"),
+                                        self._xs, i.dev["tvals"],
+                                        i.dev["labels"])
+        self._plan_buf.copy_(packed)
+        if sig is not None:
+            if self._signal is None:
+                self._signal = torch.empty_like(sig)
+            self._signal.copy_(sig)
+
+    def _run_tick(self, kind, bucket, gather, steps, tvals, cfg_ws, ab_t,
+                  ab_n, want_c, want_u) -> None:
+        """Stage one tick's host values and run its program."""
+        i = self._in
+        for name, a in (("steps", steps), ("tvals", tvals),
+                        ("cfg_ws", cfg_ws), ("ab_t", ab_t), ("ab_n", ab_n),
+                        ("want_c", want_c), ("want_u", want_u)):
+            i.put(name, a)
+        if gather is not None and bucket:
+            self._put_rows(bucket, gather)
+        self._run_program(bucket if self.row_compaction else kind,
+                          lambda: self._tick_static(kind, bucket))
+
+    def _put_rows(self, bucket: int, gather) -> None:
+        for name, a, dtype in zip(("row_slot", "row_uncond", "row_dest"),
+                                  gather, (torch.int64, torch.bool,
+                                           torch.int64)):
+            self._in.alloc(f"{name}/{bucket}", (bucket,), dtype)
+            self._in.put(f"{name}/{bucket}", a)
+
+    def _tick_static(self, kind, bucket) -> None:
+        """The tick program: `_tick` over the static buffers, its latents
+        and states written back in place."""
+        i = self._in
+        gather = None
+        if self.row_compaction and bucket:
+            gather = tuple(i.dev[f"{n}/{bucket}"]
+                           for n in ("row_slot", "row_uncond", "row_dest"))
+        xs, states = self._tick(
+            kind, gather, self._states, i.staged("steps"), self._xs,
+            i.dev["tvals"], i.dev["cfg_ws"], i.dev["ab_t"], i.dev["ab_n"],
+            i.dev["null_vecs"], i.dev["null_mask"], self._txt,
+            i.staged("want_c"), i.staged("want_u"), self._signal)
+        # one copy over both: a new state leaf may be the old latents
+        # (ToCa's prev_in), which the latents' own copy would overwrite
+        tree_copy_((self._xs, self._states), (xs, states))
 
     # ------------------------------------------------------------------
     def _sync(self) -> None:
         if self.device.type == "cuda":
+            # the one synchronize a tick: it prices the tick, and it keeps
+            # the host from refilling a pinned input buffer whose copy to
+            # the device may still be pending (StaticInputs)
             # repro-lint: disable-next-line=host-sync-in-hot-path -- priced: the one synchronize a tick, which times the tick
             torch.cuda.synchronize(self.device)
 
@@ -546,30 +779,34 @@ class DiffusionServingEngine:
 
     # -- text conditioning ---------------------------------------------
     def _empty_txt(self) -> Dict[str, torch.Tensor]:
-        """All-masked per-slot text tables (zero K/V, False masks): the
-        exact no-op of the cross-attention branch.  {} on a text-free
-        engine, whose ticks then take no text operand at all."""
-        if not self.text_enabled:
-            return {}
-        cfg = self.cfg
-        z = torch.zeros((2 * self.slots, cfg.num_layers, cfg.dit_text_len,
-                         cfg.num_heads * cfg.head_dim), device=self.device)
-        m = torch.zeros((2 * self.slots, cfg.dit_text_len), dtype=torch.bool,
-                        device=self.device)
-        return {"k": z, "v": z, "mask": m}
+        """The static per-slot text tables all-masked in place (zero K/V,
+        False masks): the exact no-op of the cross-attention branch.  {} on
+        a text-free engine, whose ticks then take no text operand at
+        all."""
+        for t in self._txt.values():
+            t.zero_()
+        return self._txt
 
     def _build_text_tables(self) -> Dict[str, torch.Tensor]:
         """The live per-slot text tables of a text-enabled engine from the
-        host embedding tables: one host-to-device copy, the embeddings
-        re-zeroed under their masks (the no-op branch must hold
-        bit-exactly), then every layer's K/V for all 2S rows in one
-        `text_kv`.  Runs once per admission wave, never in a tick."""
-        self._note_program("text_kv")
-        packed = to_device(self._txt_host, self.device)
+        host embedding tables: one host-to-device copy into the static
+        input, then the "text_kv" program.  Runs once per admission wave,
+        never in a tick."""
+        self._in.put("txt_host", self._txt_host)
+        self._run_program("text_kv", self._text_kv_static)
+        return self._txt
+
+    def _text_kv_static(self) -> None:
+        """The "text_kv" program: the embeddings re-zeroed under their
+        masks (the no-op branch must hold bit-exactly), then every layer's
+        K/V for all 2S rows in one `text_kv`, into the static tables."""
+        packed = self._in.dev["txt_host"]
         tm = packed[..., -1] > 0.5
         te = torch.where(tm[..., None], packed[..., :-1], 0.0)
         tk, tv = dit.text_kv(self.params, te, self.cfg)
-        return {"k": tk, "v": tv, "mask": tm}
+        self._txt["k"].copy_(tk)
+        self._txt["v"].copy_(tv)
+        self._txt["mask"].copy_(tm)
 
     def _tick(self, kind, gather, states, steps, xs, tvals, cfg_ws, ab_t,
               ab_n, null_vecs, null_mask, txt, want_c, want_u, signal):
@@ -587,8 +824,7 @@ class DiffusionServingEngine:
             y_c = y_u = torch.zeros_like(xs)
         else:
             t_dev = dev_t(tvals)
-            labels = dev_t(self._labels).long()
-            nulls = dev_t(self._nulls).long()
+            labels, nulls = self._in.dev["labels"], self._in.dev["nulls"]
             if gather is not None:
                 row_slot, row_uncond, row_dest = gather
                 y_c, y_u = self._compact_backbone(
@@ -601,7 +837,7 @@ class DiffusionServingEngine:
             else:
                 y_c = self._backbone(xs, t_dev, labels, txt)
                 y_u = torch.zeros_like(xs)
-        eps, states = self._apply(states, steps, xs, dev_t(self._scales),
+        eps, states = self._apply(states, steps, xs, self._in.dev["scales"],
                                   dev_t(cfg_ws), y_c, y_u, want=want_c,
                                   want_u=want_u, signal=signal)
         a_t = dev_t(ab_t)[:, None, None]
@@ -625,94 +861,128 @@ class DiffusionServingEngine:
             watch.emit("program", f"{self.cfg.name}[{key!r}]")
 
     def warmup(self, verify: bool = False) -> List:
-        """Run the plan and every tick program once on dummy operands —
-        each bucket of the compacted engine, or the dense engine's three
-        kinds — so the kernels are built on first use and every batch shape
-        is touched before the first live tick; a text-enabled engine also
-        builds its text tables once ("text_kv") and runs its conditioner's
-        encoder once ("text_encoder"), neither counted as a build, hit or
-        miss.  Returns the buckets (or kinds) run, then those text
+        """Compile every program once on dummy operands — each bucket of
+        the compacted engine, or the dense engine's three kinds, for every
+        class of host branches its policies can take there (module
+        docstring), and "want" when the engine plans on the device — so
+        the kernels are built and every batch shape is captured before the
+        first live tick; a text-enabled engine also compiles its text
+        tables' program ("text_kv") and its conditioner's encoder
+        ("text_encoder"), neither counted as a build, hit or miss.  On the
+        card each program is a CUDA graph on the engine's one pool
+        (`repro_torch.obs.profiling.compile_program`); on the CPU nothing
+        is captured.  Returns the buckets (or kinds) run, then those text
         programs.
 
-        The first warmup also profiles each program into
+        The first warmup also profiles each key's first program into
         `self.program_profile` (`repro_torch.obs.ProgramProfile`), keyed
         by bucket (compacted) or tick kind (dense), plus "want" for the
         device plan pass when the engine has one and the text programs'
-        keys: `compile_seconds` is the synced wall time of the program's
-        first run (kernel builds included: nothing is compiled ahead of
-        time), `flops` the products of a second run under
-        `repro_torch.obs.profiling.count_flops`, `bytes_accessed` nan.  A
-        later warmup runs the programs again and leaves the profiles as
-        they are.  (JAX's warmup returns the profiles; the port keeps
-        returning the runs and holds the profiles on the engine.)
+        keys: `compile_seconds` is the capture's synced seconds (on the
+        CPU the first run's, kernel builds included), `flops` the products
+        of its eager run under `repro_torch.obs.profiling.count_flops`,
+        `bytes_accessed` nan.  `graph_stats()` counts every program.  A
+        later warmup finds every program compiled, runs none and leaves the
+        profiles as they are.  (JAX's warmup returns the profiles; the port keeps returning
+        the runs and holds the profiles on the engine.)
 
-        `verify=True` also runs each program once under the operator
-        recorder (`repro_torch.analysis.ir.op_checks`) and checks the
-        records (`verify_programs_by_key`): `self.ir_findings` becomes the
-        findings ([] = clean) and each profile carries its program's.  A
-        warmup with verify=True after one that recorded verifies from the
-        records and runs nothing again.  Without verify, no dispatch mode
-        is entered."""
+        `verify=True` also runs each key's program once under the operator
+        recorder (`repro_torch.analysis.ir.op_checks`; the "want" record
+        covers the plan's priced read too) and checks the records
+        (`verify_programs_by_key`): `self.ir_findings` becomes the findings
+        ([] = clean) and each profile carries its program's.  A warmup with
+        verify=True after one that recorded verifies from the records and
+        runs nothing again.  Without verify, no dispatch mode is
+        entered."""
         if not (verify and self.program_records):
             self._run_programs(record=verify)
         if verify:
             self._run_verification()
         return list(self._warm_runs)
 
-    def _run_programs(self, record: bool) -> None:
-        """warmup's body: run (profile on the first time; record when
-        asked) every program."""
+    def _tick_candidates(self, key):
+        """(want_c, want_u, steps, active) host inputs covering every class
+        of branches a tick at `key` can take.  The tick's policies step on
+        the plan's masks before active masking (as JAX's do), so a free
+        slot may want a row the bucket does not hold: for each pair of
+        active row counts that makes the bucket (or kind), the masks of
+        the first slots, then with the last slot wanting too, then with
+        every slot wanting; each with steps all on, none on and some on an
+        interval (all on an interval > 1 first: the forecast branch).
+        `active` is the pair of masks after active masking."""
         S = self.slots
-        xs = torch.zeros((S, self.tokens, self.in_dim), device=self.device)
-        states = stack_slots(self._fresh, S)
-        steps = np.ones((S,), np.int32)   # forecast branch for interval > 1
+        one = np.ones((S,), np.int32)
+        out = []
+        steps = (one, np.zeros((S,), np.int32),
+                 np.concatenate([[0], one[1:]]).astype(np.int32))
+        last, every = np.arange(S) == S - 1, np.ones((S,), bool)
+        for n_c in range(S + 1):
+            for n_u in range(S + 1):
+                c, u = np.arange(S) < n_c, np.arange(S) < n_u
+                if self.row_compaction:
+                    at = compact_rows(c, u, S)[0]
+                else:
+                    at = "full" if n_u else ("cond" if n_c else "skip")
+                if at != key:
+                    continue
+                for pc in (c, c | last, every):
+                    for pu in (u, u | last, every):
+                        out += [(pc, pu, st, (c, u)) for st in steps]
+        return out
+
+    def _run_programs(self, record: bool) -> None:
+        """warmup's body: compile (profile on the first time; record when
+        asked) every program not compiled before."""
+        S = self.slots
+        self._reset_static()
+        i = self._in
         zf = np.zeros((S,), np.float32)
         ab = np.full((S,), 0.5, np.float32)
-        nv = torch.zeros((S, self.cfg.d_model), device=self.device)
-        nm = torch.zeros((S,), dtype=torch.bool, device=self.device)
-        profiles = self.program_profile
-        if record:
-            from repro_torch.analysis.ir.op_checks import record_program
+        for name, a in (("tvals", zf), ("cfg_ws", zf), ("ab_t", ab),
+                        ("ab_n", ab)):
+            i.put(name, a)
+        # forecast branch for interval > 1
+        i.put("steps", np.ones((S,), np.int32))
 
-        def run(key, fn):
-            self._warm_keys.add(key)
-            if key in profiles:
-                out = fn()
-            else:
-                out, profiles[key] = profile_program(key, fn, self._sync)
-            if record:
-                if key == "text_encoder":
-                    self.program_records[key] = self.conditioner.warmup(
-                        verify=True)
-                else:
-                    _, self.program_records[key] = record_program(key, fn)
-            return out
+        def read_plan():
+            self._want_static()
+            return watch.host_read(self._plan_buf)
 
-        plan = lambda: self._plan_all(states, steps, xs, zf)  # noqa: E731
+        # the programs hold the engine weakly: no reference cycle keeps a
+        # dropped engine (its params, buffers and graph pool) alive
+        me = weakref.proxy(self)
         if self._static_plan is None or self._static_cfg_plan is None:
-            want_c, want_u, _, signal = run("want", plan)
-        else:
-            want_c, want_u, _, signal = plan()
+            self._compile("want", lambda: me._want_static(), record,
+                          read_plan)
         if self.row_compaction:
             runs = self._warmup_buckets()
-            ticks = [(b, "full" if b else "skip",
-                      (np.zeros((b,), np.int32), np.zeros((b,), bool),
-                       np.full((b,), 2 * S, np.int32))) for b in runs]
         else:
             runs = ["full", "cond", "skip"]
-            ticks = [(kind, kind, None) for kind in runs]
-        txt = self._empty_txt()
-        for key, kind, gather in ticks:
-            run(key, lambda: self._tick(kind, gather, states, steps, xs, zf,
-                                        zf, ab, ab, nv, nm, txt, want_c,
-                                        want_u, signal))
+        for key in runs:
+            kind = key if not self.row_compaction else (
+                "full" if key else "skip")
+            if self.row_compaction and key:
+                self._put_rows(key, (np.zeros((key,), np.int64),
+                                     np.zeros((key,), bool),
+                                     np.full((key,), 2 * S, np.int64)))
+            for c, u, st, _ in self._tick_candidates(key):
+                for name, a in (("want_c", c), ("want_u", u), ("steps", st)):
+                    i.put(name, a)
+                self._compile(key, lambda k=kind, b=key:
+                              me._tick_static(k, b), record)
         if self.text_enabled:
-            run("text_kv", self._build_text_tables)
+            self._compile("text_kv", lambda: me._text_kv_static(), record)
             runs = runs + ["text_kv"]
             if self.conditioner is not None:
-                run("text_encoder", self.conditioner.warmup)
+                self._warm_keys.add("text_encoder")
+                rec = self.conditioner.warmup(verify=record)
+                if record:
+                    self.program_records["text_encoder"] = rec
+                self.program_profile.setdefault(
+                    "text_encoder", self.conditioner.program_profile)
                 runs.append("text_encoder")
         self._sync()
+        self._reset_static()
         self._warm_runs = runs
 
     def _capture_program_records(self) -> Dict[object, object]:
@@ -830,13 +1100,16 @@ class DiffusionServingEngine:
         branches have host tables the plan costs no device round trip
         (metric None).  Otherwise the fused device pass decides in ONE
         device-to-host copy, a branch with a host table keeps it, and the
-        signal stays on the device for the tick."""
+        signal stays on the device for the tick; that pass reads the
+        engine's static buffers, so `states` and `xs` must be them (the
+        session's)."""
         if self._static_plan is not None and self._static_cfg_plan is not None:
             return (self._static_plan[steps],
                     self._static_cfg_plan[steps] & self._guided, None, None)
-        self._note_program("want")
-        plan = self._want_all(states, steps, xs, tvals, self._labels,
-                              self._guided)
+        if states is not self._states or xs is not self._xs:
+            raise ValueError("the device plan reads the engine's static "
+                             "latents and states only")
+        plan = self._want_all(steps, tvals, self._guided)
         wc = (plan.want_cond if self._static_plan is None
               else self._static_plan[steps])
         return wc, plan.want_uncond, plan.metric, plan.signal

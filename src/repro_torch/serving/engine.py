@@ -13,17 +13,36 @@ every `sync_every` decode steps (only when an EOS id is set) and copies the
 tokens back once per chunk of requests.  Greedy picks the first maximum,
 as `jnp.argmax` does.  Temperature sampling draws from a `torch.Generator`
 seeded from `seed`; its draws differ from `jax.random.categorical`.
+
+Programs (JAX jits `prefill` and `decode`).  Prefill at (slots,
+max_prompt) and one decode step at (slots, cache_len) read and write
+static buffers that outlive every call, all allocated outside the
+programs: the prompt window and the token and position vectors, the KV
+cache and SSM state (`init_cache`; prefill resets and fills it in place,
+the decode step updates it in place), the last position's logits.  The
+first `generate` compiles both (`repro_torch.obs.profiling.compile_program`:
+a CUDA graph each on the engine's pool on the card; the eager run of the
+compile is that call's real prefill and first decode step), every later
+step replays them.  The pool then holds the programs' temporaries only:
+prefill makes the last position's logits, not the window's.  The
+position's advance is inside the programs; the pick (greedy argmax or a
+temperature draw from the generator) is made outside, on the logits the
+program left in its static buffer, so the graphs hold no random state.
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device, tree_device
+from repro_torch.device import (DeviceLike, StaticInputs, resolve_device,
+                                tree_device)
 from repro_torch.models import decode_step, prefill
+from repro_torch.models.transformer import init_cache
+from repro_torch.obs.profiling import compile_program
 from repro_torch.serving.common import RequestQueue
 
 
@@ -72,6 +91,61 @@ class ServingEngine:
         #: decode steps between early-exit probes; each probe is a scalar
         #: host sync, so probing every step would serialize the decode loop
         self.sync_every = max(1, sync_every)
+        #: the compiled programs by name ("prefill", "decode") and profiles
+        self.programs: dict = {}
+        self.program_profile: dict = {}
+        self._in = None
+        self._pool = None
+
+    # -- static buffers and programs -------------------------------------
+    def _alloc_static(self) -> None:
+        S, dev = self.slots, self.device
+        self._in = StaticInputs(dev)
+        self._in.alloc("toks", (S, self.max_prompt), torch.int64)
+        self._tok = torch.zeros((S,), dtype=torch.int64, device=dev)
+        self._pos = torch.zeros((S,), dtype=torch.int64, device=dev)
+        self._cache = init_cache(self.cfg, S, self.cache_len, device=dev)
+        #: the last position's logits of prefill / of a decode step (made
+        #: by the first eager run, never inside a capture)
+        self._logits = None
+
+    def _keep_logits(self, logits) -> None:
+        if self._logits is None:
+            self._logits = torch.empty_like(logits)
+        self._logits.copy_(logits)
+
+    def _prefill_static(self) -> None:
+        """The prefill program: the prompt window into the static cache,
+        the last position's logits, the positions."""
+        logits, _ = prefill(self.params, self._in.dev["toks"], self.cfg,
+                            self.cache_len, cache=self._cache,
+                            last_only=True)
+        self._keep_logits(logits[:, -1, :])
+        self._pos.fill_(self.max_prompt)
+
+    def _decode_static(self) -> None:
+        """The decode program: the static token against the static cache
+        (updated in place), its logits, the positions advanced."""
+        logits, _ = decode_step(self.params, self._tok, self._pos,
+                                self._cache, self.cfg)
+        self._keep_logits(logits)
+        self._pos.add_(1)
+
+    def _run(self, name: str, fn) -> None:
+        """Replay program `name`; the first call compiles it (its eager run
+        is this call's work)."""
+        prog = self.programs.get(name)
+        if prog is not None:
+            prog.run()
+        else:
+            if self.device.type == "cuda" and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            key = (name, self.slots, self.max_prompt if name == "prefill"
+                   else self.cache_len)
+            method = weakref.WeakMethod(fn)    # no cycle through the program
+            self.programs[name], self.program_profile[name] = \
+                compile_program(lambda: method()(), key=key,
+                                device=self.device, pool=self._pool)
 
     def _pick(self, logits, gen):
         if self.temperature > 0.0:
@@ -85,6 +159,8 @@ class ServingEngine:
         """Generate for every prompt, `slots` at a time."""
         results = [GenerationResult(i, p) for i, p in enumerate(prompts)]
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self._in is None:
+            self._alloc_static()
         queue = RequestQueue(range(len(prompts)))
         while queue:
             chunk = queue.pop_many(self.slots)
@@ -92,13 +168,11 @@ class ServingEngine:
             for row, ridx in enumerate(chunk):
                 p = prompts[ridx][-self.max_prompt:]
                 toks[row, -len(p):] = p       # right-aligned
-            logits, cache = prefill(self.params,
-                                    torch.from_numpy(toks).to(self.device),
-                                    self.cfg, self.cache_len)
-            tok = self._pick(logits[:, -1, :], gen)
-            del logits
-            pos = torch.full((self.slots,), self.max_prompt, dtype=torch.long,
-                             device=self.device)
+            # the previous chunk's token copy synchronized: the pinned
+            # prompt buffer is free to refill
+            self._in.put("toks", toks)
+            self._run("prefill", self._prefill_static)
+            tok = self._pick(self._logits, gen)
             done = torch.from_numpy(np.arange(self.slots) >= len(chunk)).to(
                 self.device)
             emitted = []
@@ -115,10 +189,9 @@ class ServingEngine:
                         if bool(done.all()):
                             break
                 if step + 1 < max_new_tokens:
-                    logits, cache = decode_step(self.params, tok, pos, cache,
-                                                self.cfg)
-                    tok = self._pick(logits, gen)
-                    pos = pos + 1
+                    self._tok.copy_(tok)
+                    self._run("decode", self._decode_static)
+                    tok = self._pick(self._logits, gen)
             if emitted:
                 # one bulk transfer per chunk, outside the per-token loop
                 # repro-lint: disable-next-line=host-sync-in-hot-path -- priced: a chunk's tokens in one copy after its decode loop
@@ -130,7 +203,6 @@ class ServingEngine:
                         if hits.size:          # keep through the first EOS
                             row_toks = row_toks[:hits[0] + 1]
                     results[ridx].tokens.extend(int(t) for t in row_toks)
-            del cache
         return results
 
 

@@ -32,7 +32,7 @@ from torch.profiler import record_function
 from repro_torch.data import latent_batches
 from repro_torch.models import dit, init_params, transformer
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
-                               clip_by_global_norm, cosine_warmup_schedule)
+                               clip_scale, cosine_warmup_schedule)
 from repro_torch.tree import tree_leaves, tree_unflatten_like
 
 Tree = Any
@@ -159,12 +159,14 @@ def _accumulated_grads(loss_fn: Callable, params, batch: dict, accum: int):
 def _optimize(state: TrainState, grads, metrics, *, peak_lr, warmup,
               total_steps, max_grad_norm, weight_decay):
     with record_function("train.optimizer"):
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        # clip_by_global_norm's scale, applied slice by slice in the update
+        scale, gnorm = clip_scale(grads, max_grad_norm)
         lr = cosine_warmup_schedule(state.opt.step, peak_lr=peak_lr,
                                     warmup_steps=warmup,
                                     total_steps=total_steps)
         params, opt = adamw_update(grads, state.opt, state.params, lr=lr,
-                                   weight_decay=weight_decay)
+                                   weight_decay=weight_decay,
+                                   grad_scale=scale)
     return TrainState(params, opt), dict(metrics, grad_norm=gnorm, lr=lr)
 
 
@@ -193,7 +195,8 @@ def make_diffusion_train_step(cfg, sched, *, peak_lr=1e-4, warmup=100,
                               total_steps=10_000, accum: int = 1,
                               max_grad_norm: float = 1.0):
     """batch: {"latents" (B, T, in_dim), "labels" (B,), and "generator" (a
-    torch.Generator on the params' device) or "draws" (t, eps, drop)}."""
+    torch.Generator on the params' device) or "draws" (t, eps, drop)}.
+    The step's `prepare_batch(batch)` makes the draws ahead of it."""
     def loss_fn(params, b):
         return diffusion_loss(params, b["latents"], b["labels"], cfg, sched,
                               draws=(b["t"], b["eps"], b["drop"]))
@@ -211,6 +214,17 @@ def make_diffusion_train_step(cfg, sched, *, peak_lr=1e-4, warmup=100,
                          warmup=warmup, total_steps=total_steps,
                          max_grad_norm=max_grad_norm, weight_decay=0.0)
 
+    def prepare_batch(batch):
+        """The batch with its draws made from its generator, outside any
+        captured step (train_loop(jit=True) calls it on every batch): the
+        same draws, in the same order, as the step would make."""
+        if batch.get("draws") is not None:
+            return batch
+        return {"latents": batch["latents"], "labels": batch["labels"],
+                "draws": diffusion_draws(batch["generator"],
+                                         batch["latents"], sched.T)}
+
+    step.prepare_batch = prepare_batch
     return step
 
 

@@ -471,9 +471,10 @@ def test_syntax_error_is_a_finding(tmp_path):
     assert [f.rule for f in res.findings] == ["syntax-error"]
 
 
-RULE_IDS = ["clock-discipline", "host-sync-in-hot-path", "ir-donation",
-            "ir-dtype", "ir-host-sync", "ir-launch", "ir-retrace",
-            "policy-registry-conformance", "rng-generator-discipline"]
+RULE_IDS = ["clock-discipline", "host-sync-in-hot-path", "ir-const-bloat",
+            "ir-donation", "ir-dtype", "ir-host-sync", "ir-launch",
+            "ir-retrace", "jit-hygiene", "policy-registry-conformance",
+            "pytree-registration", "rng-generator-discipline"]
 
 
 def test_rules_registered_with_metadata():

@@ -379,7 +379,7 @@ def test_every_launch_site_goes_through_the_plan_helper():
 
 def test_ir_rules_registered_and_launch_not_run_on_cpu():
     ir = sorted(r.id for r in all_rules() if r.id.startswith("ir-"))
-    assert ir == ["ir-donation", "ir-dtype", "ir-host-sync", "ir-launch",
-                  "ir-retrace"]
+    assert ir == ["ir-const-bloat", "ir-donation", "ir-dtype",
+                  "ir-host-sync", "ir-launch", "ir-retrace"]
     with pytest.raises(NotRun, match="CUDA"):
         get_rule("ir-launch").check_project(".", "cpu")

@@ -1089,3 +1089,179 @@ def test_sync_channels_fire_on_injected_reads(cuda):
     _, rec = record_program("clean", lambda: to_device(
         [1.0, 2.0], cuda) * x[0, :2])
     assert check_record(rec) == []
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: every program captured per key replays as it runs eagerly
+# ---------------------------------------------------------------------------
+
+def _counts():
+    from repro_torch.kernels import KERNELS
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def _snapshot(eng):
+    from repro_torch.tree import tree_leaves
+    return [t.clone() for t in [eng._xs, *tree_leaves(eng._states)]]
+
+
+def _restore(eng, snap):
+    from repro_torch.tree import tree_leaves
+    for t, s in zip([eng._xs, *tree_leaves(eng._states)], snap):
+        t.copy_(s)
+
+
+@pytest.mark.parametrize("policy,cfg_policy", [("taylorseer", None),
+                                               ("teacache", "fastercache")])
+def test_graph_replay_equals_eager_per_key(cuda, policy, cfg_policy):
+    """Every tick program of a warmed SMOKE engine, replayed on the inputs
+    of the input class that captured it, writes the latents and states the
+    same function writes eagerly on the same buffers (bitwise), and adds
+    to the launch counters what the eager run launches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import FasterCacheCFG
+    from repro_torch.modalities import make_workload
+    from repro_torch.tree import tree_leaves
+    cfg = get_smoke_config("dit-xl")
+    wl = make_workload("image", cfg=cfg, device=cuda)
+    eng = wl.engine(policy, slots=4, max_steps=8,
+                    cfg_policy=FasterCacheCFG(2, 8) if cfg_policy else None)
+    eng.warmup()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    seen = 0
+    for key in eng._warmup_buckets():
+        for c, u, st, _ in eng._tick_candidates(key):
+            for name, a in (("want_c", c), ("want_u", u), ("steps", st)):
+                eng._in.put(name, a)
+            prog = eng._find_program(key)
+            assert prog is not None and prog.graph is not None
+            eng._xs.copy_(torch.randn(eng._xs.shape, generator=g,
+                                      device=cuda))
+            snap = _snapshot(eng)
+            before = _counts()
+            prog.run()
+            torch.cuda.synchronize()
+            replay = [t.clone() for t in [eng._xs,
+                                          *tree_leaves(eng._states)]]
+            launched = {k: n - before[k] for k, n in _counts().items()}
+            _restore(eng, snap)
+            before = _counts()
+            prog.fn()
+            torch.cuda.synchronize()
+            assert {k: n - before[k] for k, n in _counts().items()} \
+                == launched
+            for a, b in zip(replay, [eng._xs, *tree_leaves(eng._states)]):
+                assert torch.equal(a, b)
+            seen += 1
+    assert seen > 0
+
+
+def test_graph_engine_serves_as_the_eager_one(cuda):
+    """A warmed SMOKE engine (graphs) and an unwarmed one serve the same
+    requests to bitwise-equal x0 with equal computed steps and equal
+    launch counts, with no build, capture or cold program while serving."""
+    from repro_torch.analysis.ir.retrace import RetraceSentinel
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import FasterCacheCFG
+    from repro_torch.modalities import make_workload
+    from repro_torch.serving.diffusion import DiffusionRequest
+    cfg = get_smoke_config("dit-xl")
+    wl = make_workload("image", cfg=cfg, device=cuda)
+    reqs = [DiffusionRequest(i, num_steps=(6, 8)[i % 2], seed=i,
+                             class_label=i % cfg.dit_num_classes,
+                             cfg_scale=3.0 if i % 2 else 0.0)
+            for i in range(6)]
+    out = {}
+    for warm in (False, True):
+        eng = wl.engine("teacache", slots=4, max_steps=8,
+                        cfg_policy=FasterCacheCFG(2, 8))
+        if warm:
+            eng.warmup()
+        before = _counts()
+        with RetraceSentinel() as sen:
+            res = eng.serve(reqs)
+        torch.cuda.synchronize()
+        out[warm] = (res, {k: n - before[k] for k, n in _counts().items()},
+                     sen.count)
+    (eager, le, _), (graphs, lg, sentinel) = out[False], out[True]
+    assert sentinel == 0 and lg == le
+    for a, b in zip(graphs, eager):
+        assert (a.record.computed_steps, a.record.uncond_computed_steps) \
+            == (b.record.computed_steps, b.record.uncond_computed_steps)
+        assert (a.x0 == b.x0).all()
+
+
+def test_llm_graphs_match_eager_tokens(cuda):
+    """tinyllama SMOKE: the captured prefill / decode give the greedy
+    tokens and launch counts of a plain prefill / decode_step loop over
+    the same chunks (two chunks through one static cache); a second
+    generate captures nothing."""
+    import numpy as np
+    from repro_torch.analysis.ir.retrace import RetraceSentinel
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServingEngine
+    cfg = get_smoke_config("tinyllama-1.1b")
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                         device=cuda)
+    prompts = [[1, 2, 3, 4, 5], [7, 8, 9], [11] * 12]
+    eng = ServingEngine(params, cfg, slots=2, max_prompt=16, cache_len=64,
+                        device=cuda)
+    eng.generate(prompts, max_new_tokens=6)
+    before = _counts()
+    with RetraceSentinel() as sen:
+        res = eng.generate(prompts, max_new_tokens=6)
+    graphs = {k: n - before[k] for k, n in _counts().items()}
+    assert sen.count == 0
+    plain, before = [], _counts()
+    with torch.no_grad():
+        for chunk in (prompts[:2], prompts[2:]):
+            toks = np.zeros((2, 16), np.int64)
+            for row, p in enumerate(chunk):
+                toks[row, -len(p):] = p
+            logits, cache = prefill(params, torch.from_numpy(toks).to(cuda),
+                                    cfg, 64, last_only=True)
+            tok = logits[:, -1].argmax(-1)
+            pos = torch.full((2,), 16, device=cuda)
+            out = [tok]
+            for _ in range(5):
+                logits, cache = decode_step(params, tok, pos, cache, cfg)
+                tok, pos = logits.argmax(-1), pos + 1
+                out.append(tok)
+            plain += torch.stack(out, 1).tolist()[:len(chunk)]
+    torch.cuda.synchronize()
+    eager = {k: n - before[k] for k, n in _counts().items()}
+    assert [r.tokens for r in res] == plain and graphs == eager
+    assert eng.programs["decode"].graph is not None
+    assert eng.programs["prefill"].graph is not None
+
+
+def test_train_loop_jit_matches_eager(cuda):
+    """DiT-XL SMOKE: 4 steps of train_loop(jit=True) (step 1 eager, then
+    the captured step) and jit=False from one state: params and moments
+    within 1e-5 relative, equal launch counts."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.diffusion import linear_schedule
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.steps import (diffusion_batches, init_train_state,
+                                         make_diffusion_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_smoke_config("dit-xl")
+    base = init_train_state(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            device=cuda)
+    step = make_diffusion_train_step(cfg, linear_schedule(100), warmup=0,
+                                     total_steps=4)
+    out, counts = {}, {}
+    for jit in (False, True):
+        state = tree_map(lambda t: t.clone(), base)
+        before = _counts()
+        state, _ = train_loop(step, state, diffusion_batches(0, 4, cfg, cuda),
+                              4, log_every=4, log_fn=lambda m: None, jit=jit)
+        torch.cuda.synchronize()
+        counts[jit] = {k: n - before[k] for k, n in _counts().items()}
+        out[jit] = tree_leaves(state)
+    assert counts[True] == counts[False]
+    for a, b in zip(out[True], out[False]):
+        a, b = a.double(), b.double()
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            float(b.abs().max()), 1e-30)
