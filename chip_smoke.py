@@ -425,6 +425,7 @@ PEAK_FLOPS = {"float32": 67e12,  # f32 outside the tensor cores
               "bf16_x_f32_2xtf32": 495e12 / 2}
 SSD_KERNELS = ("ssd_cb_kernel", "ssd_scan_kernel")   # one ssd_scan call
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # flash: max |kernel - plain|
+LSE_TOL = 1e-3     # the training forward's row log-sum-exp, abs (f32 sums)
 MLA_DV = 128       # deepseek-v2's v head dim under q/k's 192 (the mla cases)
 # flash at the video and audio DiTs' shapes: a few times the largest error
 # of sound runs (5.96e-6 spatial, 3.34e-6 temporal), below what a one-pass
@@ -514,7 +515,9 @@ def tf32_control(torch, q, k, v):
 
 
 def phase_flash(torch, F):
-    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention, ops)
     cases = [  # name, B, Sq, Sk, H, KH, D, causal, window, dtype, offset
         ("dit-xl f32", 8, 256, 256, 16, 16, 72, False, 0, "float32", 0),
         ("dit-xl bf16", 8, 256, 256, 16, 16, 72, False, 0, "bfloat16", 0),
@@ -634,18 +637,45 @@ def phase_flash(torch, F):
                             "tf32_control_err": control, "bound_ms": b_ms,
                             "bound_by": by, "library_ms": lib_ms,
                             "library_device_ms": sdpa_dev_ms}
+        lse_row = {}
+        if name in ("pixtral prefill", "mla prefill"):
+            # the training forward (kLse) at the same shape: o and the rows'
+            # log-sum-exp against the plain versions, ms with and without it
+            lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+            scale = 1.0 / math.sqrt(D)
+            o_l = ops._forward(q, k, v, causal, window, scale, lse)
+            lse_ref = attention_lse_ref(q, k, causal=causal, window=window)
+            torch.cuda.synchronize()
+            o_err = float((o_l.float() - ref.float()).abs().max())
+            lse_err = float((lse - lse_ref.float()).abs().max())
+            lse_ms = cuda_ms(torch, lambda: ops._forward(
+                q, k, v, causal, window, scale, lse))
+            lse_dev = device_ms(torch, lambda: ops._forward(
+                q, k, v, causal, window, scale, lse), "flash_fwd")
+            log(f"flash {name}: the training forward (kLse): "
+                f"max_abs_err={o_err:.3e} (tol {tol}), lse max_abs_err="
+                f"{lse_err:.3e} (tol {LSE_TOL}), ms={lse_ms:.4f} device_ms="
+                f"{lse_dev} against ms={ms:.4f} without the lse")
+            if not (o_err <= tol and lse_err <= LSE_TOL):
+                fail(f"flash {name}: the kLse forward is off ({o_err}, "
+                     f"{lse_err})")
+            lse_row = {"fwd_with_lse_ms": lse_ms,
+                       "fwd_with_lse_device_ms": lse_dev,
+                       "lse_max_abs_err": lse_err}
+            del lse, o_l, lse_ref
         if name.startswith(("whisper", "pixtral")):
             report[name] = {"ms": ms, "device_ms": dev_ms, "max_abs_err": err,
                             "tolerance": f"{tol} abs", "bound_ms": b_ms,
                             "bound_by": by, "plain_ms": plain_ms,
                             "library_ms": lib_ms,
-                            "library_device_ms": sdpa_dev_ms}
+                            "library_device_ms": sdpa_dev_ms, **lse_row}
         elif name.startswith(("arctic", "mla")):
             report.setdefault("moe", {})[name] = {
                 "ms": ms, "device_ms": dev_ms, "max_abs_err": err,
                 "tolerance": f"{tol} abs", "bound_ms": b_ms, "bound_by": by,
                 "plain_ms": plain_ms, "library_ms": lib_ms,
-                "library_device_ms": sdpa_dev_ms, "library_kernels": kernels}
+                "library_device_ms": sdpa_dev_ms, "library_kernels": kernels,
+                **lse_row}
         elif name.endswith(" prefill") and name != "zamba2 prefill":
             report.setdefault("dense", {})[name] = {
                 "ms": ms, "device_ms": dev_ms, "max_abs_err": err,
@@ -669,6 +699,13 @@ def phase_flash(torch, F):
     if usage is None:
         fail("flash: ptxas reported no split (192 over 128) instantiation")
     report["moe"]["split_registers_spills"] = usage
+    report["wide_lse_registers_spills"] = {
+        tag: ptxas_usage(tag) for tag in WIDE_LSE_KERNELS}
+    log(f"flash: the kLse instantiations above 128 (160; 192 over 128): "
+        f"registers, spill store and load bytes "
+        f"{report['wide_lse_registers_spills']}")
+    if None in report["wide_lse_registers_spills"].values():
+        fail("flash: ptxas reported no kLse instantiation above 128")
     return report
 
 
@@ -685,22 +722,32 @@ def sdpa_kernels(torch, fn, reps: int = 3):
 
 # flash-bwd: the backward kernels (f32 1e-4 abs as the forward, bf16 2e-2
 # abs) against autograd of the plain version on float64 copies
-BWD_CASES = [  # name, B, Sq, Sk, H, KH, D, causal, window, dtype
-    ("dit-xl f32", 8, 256, 256, 16, 16, 72, False, 0, "float32"),
+BWD_CASES = [  # name, B, Sq, Sk, H, KH, D, Dv, causal, window, dtype
+    ("dit-xl f32", 8, 256, 256, 16, 16, 72, 72, False, 0, "float32"),
     # the full-width train phase's shape: JAX's step casts x_t to cfg.dtype
-    ("dit-xl bf16 (train)", 8, 256, 256, 16, 16, 72, False, 0, "bfloat16"),
-    ("causal gqa window", 2, 512, 512, 8, 2, 64, True, 128, "float32"),
-    ("ragged 77", 2, 77, 77, 4, 4, 72, True, 0, "float32"),
+    ("dit-xl bf16 (train)", 8, 256, 256, 16, 16, 72, 72, False, 0,
+     "bfloat16"),
+    ("causal gqa window", 2, 512, 512, 8, 2, 64, 64, True, 128, "float32"),
+    ("ragged 77", 2, 77, 77, 4, 4, 72, 72, True, 0, "float32"),
     # q longer than k, causal: the first 32 rows see no key
-    ("fully masked rows", 1, 64, 32, 2, 2, 16, True, 0, "float32"),
-    ("zamba2 prefill", 4, 512, 512, 32, 32, 80, True, 0, "bfloat16"),
-    ("odd d", 2, 100, 160, 4, 2, 18, True, 48, "float32"),
+    ("fully masked rows", 1, 64, 32, 2, 2, 16, 16, True, 0, "float32"),
+    ("zamba2 prefill", 4, 512, 512, 32, 32, 80, 80, True, 0, "bfloat16"),
+    ("odd d", 2, 100, 160, 4, 2, 18, 18, True, 48, "float32"),
     # examples/torch_train_dit.py's ~100M model (f32 params)
-    ("train-dit f32", 16, 64, 64, 12, 12, 64, False, 0, "float32"),
+    ("train-dit f32", 16, 64, 64, 12, 12, 64, 64, False, 0, "float32"),
     # train-dense: tinyllama-1.1b at batch 8 x seq 128, GQA group 8 summed
-    ("tinyllama train (gqa 8)", 8, 128, 128, 32, 4, 64, True, 0, "bfloat16"),
+    ("tinyllama train (gqa 8)", 8, 128, 128, 32, 4, 64, 64, True, 0,
+     "bfloat16"),
+    # train-wide: pixtral-12b at 2 x (1024 patches + 64 tokens), 32 / 8
+    # heads of 160 (GQA group 4 summed), and deepseek-v2's MLA at 4 x 512,
+    # 128 heads of q/k 192 over v 128: flash_attention_bwd_wide.cu
+    ("pixtral train (d 160)", 2, 1088, 1088, 32, 8, 160, 160, True, 0,
+     "bfloat16"),
+    ("mla train (192 over 128)", 4, 512, 512, 128, 128, 192, 128, True, 0,
+     "bfloat16"),
 ]
 BWD_MAIN = "dit-xl bf16 (train)"     # the kernels line's row
+BWD_WIDE = ("pixtral train (d 160)", "mla train (192 over 128)")
 # an older tree's backward kernels' device times at these shapes
 # are not taken here: the parent's source is not in a checkout.  The A/B
 # tool builds both trees' kernels and times them in turns on one card.
@@ -710,8 +757,13 @@ PARENT_AB = {k: f"not measured here: python3 tools/flash_fwd_ab.py "
 # a GQA group summed into its kv head makes dk and dv larger (up to 14 at
 # tinyllama's group of 8), where one bf16 rounding of the output exceeds
 # 2e-2 abs: there each element is held within 2e-2 abs plus one rounding
-# (2^-8 of its float64 value), for the kernel and the plain version alike
-BWD_ROUNDED = ("tinyllama train (gqa 8)",)
+# (2^-8 of its float64 value), for the kernel and the plain version alike.
+# pixtral's group of 4 sums the same way (|dv| up to 10.6, 2.99e-2 abs off
+# float64, 2.2e-5 past one rounding); the MLA has no group, but causal dV
+# of the first keys sums dO over up to 512 queries (|dv| up to 6.4, where
+# half a bf16 step is 1.6e-2: 1.55e-2 abs, 5.7e-6 past one rounding), so
+# both wide rows take the rounded form (first card run, PERF.md §6)
+BWD_ROUNDED = ("tinyllama train (gqa 8)", *BWD_WIDE)
 
 
 def phase_flash_bwd(torch, F):
@@ -721,28 +773,35 @@ def phase_flash_bwd(torch, F):
                                                      flash_attention_backward)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for name, B, Sq, Sk, H, KH, D, causal, window, dt in BWD_CASES:
+    for name, B, Sq, Sk, H, KH, D, Dv, causal, window, dt in BWD_CASES:
         dtype = getattr(torch, dt)
 
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
         q, k, v, do = randn(B, Sq, H, D), randn(B, Sk, KH, D), \
-            randn(B, Sk, KH, D), randn(B, Sq, H, D)
+            randn(B, Sk, KH, Dv), randn(B, Sq, H, Dv)
         scale = 1.0 / math.sqrt(D)
         qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        launched = (flash_attention.launches, flash_attention_backward.launches)
         o = flash_attention(qg, kg, vg, causal=causal, window=window)
         if o.grad_fn is None:
             fail(f"flash-bwd {name}: the output under grad has no grad_fn")
         got = torch.autograd.grad(o, (qg, kg, vg), do)
+        if (flash_attention.launches - launched[0],
+                flash_attention_backward.launches - launched[1]) != (1, 1):
+            fail(f"flash-bwd {name}: the forward and backward under grad "
+                 f"did not launch one kernel each")
         o2 = flash_attention(qg, kg, vg, causal=causal, window=window)
         if not all(torch.equal(a, b) for a, b in zip(
                 got, torch.autograd.grad(o2, (qg, kg, vg), do))):
             fail(f"flash-bwd {name}: a rerun is not bitwise equal")
+        del o2
         q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
         ref = torch.autograd.grad(
             attention_ref(q64, k64, v64, causal=causal, window=window),
             (q64, k64, v64), do.double())
+        del q64, k64, v64
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
         o = ops._forward(q, k, v, causal, window, scale, lse)
         plain = attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
@@ -751,6 +810,7 @@ def phase_flash_bwd(torch, F):
         err = max(float((a.double() - b).abs().max()) for a, b in zip(got, ref))
         plain_err = max(float((a.double() - b).abs().max())
                         for a, b in zip(plain, ref))
+        abs_err = err
         if name in BWD_ROUNDED:   # what exceeds one rounding, plus 2e-2
             err, plain_err = (max(float(((a.double() - b).abs()
                                          - 2.0 ** -8 * b.abs()).max())
@@ -759,14 +819,16 @@ def phase_flash_bwd(torch, F):
         vs_plain = max(float((a.float() - b.float()).abs().max())
                        for a, b in zip(got, plain))
         scale_ref = max(float(b.abs().max()) for b in ref)
+        del plain, ref
         tol = TOL[dt]
-        extra = " (error beyond one bf16 rounding)" \
+        extra = f" (error beyond one bf16 rounding; abs {abs_err:.3e})" \
             if name in BWD_ROUNDED else ""
         if name == "fully masked rows":   # rows 0..31: dq exactly 0
             dead = got[0][:, :Sq - Sk]
             extra = f" dq of the {Sq - Sk} keyless rows max {float(dead.abs().max())}"
             if bool((dead != 0).any()):
                 fail(f"flash-bwd {name}: dq of a row with no key is not 0")
+        del got
 
         def bwd():
             return flash_attention_backward(q, k, v, o, do, lse,
@@ -798,18 +860,21 @@ def phase_flash_bwd(torch, F):
             return torch.autograd.grad(out, (qt, kt, vt), dot_)
 
         lib_ms = cuda_ms(torch, sdpa_fwd_bwd)
+        sdpa_what, sdpa_dev_ms = sdpa_kernels(torch, sdpa_fwd_bwd)
         pairs = Sq * Sk if mask is None else int(mask.sum())
-        # q, o, dO, dq; k, v, dk, dv; the f32 lse
-        nbytes = (4 * B * Sq * H * D + 4 * B * Sk * KH * D) \
+        # q, dq, k, dk of D; o, dO, v, dv of Dv; the f32 lse
+        nbytes = (2 * B * Sq * H + 2 * B * Sk * KH) * (D + Dv) \
             * q.element_size() + 4 * B * H * Sq
         peak = PEAK_FLOPS["float32_3xtf32" if dt == "float32" else dt]
-        b_ms, by = bound(nbytes, 10.0 * B * H * pairs * D, peak)
+        b_ms, by = bound(nbytes, 2.0 * B * H * pairs * (3 * D + 2 * Dv), peak)
         log(f"flash-bwd {name}: B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} D={D} "
+            + (f"Dv={Dv} " if Dv != D else "") +
             f"causal={causal} window={window} {dt}: max_abs_err={err:.3e} "
             f"(tol {tol}; largest |grad| {scale_ref:.3e}) plain "
             f"max_abs_err={plain_err:.3e} kernel-plain={vs_plain:.3e}"
             f"{extra} ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f} "
-            f"sdpa_fwd_bwd_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({by}) "
+            f"sdpa_fwd_bwd_ms={lib_ms:.4f} (device {sdpa_dev_ms:.4f}; "
+            f"{sdpa_what}) bound_ms={b_ms:.4f} ({by}) "
             f"fwd_ms={fwd_ms:.4f} fwd_lse_ms={fwd_lse_ms:.4f}; bitwise on a "
             f"rerun")
         if not err <= tol:
@@ -818,6 +883,7 @@ def phase_flash_bwd(torch, F):
             fail(f"flash-bwd {name}: the plain backward is off by {plain_err}")
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                      "library_device_ms": sdpa_dev_ms,
                       "device_ms": dev_ms, "shape": name,
                       "tolerance": f"{tol} abs" + (
                           " + 2^-8 |ref| (max_abs_err: the excess over one "
@@ -825,10 +891,19 @@ def phase_flash_bwd(torch, F):
                       "fwd_ms": fwd_ms,
                       "fwd_with_lse_ms": fwd_lse_ms,
                       "parent_device_ms": PARENT_AB["flash-bwd"]}
+        del q, k, v, do, o, lse, qg, kg, vg, qt, kt, vt, dot_, mask
+        torch.cuda.empty_cache()
     report = dict(rows[BWD_MAIN])
     report.update({n: rows[n] for n in ("dit-xl f32", "train-dit f32",
                                          "zamba2 prefill",
-                                         "tinyllama train (gqa 8)")})
+                                         "tinyllama train (gqa 8)",
+                                         *BWD_WIDE)})
+    report["wide_registers_spills"] = {
+        tag: ptxas_usage(tag) for tag in WIDE_BWD_KERNELS}
+    log(f"flash-bwd: the wide instantiations' registers, spill store and "
+        f"load bytes {report['wide_registers_spills']}")
+    if None in report["wide_registers_spills"].values():
+        fail("flash-bwd: ptxas reported no wide backward instantiation")
     return report
 
 
@@ -4501,6 +4576,15 @@ MOE_INIT_EXTRA_GB = 1.0      # init's peak above the params it holds
 MOE_LOSS_TOL = 1e-5          # check-moe: lm_loss and its MoE terms, relative
 MOE_MARGIN = 1e-4            # least relative gap of the k-th and (k+1)-th prob
 SPLIT_KERNEL = "flash_fwdI13__nv_bfloat16Li192ELb1ELb0ELi128E"
+# the training instantiations above head dim 128: the kLse forwards
+# (flash_attention_lse.cu) and the wide backward's dV walk (Lb0E), dK walk
+# (Lb1E) and dQ (flash_attention_bwd_wide.cu), at 160 and 192 over 128
+WIDE_LSE_KERNELS = ("flash_fwdI13__nv_bfloat16Li160ELb1ELb1E",
+                    "flash_fwdI13__nv_bfloat16Li192ELb1ELb1ELi128E")
+WIDE_BWD_KERNELS = tuple(
+    f"flash_bwd_{k}_wideILi{d}ELi{dv}E{flag}"
+    for d, dv in ((160, 160), (192, 128))
+    for k, flag in (("dkdv", "Lb0E"), ("dkdv", "Lb1E"), ("dq", "E")))
 
 
 def ptxas_usage(fragment: str):
@@ -4862,6 +4946,312 @@ def _adamw_step_card_vs_cpu(torch, arch):
     if not max(g_rel, same_g, own_mom) <= CHECK_TRAIN_TOL:
         fail(f"check-moe: {arch}: the AdamW step differs ({g_rel}, {same_g}, "
              f"{own_mom})")
+
+
+# train-wide: the two models whose attention heads are wider than 128, at
+# full width on the card, depth cut as one card's 80 GB forces
+TRAIN_WIDE_DEPTH = {"pixtral-12b": 4, "deepseek-v2-236b": 1}
+TRAIN_WIDE_STEPS = 4         # pixtral: step 1 eager, then the captured step
+TRAIN_WIDE_BATCH, TRAIN_WIDE_TEXT = 2, 64    # x (1024 patches + 64 tokens)
+TRAIN_WIDE_MLA_TOKENS = (2, 512)
+# check-train-wide: SMOKE with the published head dims put back, bf16
+WIDE_HEADS = {"pixtral-12b": dict(head_dim=160),
+              "deepseek-v2-236b": dict(qk_nope_head_dim=128,
+                                       qk_rope_head_dim=64, v_head_dim=128)}
+# bf16 params: every leaf's gradient within the repo's bf16 gate, 5e-2
+# relative (H100 runs: pixtral's worst leaf 1.65e-2, its AdamW moments
+# 1.88e-2; deepseek-v2 at top-4 of 4 1.93e-2, at its own top-2 0.127 from
+# a flipped choice, so not gated there); the loss within 1e-3 (measured
+# 7.8e-7, 3.1e-5 and 1.04e-4)
+CHECK_WIDE_TOL, CHECK_WIDE_LOSS_TOL = 5e-2, 1e-3
+
+
+def _param_gb(cfg):
+    """(bf16 GB of params a layer, GB of the rest: embeddings, head,
+    projections) of cfg at full width, from the meta device."""
+    import dataclasses
+    from repro_torch.models import params_shape
+    one, two = (_tree_bytes(params_shape(dataclasses.replace(
+        cfg, num_layers=n))) / 1e9 for n in (1, 2))
+    return two - one, one - (two - one)
+
+
+def _wide_kernels_by_name(torch, fn):
+    """{flash kernel name: count} of one fn() under the profiler (names
+    demangled: "flash_bwd_dq_wide<160, 160>(...")."""
+    evts, _ = profile(torch, fn)
+    return {e.key[:110]: e.count for e in evts
+            if ("flash_bwd" in e.key or "flash_fwd" in e.key)
+            and str(e.device_type).endswith("CUDA")}
+
+
+def _train_wide_pixtral(torch, kernels, path):
+    """Full-width pixtral-12b cut to TRAIN_WIDE_DEPTH layers, trained
+    through train_loop(jit=True) (step 1 eager, then the captured step) on
+    batches of 2 x (1024 patch embeddings + 64 tokens)."""
+    import dataclasses
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches, patch_embeddings
+    from repro_torch.train.loop import StepProgram, train_loop
+    from repro_torch.train.steps import init_train_state, make_lm_train_step
+    from repro_torch.tree import tree_leaves
+    arch, steps = "pixtral-12b", TRAIN_WIDE_STEPS
+    full = get_config(arch)
+    depth = TRAIN_WIDE_DEPTH[arch]
+    cfg = dataclasses.replace(full, num_layers=depth)
+    layer_gb, rest_gb = _param_gb(full)
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    log(f"train-wide: {arch} {depth} of {full.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}. Depth cut: "
+        f"{layer_gb:.3f} GB of bf16 params a layer and {rest_gb:.2f} GB of "
+        f"embeddings, head and vision projection; params, gradients, the "
+        f"clip's f32 copies and f32 AdamW moments take about 8x the bf16 "
+        f"params, {8 * (depth * layer_gb + rest_gb):.1f} GB at {depth} "
+        f"layers ({8 * (full.num_layers * layer_gb + rest_gb):.0f} GB at "
+        f"{full.num_layers}) of the card's {card_gb:.1f} GB")
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    log(f"train-wide: {arch}: params={n_params} init "
+        f"{time.perf_counter() - t0:.2f}s; batch {TRAIN_WIDE_BATCH} x "
+        f"({cfg.num_vision_tokens} patches + {TRAIN_WIDE_TEXT} tokens), "
+        f"{steps} steps, warmup 0")
+    it = lm_batches(0, TRAIN_WIDE_BATCH, TRAIN_WIDE_TEXT, cfg.vocab_size)
+    made = []
+    for i in range(steps + 2):
+        t, y = next(it)
+        made.append({"tokens": torch.from_numpy(t).cuda(),
+                     "targets": torch.from_numpy(y).cuda(),
+                     "vision_embeds": torch.from_numpy(patch_embeddings(
+                         i, TRAIN_WIDE_BATCH, cfg.num_vision_tokens,
+                         cfg.vision_dim)).cuda()})
+    stamps = []
+
+    def batches():
+        for b in made[:steps + 1]:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            yield b
+
+    step = make_lm_train_step(cfg, peak_lr=3e-4, warmup=0,
+                              total_steps=steps + 2)
+    torch.cuda.reset_peak_memory_stats()
+    (state, hist), launches = _count_launches(
+        kernels, path, "train-wide", lambda: train_loop(
+            step, state, batches(), steps, log_every=1,
+            log_fn=lambda m: log(f"train-wide: {arch}: {m}"), jit=True))
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])][:steps]
+    losses = [h["loss"] for h in hist]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        fail(f"train-wide: {arch}: losses {losses}")
+    for name in ("flash_attention", "flash_attention_backward"):
+        if launches[name] != depth * steps:
+            fail(f"train-wide: {arch}: {name} launched {launches[name]} "
+                 f"times, want {depth} a step")
+    log(f"train-wide: {arch}: {steps} steps through train_loop(jit=True), "
+        f"losses {losses}, grad norms {[h['grad_norm'] for h in hist]}; ms "
+        f"a step (host clock, synchronized) {[round(x, 1) for x in ms]} "
+        f"(step 1 eager, step 2 the capture and its replay, then replays: "
+        f"median of steps 3-{steps} {statistics.median(ms[2:]):.1f}); "
+        f"peak_mem_gb={peak:.2f}; launches {launches}")
+    batch = made[steps + 1]
+    parts, bwd_ms, busy, pwall, kern = train_profile(
+        torch, lambda: step(state, batch))
+    by_name = {e.key[:110]: e.count for e in kern if "flash_" in e.key}
+    log(f"train-wide: {arch}: a profiled eager step: wall {pwall:.1f} ms, "
+        f"device kernels {busy:.1f} ms; device ms between each part's "
+        f"edges (CUDA events) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"; flash backward {bwd_ms:.2f} ms (share of kernel time "
+        f"{bwd_ms / busy:.4f}); flash kernels by name {by_name}")
+    for e in sorted(kern, key=_self_device_us, reverse=True)[:10]:
+        log(f"profile: {_self_device_us(e) / 1e3:9.3f} ms "
+            f"{100 * _self_device_us(e) / 1e3 / busy:5.1f}% "
+            f"x{e.count:<5d} {e.key[:90]}")
+    wide = sum(n for k, n in by_name.items()
+               if "flash_bwd_dq_wide<160, 160>" in k)
+    if wide != depth:
+        fail(f"train-wide: {arch}: the profiled step ran the D 160 dQ "
+             f"kernel {wide} times, want {depth}")
+    _, metrics = step(state, batch)
+    prog = StepProgram(step, state, batch, metrics)
+    busy, pwall, share = _idle_share(torch, lambda: prog(batch))
+    log(f"train-wide: {arch}: a captured step's replay: profiled wall "
+        f"{pwall:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{share:.3f}")
+    del state, prog, made, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _train_wide_mla(torch, kernels, path):
+    """Full-width deepseek-v2-236b cut to TRAIN_WIDE_DEPTH layers: lm_loss
+    with its MoE terms and its gradients at 2 x 512 tokens (an AdamW step
+    does not fit)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import init_params
+    from repro_torch.train.steps import _value_and_grad, lm_loss
+    from repro_torch.tree import tree_leaves
+    arch = "deepseek-v2-236b"
+    full = get_config(arch)
+    depth = TRAIN_WIDE_DEPTH[arch]
+    cfg = dataclasses.replace(full, num_layers=depth)
+    layer_gb, rest_gb = _param_gb(full)
+    held = depth * layer_gb + rest_gb
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    log(f"train-wide: {arch} {depth} of {full.num_layers} layers, d_model "
+        f"{cfg.d_model}, MLA {cfg.num_heads} heads of q/k "
+        f"{cfg.qk_nope_head_dim}+{cfg.qk_rope_head_dim} over v "
+        f"{cfg.v_head_dim}, {cfg.num_experts} experts. Depth cut: "
+        f"{layer_gb:.2f} GB of bf16 params a layer, {rest_gb:.2f} GB of "
+        f"embeddings and head: {held:.1f} GB at {depth}; an AdamW step "
+        f"adds the clip's f32 copies and f32 moments, about "
+        f"{6 * held:.0f} GB more, past the card's {card_gb:.1f} GB, so "
+        f"the phase takes the loss and its gradients")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    B, S = TRAIN_WIDE_MLA_TOKENS
+    t, y = (torch.from_numpy(a).cuda()
+            for a in next(lm_batches(0, B, S, cfg.vocab_size)))
+
+    def run():
+        return _value_and_grad(lambda p, _: lm_loss(p, t, y, cfg), params,
+                               None)
+
+    torch.cuda.reset_peak_memory_stats()
+    (grads, m), launches = _count_launches(kernels, path, "train-wide", run)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    vals = {k: float(v) for k, v in m.items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+    if not (all(map(math.isfinite, vals.values())) and finite):
+        fail(f"train-wide: {arch}: loss {vals}, gradients finite {finite}")
+    for name in ("flash_attention", "flash_attention_backward"):
+        if launches[name] != depth:
+            fail(f"train-wide: {arch}: {name} launched {launches[name]} "
+                 f"times, want {depth}")
+    del grads
+    _, ms = _sync_ms(torch, run)
+    by_name = _wide_kernels_by_name(torch, run)
+    split = sum(n for k, n in by_name.items() if "_wide<192, 128" in k)
+    log(f"train-wide: {arch}: lm_loss {vals} at {B} x {S} tokens, every "
+        f"gradient finite; loss and gradients {ms:.1f} ms (host clock, "
+        f"synchronized, second run); peak_mem_gb={peak:.2f}; launches "
+        f"{launches}; flash kernels by name {by_name}")
+    if split != 3 * depth:
+        fail(f"train-wide: {arch}: the split backward's three product "
+             f"kernels ran {split} times, want {3 * depth}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_wide(torch, kernels, path):
+    """pixtral-12b and deepseek-v2-236b trained at full width on the card
+    through the head-dim-160 and split (192 over 128) training kernels,
+    one at a time, each dropped before the next."""
+    total = _train_wide_pixtral(torch, kernels, path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla = _train_wide_mla(torch, kernels, path)
+    return {k: total[k] + mla[k] for k in total}
+
+
+def _wide_grads_card_vs_cpu(torch, arch, cfg, what, gate_leaves):
+    """lm_loss and its gradients of `cfg` (bf16 params from seed 5) on the
+    card and the CPU from one batch: the loss within CHECK_WIDE_LOSS_TOL
+    relative, and (gate_leaves) every leaf's gradient within
+    CHECK_WIDE_TOL.  Returns (CPU params, tokens, targets, vision embeds
+    or None)."""
+    from repro_torch.data import lm_batches, patch_embeddings
+    from repro_torch.kernels import flash_attention_backward
+    from repro_torch.models import init_params
+    from repro_torch.train.steps import _value_and_grad, lm_loss
+    cpu = init_params(torch.Generator().manual_seed(5), cfg, device="cpu")
+    t, y = (torch.from_numpy(a) for a in next(lm_batches(
+        0, 4, 100, cfg.vocab_size)))
+    ve = torch.from_numpy(patch_embeddings(
+        5, 4, cfg.num_vision_tokens, cfg.vision_dim)) \
+        if cfg.family == "vlm" else None
+
+    def loss_fn(p, dev):
+        kw = {} if ve is None else {"vision_embeds": ve.to(dev)}
+        return lm_loss(p, t.to(dev), y.to(dev), cfg, **kw)
+
+    g_cpu, m_cpu = _value_and_grad(lambda p, _: loss_fn(p, "cpu"), cpu, None)
+    before = flash_attention_backward.launches
+    g_gpu, m_gpu = _value_and_grad(lambda p, _: loss_fn(p, "cuda"),
+                                   _to(cpu, "cuda"), None)
+    n_bwd = flash_attention_backward.launches - before
+    a, b = float(m_gpu["loss"]), float(m_cpu["loss"])
+    loss_rel, grad_rel = abs(a - b) / abs(b), _tree_rel(torch, g_gpu, g_cpu)
+    log(f"check-train-wide: {arch} {what}: lm_loss (card, cpu) ({a:.6f}, "
+        f"{b:.6f}), relative {loss_rel:.3e} (tol {CHECK_WIDE_LOSS_TOL}); "
+        f"gradients, worst leaf {grad_rel:.3e} "
+        + (f"(tol {CHECK_WIDE_TOL})" if gate_leaves else
+           "(not gated: a top-k choice near its tie flips under the two "
+           "devices' bf16 sums and moves whole experts' gradients)")
+        + f"; {n_bwd} flash backward launches on the card")
+    if n_bwd != cfg.num_layers:
+        fail(f"check-train-wide: {arch}: the flash backward launched "
+             f"{n_bwd} times, want {cfg.num_layers}")
+    if not (loss_rel <= CHECK_WIDE_LOSS_TOL
+            and (grad_rel <= CHECK_WIDE_TOL or not gate_leaves)):
+        fail(f"check-train-wide: {arch} {what}: card and CPU differ "
+             f"({loss_rel}, {grad_rel})")
+    return cpu, t, y, ve
+
+
+def phase_check_train_wide(torch):
+    """pixtral-12b and deepseek-v2-236b SMOKE with their published head
+    dims put back (160; q/k 192 over v 128) and bf16 params, on the card
+    and the CPU: lm_loss, every leaf's gradient and one pixtral train
+    step's AdamW moments within CHECK_WIDE_TOL relative.  deepseek-v2's
+    leaves are gated with every token routed to all 4 experts (top-4 of
+    4), where no choice can flip; at its top-2 the loss is gated and the
+    leaves logged."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.steps import TrainState, make_lm_train_step
+    from repro_torch.tree import tree_map
+    arch = "pixtral-12b"
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16",
+                              **WIDE_HEADS[arch])
+    cpu, t, y, ve = _wide_grads_card_vs_cpu(torch, arch, cfg,
+                                            str(WIDE_HEADS[arch]), True)
+    # one AdamW step from one state and batch on both devices
+    step = make_lm_train_step(cfg, warmup=0, total_steps=1)
+    st_cpu = TrainState(cpu, adamw_init(cpu))
+    st_gpu = tree_map(lambda x: x.to("cuda", copy=True), st_cpu)
+    batch = {"tokens": t, "targets": y, "vision_embeds": ve}
+    st_cpu, _ = step(st_cpu, batch)
+    st_gpu, _ = step(st_gpu, {k: v.cuda() for k, v in batch.items()})
+    mom = max(_tree_rel(torch, st_gpu.opt.mu, st_cpu.opt.mu),
+              _tree_rel(torch, st_gpu.opt.nu, st_cpu.opt.nu))
+    par = _tree_rel(torch, st_gpu.params, st_cpu.params)
+    log(f"check-train-wide: {arch}: one AdamW step: moments {mom:.3e} "
+        f"(tol {CHECK_WIDE_TOL}), params {par:.3e} (not gated: the first "
+        f"update is about lr * sign(g), check-moe's note)")
+    if not mom <= CHECK_WIDE_TOL:
+        fail(f"check-train-wide: {arch}: the AdamW moments differ by {mom}")
+    arch = "deepseek-v2-236b"
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16",
+                              **WIDE_HEADS[arch])
+    _wide_grads_card_vs_cpu(torch, arch, cfg, f"{WIDE_HEADS[arch]} top-"
+                            f"{cfg.experts_per_token}", False)
+    every = dataclasses.replace(cfg, experts_per_token=cfg.num_experts)
+    _wide_grads_card_vs_cpu(torch, arch, every, f"top-{every.num_experts} "
+                            f"of {every.num_experts}", True)
 
 
 VERIFY_STEPS = 16      # the verify phase's engines: max_steps, 4 slots
@@ -6018,6 +6408,10 @@ def main() -> int:
     by_path["serve-moe"] = timed("serve-moe", phase_serve_moe, torch, KERNELS,
                                  (flash_attention,))
     timed("check-moe", phase_check_moe, torch)
+    # slice 18: training above head dim 128 (pixtral-12b, deepseek-v2's MLA)
+    by_path["train-wide"] = timed("train-wide", phase_train_wide, torch,
+                                  KERNELS, train_path)
+    timed("check-train-wide", phase_check_train_wide, torch)
     # slice 15: the analysis package on the card
     by_path["verify"] = timed("verify", phase_verify, torch, KERNELS,
                               (flash_attention, forecast))
@@ -6048,6 +6442,12 @@ def main() -> int:
         if tdist.is_initialized():
             tdist.destroy_process_group()
 
+    # the backward above head dim 128 (flash_attention_bwd_wide.cu): its
+    # launches are train-wide's, its numbers the pixtral row's
+    wide_bwd = dict(flash_bwd[BWD_WIDE[0]])
+    wide_bwd[BWD_WIDE[1]] = flash_bwd[BWD_WIDE[1]]
+    wide_bwd["registers_spills"] = flash_bwd["wide_registers_spills"]
+    wide_paths = ("train-wide",)
     rows = []
     for name, fn, src, replaces, rep in (
             ("flash_attention", flash_attention,
@@ -6066,9 +6466,19 @@ def main() -> int:
             ("ssd_backward", ssd_scan_backward,
              "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
              "src/repro/models/ssm.py:207 (JAX autodiff of ssd_chunked; no "
-             "Pallas kernel)", ssd_bwd)):
+             "Pallas kernel)", ssd_bwd),
+            ("flash_attention_backward_wide", flash_attention_backward,
+             "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_bwd_wide.cu",
+             "src/repro/models/layers.py:86 (JAX autodiff of "
+             "blocked_attention above head dim 128; no Pallas kernel)",
+             wide_bwd)):
+        # the flash backward's launches split between its two sources
+        split = fn is flash_attention_backward
         per_path = {path: n[fn.__name__] for path, n in by_path.items()
-                    if n[fn.__name__] > 0}
+                    if n[fn.__name__] > 0 and not (
+                        split and (path in wide_paths)
+                        != name.endswith("_wide"))}
         # the contract's keys first, then each phase's extra numbers
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": sum(per_path.values()),

@@ -4,7 +4,8 @@ wrapper (the counterpart of the JAX package's `ir/pallas_lint.py`).
 
 Each wrapper is driven at the main paths' shapes (PERF.md §6: DiT-XL
 serving and training, the video DiT's temporal fold, the zamba2, dense,
-pixtral and MLA prefills, tinyllama training, the forecast kernel at the
+pixtral and MLA prefills, tinyllama, pixtral and MLA training (head dims
+160 and 192 over 128: the wide backward), the forecast kernel at the
 serving and video-pool sizes, the SSD scan and its backward on zamba2's
 bf16 views) with `_build.launch` wrapped to capture each call: its C entry
 point, its raw arguments, the tensors of the wrapper's frame whose
@@ -15,7 +16,8 @@ Python side, on the capture:
     last stride);
   * 16-byte aligned pointers (and, for the SSD scan, rows and strides)
     wherever the vectorised staging assumes them; a forecast launched with
-    vec set, or the split flash entry, depends on them outright, and
+    vec set, or the split and wide flash entries, depend on them outright,
+    and
     elsewhere a miss drops the call to element-by-element staging;
   * one floating dtype per call, the one the dtype code names, and the
     f32 / int32 operands of their types; no float64 / complex128;
@@ -66,10 +68,17 @@ ENTRY_ARGS: Dict[str, Tuple[str, ...]] = {
     "flash_attention_fwd_lse": ("q:T", "k:T", "v:T", "o:T", "lse:f32",
                                 "dtype", "B", "Sq", "Sk", "H", "KH", "D",
                                 "causal", "window", "scale"),
+    "flash_attention_fwd_split_lse": ("q:T", "k:T", "v:T", "o:T", "lse:f32",
+                                      "dtype", "B", "Sq", "Sk", "H", "KH",
+                                      "D", "Dv", "causal", "window", "scale"),
     "flash_attention_bwd": ("q:T", "k:T", "v:T", "o:T", "dO:T", "lse:f32",
                             "delta:f32", "dq:T", "dk:T", "dv:T", "dtype", "B",
                             "Sq", "Sk", "H", "KH", "D", "causal", "window",
                             "scale"),
+    "flash_attention_bwd_wide": ("q:T", "k:T", "v:T", "o:T", "dO:T",
+                                 "lse:f32", "delta:f32", "dq:T", "dk:T",
+                                 "dv:T", "dtype", "B", "Sq", "Sk", "H", "KH",
+                                 "D", "Dv", "causal", "window", "scale"),
     "forecast_fwd": ("d:T", "c:f32", "o:T", "dtype", "batch", "m1", "n",
                      "vec"),
     "forecast_basis_fwd": ("d:T", "steps:i32", "last:i32", "n_valid:i32",
@@ -235,7 +244,9 @@ def check_capture(cap: LaunchCapture) -> List[OpIssue]:
     if call_dtype is None:
         issue(f"dtype code {code} names no kernel dtype")
     per16 = 4 if code == 0 else 8
-    vec_required = cap.entry == "flash_attention_fwd_split" or (
+    vec_required = cap.entry in ("flash_attention_fwd_split",
+                                 "flash_attention_fwd_split_lse",
+                                 "flash_attention_bwd_wide") or (
         cap.entry.startswith("forecast") and bool(cap.arg("vec")))
     aligned = set(_ALIGNED_F32.get(cap.entry, ()))
     floating = set()
@@ -401,7 +412,10 @@ def _drive_flash(torch):
     for name, shape, causal in (
             ("dit-xl train bf16", (8, 256, 16, 16, 72, bf16), False),
             ("dit-xl train f32", (8, 256, 16, 16, 72, f32), False),
-            ("tinyllama train", (8, 128, 32, 4, 64, bf16), True)):
+            ("tinyllama train", (8, 128, 32, 4, 64, bf16), True),
+            ("pixtral train D160", (2, 1088, 32, 8, 160, bf16), True),
+            ("deepseek-v2 MLA train", (4, 512, 128, 128, 192, bf16, 128),
+             True)):
         def train(s=shape, c=causal):
             q, k, v = (t.requires_grad_(True) for t in qkv(*s))
             flash_attention(q, k, v, causal=c).float().square().sum() \

@@ -119,7 +119,8 @@ def build_log() -> str:
 
 #: every C entry point; each has a query entry `<name>_plan`
 ENTRIES = ("flash_attention_fwd", "flash_attention_fwd_split",
-           "flash_attention_fwd_lse", "flash_attention_bwd", "forecast_fwd",
+           "flash_attention_fwd_lse", "flash_attention_fwd_split_lse",
+           "flash_attention_bwd", "flash_attention_bwd_wide", "forecast_fwd",
            "forecast_basis_fwd", "ssd_fwd", "ssd_bwd")
 
 
@@ -133,7 +134,9 @@ def _declare(lib) -> None:
                                         I, F, P]
     lib.flash_attention_fwd_split.argtypes = [P] * 4 + [I] * 10 + [F, P]
     lib.flash_attention_fwd_lse.argtypes = [P] * 5 + [I] * 9 + [F, P]
+    lib.flash_attention_fwd_split_lse.argtypes = [P] * 5 + [I] * 10 + [F, P]
     lib.flash_attention_bwd.argtypes = [P] * 10 + [I] * 9 + [F, P]
+    lib.flash_attention_bwd_wide.argtypes = [P] * 10 + [I] * 10 + [F, P]
     lib.forecast_fwd.argtypes = [P, P, P, I, I, I, L, I, P]
     lib.forecast_basis_fwd.argtypes = [P, P, P, P, P, I, I, I, L, I, I, I,
                                        ctypes.c_double, P]

@@ -10,7 +10,7 @@
 // bf16 inputs; and, for bf16 serving with 16-byte rows and pointers, head
 // dim 128 < D <= 160 (pixtral-12b's 160; see "Head dim 160" below) and a
 // q/k head dim 128 < D <= 192 over a v head dim Dv <= 128 (deepseek-v2's
-// MLA prefill, 192 over 128; see "Split head dim" below).
+// MLA, 192 over 128; see "Split head dim" below), serving and training.
 //
 // Bound on an H100 SXM: 4 * B * H * (unmasked query-key pairs) * D
 // operations against the bytes of q, k, v and o moved once.  In bf16 the
@@ -55,30 +55,35 @@
 //   16-byte aligned, the same kernel stages element by element (template
 //   flag kVec = false) at the widest padding, 128.
 // - Head dim 160: one more instantiation, bf16 with 16-byte staging at
-//   DP = kDWide, reached only from the serving entry point (kLse = false)
-//   for 128 < D <= 160, so every instantiation up to kDMax keeps its code.
-//   Its ring is 2 stages x (K, V) x 64 x 168 x 2 B = 86 KB (the opt-in
-//   above 48 KB) and its O accumulator alone is 80 f32 a thread; the bound
-//   and the walk are the same as at D 128.  f32, the kLse instantiations
-//   and the backward stop at 128.
+//   DP = kDWide, for 128 < D <= 160, so every instantiation up to kDMax
+//   keeps its code: the serving one (kLse = false) from this file and the
+//   training one (kLse = true, pixtral-12b's training forward) from
+//   flash_attention_lse.cu.  Its ring is 2 stages x (K, V) x 64 x 168 x
+//   2 B = 86 KB (the opt-in above 48 KB) and its O accumulator alone is 80
+//   f32 a thread; the bound and the walk are the same as at D 128.  f32
+//   stops at 128.
 // - Split head dim: template parameter DV (default DP) sizes the V tiles,
 //   the O accumulator and the epilogue, while Q K^T runs over DP / 16
-//   k-steps.  One instantiation uses it, bf16 with 16-byte staging at
-//   DP = kDSplit (192), DV = kDvSplit (128), reached only from its own
-//   entry point, flash_attention_fwd_split, which passes Dv (the kernel's
-//   last parameter, after lse, so the other parameters keep their
-//   constant-bank offsets).  Every DV == DP instantiation reads D where it
-//   reads Dv, through constant conditions, so its code is what it was.
+//   k-steps.  Two instantiations use it, bf16 with 16-byte staging at
+//   DP = kDSplit (192), DV = kDvSplit (128): serving, from this file's
+//   flash_attention_fwd_split, and training (kLse), from
+//   flash_attention_lse.cu's flash_attention_fwd_split_lse (deepseek-v2's
+//   MLA under grad).  Both pass Dv (the kernel's last parameter, after lse,
+//   so the other parameters keep their constant-bank offsets).  Every
+//   DV == DP instantiation reads D where it reads Dv, through constant
+//   conditions, so its code is what it was.
 //   A stage of the ring holds K (64 x 200) and V (64 x 136): 86 KB for two
 //   stages; Q (64 x 200) is staged in the last one.  Its O accumulator is
 //   64 f32 a thread (80 at D 160) and its Q fragments 48 registers.
 // - Training (template flag kLse): the epilogue also writes each row's
 //   log-sum-exp (natural log, (B, H, Sq) f32) for the backward
-//   (flash_attention_bwd.cu).  Those instantiations are built from
-//   flash_attention_lse.cu, which includes this file with
-//   FLASH_ATTENTION_LSE defined and exports flash_attention_fwd_lse; this
-//   file's own entry point, flash_attention_fwd, builds only the serving
-//   instantiations (kLse = false), whose code the flag leaves as it was.
+//   (flash_attention_bwd.cu, and flash_attention_bwd_wide.cu above 128).
+//   Those instantiations are built from flash_attention_lse.cu, which
+//   includes this file with FLASH_ATTENTION_LSE defined and exports
+//   flash_attention_fwd_lse and flash_attention_fwd_split_lse; this file's
+//   own entry points, flash_attention_fwd and flash_attention_fwd_split,
+//   build only the serving instantiations (kLse = false), whose code the
+//   flag leaves as it was.
 // Where the time goes (tools/flash_ablate.py) and what is left to gain are
 // in PERF.md.
 
@@ -177,8 +182,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           T* __restrict__ o, int Sq, int Sk, int H, int KH, int D, int causal, int window,
           float scale_log2, int q_offset, float* __restrict__ lse, int Dv) {
   constexpr bool kBf16 = sizeof(T) == 2;
-  static_assert(DV == DP || (kBf16 && kVec && !kLse && DV < DP),
-                "a split head dim is bf16 serving with 16-byte staging");
+  static_assert(DV == DP || (kBf16 && kVec && DV < DP),
+                "a split head dim is bf16 with 16-byte staging");
   constexpr int LD = DP + Traits<T>::kRowPad;   // shared row stride, elements
   constexpr int LDV = DV + Traits<T>::kRowPad;  // ... of the V tiles and O
   constexpr int kTile = kBK * LD;
@@ -519,12 +524,10 @@ int run(const void* q, const void* k, const void* v, void* o, float* lse, int dt
   const bool vec = (D * elem) % 16 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(o);
   if (D > kDMax) {
-    // bf16 serving with 16-byte rows and pointers only (pixtral-12b's 160)
-    if constexpr (!kLse) {
-      if (dtype == 1 && D <= kDWide && vec)
-        return (int)launch_dp<__nv_bfloat16, kDWide, true, false>(
-            q, k, v, o, lse, B, Sq, Sk, H, KH, D, causal, window, scale, s);
-    }
+    // bf16 with 16-byte rows and pointers only (pixtral-12b's 160)
+    if (dtype == 1 && D <= kDWide && vec)
+      return (int)launch_dp<__nv_bfloat16, kDWide, true, kLse>(
+          q, k, v, o, lse, B, Sq, Sk, H, KH, D, causal, window, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 0)
@@ -536,13 +539,27 @@ int run(const void* q, const void* k, const void* v, void* o, float* lse, int dt
   return (int)cudaErrorInvalidValue;
 }
 
+// A v (and o) head dim Dv below q and k's D (the split instantiation).
+template <bool kLse>
+int run_split(const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B,
+              int Sq, int Sk, int H, int KH, int D, int Dv, int causal, int window, float scale,
+              void* stream) {
+  if (!valid_shape(B, Sq, Sk, H, KH, D) || dtype != 1 || D <= kDMax || D > kDSplit ||
+      D % 8 != 0 || Dv < 1 || Dv > kDvSplit || Dv % 8 != 0 || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(o))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_dp<__nv_bfloat16, kDSplit, true, kLse, kDvSplit>(
+      q, k, v, o, lse, B, Sq, Sk, H, KH, D, causal, window, scale,
+      static_cast<cudaStream_t>(stream), Dv);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  All four
 // tensors are contiguous: q and o (B, Sq, H, D), k and v (B, Sk, KH, D).
 // 16-byte copies need 16-byte rows and pointers; anything else stages
 // element by element in the same kernel.  128 < D <= 160 takes bf16 with
-// 16-byte rows and pointers only (flash_attention_fwd; not the _lse entry).
+// 16-byte rows and pointers only.
 #ifndef FLASH_ATTENTION_LSE
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int B, int Sq, int Sk, int H, int KH, int D,
@@ -558,13 +575,8 @@ extern "C" int flash_attention_fwd_split(const void* q, const void* k, const voi
                                          int dtype, int B, int Sq, int Sk, int H, int KH,
                                          int D, int Dv, int causal, int window, float scale,
                                          void* stream) {
-  if (!valid_shape(B, Sq, Sk, H, KH, D) || dtype != 1 || D <= kDMax || D > kDSplit ||
-      D % 8 != 0 || Dv < 1 || Dv > kDvSplit || Dv % 8 != 0 || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(o))
-    return (int)cudaErrorInvalidValue;
-  return (int)launch_dp<__nv_bfloat16, kDSplit, true, false, kDvSplit>(
-      q, k, v, o, nullptr, B, Sq, Sk, H, KH, D, causal, window, scale,
-      static_cast<cudaStream_t>(stream), Dv);
+  return run_split<false>(q, k, v, o, nullptr, dtype, B, Sq, Sk, H, KH, D, Dv, causal, window,
+                          scale, stream);
 }
 
 // Query entries (launch_plan.cuh): the entry's arguments with `plans` in
@@ -603,5 +615,25 @@ extern "C" int flash_attention_fwd_lse_plan(const void* q, const void* k, const 
   plan::Scope scope(plans);
   return flash_attention_fwd_lse(q, k, v, o, lse, dtype, B, Sq, Sk, H, KH, D, causal, window,
                                  scale, nullptr);
+}
+
+// The split head dim (flash_attention_fwd_split's arguments), and lse (B,
+// H, Sq) f32 receives each row's log-sum-exp.
+extern "C" int flash_attention_fwd_split_lse(const void* q, const void* k, const void* v,
+                                             void* o, void* lse, int dtype, int B, int Sq,
+                                             int Sk, int H, int KH, int D, int Dv, int causal,
+                                             int window, float scale, void* stream) {
+  return run_split<true>(q, k, v, o, static_cast<float*>(lse), dtype, B, Sq, Sk, H, KH, D, Dv,
+                         causal, window, scale, stream);
+}
+
+extern "C" int flash_attention_fwd_split_lse_plan(const void* q, const void* k, const void* v,
+                                                  void* o, void* lse, int dtype, int B, int Sq,
+                                                  int Sk, int H, int KH, int D, int Dv,
+                                                  int causal, int window, float scale,
+                                                  long long* plans) {
+  plan::Scope scope(plans);
+  return flash_attention_fwd_split_lse(q, k, v, o, lse, dtype, B, Sq, Sk, H, KH, D, Dv, causal,
+                                       window, scale, nullptr);
 }
 #endif

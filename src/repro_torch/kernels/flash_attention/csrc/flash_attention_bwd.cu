@@ -77,6 +77,11 @@
 // - The f32 instantiations compile from flash_attention_bwd_f32.cu, which
 //   includes this file with FLASH_BWD_F32 defined, so that the two halves
 //   build in parallel; this file holds the bf16 half and the entry point.
+// - Head dims above 128 (bf16: pixtral-12b's 160, deepseek-v2's MLA at q/k
+//   192 over v 128) are flash_attention_bwd_wide.cu's, a translation unit
+//   of its own that includes this file for its helpers, with an entry
+//   point of its own (flash_attention_bwd_wide), so that every
+//   instantiation here keeps its code.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -611,6 +616,16 @@ cudaError_t launch(bool vec, const void* q, const void* k, const void* v, const 
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// Delta = rowsum(dO * o) of (B, Sq, H, D) o and dO into (B, H, Sq)
+template <typename T>
+cudaError_t launch_delta(const void* o, const void* dO, float* delta, int B, int Sq, int H, int D,
+                         cudaStream_t s) {
+  const long long rows = (long long)B * Sq * H;
+  return PLAN_LAUNCH("flash_bwd_delta", flash_bwd_delta<T>, dim3((unsigned)((rows + 7) / 8)),
+                     dim3(256), 0, s, static_cast<const T*>(o), static_cast<const T*>(dO), delta,
+                     rows, Sq, H, D);
+}
+
 template <typename T>
 int run(const void* q, const void* k, const void* v, const void* o, const void* dO,
         const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
@@ -622,11 +637,7 @@ int run(const void* q, const void* k, const void* v, const void* o, const void* 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  const long long rows = (long long)B * Sq * H;
-  const cudaError_t e =
-      PLAN_LAUNCH("flash_bwd_delta", flash_bwd_delta<T>, dim3((unsigned)((rows + 7) / 8)),
-                  dim3(256), 0, s, static_cast<const T*>(o), static_cast<const T*>(dO), dl, rows,
-                  Sq, H, D);
+  const cudaError_t e = launch_delta<T>(o, dO, dl, B, Sq, H, D, s);
   if (e != cudaSuccess) return (int)e;
   const bool vec = (D * (int)sizeof(T)) % 16 == 0 && aligned16(q) && aligned16(k) &&
                    aligned16(v) && aligned16(dO) && aligned16(dq) && aligned16(dk) &&
@@ -636,7 +647,10 @@ int run(const void* q, const void* k, const void* v, const void* o, const void* 
 
 }  // namespace
 
-#ifndef FLASH_BWD_F32
+#if defined(FLASH_BWD_WIDE)
+// flash_attention_bwd_wide.cu adds its kernels and its entry point after
+// this file.
+#elif !defined(FLASH_BWD_F32)
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                        const void* o, const void* dO, const void* lse,
                                        void* delta, void* dq, void* dk, void* dv, int B, int Sq,

@@ -8,18 +8,22 @@ CPU tensors take the plain versions (`attention_ref`, `attention_bwd_ref`).
 CUDA tensors launch `csrc/flash_attention.cu` (serving),
 `csrc/flash_attention_lse.cu` (the same kernels writing the row
 log-sum-exp, under grad) and `csrc/flash_attention_bwd.cu` (its f32
-half built from `csrc/flash_attention_bwd_f32.cu`), or raise:
-there is no fallback on the card.  Head dims up to `MAX_HEAD_DIM` (128)
-everywhere; up to `MAX_HEAD_DIM_BF16_SERVING` (160, pixtral-12b) on the
-serving path alone, for bf16 with 16-byte rows and pointers.
+half built from `csrc/flash_attention_bwd_f32.cu`; head dims above 128
+from `csrc/flash_attention_bwd_wide.cu`), or raise: there is no fallback
+on the card.  Head dims up to `MAX_HEAD_DIM` (128) in f32 and bf16; up to
+`MAX_HEAD_DIM_BF16_WIDE` (160, pixtral-12b) for bf16 with 16-byte rows
+and pointers, serving and under grad.
 
 v may have a smaller head dim Dv than q and k (deepseek-v2's MLA: 192
-over 128); the output then has Dv.  bf16 with no gradient and 128 < D <=
-`MAX_HEAD_DIM_SPLIT` (192), Dv <= 128, launches the split instantiation
-(`flash_attention_fwd_split`).  D <= 128, in any dtype or under grad,
+over 128); the output then has Dv.  bf16 with 128 < D <=
+`MAX_HEAD_DIM_SPLIT` (192), Dv <= 128, launches the split instantiations
+(`flash_attention_fwd_split`, and under grad `flash_attention_fwd_split_lse`
+and `flash_attention_bwd_wide`).  D <= 128, in any dtype or under grad,
 zero-pads v to D, runs the forward (and backward) above and keeps the
 first Dv columns: the zero columns add exactly 0 to each output column
-kept, and their gradient is dropped.  Anything else raises.
+kept, and their gradient is dropped.  f32 above 128 raises (ROADMAP.md
+§B.1: no configuration of the repository reaches it), as does anything
+else the kernels do not take.
 
 The forward runs bf16 inputs on bf16 tensor-core products (P rounded to
 bf16 before P V, as `blocked_attention` does) and f32 inputs as 3xTF32;
@@ -35,12 +39,14 @@ differentiable itself.
 
 `flash_attention.launches` counts forward launches and
 `flash_attention_backward.launches` backward launches (three kernels a
-launch: Delta, dK/dV, dQ); `flash_attention.flops` counts the forward's
-products, 4*B*H*Sq*Sk*D a launch, 2*B*H*Sq*Sk*(D + Dv) for the split
-instantiation (plain integers).  The FLOPs are counted
-on the CUDA path only: a ctypes launch is no aten operator, so
-`FlopCounterMode` cannot see it, while on CPU tensors it counts
-`attention_ref`'s two products as the same 4*B*H*Sq*Sk*D."""
+launch, Delta, dK/dV and dQ; four above 128, where dV and dK are two
+walks); `flash_attention.flops` counts the forward's products,
+4*B*H*Sq*Sk*D a launch, 2*B*H*Sq*Sk*(D + Dv) for the split instantiation,
+and `flash_attention_backward.flops` the backward's five,
+2*B*H*Sq*Sk*(3*D + 2*Dv) (plain integers).  The FLOPs are counted on the
+CUDA path only: a ctypes launch is no aten operator, so `FlopCounterMode`
+cannot see it, while on CPU tensors it counts `attention_ref`'s two
+products as the same 4*B*H*Sq*Sk*D."""
 from __future__ import annotations
 
 import math
@@ -52,11 +58,14 @@ from .ref import attention_bwd_ref, attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-#: the serving forward's one wider instantiation (bf16, 16-byte staging)
-MAX_HEAD_DIM_BF16_SERVING = 160
-#: the split instantiation: q/k head dim up to 192 over a v head dim up to
-#: MAX_HEAD_DIM (bf16 serving, 16-byte staging)
+#: the one wider instantiation of the forward and the backward (bf16,
+#: 16-byte staging), serving and under grad
+MAX_HEAD_DIM_BF16_WIDE = 160
+#: the split instantiations: q/k head dim up to 192 over a v head dim up to
+#: MAX_HEAD_DIM (bf16, 16-byte staging), serving and under grad
 MAX_HEAD_DIM_SPLIT = 192
+_F32_WIDE = ("f32 above head dim 128 has no kernel (ROADMAP.md §B.1; every "
+             "configuration with a wider head has bf16 params)")
 #: the launch puts the batch on gridDim.z (csrc/flash_attention.cu:425)
 MAX_GRID_Z = 65535
 
@@ -88,9 +97,12 @@ def _check_cuda(name, tensors):
 def _forward(q, k, v, causal, window, scale, lse):
     """Launch the forward kernel; `lse` is None (serving) or a (B, H, Sq)
     f32 buffer for the rows' log-sum-exp (training: the kLse
-    instantiations, `csrc/flash_attention_lse.cu`)."""
+    instantiations, `csrc/flash_attention_lse.cu`).  A v head dim Dv
+    below D takes the split instantiation."""
     B, Sq, H, D = q.shape
-    Sk, KH = k.shape[1], k.shape[2]
+    Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if Dv != D:
+        return _forward_split(q, k, v, causal, window, scale, lse)
     o = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     args = (_DTYPES[q.dtype], B, Sq, Sk, H, KH, D, int(bool(causal)),
@@ -102,6 +114,26 @@ def _forward(q, k, v, causal, window, scale, lse):
                       lse.data_ptr(), *args)
     flash_attention.launches += 1
     flash_attention.flops += 4 * B * H * Sq * Sk * D
+    return o
+
+
+def _forward_split(q, k, v, causal, window, scale, lse):
+    """The split instantiation (Dv < D, bf16, 128 < D): serving, or with
+    the rows' log-sum-exp into `lse`."""
+    B, Sq, H, D = q.shape
+    Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    args = (_DTYPES[q.dtype], B, Sq, Sk, H, KH, D, Dv, int(bool(causal)),
+            int(window), float(scale))
+    if lse is None:
+        _build.launch("flash_attention_fwd_split", q.get_device(), *ptrs,
+                      *args)
+    else:
+        _build.launch("flash_attention_fwd_split_lse", q.get_device(), *ptrs,
+                      lse.data_ptr(), *args)
+    flash_attention.launches += 1
+    flash_attention.flops += 2 * B * H * Sq * Sk * (D + Dv)
     return o
 
 
@@ -148,7 +180,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     if Dv < D:
         return _split_head_dim(q, k, v, causal, window, scale, grad)
     if D > MAX_HEAD_DIM:
-        _check_wide_head_dim(q, k, v, grad)
+        _check_wide_head_dim(q, k, v)
     check_grid(B)
     if grad:
         return _FlashAttention.apply(q, k, v, causal, window, scale)
@@ -156,48 +188,49 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
 
 
 def _split_head_dim(q, k, v, causal, window, scale, grad):
-    """A v head dim Dv below D (CUDA tensors): the split instantiation for
-    bf16 serving above 128, else v zero-padded to D through the forward
-    (and backward) of D <= 128, else raise."""
-    B, Sq, H, D = q.shape
-    Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    """A v head dim Dv below D (CUDA tensors): the split instantiations for
+    bf16 above 128, else v zero-padded to D through the forward (and
+    backward) of D <= 128, else raise."""
+    B, D, Dv = q.shape[0], q.shape[-1], v.shape[-1]
     if D <= MAX_HEAD_DIM:
         o = flash_attention(q, k, torch.nn.functional.pad(v, (0, D - Dv)),
                             causal=causal, window=window, scale=scale)
         return o[..., :Dv]
-    if q.dtype != torch.bfloat16 or grad or D > MAX_HEAD_DIM_SPLIT \
-            or Dv > MAX_HEAD_DIM:
-        raise ValueError(
-            f"flash_attention: q/k head dim {D} over v head dim {Dv} runs on "
-            f"the bf16 serving forward alone (D <= {MAX_HEAD_DIM_SPLIT}, Dv "
-            f"<= {MAX_HEAD_DIM}; got {q.dtype}"
-            f"{', under grad' if grad else ''}): a backward above "
-            f"{MAX_HEAD_DIM} is ROADMAP.md §B.1")
-    if D % 8 or Dv % 8 or any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"flash_attention: the split head dim ({D} over "
-                         f"{Dv}) needs 16-byte rows and 16-byte aligned "
-                         f"tensors")
+    _check_split(q, k, v, "flash_attention")
     check_grid(B)
-    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
-    _build.launch("flash_attention_fwd_split", q.get_device(), q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
-                  B, Sq, Sk, H, KH, D, Dv, int(bool(causal)), int(window),
-                  float(scale))
-    flash_attention.launches += 1
-    flash_attention.flops += 2 * B * H * Sq * Sk * (D + Dv)
-    return o
+    if grad:
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward_split(q, k, v, causal, window, scale, None)
 
 
-def _check_wide_head_dim(q, k, v, grad):
-    """Raise unless the serving forward's head-dim-160 instantiation takes
-    these tensors: bf16, no gradient, D <= 160, 16-byte rows and
-    pointers."""
+def _check_split(q, k, v, name):
+    """Raise unless the split instantiations take these tensors: bf16, D
+    <= 192 over Dv <= 128, 16-byte rows and pointers."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: q/k head dim {D} over v head dim {Dv} "
+                         f"in {q.dtype}: {_F32_WIDE}")
+    if D > MAX_HEAD_DIM_SPLIT or Dv > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: q/k head dim {D} over v head dim {Dv}: "
+                         f"the split instantiations take D <= "
+                         f"{MAX_HEAD_DIM_SPLIT} over Dv <= {MAX_HEAD_DIM}")
+    if D % 8 or Dv % 8 or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: the split head dim ({D} over {Dv}) needs "
+                         f"16-byte rows and 16-byte aligned tensors")
+
+
+def _check_wide_head_dim(q, k, v):
+    """Raise unless the head-dim-160 instantiations take these tensors:
+    bf16, D <= 160, 16-byte rows and pointers."""
     D = q.shape[-1]
-    if q.dtype != torch.bfloat16 or grad or D > MAX_HEAD_DIM_BF16_SERVING:
-        raise ValueError(
-            f"flash_attention: head dim {D} > {MAX_HEAD_DIM} (only the bf16 "
-            f"serving forward goes to {MAX_HEAD_DIM_BF16_SERVING}; got "
-            f"{q.dtype}{', under grad' if grad else ''})")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention: head dim {D} in {q.dtype}: "
+                         f"{_F32_WIDE}")
+    if D > MAX_HEAD_DIM_BF16_WIDE:
+        raise ValueError(f"flash_attention: head dim {D} > "
+                         f"{MAX_HEAD_DIM_BF16_WIDE}, the widest "
+                         f"instantiation (a v head dim below it takes the "
+                         f"split ones, to {MAX_HEAD_DIM_SPLIT})")
     if D % 8 or any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM} "
                          f"needs 16-byte rows and 16-byte aligned tensors")
@@ -207,16 +240,16 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
                              scale=None):
     """(dq, dk, dv) of `flash_attention(q, k, v)` for the output gradient
     `do`, given its output `o` and row log-sum-exp `lse` (B, H, Sq) f32;
-    each in its input's shape and dtype, GQA groups summed into their kv
-    head."""
+    o and do have v's head dim Dv <= D.  Each gradient comes in its
+    input's shape and dtype, GQA groups summed into their kv head."""
     B, Sq, H, D = q.shape
-    Sk, KH = k.shape[1], k.shape[2]
+    Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    if o.shape != q.shape or do.shape != q.shape \
-            or tuple(lse.shape) != (B, H, Sq):
+    if o.shape != q.shape[:3] + (Dv,) or do.shape != o.shape \
+            or tuple(lse.shape) != (B, H, Sq) or Dv > D:
         raise ValueError(f"flash_attention_backward: o{tuple(o.shape)}, "
                          f"do{tuple(do.shape)} and lse{tuple(lse.shape)} do "
-                         f"not fit q{tuple(q.shape)}")
+                         f"not fit q{tuple(q.shape)} and v{tuple(v.shape)}")
     ts = (q, k, v, o, do, lse)
     if {t.device.type for t in ts} == {"cpu"}:
         return attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
@@ -226,21 +259,38 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
             or not lse.is_contiguous():
         raise ValueError("flash_attention_backward: lse must be a contiguous "
                          "float32 tensor on q's device")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_backward: head dim {D} > "
-                         f"{MAX_HEAD_DIM}")
     check_grid(B)
+    wide = D > MAX_HEAD_DIM
+    if wide:
+        if Dv < D:
+            _check_split(q, k, v, "flash_attention_backward")
+        else:
+            _check_wide_head_dim(q, k, v)
+        if do.data_ptr() % 16:
+            raise ValueError("flash_attention_backward: head dims above "
+                             f"{MAX_HEAD_DIM} need a 16-byte aligned dO")
+    elif Dv < D:
+        raise ValueError(f"flash_attention_backward: v head dim {Dv} below "
+                         f"D {D} <= {MAX_HEAD_DIM}: pad v to D, as "
+                         f"flash_attention does")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    _build.launch("flash_attention_bwd", q.get_device(), q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk,
-                  H, KH, D, int(bool(causal)), int(window), float(scale))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr())
+    mask = (int(bool(causal)), int(window), float(scale))
+    if wide:
+        _build.launch("flash_attention_bwd_wide", q.get_device(), *ptrs,
+                      _DTYPES[q.dtype], B, Sq, Sk, H, KH, D, Dv, *mask)
+    else:
+        _build.launch("flash_attention_bwd", q.get_device(), *ptrs,
+                      _DTYPES[q.dtype], B, Sq, Sk, H, KH, D, *mask)
     flash_attention_backward.launches += 1
+    flash_attention_backward.flops += 2 * B * H * Sq * Sk * (3 * D + 2 * Dv)
     return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention.flops = 0
 flash_attention_backward.launches = 0
+flash_attention_backward.flops = 0

@@ -82,10 +82,13 @@ def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
     all masked takes the uniform P = 1 / Sk, so it adds dO / Sk to dv and
     nothing to dq or dk, as autograd through the -1e30 fill gives.  For
     bf16 inputs P and dS enter the products that use them as operands as
-    the kernel carries them, a bf16 pair each (`bf16_pair`).  Each gradient
-    comes back in its input's dtype."""
+    the kernel carries them, a bf16 pair each (`bf16_pair`).  v, o and do
+    may have a head dim Dv below q and k's D (deepseek-v2's MLA): dV and
+    dO V^T run over Dv, as does Delta = rowsum(dO * O); dq and dk over D.
+    Each gradient comes back in its input's dtype."""
     B, Sq, H, D = q.shape
     _, Sk, KH, _ = k.shape
+    Dv = v.shape[-1]
     G = H // KH
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     s, ok = _scores(q, k, causal, window, scale)
@@ -96,8 +99,8 @@ def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
     p = torch.where(dead, torch.full((), 1.0 / Sk, dtype=dt,
                                      device=q.device), p)
     operand = bf16_pair if q.dtype == torch.bfloat16 else (lambda t: t)
-    do_g = do.to(dt).reshape(B, Sq, KH, G, D)
-    o_g = o.to(dt).reshape(B, Sq, KH, G, D)
+    do_g = do.to(dt).reshape(B, Sq, KH, G, Dv)
+    o_g = o.to(dt).reshape(B, Sq, KH, G, Dv)
     dv = torch.einsum("bkgqs,bqkgd->bskd", operand(p), do_g)
     dp = torch.einsum("bqkgd,bskd->bkgqs", do_g, v.to(dt))
     delta = torch.einsum("bqkgd,bqkgd->bkgq", do_g, o_g)[..., None]

@@ -9,8 +9,8 @@
 defaults to JAX's tinyllama-1.1b: the dense LMs (tinyllama-1.1b, qwen2-7b,
 qwen2.5-14b, minitron-8b), the moe LMs arctic-480b and deepseek-v2-236b
 (their load-balance and router-z losses in the loss; at full width
-neither fits one card, and deepseek-v2's MLA attention, q/k head dim 192,
-has no flash backward above 128: ROADMAP.md §B.1), the hybrid LM
+neither fits one card; deepseek-v2's MLA attention, q/k head dim 192 over
+v 128, differentiates through the split flash backward), the hybrid LM
 zamba2-2.7b (its SSD scans
 differentiate through the scan's backward kernel on the card), the Mamba1
 LM falcon-mamba-7b (its plain PyTorch scan differentiates) and the

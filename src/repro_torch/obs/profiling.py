@@ -79,14 +79,16 @@ class ProgramProfile:
 
 def count_flops(fn: Callable[[], object]) -> float:
     """FLOPs of one call of fn(): the aten operators FlopCounterMode counts,
-    plus the FLOPs the flash-attention and forecast wrappers report for
-    their kernel launches (a ctypes launch is no aten operator; on CPU
-    tensors the wrappers run their plain versions, whose products the
-    counter sees as the same numbers, so card and CPU count alike)."""
+    plus the FLOPs the flash-attention (forward and backward) and forecast
+    wrappers report for their kernel launches (a ctypes launch is no aten
+    operator; on CPU tensors the wrappers run their plain versions, whose
+    products the counter sees as the same numbers, so card and CPU count
+    alike)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.kernels import flash_attention, forecast
-    kernels = (flash_attention, forecast)
+    from repro_torch.kernels import (flash_attention, flash_attention_backward,
+                                     forecast)
+    kernels = (flash_attention, forecast, flash_attention_backward)
     before = [k.flops for k in kernels]
     with FlopCounterMode(display=False) as counter:
         fn()

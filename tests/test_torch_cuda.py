@@ -810,22 +810,25 @@ def test_flash_kernel_at_head_dim_160(cuda, B, Sq, Sk, H, KH, D, causal,
 
 
 def test_head_dim_160_is_the_bf16_serving_path_only(cuda):
-    """Above 128 the wrapper raises, launching nothing, for f32, under
-    grad, above 160, and without 16-byte rows or pointers."""
+    """Above 128 the wrapper raises, launching nothing, for f32 (naming
+    ROADMAP §B.1), above 160, and without 16-byte rows or pointers; bf16
+    under grad runs the training forward (the kLse instantiation at 160)."""
     def bf16(D, offset=0):
         flat = torch.zeros((64 * 2 * D + offset,), device=cuda,
                            dtype=torch.bfloat16)
         return flat[offset:].view(1, 64, 2, D)
 
     before = flash_attention.launches
-    for q in (bf16(160).float(), bf16(176), bf16(132), bf16(160, offset=1)):
+    with pytest.raises(ValueError, match="B.1"):
+        flash_attention(*(bf16(160).float() for _ in range(3)))
+    for q in (bf16(176), bf16(132), bf16(160, offset=1)):
         with pytest.raises(ValueError, match="head dim"):
             flash_attention(q, q, q)
+    assert flash_attention.launches == before
     q = torch.zeros((1, 64, 2, 160), device=cuda, dtype=torch.bfloat16,
                     requires_grad=True)
-    with pytest.raises(ValueError, match="under grad"):
-        flash_attention(q, q, q)
-    assert flash_attention.launches == before
+    o = flash_attention(q, q, q)
+    assert o.grad_fn is not None and flash_attention.launches == before + 1
 
 
 def _smoke_pair(arch, seed=5):
@@ -953,35 +956,48 @@ def test_flash_split_head_dim_matches_plain(cuda, B, Sq, Sk, H, KH, D, Dv,
 def test_flash_split_head_dim_pads_v_under_grad(cuda, dtype, tol):
     """D <= 128 (deepseek-v2 SMOKE's 48 over 32): v zero-padded to D
     through the forward and backward kernels, the first Dv columns kept;
-    output and gradients against float64 autograd of `attention_ref`, 1e-4
-    abs in f32, 2e-2 in bf16 (the flash backward's gates)."""
+    above 128 in bf16 (192 over 128) the split training kernels run on v
+    as it is.  Output and gradients against float64 autograd of
+    `attention_ref`, 1e-4 abs in f32, 2e-2 in bf16 (the flash backward's
+    gates); at 192 over 128, at the MLA's 1/sqrt(192), the gradients 2e-2
+    plus one bf16 rounding (the wide rows' gate: summed dk and dv pass
+    4, where half a bf16 step is 1.6e-2)."""
     from repro_torch.kernels import flash_attention_backward
     g = torch.Generator(device=cuda).manual_seed(9)
     dt = getattr(torch, dtype)
-    q, k = (torch.randn((2, 100, 4, 48), generator=g, device=cuda).to(dt)
-            .requires_grad_() for _ in range(2))
-    v = torch.randn((2, 100, 4, 32), generator=g, device=cuda).to(dt) \
-        .requires_grad_()
-    do = torch.randn((2, 100, 4, 32), generator=g, device=cuda).to(dt)
-    before = (flash_attention.launches, flash_attention_backward.launches)
-    out = flash_attention(q, k, v, causal=True, scale=0.2)
-    grads = torch.autograd.grad(out, (q, k, v), do)
-    assert (flash_attention.launches, flash_attention_backward.launches) \
-        == (before[0] + 1, before[1] + 1)
-    q64, k64, v64 = (t.detach().double().requires_grad_() for t in (q, k, v))
-    ref = attention_ref(q64, k64, v64, causal=True, scale=0.2)
-    want = torch.autograd.grad(ref, (q64, k64, v64), do.double())
-    assert out.shape == (2, 100, 4, 32)
-    assert float((out.double() - ref).abs().max()) <= tol
-    for a, b in zip(grads, want):
-        assert a.shape == b.shape and a.dtype == dt
-        assert float((a.double() - b).abs().max()) <= tol
+    shapes = [(48, 32, 0.2)] + ([(192, 128, 192 ** -0.5)]
+                                 if dtype == "bfloat16" else [])
+    for D, Dv, scale in shapes:
+        q, k = (torch.randn((2, 100, 4, D), generator=g, device=cuda).to(dt)
+                .requires_grad_() for _ in range(2))
+        v = torch.randn((2, 100, 4, Dv), generator=g, device=cuda).to(dt) \
+            .requires_grad_()
+        do = torch.randn((2, 100, 4, Dv), generator=g, device=cuda).to(dt)
+        before = (flash_attention.launches, flash_attention_backward.launches)
+        out = flash_attention(q, k, v, causal=True, scale=scale)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        assert (flash_attention.launches, flash_attention_backward.launches) \
+            == (before[0] + 1, before[1] + 1)
+        q64, k64, v64 = (t.detach().double().requires_grad_()
+                         for t in (q, k, v))
+        ref = attention_ref(q64, k64, v64, causal=True, scale=scale)
+        want = torch.autograd.grad(ref, (q64, k64, v64), do.double())
+        assert out.shape == (2, 100, 4, Dv)
+        assert float((out.double() - ref).abs().max()) <= tol
+        rounding = 2.0 ** -8 if D > 128 else 0.0
+        for a, b in zip(grads, want):
+            assert a.shape == b.shape and a.dtype == dt
+            assert float(((a.double() - b).abs()
+                          - rounding * b.abs()).max()) <= tol
 
 
 def test_flash_split_head_dim_refusals(cuda):
-    """Above 128 the split runs bf16 serving alone: f32, under grad, D above
-    192, Dv above 128 and misaligned tensors raise (naming ROADMAP §B.1
-    where the kernel is missing), launching nothing."""
+    """Above 128 the split runs in bf16 alone: f32 (naming ROADMAP §B.1),
+    with or without grad, D above 192, Dv above 128 and misaligned tensors
+    raise, launching nothing; bf16 under grad runs the split training
+    kernels."""
+    from repro_torch.kernels import flash_attention_backward
+
     def bf16(D, offset=0):
         flat = torch.zeros((64 * 2 * D + offset,), device=cuda,
                            dtype=torch.bfloat16)
@@ -989,15 +1005,79 @@ def test_flash_split_head_dim_refusals(cuda):
 
     before = flash_attention.launches
     for q, v, what in ((bf16(192).float(), bf16(128).float(), "B.1"),
-                       (bf16(200), bf16(128), "B.1"),
-                       (bf16(192), bf16(136), "B.1"),
+                       (bf16(192).float().requires_grad_(),
+                        bf16(128).float(), "B.1"),
+                       (bf16(200), bf16(128), "192"),
+                       (bf16(192), bf16(136), "192"),
                        (bf16(192), bf16(128, offset=1), "16-byte")):
         with pytest.raises(ValueError, match=what):
             flash_attention(q, q, v)
-    q = bf16(192).requires_grad_()
-    with pytest.raises(ValueError, match="under grad"):
-        flash_attention(q, q, bf16(128))
     assert flash_attention.launches == before
+    q = bf16(192).requires_grad_()
+    bwd = flash_attention_backward.launches
+    o = flash_attention(q, q, bf16(128))
+    o.float().sum().backward()
+    assert flash_attention.launches == before + 1
+    assert flash_attention_backward.launches == bwd + 1
+
+
+# the training kernels above 128: the kLse forward and the wide backward
+# (csrc/flash_attention_bwd_wide.cu) at pixtral's 160 and the MLA's 192
+# over 128
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,Dv,causal,window", [
+    (2, 200, 200, 8, 2, 160, 160, True, 0),       # GQA group 4, causal
+    (1, 200, 300, 4, 2, 160, 160, True, 64),      # q at the tail, a window
+    (2, 77, 77, 4, 4, 136, 136, False, 0),        # D pads 136 -> 160
+    (1, 64, 32, 2, 2, 160, 160, True, 0),         # keyless rows
+    (2, 130, 130, 8, 8, 192, 128, True, 0),       # the MLA, ragged
+    (1, 200, 300, 8, 2, 192, 128, True, 64),      # GQA, tail, window
+    (2, 77, 77, 4, 4, 136, 64, False, 0),         # D pads 136 -> 192, Dv 64
+    (1, 64, 32, 2, 2, 192, 128, True, 0),         # keyless rows
+])
+def test_flash_wide_training_kernels_match_float64(cuda, B, Sq, Sk, H, KH, D,
+                                                   Dv, causal, window):
+    """Under autograd, one forward (kLse) and one backward launch; the
+    output 2e-2 abs and the gradients 2e-2 abs plus one bf16 rounding
+    (2^-8 of the float64 value: a summed GQA group grows dk and dv) off
+    float64 autograd of `attention_ref`, bitwise on a rerun, and the
+    forward's lse 1e-3 abs off the plain one; `attention_bwd_ref` from the
+    same o and lse under the same gate."""
+    from repro_torch.kernels import flash_attention_backward
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_lse_ref, ops)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q = torch.randn((B, Sq, H, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, Sk, KH, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, Sk, KH, Dv), generator=g, device=cuda).bfloat16()
+    do = torch.randn((B, Sq, H, Dv), generator=g, device=cuda).bfloat16()
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    before = (flash_attention.launches, flash_attention_backward.launches)
+    o = flash_attention(qg, kg, vg, causal=causal, window=window)
+    got = torch.autograd.grad(o, (qg, kg, vg), do)
+    assert (flash_attention.launches, flash_attention_backward.launches) \
+        == (before[0] + 1, before[1] + 1)
+    again = torch.autograd.grad(flash_attention(qg, kg, vg, causal=causal,
+                                                window=window),
+                                (qg, kg, vg), do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    ref = attention_ref(q64, k64, v64, causal=causal, window=window)
+    want = torch.autograd.grad(ref, (q64, k64, v64), do.double())
+    assert float((o.double() - ref).abs().max()) <= 2e-2
+    lse = torch.empty((B, H, Sq), device=cuda)
+    o2 = ops._forward(q, k, v, causal, window, D ** -0.5, lse)
+    lse_ref = attention_lse_ref(q, k, causal=causal, window=window)
+    live = lse_ref > -1e29
+    assert float((lse - lse_ref)[live].abs().max()) <= 1e-3
+    plain = attention_bwd_ref(q, k, v, o2, do, lse, causal=causal,
+                              window=window)
+    for grads in (got, plain):
+        for a, b in zip(grads, want):
+            assert a.shape == b.shape and a.dtype == torch.bfloat16
+            assert float(((a.double() - b).abs()
+                          - 2.0 ** -8 * b.abs()).max()) <= 2e-2
+    if causal and Sq > Sk:
+        assert bool((got[0][:, :Sq - Sk] == 0).all())
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v2-236b"])
@@ -1049,7 +1129,7 @@ def test_launch_lint_clean_over_every_entry_point(cuda):
     res = lint_launches()
     assert res.issues == [], [i.message for i in res.issues]
     assert sorted(res.entries) == sorted(_build.ENTRIES)
-    assert len({p.site for p in res.plans}) == 11
+    assert len({p.site for p in res.plans}) == 13
 
 
 @pytest.mark.parametrize("arch", ["dit-xl", "dit-t2i"])

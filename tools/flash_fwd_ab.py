@@ -3,10 +3,11 @@
 or the forecast kernel) built from several source trees, compared on one
 CUDA card.
 
-    python3 tools/flash_fwd_ab.py [--kernel flash|ssd|flash-bwd|ssd-bwd|forecast] --src build/parent/src --src src [--src src --src build/parent/src]
+    python3 tools/flash_fwd_ab.py [--kernel flash|flash-lse|ssd|flash-bwd|ssd-bwd|forecast] --src build/parent/src --src src [--src src --src build/parent/src]
 
 Builds the kernel's sources of each tree (under `repro_torch/kernels`:
-`flash_attention/csrc/flash_attention.cu`, `ssd/csrc/ssd.cu`,
+`flash_attention/csrc/flash_attention.cu`, the training forward's
+`flash_attention/csrc/flash_attention_lse.cu`, `ssd/csrc/ssd.cu`,
 `flash_attention/csrc/flash_attention_bwd*.cu`, `ssd/csrc/ssd_bwd.cu` or
 `forecast/csrc/forecast.cu`;
 one nvcc per tree, all started together, into `build/flash_fwd_ab/`),
@@ -26,8 +27,11 @@ then prints, against the first tree:
   cross-attention (448 queries over 1500 keys), bf16.  ssd:
   chip_smoke's ssd phase, zamba2 prefill b 4, s 512, h 80, p = n = 64 in
   f32 and on bf16 views of the conv output, b 1 on bf16 views, a ragged
-  s = 500 in f32.  flash-bwd and ssd-bwd: chip_smoke's flash-bwd and
-  ssd-bwd phases' shapes.  forecast: the serving skip tick's 4 slots x 3
+  s = 500 in f32.  flash-lse: the training forward (kLse) at DiT-XL's,
+  zamba2's and tinyllama's training shapes.  flash-bwd and ssd-bwd:
+  chip_smoke's flash-bwd and ssd-bwd phases' shapes; a row above head
+  dim 128 calls `flash_attention_bwd_wide`, and a tree without that entry
+  sits the row out.  forecast: the serving skip tick's 4 slots x 3
   x 4096 in f32 and bf16, the video pool's 2 x 3 x 65536, and an n that
   takes the element-by-element path), whether the outputs are bitwise
   equal across the trees, for a backward also each tree's largest error
@@ -87,16 +91,17 @@ def _ptrs(ts):
     return tuple(0 if t is None else t.data_ptr() for t in ts)
 
 
-def flash_bwd_case(torch, gen, name, B, Sq, Sk, H, KH, D, causal, window,
-                   dt):
+def flash_bwd_case(torch, gen, name, B, Sq, Sk, H, KH, D, Dv, causal,
+                   window, dt):
     """q, k, v, o, dO, lse from the forward of the checkout, and the
-    float64 gradients; call(variant) -> (args, outputs, buffers)."""
+    float64 gradients; call(variant) -> (args, outputs, buffers), with
+    `call.entry` the C entry point that takes the row."""
     from chip_smoke import BWD_ROUNDED
     from repro_torch.kernels.flash_attention import attention_ref, ops
     dtype = getattr(torch, dt)
     q, k, v, do = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
-                   for sh in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D),
-                              (B, Sq, H, D)))
+                   for sh in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, Dv),
+                              (B, Sq, H, Dv)))
     scale = 1.0 / math.sqrt(D)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
     o = ops._forward(q, k, v, causal, window, scale, lse)
@@ -105,19 +110,30 @@ def flash_bwd_case(torch, gen, name, B, Sq, Sk, H, KH, D, causal, window,
                                             window=window),
                               (q64, k64, v64), do.double())
     rounded = name in BWD_ROUNDED
+    wide = D > ops.MAX_HEAD_DIM
 
     def call(variant):
         outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
         delta = torch.empty((B, H, Sq), device="cuda")
+        dims = (D, Dv) if wide else (D,)
         return ((*_ptrs((q, k, v, o, do, lse, delta, *outs)),
-                 int(dt == "bfloat16"), B, Sq, Sk, H, KH, D, int(causal),
+                 int(dt == "bfloat16"), B, Sq, Sk, H, KH, *dims, int(causal),
                  int(window), scale), outs, (delta,))
+
+    call.entry = "flash_attention_bwd_wide" if wide else None
 
     def error(outs):
         return max(float(((a.double() - r).abs()
                           - (2.0 ** -8 * r.abs() if rounded else 0)).max())
                    for a, r in zip(outs, ref))
     return call, error, (q, k, v, o, do, lse)
+
+
+def flash_lse_case(torch, gen, B, Sq, Sk, H, KH, D, causal, dt):
+    args, outs, keep = flash_case(torch, gen, B, Sq, Sk, H, KH, D, causal,
+                                  dt)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+    return (*args[:4], lse.data_ptr(), *args[4:]), (*outs, lse), keep
 
 
 def ssd_bwd_case(torch, gen, name, b, s, h, p, n, xbc, dh):
@@ -209,6 +225,18 @@ KERNELS = {
             ("whisper encoder", 4, 1500, 1500, 12, 12, 64, 0, "bfloat16"),
             ("whisper cross", 4, 448, 1500, 12, 12, 64, 0, "bfloat16"),
         ]},
+    "flash-lse": {
+        "cu": "flash_attention/csrc/flash_attention_lse.cu",
+        "entry": "flash_attention_fwd_lse",
+        "argtypes": [P] * 5 + [I] * 9 + [F],
+        "instantiation": r"flash_fwdI\w+?Lb\dE",
+        "case": flash_lse_case, "seed": 0,
+        "shapes": [  # name, B, Sq, Sk, H, KH, D, causal, dtype
+            ("dit-xl train f32", 8, 256, 256, 16, 16, 72, 0, "float32"),
+            ("dit-xl train bf16", 8, 256, 256, 16, 16, 72, 0, "bfloat16"),
+            ("zamba2 train bf16", 8, 128, 128, 32, 32, 80, 1, "bfloat16"),
+            ("tinyllama train", 8, 128, 128, 32, 4, 64, 1, "bfloat16"),
+        ]},
     "ssd": {
         "cu": "ssd/csrc/ssd.cu",
         "entry": "ssd_fwd", "argtypes": [P] * 8 + [I] * 6 + [L] * 7,
@@ -226,6 +254,8 @@ KERNELS = {
         "argtypes": lambda cu: [P] * 10 + [I] * 9 + [F],
         "instantiation": r"flash_bwd_\w+?E(?:E|Lb\dE)",
         "case": flash_bwd_case, "seed": 0, "backward": True,
+        "alt_entries": {"flash_attention_bwd_wide": [P] * 10 + [I] * 10
+                        + [F]},
         "shapes": "BWD_CASES"},
     "ssd-bwd": {
         "cu": "ssd/csrc/ssd_bwd.cu",
@@ -357,15 +387,21 @@ def main() -> int:
         print(f"{label} ({args.src[labels.index(label)]}): registers/spill/"
               f"static smem {regs}; differing from src0: {diff}", flush=True)
         compare_all_sass(kernel, ref_lib, lib, label)
-    fns, variants = {}, {}
+    fns, variants, alt = {}, {}, {}
     for label in labels:
         lib, cu, _ = built[label]
-        fn = getattr(ctypes.CDLL(str(lib)), kernel["entry"])
+        dll = ctypes.CDLL(str(lib))
+        fn = getattr(dll, kernel["entry"])
         argtypes = kernel["argtypes"]
         fn.argtypes = (argtypes(cu) if callable(argtypes) else argtypes) + [P]
         fn.restype = I
         fns[label] = fn
         variants[label] = kernel.get("variant", lambda _: None)(cu)
+        for entry, types in kernel.get("alt_entries", {}).items():
+            if hasattr(dll, entry):        # an older tree may lack it
+                f = getattr(dll, entry)
+                f.argtypes, f.restype = types + [P], I
+                alt[label, entry] = f
     backward = kernel.get("backward", False)
     shapes = kernel["shapes"]
     if isinstance(shapes, str):
@@ -373,30 +409,37 @@ def main() -> int:
         shapes = getattr(chip_smoke, shapes)
     gen = torch.Generator(device="cuda").manual_seed(kernel["seed"])
     for name, *shape in shapes:
+        entry, row = None, labels
         if backward:
             call, error, _keep = kernel["case"](torch, gen, name, *shape)
-            calls = {x: call(variants[x]) for x in labels}
+            entry = getattr(call, "entry", None)
+            if entry:
+                row = [x for x in labels if (x, entry) in alt]
+                print(f"{name}: {entry}; trees without it sit the row out: "
+                      f"{[x for x in labels if x not in row]}", flush=True)
+            calls = {x: call(variants[x]) for x in row}
         else:
             call_args, outs_of, _keep = kernel["case"](torch, gen, *shape)
             calls = {x: (call_args, outs_of, ()) for x in labels}
 
         def run(label):
-            err = fns[label](*calls[label][0],
-                             torch.cuda.current_stream().cuda_stream)
+            fn = alt[label, entry] if entry else fns[label]
+            err = fn(*calls[label][0],
+                     torch.cuda.current_stream().cuda_stream)
             if err:
                 sys.exit(f"flash_fwd_ab: CUDA error {err}")
 
         outs = {}
-        for label in labels:
+        for label in row:
             run(label)
             torch.cuda.synchronize()
             outs[label] = [t.clone() for t in calls[label][1]]
         check = "outputs bitwise equal " + str(all(
-            torch.equal(a, b) for x in labels
-            for a, b in zip(outs[labels[0]], outs[x])))
+            torch.equal(a, b) for x in row
+            for a, b in zip(outs[row[0]], outs[x])))
         if backward:
             check += "; error against float64 " + ", ".join(
-                f"{x} {error(outs[x]):.3e}" for x in labels)
+                f"{x} {error(outs[x]):.3e}" for x in row)
 
         def time_ms(label):
             run(label)
@@ -414,9 +457,9 @@ def main() -> int:
             b.synchronize()
             return a.elapsed_time(b) / args.reps
 
-        times = {x: [] for x in labels}
+        times = {x: [] for x in row}
         for _ in range(3):
-            for turn in (labels, labels[::-1]):
+            for turn in (row, row[::-1]):
                 for label in turn:
                     times[label].append(time_ms(label))
         print(f"{name}: {check}; " + "; ".join(
