@@ -6,11 +6,13 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    every kernel of the port from `src/repro_torch/kernels/*/csrc`;
-              ptxas registers and spills per kernel, and the tensor-core
-              (HMMA) instructions cuobjdump finds in the flash and SSD
-              kernels where the toolkit has cuobjdump (a backward kernel
-              without any fails)
+  2. build    every kernel of the port from `src/repro_torch/kernels/*/csrc`
+              (the dry runs' CPU subprocesses start before it); ptxas
+              registers and spills per kernel, when each source's nvcc
+              ended, and the tensor-core (HMMA) instructions cuobjdump
+              finds in the flash and SSD kernels where the toolkit has
+              cuobjdump (run beside the phases, counted at the end; a
+              backward kernel without any fails)
   3. flash    the flash-attention kernel against its plain version at the
               DiT-XL shape (f32 and bf16), a causal GQA shape with a window,
               a ragged shape, a q-at-the-tail shape, the zamba2-2.7b
@@ -310,6 +312,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
               lm_loss and its MoE terms within 1e-5, its gradients within
               1e-4, and one AdamW step (the step from the same gradients
               and its moments within 1e-4)
+  42b. any-kernels the general units (any head dim, dtype and alignment;
+              any SSD p and n) against their plain versions: the flash
+              forward (serving and with the row log-sum-exp) at pixtral's
+              f32 shape (2 x 1088, 32 / 8 heads of 160), the MLA's in f32
+              (4 x 512, 128 heads, 192 over 128), the prompt encoder's
+              (8 x 77, 4 heads of 288), Gemma-7B's (2 x 1024, 16 heads of
+              256) in bf16 and f32, D 200 in f32 and D 136 in bf16 one
+              element off 16 bytes, 2e-5 abs in f32 and one bf16 rounding;
+              each backward against float64 autograd, 1e-4 abs in f32 and
+              2e-2 past one rounding in bf16, bitwise on a rerun; the SSD
+              scan at zamba2's n 128 (b 4, s 512, h 80, p 64) on bf16 xBC
+              views and in f32 and at a ragged (1, 500, 4, p 96, n 160)
+              against the plain version in float64 (2e-4 + 1e-3 rel), its
+              backward against float64 autograd (1e-4 of each gradient's
+              largest value, bf16 outputs one rounding more); ms, device
+              ms, the plain version's and SDPA's times (its backend's
+              kernels by name), bounds, registers and spills
+  42c. any-paths pixtral-12b with f32 params at full width (4 of 40
+              layers): a prefill of 2 x (1024 patches + 64 tokens) and 8
+              decode steps, then 3 steps of train_loop(jit=True);
+              deepseek-v2-236b with f32 params (1 of 60 layers): a prefill
+              and lm_loss with its gradients at 2 x 512; zamba2-2.7b at
+              ssm_state 128 (one hybrid group, 6 of 54 layers): a prefill
+              and lm_loss with its gradients at 4 x 512; each general unit
+              launched once a layer where its path runs it
+  42d. check-any pixtral-12b (head dim 160), deepseek-v2's MLA (192 over
+              128, every expert chosen) and zamba2 (ssm_state 128) SMOKE
+              with f32 params on the card and the CPU: logits, lm_loss and
+              every gradient within 1e-4 relative, through the general
+              units
   43. verify  the port's analysis (`repro_torch.analysis`) on the card: the
               lint of src/repro_torch with every rule (the ir-* rules on
               the card: the golden engines verified and served under the
@@ -370,9 +402,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
               process group at 256 ranks, fake tensors, this machine's
               torch): status ok, the roofline, fits 80 GB; and qwen2-7b's
               prefill at 4 x 512 traced the same way on a (1, 1, 1) fake
-              world: its bytes per device beside the dist phase's; it
-              waits for the subprocesses, so perf-dit's times do not
-              share the host with them
+              world: its bytes per device beside the dist phase's (both
+              started before the build); it waits for the subprocesses,
+              so perf-dit's times do not share the host with them
   47. perf-dit the three variants of `launch/perf_dit.py` (uncached,
               TaylorSeer refresh, the static skip) at full width on the
               card at decode_32k's per-rank batch on dit-xl's logical mesh
@@ -380,13 +412,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
               median of 4 rounds of 10 calls, the variants in turns) and
               the amortised N = 4 ms, beside the dry run's per-rank roofline
               terms of the same variant (the perf_dit CLI, run on the CPU
-              in a subprocess beside dist); the forecast launches of the
-              skip
+              in a subprocess started before the build); the forecast
+              launches of the skip
 
 Each served phase sets every launch count to 0 just before it and reads the
-counts just after; every phase builds the models it serves and drops them
+counts just after (each wrapper's and each C entry point's); every phase builds the models it serves and drops them
 at its end, and logs its wall seconds and its own peak device memory.  It
-then prints a `kernels` JSON line, the card's name and power limit, and as
+then prints a `kernels` JSON line (each row's launches on each path are
+those of its C entry points), the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Needs one CUDA card; it
 imports nothing of JAX.
 
@@ -398,6 +431,7 @@ forecast and graphs phases alone; neither prints a result line.
 """
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import math
@@ -643,15 +677,16 @@ def phase_flash(torch, F):
             # log-sum-exp against the plain versions, ms with and without it
             lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
             scale = 1.0 / math.sqrt(D)
-            o_l = ops._forward(q, k, v, causal, window, scale, lse)
+            entry = route_entry(ops, q, k, v, True)
+            o_l = ops._forward(q, k, v, causal, window, scale, lse, entry)
             lse_ref = attention_lse_ref(q, k, causal=causal, window=window)
             torch.cuda.synchronize()
             o_err = float((o_l.float() - ref.float()).abs().max())
             lse_err = float((lse - lse_ref.float()).abs().max())
             lse_ms = cuda_ms(torch, lambda: ops._forward(
-                q, k, v, causal, window, scale, lse))
+                q, k, v, causal, window, scale, lse, entry))
             lse_dev = device_ms(torch, lambda: ops._forward(
-                q, k, v, causal, window, scale, lse), "flash_fwd")
+                q, k, v, causal, window, scale, lse, entry), "flash_fwd")
             log(f"flash {name}: the training forward (kLse): "
                 f"max_abs_err={o_err:.3e} (tol {tol}), lse max_abs_err="
                 f"{lse_err:.3e} (tol {LSE_TOL}), ms={lse_ms:.4f} device_ms="
@@ -707,6 +742,14 @@ def phase_flash(torch, F):
     if None in report["wide_lse_registers_spills"].values():
         fail("flash: ptxas reported no kLse instantiation above 128")
     return report
+
+
+def route_entry(ops, q, k, v, grad: bool) -> str:
+    """The forward entry the wrapper routes q, k, v to (the one that also
+    writes the rows' log-sum-exp under grad)."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    return ops.route(q.dtype, D, Dv, ops.aligned16(D, Dv, (q, k, v)),
+                     grad).forward
 
 
 def sdpa_kernels(torch, fn, reps: int = 3):
@@ -803,7 +846,8 @@ def phase_flash_bwd(torch, F):
             (q64, k64, v64), do.double())
         del q64, k64, v64
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
-        o = ops._forward(q, k, v, causal, window, scale, lse)
+        entry = route_entry(ops, q, k, v, True)
+        o = ops._forward(q, k, v, causal, window, scale, lse, entry)
         plain = attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                   window=window)
         torch.cuda.synchronize()
@@ -837,10 +881,11 @@ def phase_flash_bwd(torch, F):
         dev_ms = device_ms(torch, bwd, "flash_bwd")
         plain_ms = cuda_ms(torch, lambda: attention_bwd_ref(
             q, k, v, o, do, lse, causal=causal, window=window), reps=5)
+        serve = route_entry(ops, q, k, v, False)
         fwd_ms = cuda_ms(torch, lambda: ops._forward(q, k, v, causal, window,
-                                                     scale, None))
-        fwd_lse_ms = cuda_ms(torch, lambda: ops._forward(q, k, v, causal,
-                                                         window, scale, lse))
+                                                     scale, None, serve))
+        fwd_lse_ms = cuda_ms(torch, lambda: ops._forward(
+            q, k, v, causal, window, scale, lse, entry))
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         dot_ = do.transpose(1, 2)
@@ -1079,6 +1124,32 @@ def ssd_inputs(torch, gen, b, s, h, p, n, xbc: bool):
             torch.randn((b, s, n), generator=gen, device="cuda"))
 
 
+def causal_pairs(s: int, L: int = 64) -> int:
+    """(i, j) pairs with j <= i inside each L-token tile of s tokens (the
+    last tile ragged)."""
+    full, rest = divmod(s, L)
+    return full * L * (L + 1) // 2 + rest * (rest + 1) // 2
+
+
+def ssd_fwd_work(b, s, h, p, n, el, xbc):
+    """(bytes, operations, seconds of operations at the peak) the scan
+    needs: x, B, C (el bytes), dt and A read once, y and h written once
+    in f32.  Per (b, tile) the causal half of C B^T over n (shared by the
+    heads); per (b, h, tile) the causal half of S x over p; per token and
+    head C h^T and the state update over (p, n).  On bf16 xBC views C B^T
+    has two bf16 operands (the bf16 peak) and the rest one (the 2xTF32
+    peak); f32 inputs take 3xTF32 throughout."""
+    pairs = causal_pairs(s)
+    cb = 2.0 * b * pairs * n
+    rest = 2.0 * b * h * pairs * p + 2.0 * b * h * s * 2 * p * n
+    seconds = (cb / PEAK_FLOPS["bfloat16" if xbc else "float32_3xtf32"]
+               + rest / PEAK_FLOPS["bf16_x_f32_2xtf32" if xbc
+                                   else "float32_3xtf32"])
+    nbytes = (el * (b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h)
+              + 4 * (b * s * h * p + b * h * p * n))
+    return nbytes, cb + rest, seconds
+
+
 def phase_ssd(torch):
     from repro_torch.kernels.ssd import ssd_chunked, ssd_ref, ssd_scan
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1109,17 +1180,9 @@ def phase_ssd(torch):
         ms = cuda_ms(torch, lambda: ssd_scan(*args))
         dev_ms = device_ms(torch, lambda: ssd_scan(*args), SSD_KERNELS)
         plain_ms = cuda_ms(torch, lambda: ssd_ref(*args), reps=5)
-        # C B^T once per (b, 64-token tile), shared by the heads; per
-        # (b, h, tile) S x over the tile (L = 64), C h^T and the state
-        # update over (p, n).  Bytes: x, B, C in their dtype, dt and A f32
-        # read once; y and h f32 written once.
-        L = 64
-        flops = 2.0 * b * s * L * n + 2.0 * b * h * s * (L * p + 2 * n * p)
-        el = args[0].element_size()
-        nbytes = (el * (b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h)
-                  + 4 * (b * s * h * p + b * h * p * n))
-        peak = PEAK_FLOPS["bf16_x_f32_2xtf32" if xbc else "float32_3xtf32"]
-        b_ms, by = bound(nbytes, flops, peak)
+        nbytes, flops, t_ops = ssd_fwd_work(b, s, h, p, n,
+                                            args[0].element_size(), xbc)
+        b_ms, by = bound(nbytes, flops, flops / t_ops)
         log(f"ssd {name}: b={b} s={s} h={h} p={p} n={n} "
             f"{str(args[0].dtype)[6:]}: max_abs_err={err:.3e} vs plain at "
             f"chunk {chunk} (tol {SSD_TOL['atol']} abs + {SSD_TOL['rtol']} "
@@ -1139,13 +1202,24 @@ def phase_ssd(torch):
     return report
 
 
+def no_launches(kernels):
+    """A zero count for each wrapper in `kernels` and each C entry point."""
+    from repro_torch.kernels import _build
+    return dict.fromkeys((*(k.__name__ for k in kernels), *_build.ENTRIES), 0)
+
+
 def _count_launches(kernels, path, phase, run):
-    """Set every count to 0, run, read the counts; fail if a kernel of
-    `path` was not launched."""
+    """Set every count to 0 (the wrappers' and each C entry point's,
+    `_build.launches`), run, read the counts; fail if a kernel of `path`
+    was not launched."""
+    from repro_torch.kernels import _build
     for k in kernels:
         k.launches = 0
+    for e in _build.ENTRIES:
+        setattr(_build.launches, e, 0)
     out = run()
     launches = {k.__name__: k.launches for k in kernels}
+    launches.update(vars(_build.launches))
     for k in path:
         if launches[k.__name__] <= 0:
             fail(f"{phase}: kernel {k.__name__} was not launched on this path")
@@ -1344,12 +1418,13 @@ def least_margin(log):
     return float(min(rel)) if rel else None
 
 
-def plan_readbacks(torch, eng, reqs, attempts: int = 3):
+def plan_readbacks(torch, eng, reqs, attempts: int = 3, results: int = 0):
     """`profile_plan` until its device record is whole: a profile whose
     Memcpy DtoH events inside the plan are fewer than the device-to-host
-    copies the plan dispatched on the host lost CUPTI records (the program
-    made the copies; the profiler dropped their records), and is taken
-    again, `attempts` profiles at most.  Returns the first whole
+    copies the plan dispatched on the host, or whose copies in all are
+    fewer than the `results` the serve read back, lost CUPTI records (the
+    program made the copies; the profiler dropped their records), and is
+    taken again, `attempts` profiles at most.  Returns the first whole
     profile's counts, or the last profile's, with every profile's in-plan
     device count in `dtoh_in_plan_tries`.  A profile never shows copies
     that were not made, so the callers' want of exactly so many a tick is
@@ -1358,12 +1433,14 @@ def plan_readbacks(torch, eng, reqs, attempts: int = 3):
     for _ in range(attempts):
         rb = profile_plan(torch, eng, reqs)
         tries.append(rb["dtoh_in_plan"])
-        if rb["dtoh_in_plan"] >= rb["host_dtoh_in_plan"]:
+        if rb["dtoh_in_plan"] >= rb["host_dtoh_in_plan"] \
+                and rb["dtoh_total"] >= results:
             break
         log(f"plan_readbacks: the profile holds {rb['dtoh_in_plan']} "
             f"device-to-host copies in the plan of the "
             f"{rb['host_dtoh_in_plan']} dispatched ({rb['dtoh_total']} linked "
-            f"in all, {rb['dtoh_device_events']} device events): CUPTI "
+            f"in all of at least {results}, {rb['dtoh_device_events']} "
+            f"device events): CUPTI "
             f"records lost, profiling again")
     rb["dtoh_in_plan_tries"] = tries
     return rb
@@ -1502,7 +1579,7 @@ def phase_serve_adaptive(torch, kernels, flash, forecast):
                 fail(f"{phase}: at delta {TEACACHE_DELTA} no row saved or no "
                      f"tick split the slots")
         plan_ms = 1e3 * sum(trace["plan_s"]) / len(trace["plan_s"])
-        rb = plan_readbacks(torch, eng, reqs)
+        rb = plan_readbacks(torch, eng, reqs, results=len(reqs))
         if rb["dtoh_total"] < len(reqs):
             fail(f"{phase}: the profiler linked {rb['dtoh_total']} DtoH "
                  f"copies to their operators, fewer than the {len(reqs)} "
@@ -2037,7 +2114,7 @@ def phase_denoise_video(torch, kernels, flash, params, cfg):
              ("block fora 2", "block", "fora", {"interval": 2}),
              ("deepcache delta_dit 2", "deepcache", "delta_dit",
               {"interval": 2})]
-    exact, total = None, {k.__name__: 0 for k in kernels}
+    exact, total = None, no_launches(kernels)
     for label, gran, name, kw in cases:
         pol = make_policy(name, **kw) if name else None
         den = CachedDenoiser(params, cfg, pol, granularity=gran, shallow_n=4,
@@ -2709,7 +2786,7 @@ def phase_serve_t2v(torch, kernels, flash, forecast, F):
                      generator=torch.Generator(device="cuda").manual_seed(7),
                      device="cuda")
     text = cond.get(TEXT_PROMPTS[0])
-    exact, total = None, {k.__name__: 0 for k in kernels}
+    exact, total = None, no_launches(kernels)
     for label, gran in (("exact", "model"), ("pab_video", "pab_video")):
         den = CachedDenoiser(params, cfg, granularity=gran, text=text,
                              device="cuda")
@@ -3534,23 +3611,26 @@ def ssd_bwd_work(b, s, h, p, n, el, dh, xbc):
     """(bytes, operations, seconds of operations at the peak) the scan's
     VJP needs: x, B, C (el bytes), dy, dt, A and dh_final read once, dx,
     dB, dC (el bytes), ddt and dA written once.  Per (b, h, 64-token tile)
-    the causal half (L(L+1)/2 pairs) of M^T dy and dy x^T over p, and five
-    full products over (p, n): G B, H^T dy, x^T G and the two state passes
-    (x B^T, dy C^T); per (b, tile) the causal half of C B^T, dCB B and
-    dCB^T C over n (B and C are shared by the heads).  On bf16 xBC views
-    the products with an x, B or C operand run at the 2xTF32 peak, the
-    rest (M^T dy, H^T dy) at 3xTF32; f32 inputs take 3xTF32 throughout."""
-    L, nt = 64, -(-s // 64)
-    pairs = L * (L + 1) / 2
-    f32_f32 = 2.0 * b * h * nt * (pairs * p + L * p * n)
-    with_xbc = (2.0 * b * h * nt * (pairs * p + 4 * L * p * n)
-                + 2.0 * b * nt * 3 * pairs * n)
-    seconds = (f32_f32 / PEAK_FLOPS["float32_3xtf32"] + with_xbc
-               / PEAK_FLOPS["bf16_x_f32_2xtf32" if xbc else "float32_3xtf32"])
+    the causal half (`causal_pairs`) of M^T dy and dy x^T over p, and five
+    products over (p, n) per token: G B, H^T dy, x^T G and the two state
+    passes (x B^T, dy C^T); per (b, tile) the causal half of C B^T, dCB B
+    and dCB^T C over n (B and C are shared by the heads).  On bf16 xBC
+    views C B^T has two bf16 operands (the bf16 peak), the other products
+    with an x, B or C operand run at the 2xTF32 peak and the rest (M^T dy,
+    H^T dy) at 3xTF32; f32 inputs take 3xTF32 throughout."""
+    pairs = causal_pairs(s)
+    f32_f32 = 2.0 * b * h * (pairs * p + s * p * n)
+    cb = 2.0 * b * pairs * n
+    with_xbc = (2.0 * b * h * (pairs * p + 4 * s * p * n)
+                + 2.0 * b * 2 * pairs * n)
+    seconds = (f32_f32 / PEAK_FLOPS["float32_3xtf32"]
+               + cb / PEAK_FLOPS["bfloat16" if xbc else "float32_3xtf32"]
+               + with_xbc / PEAK_FLOPS["bf16_x_f32_2xtf32" if xbc
+                                       else "float32_3xtf32"])
     nbytes = (el * (2 * b * s * h * p + 4 * b * s * n)
               + 4 * (b * s * h * p + 2 * b * s * h + 2 * h)
               + (4 * b * h * p * n if dh else 0))
-    return nbytes, f32_f32 + with_xbc, seconds
+    return nbytes, f32_f32 + cb + with_xbc, seconds
 
 
 def phase_ssd_bwd(torch):
@@ -3893,7 +3973,7 @@ def _serve_lm(torch, kernels, path, arch, n_requests, new, phase):
 def phase_serve_dense(torch, kernels, path):
     """tinyllama-1.1b with serve-llm's traffic, then qwen2-7b, qwen2.5-14b
     and minitron-8b, 4 requests x 16 tokens each, one model at a time."""
-    total = dict.fromkeys((k.__name__ for k in kernels), 0)
+    total = no_launches(kernels)
     runs = [("tinyllama-1.1b", 8, 32)] + [(a, 4, 16) for a in DENSE_SERVE]
     for arch, n, new in runs:
         gc.collect()
@@ -4381,18 +4461,18 @@ def phase_serve_vlm(torch, kernels, path):
     return launches
 
 
-def _lm_logits_card_vs_cpu(torch, phase, arch, engine):
-    """`arch` SMOKE (f32) on the card and the CPU from one set of weights:
-    the forward's logits, a prefill and 4 greedy decode steps' logits and
-    tokens, and (engine) ServingEngine's greedy tokens; relative to the
-    largest CPU logit, within SLICE13_TOL.  Returns (cfg, CPU params,
-    vision embeds or None)."""
+def _lm_logits_card_vs_cpu(torch, phase, arch, engine, cfg=None):
+    """`arch` SMOKE (f32; or `cfg`) on the card and the CPU from one set of
+    weights: the forward's logits, a prefill and 4 greedy decode steps'
+    logits and tokens, and (engine) ServingEngine's greedy tokens;
+    relative to the largest CPU logit, within SLICE13_TOL.  Returns (cfg,
+    CPU params, vision embeds or None)."""
     import numpy as np
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import patch_embeddings
     from repro_torch.models import decode_step, forward, init_params, prefill
     from repro_torch.serving import ServingEngine
-    cfg = get_smoke_config(arch)
+    cfg = cfg or get_smoke_config(arch)
     cpu = init_params(torch.Generator().manual_seed(5), cfg, device="cpu")
     card = _to(cpu, "cuda")
     rng = np.random.default_rng(5)
@@ -4791,7 +4871,7 @@ def phase_serve_moe(torch, kernels, path):
     """arctic-480b (2 of 35 layers), then deepseek-v2-236b (8 of 60), at
     full width with random bf16 weights from seed 0, one at a time, each
     dropped before the next."""
-    total = dict.fromkeys((k.__name__ for k in kernels), 0)
+    total = no_launches(kernels)
     for arch, depth in MOE_SERVE:
         gc.collect()
         torch.cuda.empty_cache()
@@ -5254,6 +5334,584 @@ def phase_check_train_wide(torch):
                             f"of {every.num_experts}", True)
 
 
+# ----------------------------------------------------------------------
+# slice 19: the kernels' whole domain.  The general units
+# (csrc/flash_attention_any.cu, csrc/flash_attention_bwd_any.cu,
+# csrc/ssd_any.cu, csrc/ssd_bwd_any.cu) take every head dim, dtype and
+# alignment and every SSD p and n that the earlier instantiations do not.
+
+ANY_FLASH_CASES = [  # name, B, S, H, KH, D, Dv, causal, dtype, offset
+    # pixtral-12b's training shape and deepseek-v2's MLA prefill, f32 params
+    ("pixtral f32 (d 160)", 2, 1088, 32, 8, 160, 160, True, "float32", 0),
+    ("mla f32 (192 over 128)", 4, 512, 128, 128, 192, 128, True, "float32",
+     0),
+    # the prompt encoder at dit-t2i's width: 4 heads of 1152 / 4 = 288
+    ("prompt encoder (4 x 288)", 8, 77, 4, 4, 288, 288, False, "float32", 0),
+    # Gemma-7B: 16 heads of 256
+    ("gemma-7b d256 bf16", 2, 1024, 16, 16, 256, 256, True, "bfloat16", 0),
+    ("gemma-7b d256 f32", 2, 1024, 16, 16, 256, 256, True, "float32", 0),
+    # odd widths: D 200 in f32; D 136 in bf16 one element off 16 bytes
+    ("odd d200 f32", 2, 300, 8, 2, 200, 200, True, "float32", 0),
+    ("odd d136 bf16, offset 1", 2, 300, 8, 2, 136, 136, True, "bfloat16",
+     1),
+]
+ANY_FWD_TOL = {"float32": 2e-5, "bfloat16": 1.6e-2}   # one bf16 rounding
+ANY_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}     # bf16: + one rounding
+ANY_SSD_CASES = [  # name, b, s, h, p, n, bf16 xBC views, dh_final
+    # zamba2-2.7b's Mamba2 layer with the published Mamba2-2.7B state
+    ("zamba2 n 128 bf16 xBC views", 4, 512, 80, 64, 128, True, False),
+    ("zamba2 n 128 f32", 4, 512, 80, 64, 128, False, False),
+    ("ragged p 96 n 160, dh_final", 1, 500, 4, 96, 160, False, True),
+]
+ANY_KERNEL_TAGS = ("flash_fwd_any", "flash_bwd_dkdv_any", "flash_bwd_dq_any",
+                   "ssd_cb_any", "ssd_scan_any", "ssd_bwd_state_any",
+                   "ssd_bwd_tile_any")
+
+
+def any_registers_spills():
+    """{instantiation: (registers, spill store bytes, spill load bytes)}
+    of every general-unit kernel, from the build log."""
+    import re
+    from repro_torch.kernels import _build
+    out = {}
+    for m in re.finditer(r"Function properties for \S*?(\d+(?:" + "|".join(
+            ANY_KERNEL_TAGS) + r")\w*?)\n\s*\d+ bytes stack frame, (\d+) "
+            r"bytes spill stores, (\d+) bytes spill loads\n.*?Used (\d+) "
+            r"registers", _build.build_log()):
+        name = re.sub(r"^\d+", "", m.group(1))
+        out[name[:48]] = (int(m.group(4)), int(m.group(2)), int(m.group(3)))
+    return out
+
+
+def phase_any_kernels(torch, F):
+    """K1-K4 against their plain versions at the main paths' shapes: the
+    general flash forward (serving and with the row log-sum-exp) and its
+    backward against float64 autograd; the general SSD scan against the
+    plain version and its backward against float64 autograd.  Times,
+    bounds, plain and library times for the kernels line."""
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, attention_lse_ref, attention_ref, flash_attention,
+        flash_attention_backward, ops)
+    from repro_torch.kernels.ssd import (ssd_bwd_ref, ssd_chunked, ssd_ref,
+                                         ssd_scan, ssd_scan_backward)
+    from repro_torch.kernels.ssd.ops import general
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    fwd_rows, bwd_rows = {}, {}
+    for name, B, S, H, KH, D, Dv, causal, dt, offset in ANY_FLASH_CASES:
+        dtype = getattr(torch, dt)
+
+        def randn(shape, off=0):
+            flat = torch.randn((math.prod(shape) + off,), generator=gen,
+                               device="cuda").to(dtype)
+            return flat[off:].view(shape)
+
+        q, k = randn((B, S, H, D), offset), randn((B, S, KH, D), offset)
+        v = randn((B, S, KH, Dv), offset)
+        do = randn((B, S, H, Dv))
+        r = ops.route(dtype, D, Dv, ops.aligned16(D, Dv, (q, k, v)), True)
+        if r != (ops.ANY_FWD, ops.ANY_BWD, False):
+            fail(f"any {name}: routed to {r}, not the general units")
+        scale = 1.0 / math.sqrt(D)
+        out = flash_attention(q, k, v, causal=causal)
+        ref = attention_ref(q, k, v, causal=causal)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+        o = ops._forward(q, k, v, causal, 0, scale, lse, r.forward)
+        lse_ref = attention_lse_ref(q, k, causal=causal)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        o_err = float((o.float() - ref.float()).abs().max())
+        lse_err = float((lse - lse_ref.float()).abs().max())
+        tol = ANY_FWD_TOL[dt]
+        if not (err <= tol and o_err <= tol and lse_err <= LSE_TOL):
+            fail(f"any {name}: the forward is off ({err}, with lse {o_err}, "
+                 f"lse {lse_err})")
+        del ref, lse_ref
+        ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=causal))
+        dev_ms = device_ms(torch, lambda: flash_attention(
+            q, k, v, causal=causal), "flash_fwd_any")
+        lse_ms = cuda_ms(torch, lambda: ops._forward(q, k, v, causal, 0,
+                                                     scale, lse, r.forward))
+        plain_ms = cuda_ms(torch, lambda: attention_ref(q, k, v,
+                                                        causal=causal), reps=5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = torch.ones((S, S), dtype=torch.bool, device="cuda").tril() \
+            if causal else None
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=KH != H)
+        lib_ms = cuda_ms(torch, sdpa)
+        lib_what, lib_dev = sdpa_kernels(torch, sdpa)
+        pairs = S * S if mask is None else int(mask.sum())
+        el = q.element_size()
+        nbytes = (B * S * H + B * S * KH) * (D + Dv) * el
+        peak = PEAK_FLOPS["float32_3xtf32" if dt == "float32" else dt]
+        b_ms, by = bound(nbytes, 2.0 * B * H * pairs * (D + Dv), peak)
+        log(f"any {name}: flash forward B={B} S={S} H={H} KH={KH} D={D} "
+            f"Dv={Dv} causal={causal} {dt}: max_abs_err={err:.3e} (tol "
+            f"{tol}), with the lse {o_err:.3e}, lse {lse_err:.3e} (tol "
+            f"{LSE_TOL}); ms={ms:.4f} device_ms={dev_ms} with_lse_ms="
+            f"{lse_ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+            f"(device {lib_dev:.4f}; {lib_what}) bound_ms={b_ms:.4f} ({by})")
+        fwd_rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": by,
+                          "library_ms": lib_ms, "device_ms": dev_ms,
+                          "library_device_ms": lib_dev,
+                          "library_kernels": lib_what,
+                          "fwd_with_lse_ms": lse_ms,
+                          "lse_max_abs_err": lse_err,
+                          "tolerance": f"{tol} abs"}
+        # the backward: the kernel, a bitwise rerun, float64 autograd
+        got = flash_attention_backward(q, k, v, o, do, lse, causal=causal)
+        again = flash_attention_backward(q, k, v, o, do, lse, causal=causal)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"any {name}: the backward is not bitwise on a rerun")
+        del again
+        q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+        ref = torch.autograd.grad(attention_ref(q64, k64, v64, causal=causal),
+                                  (q64, k64, v64), do.double())
+        del q64, k64, v64
+        plain = attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
+        torch.cuda.synchronize()
+        each_err = {g_: float((a.double() - b).abs().max())
+                    for g_, a, b in zip(("dq", "dk", "dv"), got, ref)}
+        plain_err = max(float((a.double() - b).abs().max())
+                        for a, b in zip(plain, ref))
+        abs_err = max(each_err.values())
+        berr = abs_err if dt == "float32" else max(
+            float(((a.double() - b).abs() - 2.0 ** -8 * b.abs()).max())
+            for a, b in zip(got, ref))
+        big = max(float(b.abs().max()) for b in ref)
+        del got, ref, plain
+        btol = ANY_BWD_TOL[dt]
+
+        def bwd():
+            return flash_attention_backward(q, k, v, o, do, lse, causal=causal)
+        bms = cuda_ms(torch, bwd)
+        bdev = device_ms(torch, bwd, "flash_bwd")
+        bplain = cuda_ms(torch, lambda: attention_bwd_ref(
+            q, k, v, o, do, lse, causal=causal), reps=3)
+        qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dot_ = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd():   # the yardstick: the port never calls it
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                 enable_gqa=KH != H)
+            return torch.autograd.grad(out, (qg, kg, vg), dot_)
+        blib = cuda_ms(torch, sdpa_fwd_bwd, reps=5)
+        blib_what, blib_dev = sdpa_kernels(torch, sdpa_fwd_bwd)
+        nbytes = (2 * B * S * H + 2 * B * S * KH) * (D + Dv) * el \
+            + 4 * B * H * S
+        bb_ms, bby = bound(nbytes, 2.0 * B * H * pairs * (3 * D + 2 * Dv),
+                           peak)
+        log(f"any {name}: flash backward vs float64 autograd max_abs_err="
+            f"{abs_err:.3e} ({each_err}; the plain version from the same o "
+            f"and lse {plain_err:.3e})" + ("" if dt == "float32" else
+                                f", beyond one bf16 rounding {berr:.3e}")
+            + f" (tol {btol}; largest |grad| {big:.3e}); bitwise on a rerun; "
+            f"ms={bms:.4f} device_ms={bdev} plain_ms={bplain:.4f} "
+            f"sdpa_fwd_bwd_ms={blib:.4f} (device {blib_dev:.4f}; "
+            f"{blib_what}) bound_ms={bb_ms:.4f} ({bby})")
+        if not berr <= btol:
+            fail(f"any {name}: the backward is off float64 by {berr} > {btol}")
+        bwd_rows[name] = {"max_abs_err": berr, "abs_err": abs_err, "ms": bms,
+                          "plain_ms": bplain, "bound_ms": bb_ms,
+                          "bound_by": bby, "library_ms": blib,
+                          "library_device_ms": blib_dev,
+                          "library_kernels": blib_what, "device_ms": bdev,
+                          "tolerance": f"{btol} abs" + (
+                              "" if dt == "float32" else
+                              " + 2^-8 |ref| (max_abs_err: the excess)")}
+        del q, k, v, o, do, lse, qg, kg, vg, dot_, mask, out
+        torch.cuda.empty_cache()
+
+    ssd_rows, ssd_bwd_rows = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    for name, b, s, h, p, n, xbc, dh in ANY_SSD_CASES:
+        if not general(p, n):
+            fail(f"any {name}: (p {p}, n {n}) is not the general unit's")
+        args = ssd_inputs(torch, gen, b, s, h, p, n, xbc)
+        y, hf = ssd_scan(*args)
+        chunk = max(c for c in range(1, 65) if s % c == 0)
+        # the plain version in float64, and in f32 for the record
+        yr, hr = ssd_chunked(*(a.double() for a in args), chunk)
+        y32, h32 = ssd_chunked(*args, chunk)
+        torch.cuda.synchronize()
+
+        def excess(pairs):
+            return max(float(((out.double() - r).abs()
+                              - SSD_TOL["rtol"] * r.abs()).max())
+                       for out, r in pairs)
+        worst = excess(((y, yr), (hf, hr)))
+        plain_worst = excess(((y32, yr), (h32, hr)))
+        err = max(float((y.double() - yr).abs().max()),
+                  float((hf.double() - hr).abs().max()))
+        del y, hf, yr, hr, y32, h32
+        ms = cuda_ms(torch, lambda: ssd_scan(*args))
+        dev_ms = device_ms(torch, lambda: ssd_scan(*args),
+                           ("ssd_cb_any", "ssd_scan_any"))
+        plain_ms = cuda_ms(torch, lambda: ssd_ref(*args), reps=3)
+        el = args[0].element_size()
+        nbytes, flops, t_ops = ssd_fwd_work(b, s, h, p, n, el, xbc)
+        b_ms, by = bound(nbytes, flops, flops / t_ops)
+        log(f"any ssd {name}: b={b} s={s} h={h} p={p} n={n} "
+            f"{str(args[0].dtype)[6:]}: max_abs_err={err:.3e} vs the plain "
+            f"version in float64 at chunk {chunk} (worst excess over "
+            f"{SSD_TOL['rtol']} rel {worst:.3e}, tol {SSD_TOL['atol']}; the "
+            f"plain version in f32 {plain_worst:.3e}) ms={ms:.4f} device_ms="
+            f"{dev_ms} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({by}, "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); no single "
+            f"PyTorch call computes it (library_ms null)")
+        if not worst <= SSD_TOL["atol"]:
+            fail(f"any ssd {name}: off by {worst} beyond {SSD_TOL}")
+        ssd_rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": by,
+                          "library_ms": None, "device_ms": dev_ms,
+                          "tolerance": f"{SSD_TOL['atol']} abs + "
+                                       f"{SSD_TOL['rtol']} rel"}
+        dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+        dhf = torch.randn((b, h, p, n), generator=gen, device="cuda") \
+            if dh else None
+        got = ssd_scan_backward(*args, dy, dhf)
+        again = ssd_scan_backward(*args, dy, dhf)
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"any ssd {name}: the backward is not bitwise on a rerun")
+        ins = [a.detach().double().requires_grad_() for a in args]
+        y64, h64 = ssd_ref(*ins)
+        loss = (y64 * dy.double()).sum()
+        if dh:
+            loss = loss + (h64 * dhf.double()).sum()
+        ref = torch.autograd.grad(loss, ins)
+        del ins, y64, h64, loss
+        errs, abs_errs = {}, {}
+        for g_, a, r in zip(SSD_GRADS, got, ref):
+            big = max(float(r.abs().max()), 1e-30)
+            e = (a.double() - r).abs()
+            allowed = SSD_BWD_TOL * big + (2.0 ** -8 * r.abs()
+                                           if a.dtype == torch.bfloat16
+                                           else 0.0)
+            abs_errs[g_] = float(e.max())
+            errs[g_] = abs_errs[g_] / big
+            if float((e - allowed).max()) > 0:
+                fail(f"any ssd {name}: {g_} off float64 autograd by "
+                     f"{float(e.max())} (largest {big})")
+        del got, again, ref
+
+        def call():
+            return ssd_scan_backward(*args, dy, dhf)
+        bms = cuda_ms(torch, call)
+        bdev = device_ms(torch, call, "ssd_bwd")
+        bplain = cuda_ms(torch, lambda: ssd_bwd_ref(*args, dy, dhf), reps=3)
+        nbytes, flops, t_ops = ssd_bwd_work(b, s, h, p, n, el, dh, xbc)
+        bb_ms, bby = bound(nbytes, flops, flops / t_ops)
+        log(f"any ssd {name}: backward vs float64 autograd, each gradient's "
+            f"largest error over its largest value {errs} (tol "
+            f"{SSD_BWD_TOL}, bf16 outputs one rounding more); bitwise on a "
+            f"rerun; ms={bms:.4f} device_ms={bdev} plain_ms={bplain:.4f} "
+            f"bound_ms={bb_ms:.4f} ({bby}, {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB); library_ms null")
+        ssd_bwd_rows[name] = {"max_abs_err": max(abs_errs.values()),
+                              "max_rel_err": max(errs.values()),
+                              "errors": errs, "ms": bms, "plain_ms": bplain,
+                              "bound_ms": bb_ms, "bound_by": bby,
+                              "library_ms": None, "device_ms": bdev,
+                              "tolerance": f"{SSD_BWD_TOL} of the largest "
+                              f"float64 gradient (+ 2^-8 |ref| for bf16)"}
+        del args, dy, dhf
+        torch.cuda.empty_cache()
+    usage = any_registers_spills()
+    log(f"any: registers, spill store and load bytes of the general units' "
+        f"instantiations {usage}")
+    if len(usage) < 12:
+        fail(f"any: ptxas reported {len(usage)} general-unit instantiations")
+
+    def row(rows, main):
+        out = dict(rows[main])
+        out.update({k: v for k, v in rows.items() if k != main})
+        out["registers_spills"] = usage
+        return out
+    return {"flash_attention_any": row(fwd_rows, "pixtral f32 (d 160)"),
+            "flash_attention_backward_any": row(bwd_rows,
+                                                "pixtral f32 (d 160)"),
+            "ssd_any": row(ssd_rows, "zamba2 n 128 bf16 xBC views"),
+            "ssd_backward_any": row(ssd_bwd_rows,
+                                    "zamba2 n 128 bf16 xBC views")}
+
+
+# zamba2 at 6: one hybrid group (6 Mamba2 layers, then the shared block);
+# num_layers // hybrid_attn_every groups run, so fewer layers run none
+ANY_DEPTH = {"pixtral-12b serve": 4, "pixtral-12b train": 4,
+             "deepseek-v2-236b": 1, "zamba2-2.7b": 6}
+#: the general units' C entry points
+ANY_ENTRIES = ("flash_attention_fwd_any", "flash_attention_bwd_any",
+               "ssd_fwd_any", "ssd_bwd_any")
+ANY_TRAIN_STEPS = 3          # step 1 eager, step 2 the capture, step 3 replay
+ANY_MLA_TOKENS = (2, 512)
+ANY_ZAMBA2_TOKENS = (4, 512)
+
+
+def _any_counted(torch, kernels, phase, want, run):
+    """run() with every count at 0; fail unless each general unit in
+    `want` launched exactly its count there.  Returns (run's result,
+    {kernel: launches})."""
+    out, launches = _count_launches(kernels, (), phase, run)
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{phase}: {name} launched {launches[name]} times, want {n} "
+                 f"({launches})")
+    return out, launches
+
+
+def _any_pixtral(torch, kernels):
+    """pixtral-12b with f32 params at full width: a served prefill with
+    vision embeds and decode steps (ANY_DEPTH serve layers), then train
+    steps through train_loop(jit=True) (ANY_DEPTH train layers)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches, patch_embeddings
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.steps import init_train_state, make_lm_train_step
+    full = get_config("pixtral-12b")
+    depth = ANY_DEPTH["pixtral-12b serve"]
+    cfg = dataclasses.replace(full, num_layers=depth, dtype="float32")
+    B, nv = 2, cfg.num_vision_tokens
+    S = nv + VLM_TEXT
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (B, VLM_TEXT))).cuda()
+    ve = torch.from_numpy(patch_embeddings(0, B, nv, cfg.vision_dim)).cuda()
+
+    def serve():
+        with torch.no_grad():
+            logits, cache = prefill(params, toks, cfg, S + 8,
+                                    vision_embeds=ve)
+            finite = [logits.isfinite().all()]
+            tok, pos = logits[:, -1].argmax(-1), torch.full((B,), S,
+                                                            device="cuda")
+            for _ in range(8):
+                logits, cache = decode_step(params, tok, pos, cache, cfg)
+                finite.append(logits.isfinite().all())
+                tok, pos = logits.argmax(-1), pos + 1
+        return bool(torch.stack(finite).all())
+
+    serve()                                                   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    finite, launches = _any_counted(torch, kernels, "any-paths pixtral serve",
+                                    {"flash_attention_fwd_any": depth}, serve)
+    _, ms = _sync_ms(torch, serve)
+    log(f"any-paths: pixtral-12b f32, {depth} of {full.num_layers} layers "
+        f"(depth cut: f32 params), d_model {cfg.d_model}, {cfg.num_heads} / "
+        f"{cfg.num_kv_heads} heads of {cfg.head_dim}: prefill of {B} x "
+        f"({nv} patches + {VLM_TEXT} tokens) and 8 decode steps {ms:.1f} ms "
+        f"(host clock, synchronized); logits finite {finite}; peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f}; launches {launches}")
+    if not finite:
+        fail("any-paths: pixtral-12b f32 served non-finite logits")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    depth = ANY_DEPTH["pixtral-12b train"]
+    cfg = dataclasses.replace(full, num_layers=depth, dtype="float32")
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, device="cuda")
+    it = lm_batches(0, B, VLM_TEXT, cfg.vocab_size)
+    made = []
+    for i in range(ANY_TRAIN_STEPS):
+        t, y = next(it)
+        made.append({"tokens": torch.from_numpy(t).cuda(),
+                     "targets": torch.from_numpy(y).cuda(),
+                     "vision_embeds": torch.from_numpy(patch_embeddings(
+                         i, B, nv, cfg.vision_dim)).cuda()})
+    step = make_lm_train_step(cfg, peak_lr=3e-4, warmup=0,
+                              total_steps=ANY_TRAIN_STEPS + 1)
+    torch.cuda.reset_peak_memory_stats()
+    steps = ANY_TRAIN_STEPS
+    t0 = time.perf_counter()
+    (state, hist), train = _any_counted(
+        torch, kernels, "any-paths pixtral train",
+        {"flash_attention_fwd_any": depth * steps,
+         "flash_attention_bwd_any": depth * steps},
+        lambda: train_loop(step, state, iter(made), steps, log_every=1,
+                           log_fn=lambda m: None, jit=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    log(f"any-paths: pixtral-12b f32 train, {depth} of {full.num_layers} "
+        f"layers (depth cut: f32 params, gradients and AdamW moments, about "
+        f"4.6 GB a layer): {steps} steps through "
+        f"train_loop(jit=True) in {wall:.2f} s, losses {losses}; peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f}; launches {train}")
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        fail(f"any-paths: pixtral-12b f32 train losses {losses}")
+    del state, made
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] + train[k] for k in launches}
+
+
+def _any_mla(torch, kernels):
+    """deepseek-v2-236b with f32 params at full width, ANY_DEPTH layers: a
+    prefill, then lm_loss and its gradients at ANY_MLA_TOKENS."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import init_params, prefill
+    from repro_torch.train.steps import _value_and_grad, lm_loss
+    from repro_torch.tree import tree_leaves
+    full = get_config("deepseek-v2-236b")
+    depth = ANY_DEPTH["deepseek-v2-236b"]
+    cfg = dataclasses.replace(full, num_layers=depth, dtype="float32")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    B, S = ANY_MLA_TOKENS
+    t, y = (torch.from_numpy(a).cuda()
+            for a in next(lm_batches(0, B, S, cfg.vocab_size)))
+
+    def serve():
+        with torch.no_grad():
+            logits, _ = prefill(params, t, cfg, S)
+            return bool(logits.isfinite().all())
+
+    torch.cuda.reset_peak_memory_stats()
+    finite, pre = _any_counted(torch, kernels, "any-paths mla prefill",
+                               {"flash_attention_fwd_any": depth}, serve)
+    _, pre_ms = _sync_ms(torch, serve)
+
+    def run():
+        return _value_and_grad(lambda p, _: lm_loss(p, t, y, cfg), params,
+                               None)
+    (grads, m), train = _any_counted(
+        torch, kernels, "any-paths mla train",
+        {"flash_attention_fwd_any": depth, "flash_attention_bwd_any": depth},
+        run)
+    ok = finite and all(bool(torch.isfinite(g).all())
+                        for g in tree_leaves(grads))
+    del grads
+    _, ms = _sync_ms(torch, run)
+    log(f"any-paths: deepseek-v2-236b f32, {depth} of {full.num_layers} "
+        f"layers (depth cut: f32 params and gradients), MLA {cfg.num_heads} "
+        f"heads of q/k {cfg.qk_nope_head_dim}+{cfg.qk_rope_head_dim} over v "
+        f"{cfg.v_head_dim}: prefill {B} x {S} {pre_ms:.1f} ms, lm_loss "
+        f"{float(m['loss']):.5f} and its gradients {ms:.1f} ms (host clock, "
+        f"synchronized); finite {ok}; peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f}; launches {pre} and "
+        f"{train}")
+    if not ok:
+        fail("any-paths: deepseek-v2 f32 gave non-finite logits or grads")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: pre[k] + train[k] for k in pre}
+
+
+def _any_zamba2(torch, kernels):
+    """zamba2-2.7b at full width with ssm_state 128 (the published
+    Mamba2-2.7B's state; p 64, 80 heads), ANY_DEPTH layers (one hybrid
+    group): a prefill at ANY_ZAMBA2_TOKENS, then lm_loss and its
+    gradients."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import init_params, prefill
+    from repro_torch.train.steps import _value_and_grad, lm_loss
+    from repro_torch.tree import tree_leaves
+    full = get_config("zamba2-2.7b")
+    depth = ANY_DEPTH["zamba2-2.7b"]
+    cfg = dataclasses.replace(full, num_layers=depth, ssm_state=128)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    B, S = ANY_ZAMBA2_TOKENS
+    t, y = (torch.from_numpy(a).cuda()
+            for a in next(lm_batches(0, B, S, cfg.vocab_size)))
+
+    def serve():
+        with torch.no_grad():
+            logits, _ = prefill(params, t, cfg, S)
+            return bool(logits.isfinite().all())
+
+    torch.cuda.reset_peak_memory_stats()
+    finite, pre = _any_counted(torch, kernels, "any-paths zamba2 prefill",
+                               {"ssd_fwd_any": depth}, serve)
+    _, pre_ms = _sync_ms(torch, serve)
+
+    def run():
+        return _value_and_grad(lambda p, _: lm_loss(p, t, y, cfg), params,
+                               None)
+    (grads, m), train = _any_counted(
+        torch, kernels, "any-paths zamba2 train",
+        {"ssd_fwd_any": depth, "ssd_bwd_any": depth}, run)
+    ok = finite and all(bool(torch.isfinite(g).all())
+                        for g in tree_leaves(grads))
+    del grads
+    _, ms = _sync_ms(torch, run)
+    nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    log(f"any-paths: zamba2-2.7b {depth} of {full.num_layers} layers at "
+        f"ssm_state {cfg.ssm_state} (d_model {cfg.d_model}, {nh} heads of "
+        f"{cfg.ssm_head_dim}, {cfg.dtype}): prefill "
+        f"{B} x {S} {pre_ms:.1f} ms, lm_loss {float(m['loss']):.5f} and its "
+        f"gradients {ms:.1f} ms (host clock, synchronized); finite {ok}; "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}; "
+        f"launches {pre} and {train}")
+    if not ok:
+        fail("any-paths: zamba2 at state 128 gave non-finite values")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: pre[k] + train[k] for k in pre}
+
+
+def phase_any_paths(torch, kernels):
+    """The paths that need the general units, on the card at full width
+    with the depth cut (ANY_DEPTH): pixtral-12b and deepseek-v2's MLA with
+    f32 params, and zamba2-2.7b's Mamba2 layer at ssm_state 128.  Returns
+    the launches of every wrapper in `kernels` and every C entry point."""
+    total = no_launches(kernels)
+    for part in (_any_pixtral, _any_mla, _any_zamba2):
+        got = part(torch, kernels)
+        total = {k: total[k] + got[k] for k in total}
+    for entry in ANY_ENTRIES:
+        if total[entry] <= 0:
+            fail(f"any-paths: {entry} was not launched")
+    return total
+
+
+def phase_check_any(torch):
+    """pixtral-12b (head dim 160), deepseek-v2's MLA (q/k 192 over v 128,
+    every token routed to every expert, so no top-k choice can flip) and
+    zamba2-2.7b (ssm_state 128) at SMOKE size with f32 params, on the card
+    and the CPU: logits, lm_loss and every leaf's gradient within
+    SLICE13_TOL relative, through the general units on the card."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import _build
+    dsv = dataclasses.replace(get_smoke_config("deepseek-v2-236b"),
+                              **WIDE_HEADS["deepseek-v2-236b"])
+    for arch, over, want in (
+            ("pixtral-12b", WIDE_HEADS["pixtral-12b"],
+             ("flash_attention_fwd_any", "flash_attention_bwd_any")),
+            ("deepseek-v2-236b", {**WIDE_HEADS["deepseek-v2-236b"],
+                                  "experts_per_token": dsv.num_experts},
+             ("flash_attention_fwd_any", "flash_attention_bwd_any")),
+            ("zamba2-2.7b", {"ssm_state": 128},
+             ("ssd_fwd_any", "ssd_bwd_any"))):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                  **over)
+        for entry in ANY_ENTRIES:
+            setattr(_build.launches, entry, 0)
+        cfg, cpu, ve = _lm_logits_card_vs_cpu(torch, "check-any", arch,
+                                              engine=False, cfg=cfg)
+        _lm_loss_card_vs_cpu(torch, "check-any", cfg, cpu, ve)
+        counts = {e: getattr(_build.launches, e) for e in ANY_ENTRIES}
+        log(f"check-any: {arch} SMOKE {over}: general-unit launches on the "
+            f"card {counts}")
+        if not all(counts[w] > 0 for w in want):
+            fail(f"check-any: {arch} did not run {want} ({counts})")
+
+
 VERIFY_STEPS = 16      # the verify phase's engines: max_steps, 4 slots
 
 
@@ -5506,7 +6164,7 @@ def phase_dist(torch, kernels, path):
     log(f"dist: NCCL world 1; host mesh {host.mesh_dim_names} "
         f"{tuple(host.shape)} on {host.device_type}, logical mesh "
         f"{mesh.mesh_dim_names} {tuple(mesh.shape)} on {mesh.device_type}")
-    total = dict.fromkeys((k.__name__ for k in kernels), 0)
+    total = no_launches(kernels)
 
     # qwen2-7b prefill (the prefill case's forward: logits and the K/V)
     cfg = get_config("qwen2-7b")
@@ -5683,9 +6341,11 @@ def phase_dist_moe(torch, kernels, path):
 
 
 def start_dryruns(out: Path):
-    """The dryrun phase's two CPU subprocesses, started now so that they
-    run beside the card's phases: the dry-run CLI, and qwen2-7b's prefill
-    traced on a (1, 1, 1) fake world."""
+    """The dryrun and perf-dit phases' CPU subprocesses, started before the
+    build so that they run beside it and the card's phases: the dry-run
+    CLI, qwen2-7b's prefill traced on a (1, 1, 1) fake world, and
+    perf_dit's traces.  Each writes its output to `out/<name>.out` and
+    `.err` (a pipe nobody reads for minutes could fill and stall it)."""
     out.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
     qwen = textwrap.dedent(f"""
@@ -5712,34 +6372,43 @@ def start_dryruns(out: Path):
                           "argument_bytes": arg, "peak": counter.peak,
                           "trace_s": s}}))
     """)
-    return {
-        "tinyllama": subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "tinyllama-1.1b", "--shape", "train_4k", "--out", str(out)],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True),
-        "qwen": subprocess.Popen([sys.executable, "-c", qwen], cwd=ROOT,
-                                 env=env, stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE, text=True),
-        "perf_dit": subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.perf_dit", "--out",
-             str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)}
+    cmds = {"tinyllama": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--arch", "tinyllama-1.1b", "--shape", "train_4k",
+                          "--out", str(out)],
+            "qwen": [sys.executable, "-c", qwen],
+            "perf_dit": [sys.executable, "-m", "repro_torch.launch.perf_dit",
+                         "--out", str(out)]}
+    procs = {}
+    for name, cmd in cmds.items():
+        with open(out / f"{name}.out", "w") as so, \
+                open(out / f"{name}.err", "w") as se:
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=so,
+                                           stderr=se, text=True)
+    return procs
 
 
-def collect(procs, name):
+def stop_dryruns(procs) -> None:
+    """Kill what is left of start_dryruns' subprocesses."""
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def collect(procs, out: Path, name):
     """Wait for one of start_dryruns' subprocesses (killed at the
     timeout); its stdout, or fail."""
     p = procs[name]
     try:
-        so, se = p.communicate(timeout=DRYRUN_TIMEOUT)
+        p.wait(timeout=DRYRUN_TIMEOUT)
     except subprocess.TimeoutExpired:
         p.kill()
-        p.communicate()
+        p.wait()
         fail(f"dryrun: {name} did not end in {DRYRUN_TIMEOUT}s")
     if p.returncode != 0:
+        se = (out / f"{name}.err").read_text()
         fail(f"dryrun: {name} exited {p.returncode}: {se[-3000:]}")
-    return so
+    return (out / f"{name}.out").read_text()
 
 
 def phase_perf_dit(torch, kernels, path, out: Path):
@@ -5805,7 +6474,7 @@ def phase_dryrun(torch, procs, out: Path, dist_gb):
     """The dry run on this machine's CPU (module docstring, 47); it waits
     for the subprocesses, so that perf-dit's timings after it share the
     host with nothing of this script's."""
-    collect(procs, "tinyllama")
+    collect(procs, out, "tinyllama")
     rec = json.load(open(out / "dryrun_tinyllama-1.1b_train_4k_sp.json"))
     if rec["status"] != "ok" or not rec["fits_80gb_hbm"] or \
             rec["roofline"]["dominant"] not in ("compute", "memory",
@@ -5820,8 +6489,8 @@ def phase_dryrun(torch, procs, out: Path, dist_gb):
         f"{rl['coll_bytes']}; compute {rl['compute_s']:.4f} s, memory "
         f"{rl['memory_s']:.4f} s, collective {rl['collective_s']:.4f} s "
         f"(H100 SXM data-sheet peaks): {rl['dominant']}")
-    q = json.loads(collect(procs, "qwen").strip().splitlines()[-1])
-    collect(procs, "perf_dit")
+    q = json.loads(collect(procs, out, "qwen").strip().splitlines()[-1])
+    collect(procs, out, "perf_dit")
     log(f"dryrun: qwen2-7b prefill {DIST_TOKENS[0]}x{DIST_TOKENS[1]} on a "
         f"(1, 1, 1) fake world: {q['bytes_per_device'] / 1e9:.2f} GB per "
         f"device ({q['argument_bytes'] / 1e9:.2f} GB of arguments, "
@@ -6170,7 +6839,7 @@ def phase_graphs(torch, kernels, path):
     from repro_torch.core import FasterCacheCFG
     from repro_torch.modalities import make_workload
     from repro_torch.serving.diffusion import DiffusionServingEngine
-    total = {k.__name__: 0 for k in kernels}
+    total = no_launches(kernels)
 
     def add(counts):
         for k, n in counts.items():
@@ -6249,17 +6918,41 @@ def on_model(build, phase):
     return run
 
 
-def log_hmma(lib: Path) -> None:
-    """Count the tensor-core instructions (HMMA) of each flash and SSD
-    kernel in the built library's SASS, where the toolkit has cuobjdump."""
+def start_sass(lib: Path):
+    """cuobjdump -sass of the built library into `sass.txt` beside it,
+    started now so that it runs beside the card's phases; None where the
+    toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
+        return None
+    out = lib.parent / "sass.txt"
+    with open(out, "w") as f:
+        proc = subprocess.Popen([tool, "-sass", str(lib)], stdout=f,
+                                stderr=subprocess.DEVNULL)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def log_hmma(sass) -> None:
+    """Count the tensor-core instructions (HMMA) of each flash and SSD
+    kernel in start_sass' output; fail where an SSD kernel or a backward
+    product kernel has none."""
+    if sass is None:
         log("build: cuobjdump not found; HMMA count not taken")
         return
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300).stdout
+    proc, out = sass
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail("build: cuobjdump -sass did not end in 300 s")
+    if proc.returncode != 0:
+        fail(f"build: cuobjdump -sass exited {proc.returncode}")
+    waited = time.perf_counter() - t0
     counts, fn = {}, None
-    for line in sass.splitlines():
+    for line in out.read_text().splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             counts[fn] = 0
@@ -6268,7 +6961,9 @@ def log_hmma(lib: Path) -> None:
     flash = {f: n for f, n in counts.items() if "flash_fwd" in f}
     log(f"build: sass: {sum(n > 0 for n in flash.values())} of {len(flash)} "
         f"flash_fwd kernels use HMMA; "
-        f"{sum(flash.values())} HMMA instructions in all")
+        f"{sum(flash.values())} HMMA instructions in all (cuobjdump beside "
+        f"the phases; {waited:.2f}s waited for it, "
+        f"{time.perf_counter() - t0:.2f}s with the count)")
     for tag in ("flash_fwdIfLi72ELb1E", "flash_fwdI13__nv_bfloat16Li80ELb1E"):
         hits = [n for f, n in flash.items() if tag in f]
         log(f"build: sass: {tag}: HMMA {hits}")
@@ -6290,6 +6985,82 @@ def log_hmma(lib: Path) -> None:
             fail(f"build: a {tag} product kernel has no HMMA instruction")
 
 
+def kernels_line(by_path, flash, fc, ssd, flash_bwd, ssd_bwd, any_rows):
+    """The kernels line's rows: each kernel's numbers from its phase, and
+    its launches on each path from the counts of its C entry points;
+    fail unless the rows hold each entry point once and every path's
+    entry counts add up to its wrappers' counts."""
+    from repro_torch.kernels import KERNELS, _build
+    # the backward above head dim 128 (flash_attention_bwd_wide.cu): its
+    # numbers are the pixtral row's
+    wide_bwd = dict(flash_bwd[BWD_WIDE[0]])
+    wide_bwd[BWD_WIDE[1]] = flash_bwd[BWD_WIDE[1]]
+    wide_bwd["registers_spills"] = flash_bwd["wide_registers_spills"]
+    # each row: its source, the TPU code it replaces, its numbers, and the
+    # C entry points whose launches on the paths are its launches
+    fa = "src/repro_torch/kernels/flash_attention/csrc/"
+    autodiff = "src/repro/models/layers.py:86 (JAX autodiff of " \
+        "blocked_attention"
+    table = (
+        ("flash_attention", fa + "flash_attention.cu",
+         "src/repro/kernels/flash_attention/flash_attention.py:75", flash,
+         ("flash_attention_fwd", "flash_attention_fwd_split",
+          "flash_attention_fwd_lse", "flash_attention_fwd_split_lse")),
+        ("forecast", "src/repro_torch/kernels/forecast/csrc/forecast.cu",
+         "src/repro/kernels/forecast/forecast.py:32", fc,
+         ("forecast_fwd", "forecast_basis_fwd")),
+        ("ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+         "src/repro/kernels/ssd/ssd.py:73", ssd, ("ssd_fwd",)),
+        ("flash_attention_backward", fa + "flash_attention_bwd.cu",
+         autodiff + "; no Pallas kernel)", flash_bwd,
+         ("flash_attention_bwd",)),
+        ("ssd_backward", "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
+         "src/repro/models/ssm.py:207 (JAX autodiff of ssd_chunked; no "
+         "Pallas kernel)", ssd_bwd, ("ssd_bwd",)),
+        ("flash_attention_backward_wide", fa + "flash_attention_bwd_wide.cu",
+         autodiff + " above head dim 128; no Pallas kernel)", wide_bwd,
+         ("flash_attention_bwd_wide",)),
+        # the general units (slice 19), numbers from the any-kernels phase
+        ("flash_attention_any", fa + "flash_attention_any.cu",
+         "src/repro/kernels/flash_attention/flash_attention.py:75 (any "
+         "head dim and dtype)", any_rows["flash_attention_any"],
+         ("flash_attention_fwd_any",)),
+        ("flash_attention_backward_any", fa + "flash_attention_bwd_any.cu",
+         autodiff + " at any head dim; no Pallas kernel)",
+         any_rows["flash_attention_backward_any"],
+         ("flash_attention_bwd_any",)),
+        ("ssd_any", "src/repro_torch/kernels/ssd/csrc/ssd_any.cu",
+         "src/repro/kernels/ssd/ssd.py:73 (any p and n)",
+         any_rows["ssd_any"], ("ssd_fwd_any",)),
+        ("ssd_backward_any", "src/repro_torch/kernels/ssd/csrc/ssd_bwd_any.cu",
+         "src/repro/models/ssm.py:207 (JAX autodiff of ssd_chunked at any p "
+         "and n; no Pallas kernel)", any_rows["ssd_backward_any"],
+         ("ssd_bwd_any",)))
+    if sorted(e for *_, entries in table for e in entries) \
+            != sorted(_build.ENTRIES):
+        fail("kernels line: the rows do not hold each C entry point once")
+    for path, n in by_path.items():
+        entries = sum(n.get(e, 0) for e in _build.ENTRIES)
+        wrappers = sum(n.get(k.__name__, 0) for k in KERNELS)
+        if entries != wrappers:
+            fail(f"{path}: the wrappers counted {wrappers} launches, the C "
+                 f"entry points {entries} ({n})")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rows = []
+    for name, src, replaces, rep, entries in table:
+        per_path = {path: sum(n.get(e, 0) for e in entries)
+                    for path, n in by_path.items()}
+        per_path = {path: c for path, c in per_path.items() if c > 0}
+        # the contract's keys first, then each phase's extra numbers
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": sum(per_path.values()),
+                     "launches_by_path": per_path,
+                     **{k: rep[k] for k in keys},
+                     **{k: v for k, v in rep.items() if k not in keys}})
+    return rows
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -6307,6 +7078,10 @@ def main() -> int:
                          text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     log(f"device: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    # the dry runs (CPU subprocesses) run beside the build and the phases
+    dry_out = ROOT / "dryrun_out" / "chip_smoke"
+    procs = start_dryruns(dry_out)
+    atexit.register(stop_dryruns, procs)
 
     from repro_torch.kernels import KERNELS, _build
     t0 = time.perf_counter()
@@ -6317,7 +7092,7 @@ def main() -> int:
         if any(w in line for w in ("entry function", "registers", "spill")) \
                 or line.startswith("=="):
             log(f"build: {line.strip()}")
-    log_hmma(lib)
+    sass = start_sass(lib)
 
     (flash_attention, forecast, ssd_scan, flash_attention_backward,
      ssd_scan_backward) = KERNELS
@@ -6326,11 +7101,13 @@ def main() -> int:
         timed("graphs", phase_graphs, torch, KERNELS,
               (flash_attention, forecast, ssd_scan,
                flash_attention_backward))
+        log_hmma(sass)
         log(card)
         return 0
     flash = timed("flash", phase_flash, torch, F)
     flash_bwd = timed("flash-bwd", phase_flash_bwd, torch, F)
     if "--flash-only" in sys.argv[1:]:
+        log_hmma(sass)
         log(card)
         return 0
     fc = timed("forecast", phase_forecast, torch, 4)
@@ -6412,6 +7189,11 @@ def main() -> int:
     by_path["train-wide"] = timed("train-wide", phase_train_wide, torch,
                                   KERNELS, train_path)
     timed("check-train-wide", phase_check_train_wide, torch)
+    # slice 19: the kernels' whole domain (any head dim, any SSD p and n)
+    any_rows = timed("any-kernels", phase_any_kernels, torch, F)
+    by_path["any-paths"] = timed("any-paths", phase_any_paths, torch,
+                                 KERNELS)
+    timed("check-any", phase_check_any, torch)
     # slice 15: the analysis package on the card
     by_path["verify"] = timed("verify", phase_verify, torch, KERNELS,
                               (flash_attention, forecast))
@@ -6419,10 +7201,7 @@ def main() -> int:
     by_path["graphs"] = timed("graphs", phase_graphs, torch, KERNELS,
                               (flash_attention, forecast, ssd_scan,
                                flash_attention_backward))
-    # slice 16: distribution on a world-size-1 NCCL group; the dry runs
-    # (CPU subprocesses) run beside the card's phases
-    dry_out = ROOT / "dryrun_out" / "chip_smoke"
-    procs = start_dryruns(dry_out)
+    # slice 16: distribution on a world-size-1 NCCL group
     try:
         nccl_world(torch)
         by_path["dist"], dist_gb = timed("dist", phase_dist, torch,
@@ -6434,62 +7213,13 @@ def main() -> int:
                                     KERNELS, (flash_attention, forecast),
                                     dry_out)
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+        stop_dryruns(procs)
         import torch.distributed as tdist
         if tdist.is_initialized():
             tdist.destroy_process_group()
 
-    # the backward above head dim 128 (flash_attention_bwd_wide.cu): its
-    # launches are train-wide's, its numbers the pixtral row's
-    wide_bwd = dict(flash_bwd[BWD_WIDE[0]])
-    wide_bwd[BWD_WIDE[1]] = flash_bwd[BWD_WIDE[1]]
-    wide_bwd["registers_spills"] = flash_bwd["wide_registers_spills"]
-    wide_paths = ("train-wide",)
-    rows = []
-    for name, fn, src, replaces, rep in (
-            ("flash_attention", flash_attention,
-             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/flash_attention.py:75", flash),
-            ("forecast", forecast,
-             "src/repro_torch/kernels/forecast/csrc/forecast.cu",
-             "src/repro/kernels/forecast/forecast.py:32", fc),
-            ("ssd", ssd_scan, "src/repro_torch/kernels/ssd/csrc/ssd.cu",
-             "src/repro/kernels/ssd/ssd.py:73", ssd),
-            ("flash_attention_backward", flash_attention_backward,
-             "src/repro_torch/kernels/flash_attention/csrc/"
-             "flash_attention_bwd.cu",
-             "src/repro/models/layers.py:86 (JAX autodiff of "
-             "blocked_attention; no Pallas kernel)", flash_bwd),
-            ("ssd_backward", ssd_scan_backward,
-             "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
-             "src/repro/models/ssm.py:207 (JAX autodiff of ssd_chunked; no "
-             "Pallas kernel)", ssd_bwd),
-            ("flash_attention_backward_wide", flash_attention_backward,
-             "src/repro_torch/kernels/flash_attention/csrc/"
-             "flash_attention_bwd_wide.cu",
-             "src/repro/models/layers.py:86 (JAX autodiff of "
-             "blocked_attention above head dim 128; no Pallas kernel)",
-             wide_bwd)):
-        # the flash backward's launches split between its two sources
-        split = fn is flash_attention_backward
-        per_path = {path: n[fn.__name__] for path, n in by_path.items()
-                    if n[fn.__name__] > 0 and not (
-                        split and (path in wide_paths)
-                        != name.endswith("_wide"))}
-        # the contract's keys first, then each phase's extra numbers
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": sum(per_path.values()),
-                     "launches_by_path": per_path,
-                     "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
-                     "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-                     "bound_by": rep["bound_by"],
-                     "library_ms": rep["library_ms"],
-                     **{k: v for k, v in rep.items() if k not in (
-                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms")}})
+    log_hmma(sass)
+    rows = kernels_line(by_path, flash, fc, ssd, flash_bwd, ssd_bwd, any_rows)
     log(f"chip_smoke: total wall {time.perf_counter() - t_start:.2f}s")
     log(json.dumps({"kernels": rows}))
     log(card)

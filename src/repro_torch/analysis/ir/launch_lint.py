@@ -79,6 +79,13 @@ ENTRY_ARGS: Dict[str, Tuple[str, ...]] = {
                                  "lse:f32", "delta:f32", "dq:T", "dk:T",
                                  "dv:T", "dtype", "B", "Sq", "Sk", "H", "KH",
                                  "D", "Dv", "causal", "window", "scale"),
+    "flash_attention_fwd_any": ("q:T", "k:T", "v:T", "o:T", "lse:f32?",
+                                "dtype", "B", "Sq", "Sk", "H", "KH", "D",
+                                "Dv", "causal", "window", "scale"),
+    "flash_attention_bwd_any": ("q:T", "k:T", "v:T", "o:T", "dO:T",
+                                "lse:f32", "delta:f32", "dq:T", "dk:T",
+                                "dv:T", "dtype", "B", "Sq", "Sk", "H", "KH",
+                                "D", "Dv", "causal", "window", "scale"),
     "forecast_fwd": ("d:T", "c:f32", "o:T", "dtype", "batch", "m1", "n",
                      "vec"),
     "forecast_basis_fwd": ("d:T", "steps:i32", "last:i32", "n_valid:i32",
@@ -93,6 +100,9 @@ ENTRY_ARGS: Dict[str, Tuple[str, ...]] = {
                 "dA:f32", "dtype", "b", "s", "h", "p", "n", "group", "xs_b",
                 "xs_t", "xs_h", "bs_b", "bs_t", "cs_b", "cs_t"),
 }
+# the general SSD units take ssd_fwd's and ssd_bwd's arguments
+ENTRY_ARGS["ssd_fwd_any"] = ENTRY_ARGS["ssd_fwd"]
+ENTRY_ARGS["ssd_bwd_any"] = ENTRY_ARGS["ssd_bwd"]
 
 #: operands the vectorised staging reads in 16-byte units, beyond the
 #: ":T" / ":Ts" ones (the SSD backward's f32 inputs and state scratch)
@@ -101,10 +111,12 @@ _ALIGNED_F32 = {"ssd_bwd": ("dy", "dhf", "hst", "gst")}
 #: `float` or `double`)
 _STRIDES = ("xs_b", "xs_t", "xs_h", "bs_b", "bs_t", "cs_b", "cs_t")
 _LONG_ARGS = {"forecast_fwd": ("n",), "forecast_basis_fwd": ("n",),
-              "ssd_fwd": _STRIDES, "ssd_bwd": _STRIDES}
+              "ssd_fwd": _STRIDES, "ssd_bwd": _STRIDES,
+              "ssd_fwd_any": _STRIDES, "ssd_bwd_any": _STRIDES}
 _FLOAT_ARGS = {"scale", "sigma"}
 #: products of int arguments the C forms in `int`
-_INT_PRODUCTS = {"ssd_bwd": (("p", "n"),), "ssd_fwd": (("p", "n"),)}
+_INT_PRODUCTS = {"ssd_bwd": (("p", "n"),), "ssd_fwd": (("p", "n"),),
+                 "ssd_bwd_any": (("p", "n"),), "ssd_fwd_any": (("p", "n"),)}
 _DTYPE_CODES = {0: "torch.float32", 1: "torch.bfloat16"}
 _INT32 = 2 ** 31
 
@@ -405,7 +417,10 @@ def _drive_flash(torch):
              ("tinyllama prefill", (4, 512, 32, 4, 64, bf16), True),
              ("pixtral prefill D160", (2, 1088, 32, 8, 160, bf16), True),
              ("deepseek-v2 MLA prefill", (4, 512, 128, 128, 192, bf16, 128),
-              True)]
+              True),
+             # the general unit: f32 above 128, and bf16 at Gemma's 256
+             ("pixtral prefill f32 D160", (2, 1088, 32, 8, 160, f32), True),
+             ("gemma-7b prefill D256", (2, 1024, 16, 16, 256, bf16), True)]
     for name, shape, causal in cases:
         yield name, (lambda s=shape, c=causal:
                      flash_attention(*qkv(*s), causal=c))
@@ -415,6 +430,8 @@ def _drive_flash(torch):
             ("tinyllama train", (8, 128, 32, 4, 64, bf16), True),
             ("pixtral train D160", (2, 1088, 32, 8, 160, bf16), True),
             ("deepseek-v2 MLA train", (4, 512, 128, 128, 192, bf16, 128),
+             True),
+            ("deepseek-v2 MLA train f32", (4, 512, 128, 128, 192, f32, 128),
              True)):
         def train(s=shape, c=causal):
             q, k, v = (t.requires_grad_(True) for t in qkv(*s))
@@ -466,13 +483,18 @@ def _drive_ssd(torch):
                              ("ragged s 500", (1, 500, 80, 64, 64), True)):
         yield name, (lambda s=shape, x=xbc: ssd_scan(*inputs(*s, x)))
 
-    def backward():
-        b, s, h, p, n = 8, 128, 80, 64, 64
+    # the general unit: zamba2's Mamba2 layer at the published state 128
+    yield "zamba2 n 128 bf16 views", (
+        lambda: ssd_scan(*inputs(4, 512, 80, 64, 128, True)))
+
+    def backward(n=64):
+        b, s, h, p = 8, 128, 80, 64
         x, dt, A, B_, C_ = inputs(b, s, h, p, n, True)
         dy = torch.randn((b, s, h, p), generator=g, device="cuda")
         dh = torch.randn((b, h, p, n), generator=g, device="cuda")
         ssd_scan_backward(x, dt, A, B_, C_, dy, dh)
     yield "zamba2 train bf16 views", backward
+    yield "zamba2 n 128 train bf16 views", lambda: backward(128)
 
 
 KERNEL_CASES: Dict[str, Callable] = {

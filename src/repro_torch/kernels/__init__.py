@@ -11,6 +11,10 @@
                     prefill), and its backward (`ssd_scan_backward`,
                     every Mamba2 layer under training)
 
+Every head dim of flash attention and every p and n of the SSD scan has a
+kernel: the widths the main instantiations do not take go to general
+units (`_build.launches` counts the launches of each C entry point).
+
 Each subpackage holds `csrc/*.cu` (the CUDA kernel, built for sm_90a by
 `_build`), `ops.py` (the wrapper: plain version for CPU tensors, kernel or
 an error for CUDA tensors, launch counter) and `ref.py` (plain PyTorch).

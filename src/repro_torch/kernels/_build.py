@@ -31,6 +31,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
+import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List
 
@@ -85,12 +88,18 @@ def build() -> Path:
     work = Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-"))
     try:
         objs = [work / (s.stem + ".o") for s in srcs]
+        t0 = time.monotonic()
         procs = [subprocess.Popen([nvcc, *FLAGS, "-c", str(s), "-o", str(o)],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(srcs, objs)]
-        logs = [p.communicate()[0] for p in procs]
-        log = "".join(f"== {s.name}\n{text}" for s, text in zip(srcs, logs))
+
+        def finish(p):     # the compiler's report, and when it ended
+            return p.communicate()[0], time.monotonic() - t0
+        with ThreadPoolExecutor(len(procs)) as pool:
+            done = list(pool.map(finish, procs))
+        log = "".join(f"== {s.name} (done at {sec:.1f} s)\n{text}"
+                      for s, (text, sec) in zip(srcs, done))
         failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
@@ -120,8 +129,13 @@ def build_log() -> str:
 #: every C entry point; each has a query entry `<name>_plan`
 ENTRIES = ("flash_attention_fwd", "flash_attention_fwd_split",
            "flash_attention_fwd_lse", "flash_attention_fwd_split_lse",
-           "flash_attention_bwd", "flash_attention_bwd_wide", "forecast_fwd",
-           "forecast_basis_fwd", "ssd_fwd", "ssd_bwd")
+           "flash_attention_fwd_any", "flash_attention_bwd",
+           "flash_attention_bwd_wide", "flash_attention_bwd_any",
+           "forecast_fwd", "forecast_basis_fwd", "ssd_fwd", "ssd_fwd_any",
+           "ssd_bwd", "ssd_bwd_any")
+#: launches of each C entry point, counted where `launch` calls it (a CUDA
+#: graph's replay adds what its capture counted): `launches.<entry>`
+launches = types.SimpleNamespace(**dict.fromkeys(ENTRIES, 0))
 
 
 def _declare(lib) -> None:
@@ -135,14 +149,18 @@ def _declare(lib) -> None:
     lib.flash_attention_fwd_split.argtypes = [P] * 4 + [I] * 10 + [F, P]
     lib.flash_attention_fwd_lse.argtypes = [P] * 5 + [I] * 9 + [F, P]
     lib.flash_attention_fwd_split_lse.argtypes = [P] * 5 + [I] * 10 + [F, P]
+    lib.flash_attention_fwd_any.argtypes = [P] * 5 + [I] * 10 + [F, P]
     lib.flash_attention_bwd.argtypes = [P] * 10 + [I] * 9 + [F, P]
     lib.flash_attention_bwd_wide.argtypes = [P] * 10 + [I] * 10 + [F, P]
+    lib.flash_attention_bwd_any.argtypes = [P] * 10 + [I] * 10 + [F, P]
     lib.forecast_fwd.argtypes = [P, P, P, I, I, I, L, I, P]
     lib.forecast_basis_fwd.argtypes = [P, P, P, P, P, I, I, I, L, I, I, I,
                                        ctypes.c_double, P]
     lib.ssd_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                             L, L, L, L, L, L, L, P]
+    lib.ssd_fwd_any.argtypes = lib.ssd_fwd.argtypes
     lib.ssd_bwd.argtypes = [P] * 18 + [I] * 7 + [L] * 7 + [P]
+    lib.ssd_bwd_any.argtypes = lib.ssd_bwd.argtypes
     for name in ENTRIES:
         fn, query = getattr(lib, name), getattr(lib, name + "_plan")
         query.argtypes = fn.argtypes
@@ -181,7 +199,7 @@ def no_grad_launch(name: str, why: str, *tensors) -> None:
 def launch(entry: str, idx: int, *args) -> None:
     """Call the C entry point `entry` with `args` and the current stream of
     CUDA device `idx`, switching the current device only if it is another
-    one; raise if the launch failed."""
+    one; raise if the launch failed, else count it in `launches`."""
     fn = getattr(_lib if _lib is not None else load(), entry)
     if idx == torch._C._cuda_getDevice():
         err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
@@ -190,3 +208,4 @@ def launch(entry: str, idx: int, *args) -> None:
             err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+    setattr(launches, entry, getattr(launches, entry) + 1)

@@ -555,6 +555,9 @@ int run_split(const void* q, const void* k, const void* v, void* o, float* lse, 
 
 }  // namespace
 
+// flash_attention_any.cu includes this file for its helpers, without the
+// entry points.
+#ifndef FLASH_ATTENTION_HELPERS_ONLY
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  All four
 // tensors are contiguous: q and o (B, Sq, H, D), k and v (B, Sk, KH, D).
 // 16-byte copies need 16-byte rows and pointers; anything else stages
@@ -637,3 +640,4 @@ extern "C" int flash_attention_fwd_split_lse_plan(const void* q, const void* k, 
                                        window, scale, nullptr);
 }
 #endif
+#endif  // FLASH_ATTENTION_HELPERS_ONLY

@@ -3,32 +3,38 @@
   flash_attention(q, k, v)          the forward: softmax(q k^T scale) v
   flash_attention_backward(...)     (dq, dk, dv) from the forward's output,
                                     its row log-sum-exp and dO
+  route(dtype, D, Dv, aligned, grad)  the CUDA unit a call launches
 
 CPU tensors take the plain versions (`attention_ref`, `attention_bwd_ref`).
-CUDA tensors launch `csrc/flash_attention.cu` (serving),
-`csrc/flash_attention_lse.cu` (the same kernels writing the row
-log-sum-exp, under grad) and `csrc/flash_attention_bwd.cu` (its f32
-half built from `csrc/flash_attention_bwd_f32.cu`; head dims above 128
-from `csrc/flash_attention_bwd_wide.cu`), or raise: there is no fallback
-on the card.  Head dims up to `MAX_HEAD_DIM` (128) in f32 and bf16; up to
-`MAX_HEAD_DIM_BF16_WIDE` (160, pixtral-12b) for bf16 with 16-byte rows
-and pointers, serving and under grad.
+CUDA tensors launch a kernel or raise: there is no fallback on the card.
+`route`, a pure function of the dtype, the head dims, whether rows and
+pointers are 16-byte aligned and whether the call is under grad, picks
+the unit; every head dim D >= 1 with a v head dim 1 <= Dv <= D, in f32 and
+bf16, has one:
 
-v may have a smaller head dim Dv than q and k (deepseek-v2's MLA: 192
-over 128); the output then has Dv.  bf16 with 128 < D <=
-`MAX_HEAD_DIM_SPLIT` (192), Dv <= 128, launches the split instantiations
-(`flash_attention_fwd_split`, and under grad `flash_attention_fwd_split_lse`
-and `flash_attention_bwd_wide`).  D <= 128, in any dtype or under grad,
-zero-pads v to D, runs the forward (and backward) above and keeps the
-first Dv columns: the zero columns add exactly 0 to each output column
-kept, and their gradient is dropped.  f32 above 128 raises (ROADMAP.md
-§B.1: no configuration of the repository reaches it), as does anything
-else the kernels do not take.
+  D <= 128, Dv == D   csrc/flash_attention.cu (serving), its kLse build
+                      csrc/flash_attention_lse.cu (under grad) and
+                      csrc/flash_attention_bwd.cu (its f32 half from
+                      csrc/flash_attention_bwd_f32.cu); any alignment
+  Dv < D <= 128       v zero-padded to D through the above, the first Dv
+                      columns kept: the zero columns add exactly 0 to each
+                      output column kept, and their gradient is dropped
+  bf16, aligned, Dv == D <= 160 (pixtral-12b), or D <= 192 over Dv <= 128
+                      (deepseek-v2's MLA): the instantiations at 160 and
+                      the split ones of flash_attention.cu / _lse.cu, and
+                      csrc/flash_attention_bwd_wide.cu
+  anything else       csrc/flash_attention_any.cu (forward, with or
+                      without the log-sum-exp) and
+                      csrc/flash_attention_bwd_any.cu: f32 above 128, bf16
+                      above 160 (or 192, or Dv above 128), and rows or
+                      pointers that are not 16-byte aligned above 128
+
+What still raises is not a width: a dtype other than f32 and bf16 (f16
+included), Dv > D, tensors on several devices or not contiguous, and a
+batch above the grid's z limit (`check_grid`).
 
 The forward runs bf16 inputs on bf16 tensor-core products (P rounded to
-bf16 before P V, as `blocked_attention` does) and f32 inputs as 3xTF32;
-its C entry point picks 16-byte or element-by-element staging from D and
-the pointers' alignment.
+bf16 before P V, as `blocked_attention` does) and f32 inputs as 3xTF32.
 
 Under grad (grad mode on and q, k or v requiring a gradient) a CUDA call
 goes through a `torch.autograd.Function`: the forward also writes each
@@ -39,17 +45,21 @@ differentiable itself.
 
 `flash_attention.launches` counts forward launches and
 `flash_attention_backward.launches` backward launches (three kernels a
-launch, Delta, dK/dV and dQ; four above 128, where dV and dK are two
-walks); `flash_attention.flops` counts the forward's products,
-4*B*H*Sq*Sk*D a launch, 2*B*H*Sq*Sk*(D + Dv) for the split instantiation,
-and `flash_attention_backward.flops` the backward's five,
-2*B*H*Sq*Sk*(3*D + 2*Dv) (plain integers).  The FLOPs are counted on the
-CUDA path only: a ctypes launch is no aten operator, so `FlopCounterMode`
-cannot see it, while on CPU tensors it counts `attention_ref`'s two
-products as the same 4*B*H*Sq*Sk*D."""
+launch, Delta, dK/dV and dQ; four in flash_attention_bwd_wide.cu and
+flash_attention_bwd_any.cu, where dV and dK are two walks);
+`_build.launches` counts each C entry point's launches, so
+`flash_attention_fwd_any` and `flash_attention_bwd_any` there count those
+that went to the general units.
+`flash_attention.flops` counts the forward's products, 2*B*H*Sq*Sk*(D +
+Dv) a launch, and `flash_attention_backward.flops` the backward's five,
+2*B*H*Sq*Sk*(3*D + 2*Dv) (plain integers).  The FLOPs are counted on the CUDA path only: a
+ctypes launch is no aten operator, so `FlopCounterMode` cannot see it,
+while on CPU tensors it counts `attention_ref`'s two products as the same
+4*B*H*Sq*Sk*D."""
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -57,15 +67,59 @@ from .. import _build
 from .ref import attention_bwd_ref, attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the widest head dim of flash_attention.cu's base instantiations
 MAX_HEAD_DIM = 128
-#: the one wider instantiation of the forward and the backward (bf16,
-#: 16-byte staging), serving and under grad
-MAX_HEAD_DIM_BF16_WIDE = 160
-#: the split instantiations: q/k head dim up to 192 over a v head dim up to
-#: MAX_HEAD_DIM (bf16, 16-byte staging), serving and under grad
-MAX_HEAD_DIM_SPLIT = 192
-_F32_WIDE = ("f32 above head dim 128 has no kernel (ROADMAP.md §B.1; every "
-             "configuration with a wider head has bf16 params)")
+#: bf16 with 16-byte rows: flash_attention.cu's instantiation at 160 ...
+WIDE_HEAD_DIM = 160
+#: ... and its split ones, q/k up to 192 over v up to 128
+SPLIT_HEAD_DIM, SPLIT_V_HEAD_DIM = 192, 128
+#: the general units, csrc/flash_attention_any.cu and _bwd_any.cu
+ANY_FWD, ANY_BWD = "flash_attention_fwd_any", "flash_attention_bwd_any"
+#: the entries that take v's head dim beside q/k's
+_TAKES_DV = ("flash_attention_fwd_split", "flash_attention_fwd_split_lse",
+             ANY_FWD, "flash_attention_bwd_wide", ANY_BWD)
+
+
+class Route(NamedTuple):
+    """The C entry points a call launches: `forward` (the kLse one under
+    grad), `backward` (None unless grad), and `pad_v`: v is zero-padded to
+    D and the call routed as Dv == D."""
+    forward: str
+    backward: Optional[str]
+    pad_v: bool = False
+
+
+def route(dtype, D: int, Dv: int, aligned: bool, grad: bool) -> Route:
+    """The unit of a CUDA call with q/k head dim D, v head dim Dv, `aligned`
+    16-byte rows (D and Dv) and pointers, under grad or not.  Raises for a
+    dtype other than f32 and bf16 and for Dv outside 1 .. D."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: q, k, v must be float32 or "
+                        f"bfloat16 (got {dtype})")
+    if not 1 <= Dv <= D:
+        raise ValueError(f"flash_attention: v head dim {Dv} outside 1 .. "
+                         f"the q/k head dim {D}")
+    if Dv < D <= MAX_HEAD_DIM:
+        return route(dtype, D, D, aligned, grad)._replace(pad_v=True)
+    wide = dtype == torch.bfloat16 and aligned
+    if D <= MAX_HEAD_DIM:
+        fwd, bwd = "flash_attention_fwd", "flash_attention_bwd"
+    elif wide and Dv == D <= WIDE_HEAD_DIM:
+        fwd, bwd = "flash_attention_fwd", "flash_attention_bwd_wide"
+    elif wide and Dv < D <= SPLIT_HEAD_DIM and Dv <= SPLIT_V_HEAD_DIM:
+        fwd, bwd = "flash_attention_fwd_split", "flash_attention_bwd_wide"
+    else:
+        return Route(ANY_FWD, ANY_BWD if grad else None)
+    return Route(fwd + "_lse", bwd) if grad else Route(fwd, None)
+
+
+def aligned16(D: int, Dv: int, tensors) -> bool:
+    """16-byte rows of D and Dv elements and 16-byte aligned tensors."""
+    el = tensors[0].element_size()
+    return (D * el) % 16 == 0 and (Dv * el) % 16 == 0 \
+        and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 #: the launch puts the batch on gridDim.z (csrc/flash_attention.cu:425)
 MAX_GRID_Z = 65535
 
@@ -94,44 +148,21 @@ def _check_cuda(name, tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def _forward(q, k, v, causal, window, scale, lse):
-    """Launch the forward kernel; `lse` is None (serving) or a (B, H, Sq)
-    f32 buffer for the rows' log-sum-exp (training: the kLse
-    instantiations, `csrc/flash_attention_lse.cu`).  A v head dim Dv
-    below D takes the split instantiation."""
-    B, Sq, H, D = q.shape
-    Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
-    if Dv != D:
-        return _forward_split(q, k, v, causal, window, scale, lse)
-    o = torch.empty_like(q)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    args = (_DTYPES[q.dtype], B, Sq, Sk, H, KH, D, int(bool(causal)),
-            int(window), float(scale))
-    if lse is None:
-        _build.launch("flash_attention_fwd", q.get_device(), *ptrs, *args)
-    else:
-        _build.launch("flash_attention_fwd_lse", q.get_device(), *ptrs,
-                      lse.data_ptr(), *args)
-    flash_attention.launches += 1
-    flash_attention.flops += 4 * B * H * Sq * Sk * D
-    return o
-
-
-def _forward_split(q, k, v, causal, window, scale, lse):
-    """The split instantiation (Dv < D, bf16, 128 < D): serving, or with
-    the rows' log-sum-exp into `lse`."""
+def _forward(q, k, v, causal, window, scale, lse, entry):
+    """Launch the forward entry `entry` (a `Route.forward`); `lse` is None
+    (serving) or a (B, H, Sq) f32 buffer for the rows' log-sum-exp (the
+    kLse entries, and the general unit's with lse)."""
     B, Sq, H, D = q.shape
     Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    args = (_DTYPES[q.dtype], B, Sq, Sk, H, KH, D, Dv, int(bool(causal)),
-            int(window), float(scale))
-    if lse is None:
-        _build.launch("flash_attention_fwd_split", q.get_device(), *ptrs,
-                      *args)
-    else:
-        _build.launch("flash_attention_fwd_split_lse", q.get_device(), *ptrs,
-                      lse.data_ptr(), *args)
+    if entry == ANY_FWD:      # one entry: serving (a null lse) or with lse
+        ptrs += (None if lse is None else lse.data_ptr(),)
+    elif lse is not None:
+        ptrs += (lse.data_ptr(),)
+    dims = (D, Dv) if entry in _TAKES_DV else (D,)
+    _build.launch(entry, q.get_device(), *ptrs, _DTYPES[q.dtype], B, Sq, Sk,
+                  H, KH, *dims, int(bool(causal)), int(window), float(scale))
     flash_attention.launches += 1
     flash_attention.flops += 2 * B * H * Sq * Sk * (D + Dv)
     return o
@@ -141,10 +172,10 @@ class _FlashAttention(torch.autograd.Function):
     """The CUDA forward with its row log-sum-exp, and the backward kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
+    def forward(ctx, q, k, v, causal, window, scale, entry):
         B, Sq, H, _ = q.shape
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-        o = _forward(q, k, v, causal, window, scale, lse)
+        o = _forward(q, k, v, causal, window, scale, lse, entry)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = (causal, window, scale)
         return o
@@ -157,7 +188,7 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_backward(q, k, v, o, do.contiguous(), lse,
                                               causal=causal, window=window,
                                               scale=scale)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
@@ -177,63 +208,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     _check_cuda("flash_attention", (q, k, v))
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
-    if Dv < D:
-        return _split_head_dim(q, k, v, causal, window, scale, grad)
-    if D > MAX_HEAD_DIM:
-        _check_wide_head_dim(q, k, v)
-    check_grid(B)
-    if grad:
-        return _FlashAttention.apply(q, k, v, causal, window, scale)
-    return _forward(q, k, v, causal, window, scale, None)
-
-
-def _split_head_dim(q, k, v, causal, window, scale, grad):
-    """A v head dim Dv below D (CUDA tensors): the split instantiations for
-    bf16 above 128, else v zero-padded to D through the forward (and
-    backward) of D <= 128, else raise."""
-    B, D, Dv = q.shape[0], q.shape[-1], v.shape[-1]
-    if D <= MAX_HEAD_DIM:
+    r = route(q.dtype, D, Dv, aligned16(D, Dv, (q, k, v)), grad)
+    if r.pad_v:
         o = flash_attention(q, k, torch.nn.functional.pad(v, (0, D - Dv)),
                             causal=causal, window=window, scale=scale)
         return o[..., :Dv]
-    _check_split(q, k, v, "flash_attention")
     check_grid(B)
     if grad:
-        return _FlashAttention.apply(q, k, v, causal, window, scale)
-    return _forward_split(q, k, v, causal, window, scale, None)
-
-
-def _check_split(q, k, v, name):
-    """Raise unless the split instantiations take these tensors: bf16, D
-    <= 192 over Dv <= 128, 16-byte rows and pointers."""
-    D, Dv = q.shape[-1], v.shape[-1]
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: q/k head dim {D} over v head dim {Dv} "
-                         f"in {q.dtype}: {_F32_WIDE}")
-    if D > MAX_HEAD_DIM_SPLIT or Dv > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: q/k head dim {D} over v head dim {Dv}: "
-                         f"the split instantiations take D <= "
-                         f"{MAX_HEAD_DIM_SPLIT} over Dv <= {MAX_HEAD_DIM}")
-    if D % 8 or Dv % 8 or any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{name}: the split head dim ({D} over {Dv}) needs "
-                         f"16-byte rows and 16-byte aligned tensors")
-
-
-def _check_wide_head_dim(q, k, v):
-    """Raise unless the head-dim-160 instantiations take these tensors:
-    bf16, D <= 160, 16-byte rows and pointers."""
-    D = q.shape[-1]
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention: head dim {D} in {q.dtype}: "
-                         f"{_F32_WIDE}")
-    if D > MAX_HEAD_DIM_BF16_WIDE:
-        raise ValueError(f"flash_attention: head dim {D} > "
-                         f"{MAX_HEAD_DIM_BF16_WIDE}, the widest "
-                         f"instantiation (a v head dim below it takes the "
-                         f"split ones, to {MAX_HEAD_DIM_SPLIT})")
-    if D % 8 or any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM} "
-                         f"needs 16-byte rows and 16-byte aligned tensors")
+        return _FlashAttention.apply(q, k, v, causal, window, scale, r.forward)
+    return _forward(q, k, v, causal, window, scale, None, r.forward)
 
 
 def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
@@ -260,31 +243,27 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0,
         raise ValueError("flash_attention_backward: lse must be a contiguous "
                          "float32 tensor on q's device")
     check_grid(B)
-    wide = D > MAX_HEAD_DIM
-    if wide:
-        if Dv < D:
-            _check_split(q, k, v, "flash_attention_backward")
-        else:
-            _check_wide_head_dim(q, k, v)
-        if do.data_ptr() % 16:
-            raise ValueError("flash_attention_backward: head dims above "
-                             f"{MAX_HEAD_DIM} need a 16-byte aligned dO")
-    elif Dv < D:
+    r = route(q.dtype, D, Dv, aligned16(D, Dv, (q, k, v, o, do)), True)
+    if r.pad_v:
         raise ValueError(f"flash_attention_backward: v head dim {Dv} below "
                          f"D {D} <= {MAX_HEAD_DIM}: pad v to D, as "
                          f"flash_attention does")
+    return _backward(q, k, v, o, do, lse, causal, window, scale, r.backward)
+
+
+def _backward(q, k, v, o, do, lse, causal, window, scale, entry):
+    """Launch the backward entry `entry` (a `Route.backward`) on checked
+    CUDA inputs."""
+    B, Sq, H, D = q.shape
+    Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr())
-    mask = (int(bool(causal)), int(window), float(scale))
-    if wide:
-        _build.launch("flash_attention_bwd_wide", q.get_device(), *ptrs,
-                      _DTYPES[q.dtype], B, Sq, Sk, H, KH, D, Dv, *mask)
-    else:
-        _build.launch("flash_attention_bwd", q.get_device(), *ptrs,
-                      _DTYPES[q.dtype], B, Sq, Sk, H, KH, D, *mask)
+    dims = (D, Dv) if entry in _TAKES_DV else (D,)
+    _build.launch(entry, q.get_device(), *ptrs, _DTYPES[q.dtype], B, Sq, Sk,
+                  H, KH, *dims, int(bool(causal)), int(window), float(scale))
     flash_attention_backward.launches += 1
     flash_attention_backward.flops += 2 * B * H * Sq * Sk * (3 * D + 2 * Dv)
     return dq, dk, dv

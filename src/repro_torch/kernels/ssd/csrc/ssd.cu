@@ -18,13 +18,14 @@
 // always 64 tokens, also where the plain version takes a ragged s as one
 // chunk: the result does not depend on the chunking beyond rounding.
 //
-// Bound on an H100 SXM: C B^T once per (b, tile), as B and C are shared by
-// the heads, and three products of 2 * 64 * 64 * p operations per (b, h,
-// tile), against x, dt, B, C read once and y, h written once.  At the
-// zamba2-2.7b serving shape (b 4, s 512, h 80, p = n = 64) that is 4.04
-// GFLOP, 0.0245 ms at the 165 TFLOP/s of f32-accurate (3xTF32) tensor-core
-// work, against 0.0271 ms of bytes in f32 and less with the path's bf16
-// x, B and C, so the two bounds are close.
+// Bound on an H100 SXM: the causal half of C B^T once per (b, tile), as B
+// and C are shared by the heads, the causal half of S x per (b, h, tile),
+// and C h^T and the state update over (p, n) per token, against x, dt, B,
+// C read once and y, h written once (chip_smoke.py's ssd_fwd_work).  At
+// the zamba2-2.7b serving shape (b 4, s 512, h 80, p = n = 64) that is
+// 3.37 GFLOP, 0.0205 ms at the 165 TFLOP/s of f32-accurate (3xTF32)
+// tensor-core work, against 0.0271 ms of bytes in f32 and less with the
+// path's bf16 x, B and C, so the two bounds are close.
 //
 // What the design does about it:
 // - Two kernels from the one C entry ssd_fwd.  ssd_cb_kernel writes C B^T
@@ -477,6 +478,8 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
+// ssd_any.cu includes this file for its helpers, without the entry points.
+#ifndef SSD_HELPERS_ONLY
 // dtype: 0 = float32, 1 = bfloat16, the type of x, B and C.  x (b, s, h, p)
 // with element strides xs_b, xs_t, xs_h and a unit stride on p; B and C
 // (b, s, n) with strides bs_b, bs_t and cs_b, cs_t and a unit stride on n.
@@ -523,3 +526,4 @@ extern "C" int ssd_fwd_plan(const void* x, const void* dt, const void* A, const 
   return ssd_fwd(x, dt, A, B, C, cb, y, hout, dtype, b, s, h, p, n, xs_b, xs_t, xs_h, bs_b, bs_t,
                  cs_b, cs_t, nullptr);
 }
+#endif

@@ -666,6 +666,9 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
+// ssd_bwd_any.cu includes this file for its helpers, without the entry
+// points.
+#ifndef SSD_HELPERS_ONLY
 // dtype: 0 = float32, 1 = bfloat16, the type of x, B, C, dx, dB and dC.  x
 // (b, s, h, p) with strides xs_b, xs_t, xs_h; B and C (b, s, n) with
 // strides bs_b, bs_t and cs_b, cs_t; unit strides on p and n.  dt, A, dy
@@ -714,3 +717,4 @@ extern "C" int ssd_bwd_plan(const void* x, const void* dt, const void* A, const 
   return ssd_bwd(x, dt, A, B, C, dy, dhf, hst, gst, decay, dx, ddt, dbp, dcp, dapart, dB, dC, dA,
                  dtype, b, s, h, p, n, group, xs_b, xs_t, xs_h, bs_b, bs_t, cs_b, cs_t, nullptr);
 }
+#endif

@@ -7,9 +7,15 @@ CPU tensors take the plain versions (`ssd_ref`, `ssd_bwd_ref`).  CUDA
 tensors launch `csrc/ssd.cu` (a C B^T pass and the scan, from one C entry
 point) and `csrc/ssd_bwd.cu` (the tile-local states and their gradients,
 the recurrence between tiles, the per-tile terms of a head group, the
-sums over groups), or raise: there is no fallback
-on the card.  `ssd_scan.launches` and `ssd_scan_backward.launches` count
-calls that launched the kernels (plain integers).
+sums over groups) where the head dim p and the state n are at most
+`SMALL` (64, zamba2-2.7b's published layer), and `csrc/ssd_any.cu` /
+`csrc/ssd_bwd_any.cu`, the same decomposition over 64-wide slabs of p and
+n, at any other p >= 1 and n >= 1 (a Mamba2 state of 128, as every
+published Mamba2 checkpoint has), or raise: there is no fallback on the
+card.  No width is a limit.  `ssd_scan.launches` and
+`ssd_scan_backward.launches` count calls that launched the kernels
+(plain integers), and `_build.launches` each C entry point's launches
+(`ssd_fwd_any` / `ssd_bwd_any` those that went to the general units).
 
 x, B and C are read in place, in their own dtype (f32 or bf16) and through
 their strides, as long as the last axis has a unit stride: on the model's
@@ -33,9 +39,13 @@ from .. import _build
 from .ref import ssd_bwd_ref, ssd_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 64      # p
-MAX_STATE = 64         # n
+SMALL = 64             # p and n up to which ssd.cu / ssd_bwd.cu run
 TILE = 64              # tokens of a tile (the C B^T scratch is per tile)
+
+
+def general(p: int, n: int) -> bool:
+    """Whether (p, n) takes the general units, ssd_any.cu / ssd_bwd_any.cu."""
+    return p > SMALL or n > SMALL
 
 
 def head_group(b: int, s: int, h: int) -> int:
@@ -73,9 +83,6 @@ def _check(name, x, dt, A, B_, C_):
                          f"last axis")
     if not (dt.is_contiguous() and A.is_contiguous()):
         raise ValueError(f"{name}: dt and A must be contiguous")
-    if p > MAX_HEAD_DIM or n > MAX_STATE:
-        raise ValueError(f"{name}: head dim {p} or state {n} above "
-                         f"{MAX_HEAD_DIM}")
     return False
 
 
@@ -93,7 +100,8 @@ def _forward(x, dt, A, B_, C_):
     h_fin = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     cb = torch.empty((b, -(-s // TILE), TILE, TILE), dtype=torch.float32,
                      device=dev)
-    _build.launch("ssd_fwd", x.get_device(), x.data_ptr(), dt.data_ptr(),
+    entry = "ssd_fwd_any" if general(p, n) else "ssd_fwd"
+    _build.launch(entry, x.get_device(), x.data_ptr(), dt.data_ptr(),
                   A.data_ptr(), B_.data_ptr(), C_.data_ptr(), cb.data_ptr(),
                   y.data_ptr(), h_fin.data_ptr(), _DTYPES[x.dtype], b, s, h,
                   p, n, *_strides(x, B_, C_))
@@ -170,7 +178,8 @@ def ssd_scan_backward(x, dt, A, B_, C_, dy, dh_final=None):
     dA = torch.empty((h,), **f32)
     dB = torch.empty((b, s, n), dtype=B_.dtype, device=dev)
     dC = torch.empty((b, s, n), dtype=C_.dtype, device=dev)
-    _build.launch("ssd_bwd", x.get_device(), x.data_ptr(), dt.data_ptr(),
+    entry = "ssd_bwd_any" if general(p, n) else "ssd_bwd"
+    _build.launch(entry, x.get_device(), x.data_ptr(), dt.data_ptr(),
                   A.data_ptr(), B_.data_ptr(), C_.data_ptr(), dy.data_ptr(),
                   None if dh_final is None else dh_final.data_ptr(),
                   hst.data_ptr(), gst.data_ptr(), decay.data_ptr(),

@@ -14,7 +14,8 @@ every value that outlives a replay lives outside the pool (the static
 buffers), so a replay reads nothing another graph allocated and the
 graphs of one pool replay in any order.  A replay calls no kernel
 wrapper, so the capture records the launches and FLOPs each wrapper
-counted inside it (`repro_torch.kernels.KERNELS`' `launches` / `flops`),
+counted inside it (`repro_torch.kernels.KERNELS`' `launches` / `flops`,
+and each C entry point's count in `_build.launches`),
 takes them back off the counters, and every replay adds them: the
 counters count device launches either way.  Each capture is announced to
 `repro_torch.obs.watch` ("capture"), which the retrace sentinel counts.
@@ -138,9 +139,9 @@ def program_cost(profile: "ProgramProfile") -> Dict[str, float]:
 
 
 def _counters() -> List[Tuple[object, str]]:
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, _build
     return [(k, a) for k in KERNELS for a in ("launches", "flops")
-            if hasattr(k, a)]
+            if hasattr(k, a)] + [(_build.launches, e) for e in _build.ENTRIES]
 
 
 @dataclass

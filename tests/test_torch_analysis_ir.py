@@ -368,7 +368,7 @@ def test_every_launch_site_goes_through_the_plan_helper():
     from repro_torch.kernels import _build
     text = "".join(p.read_text() for p in KERNELS.glob("*/csrc/*.cu"))
     assert "<<<" not in text
-    assert len(re.findall(r"PLAN_LAUNCH\(", text)) == 13
+    assert len(re.findall(r"PLAN_LAUNCH\(", text)) == 22
     for entry in _build.ENTRIES:
         assert re.search(rf'extern "C" int {entry}_plan\(', text), entry
 

@@ -530,8 +530,11 @@ def test_ssd_kernel_reads_views_of_xbc(cuda, b, s, h, p, n, dtype):
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    """f16 inputs, a head dim above 64 and a last axis that is not unit
-    stride."""
+    """f16 inputs and a last axis that is not unit stride raise; a head dim
+    above 64 (p 80) is no longer refused: it runs the general unit
+    (csrc/ssd_any.cu), held against the plain version at 2e-4 abs / 1e-3
+    rel."""
+    from repro_torch.kernels import _build
     x = torch.zeros((1, 8, 2, 16), device=cuda)
     dt = torch.zeros((1, 8, 2), device=cuda)
     A = torch.zeros((2,), device=cuda)
@@ -539,12 +542,24 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         ssd_scan(x.half(), dt, A, s.half(), s.half())
     with pytest.raises(ValueError):
-        ssd_scan(torch.zeros((1, 8, 2, 80), device=cuda), dt, A, s, s)
-    with pytest.raises(ValueError):
         ssd_scan(torch.zeros((1, 16, 2, 8), device=cuda).transpose(1, 3),
                  torch.zeros((1, 8, 2), device=cuda), A, s, s)
     with pytest.raises(ValueError):
         ssd_scan(x, dt, A, s.transpose(1, 2).contiguous().transpose(1, 2), s)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x80 = torch.randn((1, 72, 2, 80), generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(torch.randn((1, 72, 2), generator=g,
+                                                  device=cuda))
+    A = -torch.exp(torch.rand((2,), generator=g, device=cuda))
+    B_, C_ = (torch.randn((1, 72, 4), generator=g, device=cuda)
+              for _ in range(2))
+    before = _build.launches.ssd_fwd_any
+    y, hf = ssd_scan(x80, dt, A, B_, C_)
+    yr, hr = ssd_chunked(x80, dt, A, B_, C_, 72)
+    torch.cuda.synchronize()
+    assert _build.launches.ssd_fwd_any == before + 1
+    torch.testing.assert_close(y, yr, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(hf, hr, atol=2e-4, rtol=1e-3)
 
 
 def test_kernel_flop_counters_match_flop_counter_mode(cuda):
@@ -675,7 +690,8 @@ def test_flash_forward_writes_the_lse_only_under_grad(cuda, dtype):
     q = torch.randn((2, 96, 4, 64), generator=g, device=cuda).to(dt)
     k = torch.randn((2, 80, 2, 64), generator=g, device=cuda).to(dt)
     lse = torch.full((2, 4, 96), 7.0, device=cuda)
-    o_lse = ops._forward(q, k, k, True, 0, 0.125, lse)
+    o_lse = ops._forward(q, k, k, True, 0, 0.125, lse,
+                         ops.route(dt, 64, 64, True, True).forward)
     o = flash_attention(q, k, k, causal=True, scale=0.125)
     assert torch.equal(o, o_lse)
     want = attention_lse_ref(q, k, causal=True, scale=0.125)
@@ -810,25 +826,39 @@ def test_flash_kernel_at_head_dim_160(cuda, B, Sq, Sk, H, KH, D, causal,
 
 
 def test_head_dim_160_is_the_bf16_serving_path_only(cuda):
-    """Above 128 the wrapper raises, launching nothing, for f32 (naming
-    ROADMAP §B.1), above 160, and without 16-byte rows or pointers; bf16
-    under grad runs the training forward (the kLse instantiation at 160)."""
-    def bf16(D, offset=0):
-        flat = torch.zeros((64 * 2 * D + offset,), device=cuda,
-                           dtype=torch.bfloat16)
-        return flat[offset:].view(1, 64, 2, D)
+    """Above 128 the bf16 instantiation at 160 takes bf16 with 16-byte rows
+    and pointers (and under grad its training forward); f32 at 160, bf16 at
+    176 and 132 and a misaligned pointer at 160 no longer raise: they run
+    the general forward (csrc/flash_attention_any.cu), held against the
+    plain version (2e-5 abs in f32, one bf16 rounding 1.6e-2 in bf16).  f16
+    still raises, launching nothing."""
+    from repro_torch.kernels import _build
+    g = torch.Generator(device=cuda).manual_seed(11)
+
+    def rand(D, dt=torch.bfloat16, offset=0):
+        flat = torch.randn((96 * 2 * D + offset,), generator=g, device=cuda)
+        return flat.to(dt)[offset:].view(1, 96, 2, D)
 
     before = flash_attention.launches
-    with pytest.raises(ValueError, match="B.1"):
-        flash_attention(*(bf16(160).float() for _ in range(3)))
-    for q in (bf16(176), bf16(132), bf16(160, offset=1)):
-        with pytest.raises(ValueError, match="head dim"):
-            flash_attention(q, q, q)
+    any_before = _build.launches.flash_attention_fwd_any
+    with pytest.raises(TypeError):
+        flash_attention(*(rand(160, torch.float16) for _ in range(3)))
     assert flash_attention.launches == before
+    cases = ((rand(160, torch.float32), 2e-5), (rand(176), 1.6e-2),
+             (rand(132), 1.6e-2), (rand(160, offset=1), 1.6e-2))
+    for q, tol in cases:
+        out = flash_attention(q, q, q)
+        ref = attention_ref(q, q, q)
+        torch.cuda.synchronize()
+        assert out.dtype == q.dtype
+        assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert _build.launches.flash_attention_fwd_any == any_before + len(cases)
+    assert flash_attention.launches == before + len(cases)
     q = torch.zeros((1, 64, 2, 160), device=cuda, dtype=torch.bfloat16,
                     requires_grad=True)
     o = flash_attention(q, q, q)
-    assert o.grad_fn is not None and flash_attention.launches == before + 1
+    assert o.grad_fn is not None and flash_attention.launches == before + 5
+    assert _build.launches.flash_attention_fwd_any == any_before + len(cases)
 
 
 def _smoke_pair(arch, seed=5):
@@ -992,33 +1022,55 @@ def test_flash_split_head_dim_pads_v_under_grad(cuda, dtype, tol):
 
 
 def test_flash_split_head_dim_refusals(cuda):
-    """Above 128 the split runs in bf16 alone: f32 (naming ROADMAP §B.1),
-    with or without grad, D above 192, Dv above 128 and misaligned tensors
-    raise, launching nothing; bf16 under grad runs the split training
+    """A v head dim above q/k's still raises, launching nothing.  What the
+    split instantiations (bf16, q/k up to 192 over v up to 128, 16-byte
+    rows) do not take no longer raises: f32 192 over 128, with and without
+    grad, bf16 200 over 128, 192 over 136 and a misaligned v run the
+    general units, held against the plain version (2e-5 abs in f32, one
+    bf16 rounding in bf16) and, under grad, against float64 autograd (1e-4
+    abs in f32); bf16 192 over 128 under grad runs the split training
     kernels."""
-    from repro_torch.kernels import flash_attention_backward
+    from repro_torch.kernels import _build, flash_attention_backward
+    g = torch.Generator(device=cuda).manual_seed(12)
 
-    def bf16(D, offset=0):
-        flat = torch.zeros((64 * 2 * D + offset,), device=cuda,
-                           dtype=torch.bfloat16)
-        return flat[offset:].view(1, 64, 2, D)
+    def rand(D, dt=torch.bfloat16, offset=0):
+        flat = torch.randn((64 * 2 * D + offset,), generator=g, device=cuda)
+        return flat.to(dt)[offset:].view(1, 64, 2, D)
 
     before = flash_attention.launches
-    for q, v, what in ((bf16(192).float(), bf16(128).float(), "B.1"),
-                       (bf16(192).float().requires_grad_(),
-                        bf16(128).float(), "B.1"),
-                       (bf16(200), bf16(128), "192"),
-                       (bf16(192), bf16(136), "192"),
-                       (bf16(192), bf16(128, offset=1), "16-byte")):
-        with pytest.raises(ValueError, match=what):
-            flash_attention(q, q, v)
+    with pytest.raises(ValueError):
+        flash_attention(rand(128), rand(128), rand(192))
     assert flash_attention.launches == before
-    q = bf16(192).requires_grad_()
+    any_before = _build.launches.flash_attention_fwd_any
+    cases = ((rand(192, torch.float32), rand(128, torch.float32), 2e-5),
+             (rand(200), rand(128), 1.6e-2), (rand(192), rand(136), 1.6e-2),
+             (rand(192), rand(128, offset=1), 1.6e-2))
+    for q, v, tol in cases:
+        out = flash_attention(q, q, v)
+        ref = attention_ref(q, q, v)
+        torch.cuda.synchronize()
+        assert out.shape == v.shape[:3] + (v.shape[-1],)
+        assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert _build.launches.flash_attention_fwd_any == any_before + len(cases)
+    q, v = rand(192, torch.float32), rand(128, torch.float32)
+    q64, v64 = (t.double().requires_grad_() for t in (q, v))
+    do = torch.randn((1, 64, 2, 128), generator=g, device=cuda)
+    want = torch.autograd.grad(attention_ref(q64, q64, v64), (q64, v64),
+                               do.double())
+    qg, vg = q.clone().requires_grad_(), v.clone().requires_grad_()
+    bwd_any = _build.launches.flash_attention_bwd_any
+    flash_attention(qg, qg, vg).backward(do)
+    assert _build.launches.flash_attention_bwd_any == bwd_any + 1
+    for a, b in zip((qg.grad, vg.grad), want):
+        assert float((a.double() - b).abs().max()) <= 1e-4
+    q = rand(192).requires_grad_()
     bwd = flash_attention_backward.launches
-    o = flash_attention(q, q, bf16(128))
+    fwd = flash_attention.launches
+    o = flash_attention(q, q, rand(128))
     o.float().sum().backward()
-    assert flash_attention.launches == before + 1
+    assert flash_attention.launches == fwd + 1
     assert flash_attention_backward.launches == bwd + 1
+    assert _build.launches.flash_attention_bwd_any == bwd_any + 1
 
 
 # the training kernels above 128: the kLse forward and the wide backward
@@ -1065,7 +1117,9 @@ def test_flash_wide_training_kernels_match_float64(cuda, B, Sq, Sk, H, KH, D,
     want = torch.autograd.grad(ref, (q64, k64, v64), do.double())
     assert float((o.double() - ref).abs().max()) <= 2e-2
     lse = torch.empty((B, H, Sq), device=cuda)
-    o2 = ops._forward(q, k, v, causal, window, D ** -0.5, lse)
+    entry = ops.route(q.dtype, D, Dv, ops.aligned16(D, Dv, (q, k, v)),
+                      True).forward
+    o2 = ops._forward(q, k, v, causal, window, D ** -0.5, lse, entry)
     lse_ref = attention_lse_ref(q, k, causal=causal, window=window)
     live = lse_ref > -1e29
     assert float((lse - lse_ref)[live].abs().max()) <= 1e-3
@@ -1129,7 +1183,7 @@ def test_launch_lint_clean_over_every_entry_point(cuda):
     res = lint_launches()
     assert res.issues == [], [i.message for i in res.issues]
     assert sorted(res.entries) == sorted(_build.ENTRIES)
-    assert len({p.site for p in res.plans}) == 13
+    assert len({p.site for p in res.plans}) == 22
 
 
 @pytest.mark.parametrize("arch", ["dit-xl", "dit-t2i"])

@@ -96,7 +96,7 @@ def flash_bwd_case(torch, gen, name, B, Sq, Sk, H, KH, D, Dv, causal,
     """q, k, v, o, dO, lse from the forward of the checkout, and the
     float64 gradients; call(variant) -> (args, outputs, buffers), with
     `call.entry` the C entry point that takes the row."""
-    from chip_smoke import BWD_ROUNDED
+    from chip_smoke import BWD_ROUNDED, route_entry
     from repro_torch.kernels.flash_attention import attention_ref, ops
     dtype = getattr(torch, dt)
     q, k, v, do = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
@@ -104,7 +104,8 @@ def flash_bwd_case(torch, gen, name, B, Sq, Sk, H, KH, D, Dv, causal,
                               (B, Sq, H, Dv)))
     scale = 1.0 / math.sqrt(D)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
-    o = ops._forward(q, k, v, causal, window, scale, lse)
+    o = ops._forward(q, k, v, causal, window, scale, lse,
+                     route_entry(ops, q, k, v, True))
     q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
     ref = torch.autograd.grad(attention_ref(q64, k64, v64, causal=causal,
                                             window=window),
