@@ -9,10 +9,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
   2. build    every kernel of the port from `src/repro_torch/kernels/*/csrc`
               (the dry runs' CPU subprocesses start before it); ptxas
               registers and spills per kernel, when each source's nvcc
-              ended, and the tensor-core (HMMA) instructions cuobjdump
-              finds in the flash and SSD kernels where the toolkit has
-              cuobjdump (run beside the phases, counted at the end; a
-              backward kernel without any fails)
+              ended, and the tensor-core instructions cuobjdump finds in
+              the flash and SSD kernels, mma.sync (HMMA) and wgmma
+              (HGMMA) apart, where the toolkit has cuobjdump (run beside
+              the phases, counted at the end; a backward kernel without
+              either fails, and a wide backward one without HGMMA)
   3. flash    the flash-attention kernel against its plain version at the
               DiT-XL shape (f32 and bf16), a causal GQA shape with a window,
               a ragged shape, a q-at-the-tail shape, the zamba2-2.7b
@@ -943,12 +944,13 @@ def phase_flash_bwd(torch, F):
                                          "zamba2 prefill",
                                          "tinyllama train (gqa 8)",
                                          *BWD_WIDE)})
-    report["wide_registers_spills"] = {
-        tag: ptxas_usage(tag) for tag in WIDE_BWD_KERNELS}
+    report["wide_registers_spills"] = wide_usage()
     log(f"flash-bwd: the wide instantiations' registers, spill store and "
         f"load bytes {report['wide_registers_spills']}")
     if None in report["wide_registers_spills"].values():
         fail("flash-bwd: ptxas reported no wide backward instantiation")
+    if any(u[1] or u[2] for u in report["wide_registers_spills"].values()):
+        fail("flash-bwd: a wide backward instantiation spills")
     return report
 
 
@@ -4657,14 +4659,13 @@ MOE_LOSS_TOL = 1e-5          # check-moe: lm_loss and its MoE terms, relative
 MOE_MARGIN = 1e-4            # least relative gap of the k-th and (k+1)-th prob
 SPLIT_KERNEL = "flash_fwdI13__nv_bfloat16Li192ELb1ELb0ELi128E"
 # the training instantiations above head dim 128: the kLse forwards
-# (flash_attention_lse.cu) and the wide backward's dV walk (Lb0E), dK walk
-# (Lb1E) and dQ (flash_attention_bwd_wide.cu), at 160 and 192 over 128
+# (flash_attention_lse.cu) and the wide backward's dK/dV and dQ kernels
+# (flash_attention_bwd_wide.cu), at 160 and 192 over 128
 WIDE_LSE_KERNELS = ("flash_fwdI13__nv_bfloat16Li160ELb1ELb1E",
                     "flash_fwdI13__nv_bfloat16Li192ELb1ELb1ELi128E")
 WIDE_BWD_KERNELS = tuple(
-    f"flash_bwd_{k}_wideILi{d}ELi{dv}E{flag}"
-    for d, dv in ((160, 160), (192, 128))
-    for k, flag in (("dkdv", "Lb0E"), ("dkdv", "Lb1E"), ("dq", "E")))
+    f"flash_bwd_{k}_wideILi{d}ELi{dv}EE"
+    for d, dv in ((160, 160), (192, 128)) for k in ("dkdv", "dq"))
 
 
 def ptxas_usage(fragment: str):
@@ -4677,6 +4678,43 @@ def ptxas_usage(fragment: str):
                   rf"loads\n.*?Used (\d+) registers", _build.build_log())
     return None if m is None else (int(m.group(3)), int(m.group(1)),
                                    int(m.group(2)))
+
+
+def wide_usage():
+    """{instantiation: (registers, spill store, spill load bytes)} of the
+    wide backward's kernels (WIDE_BWD_KERNELS), from the build log."""
+    return {tag: ptxas_usage(tag) for tag in WIDE_BWD_KERNELS}
+
+
+def bwd_vs_library(torch, B, S, H, KH, D, Dv, dtype):
+    """(ms, library ms) a call at a path's attention shape (causal, one
+    seeded input): the flash backward from the routed training forward's o
+    and lse, and SDPA forward + backward, the yardstick the port never
+    calls, in the same run."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_backward,
+                                                     ops)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    q, k, v, do = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                   for sh in ((B, S, H, D), (B, S, KH, D), (B, S, KH, Dv),
+                              (B, S, H, Dv)))
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    o = ops._forward(q, k, v, True, 0, 1.0 / math.sqrt(D), lse,
+                     route_entry(ops, q, k, v, True))
+    ms = cuda_ms(torch, lambda: flash_attention_backward(q, k, v, o, do, lse,
+                                                         causal=True))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    mask = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                             enable_gqa=KH != H)
+        return torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
+    lib_ms = cuda_ms(torch, sdpa_fwd_bwd)
+    del q, k, v, do, o, lse, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return ms, lib_ms
 
 
 def moe_spans(torch, fn):
@@ -5157,6 +5195,14 @@ def _train_wide_pixtral(torch, kernels, path):
             f"x{e.count:<5d} {e.key[:90]}")
     wide = sum(n for k, n in by_name.items()
                if "flash_bwd_dq_wide<160, 160>" in k)
+    bwd_ms, lib_ms = bwd_vs_library(
+        torch, TRAIN_WIDE_BATCH, cfg.num_vision_tokens + TRAIN_WIDE_TEXT,
+        cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.head_dim,
+        torch.bfloat16)
+    log(f"train-wide: {arch}: the wide backward at the layer's attention "
+        f"shape {bwd_ms:.4f} ms a call against SDPA forward + backward "
+        f"{lib_ms:.4f} (the yardstick); registers, spill store and load "
+        f"bytes {wide_usage()}")
     if wide != depth:
         fail(f"train-wide: {arch}: the profiled step ran the D 160 dQ "
              f"kernel {wide} times, want {depth}")
@@ -5223,13 +5269,21 @@ def _train_wide_mla(torch, kernels, path):
     _, ms = _sync_ms(torch, run)
     by_name = _wide_kernels_by_name(torch, run)
     split = sum(n for k, n in by_name.items() if "_wide<192, 128" in k)
+    bwd_ms, lib_ms = bwd_vs_library(
+        torch, B, S, cfg.num_heads, cfg.num_heads,
+        cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim,
+        torch.bfloat16)
+    log(f"train-wide: {arch}: the split backward at the layer's attention "
+        f"shape {bwd_ms:.4f} ms a call against SDPA forward + backward "
+        f"{lib_ms:.4f} (the yardstick); registers, spill store and load "
+        f"bytes {wide_usage()}")
     log(f"train-wide: {arch}: lm_loss {vals} at {B} x {S} tokens, every "
         f"gradient finite; loss and gradients {ms:.1f} ms (host clock, "
         f"synchronized, second run); peak_mem_gb={peak:.2f}; launches "
         f"{launches}; flash kernels by name {by_name}")
-    if split != 3 * depth:
-        fail(f"train-wide: {arch}: the split backward's three product "
-             f"kernels ran {split} times, want {3 * depth}")
+    if split != 2 * depth:
+        fail(f"train-wide: {arch}: the split backward's two product "
+             f"kernels (dK/dV, dQ) ran {split} times, want {2 * depth}")
     del params
     torch.cuda.empty_cache()
     return launches
@@ -5625,6 +5679,10 @@ def phase_any_kernels(torch, F):
         f"instantiations {usage}")
     if len(usage) < 12:
         fail(f"any: ptxas reported {len(usage)} general-unit instantiations")
+    spilled = [k for k, u in usage.items() if k.startswith("flash_bwd")
+               and (u[1] or u[2])]
+    if spilled:
+        fail(f"any: the general backward spills in {spilled}")
 
     def row(rows, main):
         out = dict(rows[main])
@@ -5876,6 +5934,16 @@ def phase_any_paths(torch, kernels):
     for entry in ANY_ENTRIES:
         if total[entry] <= 0:
             fail(f"any-paths: {entry} was not launched")
+    for name, shape in (("pixtral-12b", (2, 1088, 32, 8, 160, 160)),
+                        ("deepseek-v2-236b", (2, 512, 128, 128, 192, 128))):
+        bwd_ms, lib_ms = bwd_vs_library(torch, *shape, torch.float32)
+        log(f"any-paths: {name} f32: the general backward at the path's "
+            f"attention shape {bwd_ms:.4f} ms a call against SDPA forward + "
+            f"backward {lib_ms:.4f} (the yardstick)")
+    usage = {k: u for k, u in any_registers_spills().items()
+             if k.startswith("flash_bwd")}
+    log(f"any-paths: the general backward's registers, spill store and "
+        f"load bytes {usage}")
     return total
 
 
@@ -6933,12 +7001,64 @@ def start_sass(lib: Path):
     return proc, out
 
 
+#: the kernels whose tensor-core instructions the build phase checks: (what,
+#: name fragments, the instructions of which each must issue one or more).
+#: mma.sync shows as HMMA in the SASS, the warpgroup wgmma as HGMMA (which
+#: does not contain "HMMA"); the wide backward runs every product on wgmma.
+TENSOR_CORE_CHECKS = (
+    ("SSD forward", SSD_KERNELS, ("HMMA", "HGMMA")),
+    ("flash backward", ("flash_bwd_dkdv", "flash_bwd_dq"), ("HMMA", "HGMMA")),
+    ("SSD backward", ("ssd_bwd_state_kernel", "ssd_bwd_tile_kernel"),
+     ("HMMA", "HGMMA")),
+    ("wide flash backward", ("flash_bwd_dkdv_wide", "flash_bwd_dq_wide"),
+     ("HGMMA",)),
+)
+
+
+def tensor_core_counts(listing: str):
+    """{function: {"HMMA": n, "HGMMA": n}} of a `cuobjdump -sass` listing:
+    each function's mma.sync (HMMA) and wgmma (HGMMA) instructions."""
+    counts, fn = {}, None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            if "HGMMA" in line:
+                counts[fn]["HGMMA"] += 1
+            elif "HMMA" in line:
+                counts[fn]["HMMA"] += 1
+    return counts
+
+
+def check_tensor_cores(counts):
+    """(log lines, failures) of TENSOR_CORE_CHECKS over tensor_core_counts'
+    result: a group none of whose kernels is in the listing, or a kernel
+    that issues none of its group's instructions, fails."""
+    lines, failures = [], []
+    for what, frags, kinds in TENSOR_CORE_CHECKS:
+        group = {f: n for f, n in counts.items()
+                 if any(k in f for k in frags)}
+        bad = [f for f, n in group.items() if not any(n[k] for k in kinds)]
+        hmma = sum(n["HMMA"] for n in group.values())
+        hgmma = sum(n["HGMMA"] for n in group.values())
+        lines.append(
+            f"{len(group) - len(bad)} of {len(group)} {what} kernels issue "
+            f"{' or '.join(kinds)}; HMMA {hmma}, HGMMA {hgmma} in all")
+        if not group:
+            failures.append(f"no {what} kernel in the SASS")
+        for f in bad:
+            failures.append(f"the {what} kernel {f[:100]} issues no "
+                            f"{' or '.join(kinds)} instruction")
+    return lines, failures
+
+
 def log_hmma(sass) -> None:
-    """Count the tensor-core instructions (HMMA) of each flash and SSD
-    kernel in start_sass' output; fail where an SSD kernel or a backward
-    product kernel has none."""
+    """Count the tensor-core instructions of each flash and SSD kernel in
+    start_sass' output, mma.sync (HMMA) and wgmma (HGMMA) apart; fail
+    where check_tensor_cores finds a kernel without its instructions."""
     if sass is None:
-        log("build: cuobjdump not found; HMMA count not taken")
+        log("build: cuobjdump not found; HMMA / HGMMA count not taken")
         return
     proc, out = sass
     t0 = time.perf_counter()
@@ -6951,14 +7071,8 @@ def log_hmma(sass) -> None:
     if proc.returncode != 0:
         fail(f"build: cuobjdump -sass exited {proc.returncode}")
     waited = time.perf_counter() - t0
-    counts, fn = {}, None
-    for line in out.read_text().splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
-    flash = {f: n for f, n in counts.items() if "flash_fwd" in f}
+    counts = tensor_core_counts(out.read_text())
+    flash = {f: n["HMMA"] for f, n in counts.items() if "flash_fwd" in f}
     log(f"build: sass: {sum(n > 0 for n in flash.values())} of {len(flash)} "
         f"flash_fwd kernels use HMMA; "
         f"{sum(flash.values())} HMMA instructions in all (cuobjdump beside "
@@ -6967,22 +7081,15 @@ def log_hmma(sass) -> None:
     for tag in ("flash_fwdIfLi72ELb1E", "flash_fwdI13__nv_bfloat16Li80ELb1E"):
         hits = [n for f, n in flash.items() if tag in f]
         log(f"build: sass: {tag}: HMMA {hits}")
-    ssd = {f: n for f, n in counts.items()
-           if any(k in f for k in SSD_KERNELS)}
-    log(f"build: sass: {sum(n > 0 for n in ssd.values())} of {len(ssd)} SSD "
-        f"forward kernels use HMMA: {ssd}")
-    if not ssd or not all(ssd.values()):
-        fail("build: an SSD forward kernel has no HMMA instruction")
-    for tag, kernels in (("flash backward", ("flash_bwd_dkdv",
-                                             "flash_bwd_dq")),
-                         ("SSD backward", ("ssd_bwd_state_kernel",
-                                           "ssd_bwd_tile_kernel"))):
-        bwd = {f: n for f, n in counts.items() if any(k in f for k in kernels)}
-        log(f"build: sass: {sum(n > 0 for n in bwd.values())} of {len(bwd)} "
-            f"{tag} product kernels use HMMA; {sum(bwd.values())} HMMA "
-            f"instructions in all")
-        if not bwd or not all(bwd.values()):
-            fail(f"build: a {tag} product kernel has no HMMA instruction")
+    for f, n in counts.items():   # the backwards above head dim 128
+        if ("flash_bwd_dkdv" in f or "flash_bwd_dq" in f) \
+                and ("_wide" in f or "_any" in f):
+            log(f"build: sass: {f[:90]}: HMMA {n['HMMA']}, HGMMA {n['HGMMA']}")
+    lines, failures = check_tensor_cores(counts)
+    for line in lines:
+        log(f"build: sass: {line}")
+    if failures:
+        fail(f"build: {'; '.join(failures)}")
 
 
 def kernels_line(by_path, flash, fc, ssd, flash_bwd, ssd_bwd, any_rows):

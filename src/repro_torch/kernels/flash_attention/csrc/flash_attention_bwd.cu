@@ -74,9 +74,11 @@
 // - Where D * element size is not a multiple of 16 bytes or a pointer is
 //   not 16-byte aligned, the same kernels stage element by element
 //   (template flag kVec = false) at the next of 32, 64 or 128 columns.
-// - The f32 instantiations compile from flash_attention_bwd_f32.cu, which
-//   includes this file with FLASH_BWD_F32 defined, so that the two halves
-//   build in parallel; this file holds the bf16 half and the entry point.
+// - The f32 instantiations compile from flash_attention_bwd_f32.cu (head
+//   dims up to 96; FLASH_BWD_F32 1) and flash_attention_bwd_f32_hi.cu
+//   (above; FLASH_BWD_F32 2), which include this file, so that the three
+//   parts build in parallel; this file holds the bf16 half and the entry
+//   point.
 // - Head dims above 128 (bf16: pixtral-12b's 160, deepseek-v2's MLA at q/k
 //   192 over v 128) are flash_attention_bwd_wide.cu's, a translation unit
 //   of its own that includes this file for its helpers, with an entry
@@ -588,30 +590,37 @@ cudaError_t launch_dp(const void* q, const void* k, const void* v, const void* d
                      static_cast<T*>(dq), a);
 }
 
-// The element-by-element path at the next of 32, 64 or 128 columns.
-template <typename T, int DP = 32>
+// The element-by-element path at the next of 32, 64 or 128 columns (up to
+// Top: each f32 translation unit instantiates its own range).
+template <typename T, int DP = 32, int Top = kDMax>
 cudaError_t launch_elementwise(const void* q, const void* k, const void* v, const void* dO,
                                const float* lse, const float* delta, void* dq, void* dk,
                                void* dv, int B, const Shape& a, cudaStream_t s) {
-  if constexpr (DP < kDMax) {
+  if constexpr (DP < Top) {
     if (a.D > DP)
-      return launch_elementwise<T, 2 * DP>(q, k, v, dO, lse, delta, dq, dk, dv, B, a, s);
+      return launch_elementwise<T, 2 * DP, Top>(q, k, v, dO, lse, delta, dq, dk, dv, B, a, s);
   }
   return launch_dp<T, DP, false>(q, k, v, dO, lse, delta, dq, dk, dv, B, a, s);
 }
 
-// The head dim rounds up to the next multiple of 16.
-template <typename T, int DP = kPadTo>
+// The head dim rounds up to the next multiple of 16 (up to Top).
+template <typename T, int DP = kPadTo, int Top = kDMax>
+cudaError_t launch_vec(const void* q, const void* k, const void* v, const void* dO,
+                       const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
+                       const Shape& a, cudaStream_t s) {
+  if constexpr (DP < Top) {
+    if (a.D > DP)
+      return launch_vec<T, DP + kPadTo, Top>(q, k, v, dO, lse, delta, dq, dk, dv, B, a, s);
+  }
+  return launch_dp<T, DP, true>(q, k, v, dO, lse, delta, dq, dk, dv, B, a, s);
+}
+
+template <typename T>
 cudaError_t launch(bool vec, const void* q, const void* k, const void* v, const void* dO,
                    const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
                    const Shape& a, cudaStream_t s) {
   if (!vec) return launch_elementwise<T>(q, k, v, dO, lse, delta, dq, dk, dv, B, a, s);
-  if constexpr (DP < kDMax) {
-    if (a.D > DP)
-      return launch<T, DP + kPadTo>(vec, q, k, v, dO, lse, delta, dq, dk, dv, B, a,
-                                               s);
-  }
-  return launch_dp<T, DP, true>(q, k, v, dO, lse, delta, dq, dk, dv, B, a, s);
+  return launch_vec<T>(q, k, v, dO, lse, delta, dq, dk, dv, B, a, s);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -626,24 +635,44 @@ cudaError_t launch_delta(const void* o, const void* dO, float* delta, int B, int
                      rows, Sq, H, D);
 }
 
+// The entry's checks (a shape refused launches nothing), then Delta; *vec:
+// D and every pointer take 16-byte copies.  Returns the first error.
+template <typename T>
+cudaError_t prologue(const void* q, const void* k, const void* v, const void* o, const void* dO,
+                     void* delta, const void* dq, const void* dk, const void* dv, int B, int Sq,
+                     int Sk, int H, int KH, int D, void* stream, bool* vec) {
+  if (D < 1 || D > kDMax || KH < 1 || H % KH != 0 || B < 1 || Sq < 1 || Sk < 1 ||
+      B > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
+  *vec = (D * (int)sizeof(T)) % 16 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+         aligned16(dO) && aligned16(dq) && aligned16(dk) && aligned16(dv);
+  return launch_delta<T>(o, dO, static_cast<float*>(delta), B, Sq, H, D,
+                         static_cast<cudaStream_t>(stream));
+}
+
+Shape shape_of(int Sq, int Sk, int H, int KH, int D, int causal, int window, float scale) {
+  return Shape{Sq, Sk, H, KH, D, causal, window, Sk - Sq, scale, scale * kLog2e};
+}
+
 template <typename T>
 int run(const void* q, const void* k, const void* v, const void* o, const void* dO,
         const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
         int KH, int D, int causal, int window, float scale, void* stream) {
-  if (D < 1 || D > kDMax || KH < 1 || H % KH != 0 || B < 1 || Sq < 1 || Sk < 1 ||
-      B > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Shape a{Sq, Sk, H, KH, D, causal, window, Sk - Sq, scale, scale * kLog2e};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  const cudaError_t e = launch_delta<T>(o, dO, dl, B, Sq, H, D, s);
+  bool vec;
+  const cudaError_t e =
+      prologue<T>(q, k, v, o, dO, delta, dq, dk, dv, B, Sq, Sk, H, KH, D, stream, &vec);
   if (e != cudaSuccess) return (int)e;
-  const bool vec = (D * (int)sizeof(T)) % 16 == 0 && aligned16(q) && aligned16(k) &&
-                   aligned16(v) && aligned16(dO) && aligned16(dq) && aligned16(dk) &&
-                   aligned16(dv);
-  return (int)launch<T>(vec, q, k, v, dO, l, dl, dq, dk, dv, B, a, s);
+  return (int)launch<T>(vec, q, k, v, dO, static_cast<const float*>(lse),
+                        static_cast<float*>(delta), dq, dk, dv, B,
+                        shape_of(Sq, Sk, H, KH, D, causal, window, scale),
+                        static_cast<cudaStream_t>(stream));
 }
+
+// The f32 instantiations split between two translation units that build
+// in parallel: flash_attention_bwd_f32.cu takes 16-byte rows up to head dim
+// 96 and element-by-element rows up to 64, flash_attention_bwd_f32_hi.cu
+// the wider ones.
+constexpr int kF32VecSplit = 96, kF32ElemSplit = 64;
 
 }  // namespace
 
@@ -687,14 +716,52 @@ extern "C" int flash_attention_bwd_plan(const void* q, const void* k, const void
   return flash_attention_bwd(q, k, v, o, dO, lse, delta, dq, dk, dv, dtype, B, Sq, Sk, H, KH, D,
                              causal, window, scale, nullptr);
 }
-#else
-// The f32 half of flash_attention_bwd (flash_attention_bwd_f32.cu).
+#elif FLASH_BWD_F32 == 1
+// The f32 half of flash_attention_bwd: the checks, Delta and the head dims
+// of this translation unit (flash_attention_bwd_f32.cu); the wider ones go
+// to flash_attention_bwd_f32_hi.cu's flash_attention_bwd_f32_hi.
+extern "C" int flash_attention_bwd_f32_hi(const void* q, const void* k, const void* v,
+                                          const void* dO, const void* lse, void* delta, void* dq,
+                                          void* dk, void* dv, int B, int Sq, int Sk, int H,
+                                          int KH, int D, int causal, int window, float scale,
+                                          int vec, void* stream);
+
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                        const void* o, const void* dO, const void* lse,
                                        void* delta, void* dq, void* dk, void* dv, int B, int Sq,
                                        int Sk, int H, int KH, int D, int causal, int window,
                                        float scale, void* stream) {
-  return run<float>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Sq, Sk, H, KH, D, causal, window,
-                    scale, stream);
+  bool vec;
+  const cudaError_t e =
+      prologue<float>(q, k, v, o, dO, delta, dq, dk, dv, B, Sq, Sk, H, KH, D, stream, &vec);
+  if (e != cudaSuccess) return (int)e;
+  if (vec ? D > kF32VecSplit : D > kF32ElemSplit)
+    return flash_attention_bwd_f32_hi(q, k, v, dO, lse, delta, dq, dk, dv, B, Sq, Sk, H, KH, D,
+                                      causal, window, scale, vec, stream);
+  const Shape a = shape_of(Sq, Sk, H, KH, D, causal, window, scale);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(vec ? launch_vec<float, kPadTo, kF32VecSplit>(q, k, v, dO, l, dl, dq, dk, dv, B,
+                                                             a, s)
+                   : launch_elementwise<float, 32, kF32ElemSplit>(q, k, v, dO, l, dl, dq, dk, dv,
+                                                                  B, a, s));
+}
+#else
+// The f32 head dims above flash_attention_bwd_f32.cu's (it has checked
+// them and launched Delta): flash_attention_bwd_f32_hi.cu.
+extern "C" int flash_attention_bwd_f32_hi(const void* q, const void* k, const void* v,
+                                          const void* dO, const void* lse, void* delta, void* dq,
+                                          void* dk, void* dv, int B, int Sq, int Sk, int H,
+                                          int KH, int D, int causal, int window, float scale,
+                                          int vec, void* stream) {
+  const Shape a = shape_of(Sq, Sk, H, KH, D, causal, window, scale);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(vec ? launch_vec<float, kF32VecSplit + kPadTo>(q, k, v, dO, l, dl, dq, dk, dv, B,
+                                                              a, s)
+                   : launch_elementwise<float, 2 * kF32ElemSplit>(q, k, v, dO, l, dl, dq, dk, dv,
+                                                                  B, a, s));
 }
 #endif

@@ -1,5 +1,5 @@
 // Flash attention backward above head dim 128 for Hopper (sm_90a) on the
-// tensor cores, bf16, plain C interface.
+// warpgroup tensor cores (wgmma), bf16, plain C interface.
 //
 // Replaces JAX's autodiff of src/repro/models/layers.py:86 blocked_attention
 // at the two head-dim pairs above 128 that the repository's models train
@@ -18,42 +18,61 @@
 // 160, causal: 592,416 pairs a head) is 60.7 GFLOP, 0.0613 ms at 989
 // TFLOP/s, against 111.7 MB, 0.0333 ms: the operations bound.  deepseek-v2's
 // (B 4, S 512, 128 heads of 192 over 128, causal) is 111.9 GFLOP, 0.113 ms,
-// against 671 MB, 0.200 ms: the bytes bound.
+// against 671 MB, 0.200 ms: the bytes bound.  As run, P and dS enter their
+// products as bf16 hi + lo pairs, so the two products over them count
+// twice: 7 products of 5.
 //
-// What the design does about it (flash_attention_bwd.cu's walks, reshaped
-// for the registers):
-// - Registers.  flash_attention_bwd.cu's dK/dV walk keeps a warp's 16 keys
-//   x D of dK and of dV in registers, D / 2 + D / 2 f32 a thread, beside the
-//   16 x 64 S^T and dP^T fragments (64 more): 243 registers at D 128.  At
-//   160, or 192 over 128, the accumulators alone are 160.  Here dV and dK
-//   are two walks, two instantiations of flash_bwd_dkdv_wide (template flag
-//   kGradK) launched one after the other: the dV walk forms S^T alone and
-//   accumulates dV += P^T dO (Dv / 2 + 32 f32), the dK walk forms S^T and
-//   dP^T and accumulates dK += dS^T Q (D / 2 + 64).  S^T = K Q^T is formed
-//   twice: 2 D more operations a pair, +20 % at 160 and +23 % at 192 over
-//   128.  Weighed against it: a 32-query walked tile, which halves S^T and
-//   dP^T to 32 registers but keeps dK and dV both live (160 + 32, and the
-//   addressing, at the 255 limit), and warp pairs that split dK and dV's
-//   columns (P^T and dS^T through shared memory, a barrier between the
-//   score and the accumulation products).  The two walks are the simple
-//   one.  ptxas: the dV walk 182 registers at 160 (161 at 192 over 128),
-//   the dK walk 240 (246), dQ 244 (255 and 100 B of spill stores at 192
-//   over 128, the one instantiation that spills); 2, 1 and 1 blocks an SM.
-// - dQ: flash_attention_bwd.cu's walk, with V and dO tiles of Dv columns:
-//   D / 2 accumulators and the 64 of S and dP.
-// - Shared rows padded by 16 bytes: LD = D + 8, LDV = Dv + 8 bf16.  Bytes
-//   a block: the dK walk (K and V fixed, 2 stages of Q and dO, 1 KB of lse
-//   and Delta) 130,048 at 160 (6 x 64 x 168 x 2 + 1,024) and at 192 over
-//   128 (3 x 64 x (200 + 136) x 2 + 1,024); the dV walk (no V tile)
-//   108,544 and 112,640; dQ (Q and dO fixed, 2 stages of K and V) 129,024
-//   at both.
+// What the design does about it (FlashAttention-3's shape for the
+// backward):
+// - flash_bwd_dkdv_wide: one block per (64-key tile, kv head, batch) of
+//   three warpgroups.  Warpgroup 2 is the producer: one thread keeps a
+//   3-stage ring of the walked Q and dO tiles full with TMA (a 4-D tensor
+//   map per operand, (D, heads, S, B), 64 x 64 boxes in the 128-byte
+//   swizzle, zero fill past Sq and past D) behind full / empty mbarriers,
+//   after loading the block's K and V tiles once; it gives back its
+//   registers (setmaxnreg 24) to the consumers (240).  Warpgroup 0 forms
+//   S^T = K Q^T over the full D, turns it into P^T in f32 (the masks and
+//   keyless rows of p_ds), hands P^T to warpgroup 1 through a 16 KB f32
+//   tile behind two named barriers, and accumulates dV += P^T dO.
+//   Warpgroup 1 forms dP^T = V dO^T over Dv at the same time, takes P^T,
+//   forms dS^T and accumulates dK += dS^T Q.  S^T and dP^T are formed once
+//   a (key tile, query tile); the accumulators are split between the
+//   warpgroups (Dv / 2 and D / 2 f32 a thread).  GQA: the block walks the
+//   group's heads.
+// - flash_bwd_dq_wide: one block per (128-query tile, head, batch), two
+//   consumer warpgroups of 64 query rows each over one 2-stage ring of K
+//   and V tiles (Q and dO loaded once): S = Q K^T and dP = dO V^T once a key
+//   tile, then dQ += dS K.  Deterministic: no atomics.
+// - Every product is wgmma m64nNk16 (f32 accumulate).  Both score products
+//   read A and B K-major from shared memory; the three accumulation
+//   products take P^T, dS^T or dS from registers as A (the accumulator
+//   layout of the score is the A layout, as in flash_attention_bwd.cu) and
+//   Q, dO or K as MN-major B through the descriptor's transpose bit.  160
+//   is not a multiple of the 64-column swizzle atom: the tiles are stored
+//   in 64-column chunks of 64 rows x 128 bytes, the last one zero-filled
+//   past D (160 takes 192 columns of shared memory: +20 % of the tiles'
+//   bytes, no product over the padding), and an accumulation product over
+//   D is one wgmma per chunk, N = 64, 64 and 32.
+// - P and dS enter their products as bf16 pairs, hi = bf16(x) and lo =
+//   bf16(x - hi) (flash_attention_bwd.cu's rounding).
+// - Load balance under the causal mask: the grid is 1-D with the tiles
+//   that take the most work first (the first key tiles in dK/dV, the last
+//   query tiles in dQ; flash_bwd_split.cuh's tile_of_block).
 // - Delta = rowsum(dO * o) is flash_attention_bwd.cu's kernel over Dv.
+// - Shared bytes a block (plus 1 KB for alignment and barriers): dK/dV at
+//   160: K + V 48 KB, ring 3 x 48 KB, P^T 16 KB = 208 KB; at 192 over 128:
+//   K + V 40 KB, ring 3 x 40 KB, P^T 16 KB = 176 KB.  dQ at 160: Q + dO
+//   96 KB, ring 2 x 48 KB = 192 KB; at 192 over 128: 80 + 80 = 160 KB.
+//   ptxas's registers and spills: PERF.md §6.
 // - Every instantiation of flash_attention_bwd.cu keeps its code: this is
 //   a translation unit of its own (FLASH_BWD_WIDE), built beside it in
 //   parallel, with its own entry point, flash_attention_bwd_wide.
 
 #define FLASH_BWD_WIDE
 #include "flash_attention_bwd.cu"
+#include "flash_bwd_split.cuh"
+
+#include <cuda.h>
 
 namespace {
 
@@ -61,106 +80,289 @@ using bf16 = __nv_bfloat16;
 constexpr int kDWide = 160;      // q, k and v at 160 (pixtral-12b)
 constexpr int kDSplit = 192;     // q and k at 192 ...
 constexpr int kDvSplit = 128;    // ... over v at 128 (deepseek-v2's MLA)
+constexpr int kChunk = 64;                  // columns of a 128-byte swizzle atom
+constexpr int kChunkBytes = 64 * 128;       // 64 rows of one chunk
+constexpr int kWg = 128;                    // threads of a warpgroup
+constexpr int kWideThreads = 3 * kWg;       // two consumer warpgroups, one producer
+constexpr int kRingKV = 3;                  // stages of the walked Q, dO tiles (dK/dV)
+constexpr int kRingQ = 2;                   // and of K, V (dQ: Q and dO fill the rest)
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
-template <int DP, int DV>
-struct Wide {
-  static constexpr int LD = DP + kRowPad<bf16>;    // Q and K rows
-  static constexpr int LDV = DV + kRowPad<bf16>;   // V and dO rows
-  static constexpr int kTile = 64 * LD;
-  static constexpr int kTileV = 64 * LDV;
+// A tile of 64 rows and W columns: its 64-column chunks and their bytes
+template <int W>
+struct Cols {
+  static constexpr int kChunks = (W + kChunk - 1) / kChunk;
+  static constexpr int kLast = W - kChunk * (kChunks - 1);   // columns of the last chunk
+  static constexpr int kBytes = kChunks * kChunkBytes;
+  static constexpr int kRegs = 32 * (kChunks - 1) + kLast / 2;   // f32 of a 64 x W accumulator
 };
 
-// S = F1 W1^T over DP columns (rows of stride LD) and, kDP, dP = F2 W2^T
-// over DV columns (stride LDV): the warp's 16 rows of the fixed tiles
-// against the 64 rows of the walked ones; accumulator tile j holds columns
-// 8 j .. 8 j + 7.
-template <int DP, int DV, bool kDP>
-__device__ __forceinline__ void scores_wide(const bf16* f1, const bf16* f2, const bf16* w1,
-                                            const bf16* w2, float s[8][4], float dp[8][4]) {
-  constexpr int LD = Wide<DP, DV>::LD, LDV = Wide<DP, DV>::LDV;
-  const int lane = threadIdx.x & 31;
-  // A: rows (lane & 7) + 8 ((lane >> 3) & 1), columns 8 (lane >> 4);
-  // B (x4): rows 16 jp + (0..7 | 8..15) x columns (0..7 | 8..15)
-  const int ar = (lane & 7) + 8 * ((lane >> 3) & 1), ac = 8 * (lane >> 4);
-  const int br = (lane & 7) + 8 * (lane >> 4), bc = 8 * ((lane >> 3) & 1);
+// d (64 x 64, f32) (+)= A B over 16 of K, A and B both K-major in shared
+// memory (descriptors); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A B over 16 of K: A from registers (each warp's
+// m16n8k16 A fragment of its 16 rows), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs64t(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32, f32) += A B over 16 of K: A from registers (each warp's
+// m16n8k16 A fragment of its 16 rows), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs32t(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups of this warpgroup's products are pending
+template <int N = 0>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving an accumulator across an asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: the 8-row groups 1024
+// bytes apart.  K-major, the leading offset is unused; MN-major with N <=
+// 64 (one swizzle atom wide) the stride between atoms is never taken, so
+// both offsets are 1024 whichever of the two the hardware reads.
+__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+// K-major operand: step ks of 16 columns of a tile stored in 64-column chunks
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int ks) {
+  return desc128(tile + (ks >> 2) * kChunkBytes + (ks & 3) * 32);
+}
+// MN-major operand: rows 16 kk .. 16 kk + 15 (the reduction) of chunk nc
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int nc, int kk) {
+  return desc128(tile + nc * kChunkBytes + kk * 16 * 128);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// a 64 x 64 box of a 4-D tensor map at (column, head, row, batch) into
+// shared memory, counted on `bar`
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int c, int h,
+                                        int r, int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(h), "r"(r), "r"(b), "r"(bar)
+      : "memory");
+}
+// every chunk of a 64-row tile of W columns
+template <int W>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, int h, int r,
+                                         int b, uint32_t bar) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  for (int c = 0; c < Cols<W>::kChunks; ++c)
+    tma_box(dst + c * kChunkBytes, map, c * kChunk, h, r, b, bar);
+}
+// named barrier `id` over the two consumer warpgroups
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(2 * kWg) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(2 * kWg) : "memory");
+}
+
+// x (the 64 x 64 accumulator of a score, f32) as bf16 hi and lo A fragments
+// of the four 16-wide steps over its columns
+__device__ __forceinline__ void a_pairs(const float* x, uint32_t hi[4][4], uint32_t lo[4][4]) {
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t a1[4];
-    ldsm_x4(a1, f1 + ar * LD + 16 * kk + ac);
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      uint32_t r[4];
-      ldsm_x4(r, w1 + (16 * jp + br) * LD + 16 * kk + bc);
-      mma_bf16(s[2 * jp], a1, r[0], r[1]);
-      mma_bf16(s[2 * jp + 1], a1, r[2], r[3]);
-    }
-  }
-  if constexpr (kDP) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DV / 16; ++kk) {
-      uint32_t a2[4];
-      ldsm_x4(a2, f2 + ar * LDV + 16 * kk + ac);
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t r[4];
-        ldsm_x4(r, w2 + (16 * jp + br) * LDV + 16 * kk + bc);
-        mma_bf16(dp[2 * jp], a2, r[0], r[1]);
-        mma_bf16(dp[2 * jp + 1], a2, r[2], r[3]);
-      }
-    }
+  for (int kk = 0; kk < 4; ++kk) {
+    const float* p = x + 8 * kk;
+    split_bf16(p[0], p[1], hi[kk][0], lo[kk][0]);
+    split_bf16(p[2], p[3], hi[kk][1], lo[kk][1]);
+    split_bf16(p[4], p[5], hi[kk][2], lo[kk][2]);
+    split_bf16(p[6], p[7], hi[kk][3], lo[kk][3]);
   }
 }
 
-template <int DP, int DV, bool kGradK>
-constexpr size_t dkdv_smem() {
-  using W = Wide<DP, DV>;
-  return sizeof(bf16) * (W::kTile + (kGradK ? W::kTileV : 0) +
-                         kStages * (W::kTile + W::kTileV)) +
-         sizeof(float) * kStages * 2 * kBQ;
+// acc (64 x W, chunk c at acc + 32 c) += X B for X given as hi + lo pairs
+// over 64 of the reduction and B the MN-major tile at `tile`: issued and
+// committed; acc, hi and lo stay untouched until a wg_wait covers it
+template <int W>
+__device__ __forceinline__ void acc_issue(float* acc, const uint32_t hi[4][4],
+                                          const uint32_t lo[4][4], uint32_t tile) {
+  fence_regs<Cols<W>::kRegs>(acc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < Cols<W>::kChunks; ++c) {
+      const uint64_t d = desc_mn(tile, c, kk);
+      if (c + 1 < Cols<W>::kChunks || Cols<W>::kLast == 64) {
+        wgmma_rs64t(acc + 32 * c, lo[kk], d);
+        wgmma_rs64t(acc + 32 * c, hi[kk], d);
+      } else {
+        static_assert(Cols<W>::kLast == 64 || Cols<W>::kLast == 32, "chunks of 64 or 32");
+        wgmma_rs32t(acc + 32 * c, lo[kk], d);
+        wgmma_rs32t(acc + 32 * c, hi[kk], d);
+      }
+    }
+  wg_commit();
+  fence_regs<Cols<W>::kRegs>(acc);
+}
+
+// the same, waited for
+template <int W>
+__device__ __forceinline__ void acc_pairs(float* acc, const uint32_t hi[4][4],
+                                          const uint32_t lo[4][4], uint32_t tile) {
+  acc_issue<W>(acc, hi, lo, tile);
+  wg_wait();
+  fence_regs<Cols<W>::kRegs>(acc);
+}
+
+// s (64 x 64) = A B^T over W columns, both tiles K-major: issued and
+// committed; s stays untouched until a wg_wait covers it
+template <int W>
+__device__ __forceinline__ void score_issue(float* s, uint32_t a, uint32_t b) {
+  fence_regs<32>(s);
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < W / 16; ++ks) wgmma_ss64(s, desc_k(a, ks), desc_k(b, ks), ks > 0);
+  wg_commit();
+  fence_regs<32>(s);
+}
+
+// the same, waited for
+template <int W>
+__device__ __forceinline__ void score(float* s, uint32_t a, uint32_t b) {
+  score_issue<W>(s, a, b);
+  wg_wait();
+  fence_regs<32>(s);
+}
+
+// The 64 x W accumulator (chunk c at acc + 32 c) of rows row0 + the
+// thread's (16 warp + g, + 8) into a (rows, stride) bf16 slice: rows >=
+// n_rows and columns >= D left out (D even)
+template <int W>
+__device__ __forceinline__ void store_acc(bf16* base, long long stride, int row0, int n_rows,
+                                          int D, const float* acc) {
+  const int tid = threadIdx.x % kWg, lane = tid & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 16 * (tid >> 5) + g + 8 * r;
+    if (row >= n_rows) continue;
+    bf16* p = base + (long long)row * stride;
+#pragma unroll
+    for (int c = 0; c < Cols<W>::kChunks; ++c)
+#pragma unroll
+      for (int j = 0; j < (c + 1 < Cols<W>::kChunks ? 8 : Cols<W>::kLast / 8); ++j) {
+        const int col = kChunk * c + 8 * j + 2 * t;
+        if (col < D) store2(p + col, acc[32 * c + 4 * j + 2 * r], acc[32 * c + 4 * j + 2 * r + 1]);
+      }
+  }
 }
 
 template <int DP, int DV>
-constexpr size_t dq_smem() {
-  using W = Wide<DP, DV>;
-  return sizeof(bf16) * (1 + kStages) * (W::kTile + W::kTileV);
+struct DkdvSmem {
+  static constexpr int kK = 0, kV = kK + Cols<DP>::kBytes, kRing0 = kV + Cols<DV>::kBytes;
+  static constexpr int kStage = Cols<DP>::kBytes + Cols<DV>::kBytes;   // Q then dO
+  static constexpr int kEx = kRing0 + kRingKV * kStage;                  // P^T, f32
+  static constexpr int kBars = kEx + 64 * 64 * 4;                      // kv, full[], empty[]
+  static constexpr size_t kBytes = kBars + 8 * (1 + 2 * kRingKV) + 1024;
+};
+
+template <int DP, int DV>
+struct DqSmem {
+  static constexpr int kQ = 0, kO = kQ + 2 * Cols<DP>::kBytes, kRing0 = kO + 2 * Cols<DV>::kBytes;
+  static constexpr int kStage = Cols<DP>::kBytes + Cols<DV>::kBytes;   // K then V
+  static constexpr int kBars = kRing0 + kRingQ * kStage;                // qo, full[], empty[]
+  static constexpr size_t kBytes = kBars + 8 * (1 + 2 * kRingQ) + 1024;
+};
+
+// the block's shared memory rounded up to the 1024 bytes of a swizzle
+// pattern
+__device__ __forceinline__ uint32_t smem_base(unsigned char* raw) {
+  return (smem_addr(raw) + 1023u) & ~1023u;
 }
 
-// One block per (64-key tile, kv head, batch), warp w owning keys 16 w ..
-// 16 w + 15, walking the group's heads and their query tiles as
-// flash_bwd_dkdv does.  kGradK: dK += dS^T Q into dkv (B, Sk, KH, D);
-// otherwise dV += P^T dO into dkv (B, Sk, KH, Dv).
-template <int DP, int DV, bool kGradK>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dO,
+// Step `it` of a dK/dV block's walk on consumer warpgroup wg: the row
+// values of the thread's 16 queries (lse or Delta) into rv, the wait for
+// the step's tiles, and the score issued into x (S^T = K Q^T on
+// warpgroup 0, dP^T = V dO^T on 1), not waited for.
+template <int DP, int DV>
+__device__ __forceinline__ void start_step(int wg, int it, int h0, int qt_lo, int nq, int b,
+                                           const Shape& a, int t, const float* rows,
+                                           uint32_t base, int off_k, int off_v, int off_ring,
+                                           int stage_bytes, uint32_t full, float* rv,
+                                           float* x) {
+  const int h = h0 + it / nq, q0 = (qt_lo + it % nq) * kBQ;
+  const long long lrow = ((long long)b * a.H + h) * a.Sq;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int qi = q0 + 8 * (i >> 1) + 2 * t + (i & 1);
+    rv[i] = qi < a.Sq ? __ldg(rows + lrow + qi) : 0.f;
+  }
+  mbar_wait(full, (it / kRingKV) & 1);
+  const uint32_t sQ = base + off_ring + (it % kRingKV) * stage_bytes;
+  if (wg == 0)
+    score_issue<DP>(x, base + off_k, sQ);
+  else
+    score_issue<DV>(x, base + off_v, sQ + Cols<DP>::kBytes);
+}
+
+// Block (key tile, kv head, batch) of the 1-D grid, longest key tiles
+// first: dK (B, Sk, KH, D) and dV (B, Sk, KH, Dv).
+template <int DP, int DV>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_bwd_dkdv_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dkv, Shape a, int Dv) {
-  using W = Wide<DP, DV>;
-  constexpr int LD = W::LD, LDV = W::LDV;
-  constexpr int kStage = W::kTile + W::kTileV;                    // Q then dO
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, Shape a, int Dv, int B) {
+  using L = DkdvSmem<DP, DV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + W::kTile;                                        // the dK walk's alone
-  bf16* ring = sV + (kGradK ? W::kTileV : 0);                      // [stage][Q, dO]
-  float* rows = reinterpret_cast<float*>(ring + kStages * kStage);  // [stage][lse, Delta][64]
+  const uint32_t base = smem_base(smem_raw);
+  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t bar_kv = base + L::kBars;
+  auto bar_full = [&](int s) { return bar_kv + 8 * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_kv + 8 * (1 + kRingKV + s); };
 
-  const int k0 = blockIdx.x * kBK, kh = blockIdx.y, b = blockIdx.z;
+  const int n_kt = (a.Sk + kBK - 1) / kBK;
+  int kt, rest;
+  tile_of_block(n_kt, a.KH * B, false, kt, rest);
+  const int k0 = kt * kBK, kh = rest % a.KH, b = rest / a.KH;
   const int G = a.H / a.KH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long q_stride = (long long)a.H * a.D, o_stride = (long long)a.H * Dv;
-  const long long k_stride = (long long)a.KH * a.D, v_stride = (long long)a.KH * Dv;
-  const long long k_off = ((long long)b * a.Sk * a.KH + kh) * a.D;
-  const long long v_off = ((long long)b * a.Sk * a.KH + kh) * Dv;
-
   // the query tiles that can see a key of this tile (flash_bwd_dkdv's)
   int qt_lo = 0, qt_hi = (a.Sq + kBQ - 1) / kBQ;
   if (a.q_offset >= 0) {
@@ -172,229 +374,324 @@ flash_bwd_dkdv_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const int nq = max(0, qt_hi - qt_lo), n_it = G * nq;
 
-  // step it: head kh G + it / nq, query tile qt_lo + it % nq, ring stage it % 2
-  auto stage_q = [&](int it) {
-    if (it < n_it) {
-      const int h = kh * G + it / nq, q0 = (qt_lo + it % nq) * kBQ;
-      bf16* dst = ring + (it % kStages) * kStage;
-      const long long row = (long long)b * a.Sq * a.H + h;
-      stage_tile<bf16, DP, LD, true>(dst, q + row * a.D, q_stride, q0, a.Sq, a.D);
-      stage_tile<bf16, DV, LDV, true>(dst + W::kTile, dO + row * Dv, o_stride, q0, a.Sq, Dv);
-      if (threadIdx.x < kBQ) {
-        const int i = threadIdx.x;
-        const bool ok = q0 + i < a.Sq;
-        const long long r = ((long long)b * a.H + h) * a.Sq + q0 + i;
-        float* dst_r = rows + (it % kStages) * 2 * kBQ;
-        cp_async4(dst_r + i, ok ? lse + r : lse, ok);
-        if constexpr (kGradK) cp_async4(dst_r + kBQ + i, ok ? delta + r : delta, ok);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kRingKV; ++s) {
+      mbar_init(bar_full(s), 1);
+      mbar_init(bar_empty(s), 8);   // a lane of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg, tid = threadIdx.x % kWg;
+  if (wg == 2) {   // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 0 && n_it > 0) {
+      mbar_expect(bar_kv, Cols<DP>::kBytes + Cols<DV>::kBytes);
+      tma_tile<DP>(base + L::kK, &tk, kh, k0, b, bar_kv);
+      tma_tile<DV>(base + L::kV, &tv, kh, k0, b, bar_kv);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kRingKV;
+        if (it >= kRingKV) mbar_wait(bar_empty(s), (it / kRingKV - 1) & 1);
+        const int h = kh * G + it / nq, q0 = (qt_lo + it % nq) * kBQ;
+        const uint32_t st = base + L::kRing0 + s * L::kStage;
+        mbar_expect(bar_full(s), L::kStage);
+        tma_tile<DP>(st, &tq, h, q0, b, bar_full(s));
+        tma_tile<DV>(st + Cols<DP>::kBytes, &to, h, q0, b, bar_full(s));
       }
     }
-    cp_async_commit();
-  };
-  stage_tile<bf16, DP, LD, true>(sK, k + k_off, k_stride, k0, a.Sk, a.D);
-  if constexpr (kGradK) stage_tile<bf16, DV, LDV, true>(sV, v + v_off, v_stride, k0, a.Sk, Dv);
-  cp_async_commit();
-  stage_q(0);
-
-  constexpr int kN = (kGradK ? DP : DV) / 8;   // accumulator tiles: dK over D, dV over Dv
-  float acc[kN][4];
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int key_r = k0 + 16 * warp + g;   // the thread's keys: key_r, key_r + 8
+  float4* ex = reinterpret_cast<float4*>(gbase + L::kEx);   // [8][128]: P^T fragments
+  constexpr int kAcc = Cols<(DP > DV ? DP : DV)>::kRegs;
+  float acc[kAcc];   // warpgroup 0: dV over DV, warpgroup 1: dK over DP
 #pragma unroll
-  for (int n = 0; n < kN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  if (n_it > 0) mbar_wait(bar_kv, 0);
 
-  const int key_w = k0 + 16 * warp;     // the warp's first key
+  // Software pipeline: the score of step it + 1 (S^T or dP^T) is issued
+  // before step it's P^T or dS^T is formed, so that the exponentials, the
+  // exchange and the accumulation's issue run under it (the 3-stage ring
+  // keeps step it's tiles while step it + 1's are read).  rv: the row
+  // values of the thread's 16 queries (lse for warpgroup 0, Delta for 1),
+  // loaded before the tiles' wait so that their latency hides too.
+  const float* rows = wg == 0 ? lse : delta;
+  float rv[16], x[32];
+  if (n_it > 0)
+    start_step<DP, DV>(wg, 0, kh * G, qt_lo, nq, b, a, t, rows, base, L::kK, L::kV,
+                       L::kRing0, L::kStage, bar_full(0), rv, x);
   for (int it = 0; it < n_it; ++it) {
-    cp_async_wait<0>();
-    __syncthreads();
-    stage_q(it + 1);
-
+    const int s = it % kRingKV;
     const int q0 = (qt_lo + it % nq) * kBQ;
-    bool live = key_w < a.Sk;
-    if (a.q_offset >= 0 && live) {     // no keyless rows: masked pairs add nothing
-      const int qpos_first = q0 + a.q_offset;
-      const int qpos_last = min(q0 + kBQ, a.Sq) - 1 + a.q_offset;
-      if (a.causal && key_w > qpos_last) live = false;
-      if (a.window > 0 && qpos_first - (key_w + 15) >= a.window) live = false;
-    }
-    if (!live) continue;
-    const bf16* tQ = ring + (it % kStages) * kStage;
-    const bf16* tdO = tQ + W::kTile;
-    const float* tL = rows + (it % kStages) * 2 * kBQ;
-    const float* tD = tL + kBQ;
-
-    // S^T = K_w Q^T (and dP^T = V_w dO^T): 16 keys x 64 queries
-    float s[8][4], dp[8][4];
-    scores_wide<DP, DV, kGradK>(sK + 16 * warp * LD, sV + 16 * warp * LDV, tQ, tdO, s, dp);
+    const uint32_t sQ = base + L::kRing0 + s * L::kStage, sdO = sQ + Cols<DP>::kBytes;
     const bool clear = clear_tile(a, q0, k0);
+    const bool next = it + 1 < n_it;
+    float rn[16], xn[32];
+    if (next) {
+      start_step<DP, DV>(wg, it + 1, kh * G, qt_lo, nq, b, a, t, rows, base, L::kK, L::kV,
+                         L::kRing0, L::kStage, bar_full((it + 1) % kRingKV), rn, xn);
+      wg_wait<1>();   // step it's score; step it + 1's may run on
+    } else {
+      wg_wait<0>();
+    }
+    fence_regs<32>(x);
+    uint32_t hi[4][4], lo[4][4];
+    if (wg == 0) {   // P^T, handed to warpgroup 1; dV += P^T dO
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 8 * j + 2 * t + (e & 1);           // query of the tile
-        const int kj = key_w + g + 8 * (e >> 1);
-        if constexpr (kGradK) {
-          p_ds(a, clear, q0 + i, kj, tL[i], tD[i], s[j][e], dp[j][e]);
-        } else {
-          float unused = 0.f;
-          p_ds(a, clear, q0 + i, kj, tL[i], 0.f, s[j][e], unused);
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + 8 * j + 2 * t + (e & 1);
+          x[4 * j + e] = p_of(a, clear, qi, key_r + 8 * (e >> 1), rv[2 * j + (e & 1)],
+                              x[4 * j + e]);
+        }
+      if (it > 0) named_sync(2);   // warpgroup 1 has read the last P^T
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        ex[j * kWg + tid] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      named_arrive(1);
+      a_pairs(x, hi, lo);
+      acc_issue<DV>(acc, hi, lo, sdO);
+    } else {   // dS^T from P^T; dK += dS^T Q
+      named_sync(1);   // P^T is in ex
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 p4 = ex[j * kWg + tid];
+        const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + 8 * j + 2 * t + (e & 1);
+          x[4 * j + e] = ds_of(a, clear, qi, key_r + 8 * (e >> 1), p[e], rv[2 * j + (e & 1)],
+                               x[4 * j + e]);
         }
       }
-    if constexpr (kGradK)
-      acc_product<bf16, DP, LD>(dp, tQ, acc);       // dK += dS^T Q
-    else
-      acc_product<bf16, DV, LDV>(s, tdO, acc);      // dV += P^T dO
+      named_arrive(2);
+      a_pairs(x, hi, lo);
+      acc_issue<DP>(acc, hi, lo, sQ);
+    }
+    wg_wait<0>();
+    fence_regs<kAcc>(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty(s));
+    if (next) {
+      fence_regs<32>(xn);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] = xn[i];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) rv[i] = rn[i];
+    }
   }
+  if (wg == 0 && n_it > 0) named_sync(2);   // warpgroup 1's last arrival
 
-  if constexpr (kGradK)
-    store_rows<bf16, DP, true>(dkv + k_off, k_stride, key_w, a.Sk, a.D, acc);
+  const long long kv = (long long)b * a.Sk * a.KH + kh;
+  if (wg == 0)
+    store_acc<DV>(dv + kv * Dv, (long long)a.KH * Dv, k0, a.Sk, Dv, acc);
   else
-    store_rows<bf16, DV, true>(dkv + v_off, v_stride, key_w, a.Sk, Dv, acc);
+    store_acc<DP>(dk + kv * a.D, (long long)a.KH * a.D, k0, a.Sk, a.D, acc);
 }
 
-// One block per (64-query tile, head, batch), warp w owning 16 query rows,
-// walking the key tiles the mask leaves as flash_bwd_dq does; V and dO
-// tiles have Dv columns.
+// Block (128-query tile, head, batch) of the 1-D grid, longest query tiles
+// first: consumer warpgroup w takes rows 64 w .. 64 w + 63 of the tile.
 template <int DP, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dO,
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_bwd_dq_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
                   const float* __restrict__ lse, const float* __restrict__ delta,
-                  bf16* __restrict__ dq, Shape a, int Dv) {
-  using W = Wide<DP, DV>;
-  constexpr int LD = W::LD, LDV = W::LDV;
-  constexpr int kStage = W::kTile + W::kTileV;                    // K then V
+                  bf16* __restrict__ dq, Shape a, int Dv, int B) {
+  using L = DqSmem<DP, DV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + W::kTile;
-  bf16* ring = sdO + W::kTileV;                                    // [stage][K, V]
+  const uint32_t base = smem_base(smem_raw);
+  const uint32_t bar_qo = base + L::kBars;
+  auto bar_full = [&](int s) { return bar_qo + 8 * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_qo + 8 * (1 + kRingQ + s); };
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int n_qt = (a.Sq + 2 * kBQ - 1) / (2 * kBQ);
+  int qt, rest;
+  tile_of_block(n_qt, a.H * B, a.causal != 0, qt, rest);
+  const int q0 = qt * 2 * kBQ, h = rest % a.H, b = rest / a.H;
   const int kh = h / (a.H / a.KH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long q_stride = (long long)a.H * a.D, o_stride = (long long)a.H * Dv;
-  const long long k_stride = (long long)a.KH * a.D, v_stride = (long long)a.KH * Dv;
-  const long long row = (long long)b * a.Sq * a.H + h;
-  const long long key = (long long)b * a.Sk * a.KH + kh;
-
+  // the key tiles the mask leaves to any row of the block
   int kt_lo = 0, kt_hi = (a.Sk + kBK - 1) / kBK;
   if (a.q_offset >= 0) {
     const int q_first = q0 + a.q_offset;
-    const int q_last = min(q0 + kBQ, a.Sq) - 1 + a.q_offset;
+    const int q_last = min(q0 + 2 * kBQ, a.Sq) - 1 + a.q_offset;
     if (a.causal) kt_hi = min(kt_hi, q_last / kBK + 1);
     if (a.window > 0) kt_lo = max(0, (q_first - a.window + 1) / kBK);
   }
+  const int n_it = max(0, kt_hi - kt_lo);
 
-  auto stage_kv = [&](int kt) {
-    if (kt < kt_hi) {
-      bf16* dst = ring + ((kt - kt_lo) % kStages) * kStage;
-      stage_tile<bf16, DP, LD, true>(dst, k + key * a.D, k_stride, kt * kBK, a.Sk, a.D);
-      stage_tile<bf16, DV, LDV, true>(dst + W::kTile, v + key * Dv, v_stride, kt * kBK, a.Sk,
-                                      Dv);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_qo, 1);
+    for (int s = 0; s < kRingQ; ++s) {
+      mbar_init(bar_full(s), 1);
+      mbar_init(bar_empty(s), 8);
     }
-    cp_async_commit();
-  };
-  stage_tile<bf16, DP, LD, true>(sQ, q + row * a.D, q_stride, q0, a.Sq, a.D);
-  stage_tile<bf16, DV, LDV, true>(sdO, dO + row * Dv, o_stride, q0, a.Sq, Dv);
-  cp_async_commit();
-  stage_kv(kt_lo);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // lse and Delta of the thread's rows g and g + 8 of the warp
-  const int row_w = q0 + 16 * warp;     // the warp's first query row
+  const int wg = threadIdx.x / kWg, tid = threadIdx.x % kWg;
+  if (wg == 2) {   // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 0 && n_it > 0) {
+      mbar_expect(bar_qo, 2 * (Cols<DP>::kBytes + Cols<DV>::kBytes));
+      for (int w = 0; w < 2; ++w) {
+        tma_tile<DP>(base + L::kQ + w * Cols<DP>::kBytes, &tq, h, q0 + 64 * w, b, bar_qo);
+        tma_tile<DV>(base + L::kO + w * Cols<DV>::kBytes, &to, h, q0 + 64 * w, b, bar_qo);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kRingQ;
+        if (it >= kRingQ) mbar_wait(bar_empty(s), (it / kRingQ - 1) & 1);
+        const int k0 = (kt_lo + it) * kBK;
+        const uint32_t st = base + L::kRing0 + s * L::kStage;
+        mbar_expect(bar_full(s), L::kStage);
+        tma_tile<DP>(st, &tk, kh, k0, b, bar_full(s));
+        tma_tile<DV>(st + Cols<DP>::kBytes, &tv, kh, k0, b, bar_full(s));
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int row_w = q0 + 64 * wg;             // the warpgroup's first row
+  const int row_r = row_w + 16 * warp + g;    // the thread's rows: row_r, row_r + 8
   float lr[2], dr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = row_w + g + 8 * r;
+    const int qi = row_r + 8 * r;
     const long long i = ((long long)b * a.H + h) * a.Sq + qi;
     lr[r] = qi < a.Sq ? lse[i] : 0.f;
     dr[r] = qi < a.Sq ? delta[i] : 0.f;
   }
-
-  float acc[DP / 8][4];
+  // the warpgroup's own key tiles (a row past Sq sees none)
+  int my_lo = kt_lo, my_hi = row_w < a.Sq ? kt_hi : kt_lo;
+  if (a.q_offset >= 0 && row_w < a.Sq) {
+    const int q_first = row_w + a.q_offset;
+    const int q_last = min(row_w + kBQ, a.Sq) - 1 + a.q_offset;
+    if (a.causal) my_hi = min(my_hi, q_last / kBK + 1);
+    if (a.window > 0) my_lo = max(my_lo, (q_first - a.window + 1) / kBK);
+  }
+  constexpr int kAcc = Cols<DP>::kRegs;
+  float acc[kAcc];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  const uint32_t sQ = base + L::kQ + wg * Cols<DP>::kBytes;
+  const uint32_t sdO = base + L::kO + wg * Cols<DV>::kBytes;
+  if (n_it > 0) mbar_wait(bar_qo, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kRingQ, kt = kt_lo + it;
+    mbar_wait(bar_full(s), (it / kRingQ) & 1);
+    if (kt >= my_lo && kt < my_hi) {
+      const uint32_t sK = base + L::kRing0 + s * L::kStage, sV = sK + Cols<DP>::kBytes;
+      const int k0 = kt * kBK;
+      float sc[32], dp[32];
+      score<DP>(sc, sQ, sK);    // S = Q K^T
+      score<DV>(dp, sdO, sV);   // dP = dO V^T
+      const bool clear = clear_tile(a, row_w, k0);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    cp_async_wait<0>();
-    __syncthreads();
-    stage_kv(kt + 1);
-
-    const int k0 = kt * kBK;
-    bool live = row_w < a.Sq;
-    if (a.q_offset >= 0 && live) {
-      const int qpos_first = row_w + a.q_offset;
-      const int qpos_last = min(row_w + 16, a.Sq) - 1 + a.q_offset;
-      if (a.causal && k0 > qpos_last) live = false;
-      if (a.window > 0 && qpos_first - (k0 + kBK - 1) >= a.window) live = false;
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, qi = row_r + 8 * r, kj = k0 + 8 * j + 2 * t + (e & 1);
+          const float p = p_of(a, clear, qi, kj, lr[r], sc[4 * j + e]);
+          dp[4 * j + e] = ds_of(a, clear, qi, kj, p, dr[r], dp[4 * j + e]);
+        }
+      uint32_t hi[4][4], lo[4][4];
+      a_pairs(dp, hi, lo);
+      acc_pairs<DP>(acc, hi, lo, sK);   // dQ += dS K
     }
-    if (!live) continue;
-    const bf16* tK = ring + ((kt - kt_lo) % kStages) * kStage;
-    const bf16* tV = tK + W::kTile;
-
-    // S = Q_w K^T and dP = dO_w V^T: 16 rows x 64 keys
-    float s[8][4], dp[8][4];
-    scores_wide<DP, DV, true>(sQ + 16 * warp * LD, sdO + 16 * warp * LDV, tK, tV, s, dp);
-    const bool clear = clear_tile(a, q0, k0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        p_ds(a, clear, row_w + g + 8 * r, k0 + 8 * j + 2 * t + (e & 1), lr[r], dr[r], s[j][e],
-             dp[j][e]);
-      }
-    // dQ += dS K
-    acc_product<bf16, DP, LD>(dp, tK, acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty(s));
   }
 
-  store_rows<bf16, DP, true>(dq + row * a.D, q_stride, row_w, a.Sq, a.D, acc);
+  const long long row = (long long)b * a.Sq * a.H + h;
+  store_acc<DP>(dq + row * a.D, (long long)a.H * a.D, row_w, a.Sq, a.D, acc);
 }
 
-template <int DP, int DV, bool kGradK>
-cudaError_t launch_dkdv_wide(const void* q, const void* k, const void* v, const void* dO,
-                             const float* lse, const float* delta, void* dkv, int B,
-                             const Shape& a, int Dv, cudaStream_t stream) {
-  constexpr size_t smem = dkdv_smem<DP, DV, kGradK>();
-  static_assert(smem <= 232448, "a block has 227 KB of shared memory");
-  static bool raised = false;
-  if (!raised) {
-    const cudaError_t e = raise_smem(flash_bwd_dkdv_wide<DP, DV, kGradK>, smem);
-    if (e != cudaSuccess) return e;
-    raised = true;
-  }
-  const dim3 grid((a.Sk + kBK - 1) / kBK, a.KH, B);
-  return PLAN_LAUNCH(kGradK ? "flash_bwd_dkdv_wide (dK)" : "flash_bwd_dkdv_wide (dV)",
-                     flash_bwd_dkdv_wide<DP, DV, kGradK>, grid, dim3(kThreads), smem, stream,
-                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v), static_cast<const bf16*>(dO), lse, delta,
-                     static_cast<bf16*>(dkv), a, Dv);
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// (the library links no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The (B, S, heads, W) bf16 tensor at `ptr` as a 4-D map (W, heads, S, B)
+// read in 64-column x 64-row boxes of one head, 128-byte swizzle, zeros
+// past each edge
+bool tile_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int W) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)W * 2, (cuuint64_t)heads * W * 2,
+                                 (cuuint64_t)S * heads * W * 2};
+  const cuuint32_t box[4] = {kChunk, 1, 64, 1}, unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Raise the kernel's shared memory once, and refuse it unless its registers
+// at launch cover what setmaxnreg moves (2 x 128 consumers at 240, 128
+// producers at 24): otherwise setmaxnreg.inc would wait forever.
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  if (attr.numRegs * kWideThreads < 2 * kWg * kConsumerRegs + kWg * kProducerRegs)
+    return cudaErrorInvalidConfiguration;
+  return raise_smem(kernel, smem);
 }
 
 template <int DP, int DV>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* o,
                         const void* dO, const float* lse, float* delta, void* dq, void* dk,
                         void* dv, int B, const Shape& a, int Dv, cudaStream_t s) {
+  constexpr size_t smem_kv = DkdvSmem<DP, DV>::kBytes, smem_q = DqSmem<DP, DV>::kBytes;
+  static_assert(smem_kv <= 232448 && smem_q <= 232448, "a block has 227 KB of shared memory");
+  static cudaError_t ready = [] {
+    const cudaError_t e = prepare(flash_bwd_dkdv_wide<DP, DV>, smem_kv);
+    return e == cudaSuccess ? prepare(flash_bwd_dq_wide<DP, DV>, smem_q) : e;
+  }();
+  if (ready != cudaSuccess) return ready;
+  CUtensorMap tq, tk, tv, to;
+  if (!tile_map(&tq, q, B, a.Sq, a.H, a.D) || !tile_map(&tk, k, B, a.Sk, a.KH, a.D) ||
+      !tile_map(&tv, v, B, a.Sk, a.KH, Dv) || !tile_map(&to, dO, B, a.Sq, a.H, Dv))
+    return cudaErrorInvalidValue;
   cudaError_t e = launch_delta<bf16>(o, dO, delta, B, a.Sq, a.H, Dv, s);
-  if (e == cudaSuccess)
-    e = launch_dkdv_wide<DP, DV, false>(q, k, v, dO, lse, delta, dv, B, a, Dv, s);
-  if (e == cudaSuccess)
-    e = launch_dkdv_wide<DP, DV, true>(q, k, v, dO, lse, delta, dk, B, a, Dv, s);
   if (e != cudaSuccess) return e;
-  constexpr size_t smem = dq_smem<DP, DV>();
-  static_assert(smem <= 232448, "a block has 227 KB of shared memory");
-  static bool raised = false;
-  if (!raised) {
-    if ((e = raise_smem(flash_bwd_dq_wide<DP, DV>, smem)) != cudaSuccess) return e;
-    raised = true;
-  }
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, B);
-  return PLAN_LAUNCH("flash_bwd_dq_wide", flash_bwd_dq_wide<DP, DV>, grid, dim3(kThreads), smem,
-                     s, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v), static_cast<const bf16*>(dO), lse, delta,
-                     static_cast<bf16*>(dq), a, Dv);
+  const long long n_kv = (long long)((a.Sk + kBK - 1) / kBK) * a.KH * B;
+  const long long n_q = (long long)((a.Sq + 2 * kBQ - 1) / (2 * kBQ)) * a.H * B;
+  if (n_kv > 2147483647LL || n_q > 2147483647LL) return cudaErrorInvalidValue;
+  e = PLAN_LAUNCH("flash_bwd_dkdv_wide", flash_bwd_dkdv_wide<DP, DV>, dim3((unsigned)n_kv),
+                  dim3(kWideThreads), smem_kv, s, tq, tk, tv, to, lse, delta,
+                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), a, Dv, B);
+  if (e != cudaSuccess) return e;
+  return PLAN_LAUNCH("flash_bwd_dq_wide", flash_bwd_dq_wide<DP, DV>, dim3((unsigned)n_q),
+                     dim3(kWideThreads), smem_q, s, tq, tk, tv, to, lse, delta,
+                     static_cast<bf16*>(dq), a, Dv, B);
 }
 
 }  // namespace
@@ -403,7 +700,7 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
 // (B, Sq, H, Dv); k and dk (B, Sk, KH, D); v and dv (B, Sk, KH, Dv); lse
 // (the forward's, natural log) and the scratch delta (B, H, Sq) f32.
 // 128 < D, D and Dv multiples of 8, 16-byte aligned pointers; Dv == D <=
-// 160, or D <= 192 over Dv <= 128.  Launches four kernels (Delta, dV, dK,
+// 160, or D <= 192 over Dv <= 128.  Launches three kernels (Delta, dK/dV,
 // dQ) and returns the first error.
 extern "C" int flash_attention_bwd_wide(const void* q, const void* k, const void* v,
                                         const void* o, const void* dO, const void* lse,
@@ -427,7 +724,7 @@ extern "C" int flash_attention_bwd_wide(const void* q, const void* k, const void
 }
 
 // Query entry (launch_plan.cuh): flash_attention_bwd_wide's arguments with
-// `plans` in place of the stream; records the four launches, launches
+// `plans` in place of the stream; records the three launches, launches
 // nothing.
 extern "C" int flash_attention_bwd_wide_plan(const void* q, const void* k, const void* v,
                                              const void* o, const void* dO, const void* lse,

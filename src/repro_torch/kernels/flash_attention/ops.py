@@ -15,14 +15,15 @@ bf16, has one:
   D <= 128, Dv == D   csrc/flash_attention.cu (serving), its kLse build
                       csrc/flash_attention_lse.cu (under grad) and
                       csrc/flash_attention_bwd.cu (its f32 half from
-                      csrc/flash_attention_bwd_f32.cu); any alignment
+                      csrc/flash_attention_bwd_f32.cu and _f32_hi.cu);
+                      any alignment
   Dv < D <= 128       v zero-padded to D through the above, the first Dv
                       columns kept: the zero columns add exactly 0 to each
                       output column kept, and their gradient is dropped
   bf16, aligned, Dv == D <= 160 (pixtral-12b), or D <= 192 over Dv <= 128
                       (deepseek-v2's MLA): the instantiations at 160 and
                       the split ones of flash_attention.cu / _lse.cu, and
-                      csrc/flash_attention_bwd_wide.cu
+                      csrc/flash_attention_bwd_wide.cu (wgmma)
   anything else       csrc/flash_attention_any.cu (forward, with or
                       without the log-sum-exp) and
                       csrc/flash_attention_bwd_any.cu: f32 above 128, bf16
@@ -45,8 +46,7 @@ differentiable itself.
 
 `flash_attention.launches` counts forward launches and
 `flash_attention_backward.launches` backward launches (three kernels a
-launch, Delta, dK/dV and dQ; four in flash_attention_bwd_wide.cu and
-flash_attention_bwd_any.cu, where dV and dK are two walks);
+launch in every unit: Delta, dK/dV and dQ);
 `_build.launches` counts each C entry point's launches, so
 `flash_attention_fwd_any` and `flash_attention_bwd_any` there count those
 that went to the general units.

@@ -5,6 +5,8 @@ time).  This file imports torch only, so it also runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1079,6 +1081,7 @@ def test_flash_split_head_dim_refusals(cuda):
 @pytest.mark.parametrize("B,Sq,Sk,H,KH,D,Dv,causal,window", [
     (2, 200, 200, 8, 2, 160, 160, True, 0),       # GQA group 4, causal
     (1, 200, 300, 4, 2, 160, 160, True, 64),      # q at the tail, a window
+    (1, 200, 300, 16, 2, 160, 160, True, 64),     # GQA group 8, tail, window
     (2, 77, 77, 4, 4, 136, 136, False, 0),        # D pads 136 -> 160
     (1, 64, 32, 2, 2, 160, 160, True, 0),         # keyless rows
     (2, 130, 130, 8, 8, 192, 128, True, 0),       # the MLA, ragged
@@ -1130,6 +1133,61 @@ def test_flash_wide_training_kernels_match_float64(cuda, B, Sq, Sk, H, KH, D,
             assert a.shape == b.shape and a.dtype == torch.bfloat16
             assert float(((a.double() - b).abs()
                           - 2.0 ** -8 * b.abs()).max()) <= 2e-2
+    if causal and Sq > Sk:
+        assert bool((got[0][:, :Sq - Sk] == 0).all())
+
+
+# the general backward (csrc/flash_attention_bwd_any.cu): f32 above 128,
+# bf16 above 160 or misaligned
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,Dv,causal,window,dtype,offset", [
+    (2, 200, 200, 8, 2, 160, 160, True, 0, "float32", 0),     # GQA group 4
+    (1, 200, 300, 16, 2, 160, 160, True, 64, "float32", 0),   # group 8, window
+    (2, 130, 130, 8, 8, 192, 128, True, 0, "float32", 0),     # the MLA, ragged
+    (1, 150, 220, 4, 2, 200, 72, True, 48, "float32", 0),     # Dv < D, window
+    (1, 64, 32, 2, 2, 160, 160, True, 0, "float32", 0),       # keyless rows
+    (2, 77, 77, 4, 4, 288, 288, False, 0, "float32", 0),      # two dK groups
+    (2, 300, 300, 4, 4, 256, 256, True, 0, "bfloat16", 0),    # above 192
+    (2, 300, 300, 8, 2, 136, 136, True, 0, "bfloat16", 1),    # misaligned
+    (1, 64, 32, 2, 2, 200, 200, True, 0, "bfloat16", 0),      # keyless rows
+])
+def test_flash_general_backward_matches_float64(cuda, B, Sq, Sk, H, KH, D, Dv,
+                                                causal, window, dtype,
+                                                offset):
+    """The general unit's backward from the same o and lse: routed there,
+    one launch of its entry, bitwise on a rerun, and its gradients within
+    1e-4 abs of float64 autograd in f32, 2e-2 abs plus one bf16 rounding
+    in bf16; dq of a keyless row exactly 0."""
+    from repro_torch.kernels import _build, flash_attention_backward
+    from repro_torch.kernels.flash_attention import attention_lse_ref, ops
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(30)
+
+    def rand(*shape):
+        flat = torch.randn((math.prod(shape) + offset,), generator=g,
+                           device=cuda).to(dt)
+        return flat[offset:].view(shape)
+    q, k, v = rand(B, Sq, H, D), rand(B, Sk, KH, D), rand(B, Sk, KH, Dv)
+    do = rand(B, Sq, H, Dv)
+    assert ops.route(dt, D, Dv, ops.aligned16(D, Dv, (q, k, v)),
+                     True).backward == ops.ANY_BWD
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    ref = attention_ref(q64, k64, v64, causal=causal, window=window)
+    want = torch.autograd.grad(ref, (q64, k64, v64), do.double())
+    o = ref.detach().to(dt).contiguous()
+    lse = attention_lse_ref(q, k, causal=causal, window=window).float() \
+        .contiguous()
+    before = _build.launches.flash_attention_bwd_any
+    got = flash_attention_backward(q, k, v, o, do, lse, causal=causal,
+                                   window=window)
+    again = flash_attention_backward(q, k, v, o, do, lse, causal=causal,
+                                     window=window)
+    assert _build.launches.flash_attention_bwd_any == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    rounding, tol = (0.0, 1e-4) if dt == torch.float32 else (2.0 ** -8, 2e-2)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dt
+        assert float(((a.double() - b).abs() - rounding * b.abs()).max()) \
+            <= tol
     if causal and Sq > Sk:
         assert bool((got[0][:, :Sq - Sk] == 0).all())
 

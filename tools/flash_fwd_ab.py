@@ -10,7 +10,8 @@ Builds the kernel's sources of each tree (under `repro_torch/kernels`:
 `flash_attention/csrc/flash_attention_lse.cu`, `ssd/csrc/ssd.cu`,
 `flash_attention/csrc/flash_attention_bwd*.cu`, `ssd/csrc/ssd_bwd.cu` or
 `forecast/csrc/forecast.cu`;
-one nvcc per tree, all started together, into `build/flash_fwd_ab/`),
+one nvcc per source of every tree, all started together, into
+`build/flash_fwd_ab/`, each printed when it ends),
 then prints, against the first tree:
 
 - ptxas registers, spill bytes and static shared bytes of every
@@ -29,9 +30,11 @@ then prints, against the first tree:
   f32 and on bf16 views of the conv output, b 1 on bf16 views, a ragged
   s = 500 in f32.  flash-lse: the training forward (kLse) at DiT-XL's,
   zamba2's and tinyllama's training shapes.  flash-bwd and ssd-bwd:
-  chip_smoke's flash-bwd and ssd-bwd phases' shapes; a row above head
-  dim 128 calls `flash_attention_bwd_wide`, and a tree without that entry
-  sits the row out.  forecast: the serving skip tick's 4 slots x 3
+  chip_smoke's flash-bwd and ssd-bwd phases' shapes, and for flash-bwd
+  the general unit's at pixtral-12b's and the MLA's training shapes in
+  f32 and at a misaligned bf16 D 136 (BWD_AB_EXTRA); a row the wrapper
+  routes above head dim 128 calls that entry (`flash_attention_bwd_wide`
+  or `flash_attention_bwd_any`), and a tree without it sits the row out.  forecast: the serving skip tick's 4 slots x 3
   x 4096 in f32 and bf16, the video pool's 2 x 3 x 65536, and an n that
   takes the element-by-element path), whether the outputs are bitwise
   equal across the trees, for a backward also each tree's largest error
@@ -57,6 +60,8 @@ import re
 import shutil
 import subprocess
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -92,16 +97,22 @@ def _ptrs(ts):
 
 
 def flash_bwd_case(torch, gen, name, B, Sq, Sk, H, KH, D, Dv, causal,
-                   window, dt):
-    """q, k, v, o, dO, lse from the forward of the checkout, and the
-    float64 gradients; call(variant) -> (args, outputs, buffers), with
-    `call.entry` the C entry point that takes the row."""
+                   window, dt, offset=0):
+    """q, k, v, o, dO, lse from the forward of the checkout (each input
+    `offset` elements into its storage), and the float64 gradients;
+    call(variant) -> (args, outputs, buffers), with `call.entry` the C
+    entry point that takes the row where the wrapper routes it elsewhere
+    than flash_attention_bwd."""
     from chip_smoke import BWD_ROUNDED, route_entry
     from repro_torch.kernels.flash_attention import attention_ref, ops
     dtype = getattr(torch, dt)
-    q, k, v, do = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
-                   for sh in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, Dv),
-                              (B, Sq, H, Dv)))
+
+    def rnd(shape):
+        flat = torch.randn((math.prod(shape) + offset,), generator=gen,
+                           device="cuda").to(dtype)
+        return flat[offset:].view(shape)
+    q, k, v, do = (rnd(sh) for sh in ((B, Sq, H, D), (B, Sk, KH, D),
+                                      (B, Sk, KH, Dv), (B, Sq, H, Dv)))
     scale = 1.0 / math.sqrt(D)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
     o = ops._forward(q, k, v, causal, window, scale, lse,
@@ -110,24 +121,39 @@ def flash_bwd_case(torch, gen, name, B, Sq, Sk, H, KH, D, Dv, causal,
     ref = torch.autograd.grad(attention_ref(q64, k64, v64, causal=causal,
                                             window=window),
                               (q64, k64, v64), do.double())
-    rounded = name in BWD_ROUNDED
-    wide = D > ops.MAX_HEAD_DIM
+    rounded = name in BWD_ROUNDED or (dt == "bfloat16" and D > 128)
+    entry = ops.route(dtype, D, Dv, ops.aligned16(D, Dv, (q, k, v)),
+                      True).backward
+    with_dv = entry != "flash_attention_bwd"   # the entries that take Dv
 
     def call(variant):
         outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
         delta = torch.empty((B, H, Sq), device="cuda")
-        dims = (D, Dv) if wide else (D,)
+        dims = (D, Dv) if with_dv else (D,)
         return ((*_ptrs((q, k, v, o, do, lse, delta, *outs)),
                  int(dt == "bfloat16"), B, Sq, Sk, H, KH, *dims, int(causal),
                  int(window), scale), outs, (delta,))
 
-    call.entry = "flash_attention_bwd_wide" if wide else None
+    call.entry = entry if with_dv else None
 
     def error(outs):
         return max(float(((a.double() - r).abs()
                           - (2.0 ** -8 * r.abs() if rounded else 0)).max())
                    for a, r in zip(outs, ref))
     return call, error, (q, k, v, o, do, lse)
+
+
+# flash-bwd rows beside chip_smoke's BWD_CASES: the general unit
+# (flash_attention_bwd_any) at pixtral-12b's and the MLA's training shapes
+# with f32 params, and bf16 rows one element off 16 bytes at D 136
+BWD_AB_EXTRA = [  # name, B, Sq, Sk, H, KH, D, Dv, causal, window, dtype, offset
+    ("pixtral train f32 (d 160)", 2, 1088, 1088, 32, 8, 160, 160, True, 0,
+     "float32", 0),
+    ("mla train f32 (192 over 128)", 4, 512, 512, 128, 128, 192, 128, True,
+     0, "float32", 0),
+    ("odd d136 bf16, offset 1", 2, 300, 300, 8, 2, 136, 136, True, 0,
+     "bfloat16", 1),
+]
 
 
 def flash_lse_case(torch, gen, B, Sq, Sk, H, KH, D, causal, dt):
@@ -256,8 +282,10 @@ KERNELS = {
         "instantiation": r"flash_bwd_\w+?E(?:E|Lb\dE)",
         "case": flash_bwd_case, "seed": 0, "backward": True,
         "alt_entries": {"flash_attention_bwd_wide": [P] * 10 + [I] * 10
+                        + [F],
+                        "flash_attention_bwd_any": [P] * 10 + [I] * 10
                         + [F]},
-        "shapes": "BWD_CASES"},
+        "shapes": "BWD_CASES", "extra_shapes": BWD_AB_EXTRA},
     "ssd-bwd": {
         "cu": "ssd/csrc/ssd_bwd.cu",
         "entry": "ssd_bwd", "argtypes": lambda cu: ssd_bwd_argtypes(
@@ -281,8 +309,9 @@ KERNELS = {
 
 def build(kernel, srcs, nvcc, flags):
     """{label: (library path, the tree's first source, {instantiation:
-    (registers, spill bytes, static shared bytes)})}"""
-    procs = {}
+    (registers, spill bytes, static shared bytes)})}.  One nvcc per
+    source of every tree, all started together; prints when each ended."""
+    jobs, t0 = [], time.monotonic()
     for i, src in enumerate(srcs):
         d = OUT / f"src{i}"
         d.mkdir(parents=True, exist_ok=True)
@@ -293,20 +322,39 @@ def build(kernel, srcs, nvcc, flags):
             sys.exit(f"flash_fwd_ab: no {kernel['cu']} under {src}")
         inc = [f if not f.startswith("-I") else f"-I{d / 'kernels'}"
                for f in flags]
-        procs[f"src{i}"] = (d / "lib.so", cus[0], subprocess.Popen(
-            [nvcc, *inc, "-shared", *map(str, cus), "-o", str(d / "lib.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    out = {}
-    for label, (lib, cu, p) in procs.items():
-        log = p.communicate()[0]
+        for cu in cus:
+            jobs.append((f"src{i}", d, cu, subprocess.Popen(
+                [nvcc, *inc, "-c", str(cu), "-o", str(d / (cu.stem + ".o"))],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+
+    def finish(job):
+        return job[3].communicate()[0], time.monotonic() - t0
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        done = list(pool.map(finish, jobs))
+    logs = {}
+    for (label, d, cu, p), (log, sec) in zip(jobs, done):
+        print(f"{label}: nvcc {cu.name} ended at {sec:.1f} s", flush=True)
         if p.returncode != 0:
-            sys.exit(f"flash_fwd_ab: nvcc failed for {label}:\n{log}")
+            sys.exit(f"flash_fwd_ab: nvcc failed for {label} {cu.name}:"
+                     f"\n{log}")
+        logs[label] = logs.get(label, "") + log
+    out = {}
+    for i in range(len(srcs)):
+        label, d = f"src{i}", OUT / f"src{i}"
+        cus = [cu for lab, _, cu, _ in jobs if lab == label]
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(d / "lib.so"),
+             *(str(d / (cu.stem + ".o")) for cu in cus)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            sys.exit(f"flash_fwd_ab: linking failed for {label}:"
+                     f"\n{link.stdout}")
         regs = {m.group(1): (int(m.group(3)), int(m.group(2)),
                              int(m.group(4) or 0)) for m in re.finditer(
             rf"Function properties for \w*?({kernel['instantiation']})\w*\n"
             r".*?(\d+) bytes spill stores.*?\n.*?Used (\d+) registers"
-            r"(?:.*?, (\d+) bytes smem)?", log)}
-        out[label] = (lib, cu, regs)
+            r"(?:.*?, (\d+) bytes smem)?", logs[label])}
+        out[label] = (d / "lib.so", cus[0], regs)
     return out
 
 
@@ -407,7 +455,7 @@ def main() -> int:
     shapes = kernel["shapes"]
     if isinstance(shapes, str):
         import chip_smoke
-        shapes = getattr(chip_smoke, shapes)
+        shapes = getattr(chip_smoke, shapes) + kernel.get("extra_shapes", [])
     gen = torch.Generator(device="cuda").manual_seed(kernel["seed"])
     for name, *shape in shapes:
         entry, row = None, labels
