@@ -5679,10 +5679,12 @@ def phase_any_kernels(torch, F):
         f"instantiations {usage}")
     if len(usage) < 12:
         fail(f"any: ptxas reported {len(usage)} general-unit instantiations")
-    spilled = [k for k, u in usage.items() if k.startswith("flash_bwd")
+    spilled = [k for k, u in usage.items()
+               if k.startswith(("flash_bwd", "flash_fwd_any"))
                and (u[1] or u[2])]
     if spilled:
-        fail(f"any: the general backward spills in {spilled}")
+        fail(f"any: the general flash forward or backward spills in "
+             f"{spilled}")
 
     def row(rows, main):
         out = dict(rows[main])
@@ -7012,6 +7014,7 @@ TENSOR_CORE_CHECKS = (
      ("HMMA", "HGMMA")),
     ("wide flash backward", ("flash_bwd_dkdv_wide", "flash_bwd_dq_wide"),
      ("HGMMA",)),
+    ("general flash forward", ("flash_fwd_any",), ("HMMA", "HGMMA")),
 )
 
 

@@ -1137,19 +1137,122 @@ def test_flash_wide_training_kernels_match_float64(cuda, B, Sq, Sk, H, KH, D,
         assert bool((got[0][:, :Sq - Sk] == 0).all())
 
 
-# the general backward (csrc/flash_attention_bwd_any.cu): f32 above 128,
-# bf16 above 160 or misaligned
-@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,Dv,causal,window,dtype,offset", [
-    (2, 200, 200, 8, 2, 160, 160, True, 0, "float32", 0),     # GQA group 4
-    (1, 200, 300, 16, 2, 160, 160, True, 64, "float32", 0),   # group 8, window
-    (2, 130, 130, 8, 8, 192, 128, True, 0, "float32", 0),     # the MLA, ragged
-    (1, 150, 220, 4, 2, 200, 72, True, 48, "float32", 0),     # Dv < D, window
-    (1, 64, 32, 2, 2, 160, 160, True, 0, "float32", 0),       # keyless rows
-    (2, 77, 77, 4, 4, 288, 288, False, 0, "float32", 0),      # two dK groups
-    (2, 300, 300, 4, 4, 256, 256, True, 0, "bfloat16", 0),    # above 192
-    (2, 300, 300, 8, 2, 136, 136, True, 0, "bfloat16", 1),    # misaligned
-    (1, 64, 32, 2, 2, 200, 200, True, 0, "bfloat16", 0),      # keyless rows
-])
+# the general units (csrc/flash_attention_any.cu and _bwd_any.cu): f32
+# above 128, bf16 above 160 or misaligned
+GENERAL_SHAPES = pytest.mark.parametrize(
+    "B,Sq,Sk,H,KH,D,Dv,causal,window,dtype,offset", [
+        (2, 200, 200, 8, 2, 160, 160, True, 0, "float32", 0),     # GQA group 4
+        (1, 200, 300, 16, 2, 160, 160, True, 64, "float32", 0),   # group 8, window
+        (2, 130, 130, 8, 8, 192, 128, True, 0, "float32", 0),     # the MLA, ragged
+        (1, 150, 220, 4, 2, 200, 72, True, 48, "float32", 0),     # Dv < D, window
+        (1, 64, 32, 2, 2, 160, 160, True, 0, "float32", 0),       # keyless rows
+        (2, 77, 77, 4, 4, 288, 288, False, 0, "float32", 0),      # two groups
+        (2, 300, 300, 4, 4, 256, 256, True, 0, "bfloat16", 0),    # above 192
+        (2, 300, 300, 8, 2, 136, 136, True, 0, "bfloat16", 1),    # misaligned
+        (1, 64, 32, 2, 2, 200, 200, True, 0, "bfloat16", 0),      # keyless rows
+    ])
+
+
+@GENERAL_SHAPES
+def test_flash_general_forward_matches_float64(cuda, B, Sq, Sk, H, KH, D, Dv,
+                                               causal, window, dtype, offset):
+    """The general forward, serving and with the lse: routed there, one
+    launch of its entry a call, o within 2e-5 abs of float64
+    `attention_ref` in f32 and one bf16 rounding (1.6e-2) in bf16, the lse
+    within 1e-3 of float64 `attention_lse_ref` and exactly -1e30 on keyless
+    rows, bitwise on a rerun.  Its plan (the entry's query, as the launch
+    lint reads it): one block per (64-query tile, head, batch) for Dv <=
+    192, ceil(Dv / 192) column groups above, and no spill."""
+    from repro_torch.analysis.ir.launch_lint import (intercept_launches,
+                                                    query_plans)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import attention_lse_ref, ops
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(31)
+
+    def rand(*shape):
+        flat = torch.randn((math.prod(shape) + offset,), generator=g,
+                           device=cuda).to(dt)
+        return flat[offset:].view(shape)
+    q, k, v = rand(B, Sq, H, D), rand(B, Sk, KH, D), rand(B, Sk, KH, Dv)
+    aligned = ops.aligned16(D, Dv, (q, k, v))
+    for grad in (False, True):
+        assert ops.route(dt, D, Dv, aligned, grad).forward == ops.ANY_FWD
+    scale = 1.0 / math.sqrt(D)
+    q64, k64, v64 = (t.double() for t in (q, k, v))
+    ref = attention_ref(q64, k64, v64, causal=causal, window=window)
+    lse_ref = attention_lse_ref(q64, k64, causal=causal, window=window)
+    keyless = torch.zeros((Sq,), dtype=torch.bool, device=cuda)
+    if causal and Sq > Sk:
+        keyless[:Sq - Sk] = True
+    tol = 2e-5 if dt == torch.float32 else 1.6e-2
+    for with_lse in (False, True):
+        runs, records = [], []
+        before = _build.launches.flash_attention_fwd_any
+        with intercept_launches(records):
+            for _ in range(2):
+                lse = torch.empty((B, H, Sq), device=cuda) if with_lse \
+                    else None
+                if with_lse:
+                    o = ops._forward(q, k, v, causal, window, scale, lse,
+                                     ops.ANY_FWD)
+                else:
+                    o = flash_attention(q, k, v, causal=causal, window=window)
+                runs.append((o, lse))
+        torch.cuda.synchronize()
+        assert _build.launches.flash_attention_fwd_any == before + 2
+        assert [r.entry for r in records] == [ops.ANY_FWD] * 2
+        (o, lse), (o2, lse2) = runs
+        assert o.shape == (B, Sq, H, Dv) and o.dtype == dt
+        assert float((o.double() - ref).abs().max()) <= tol
+        assert torch.equal(o, o2)
+        if with_lse:
+            assert float((lse.double() - lse_ref).abs().max()) <= 1e-3
+            assert bool((lse[:, :, keyless] == -1e30).all())
+            assert torch.equal(lse, lse2)
+        plans = query_plans(records[0])
+        assert len(plans) == 1 and plans[0].kernel == "flash_fwd_any"
+        groups = -(-Dv // 192)
+        assert plans[0].grid == (-(-Sq // 64) * groups * H * B, 1, 1)
+        assert plans[0].local_bytes == 0
+
+
+@pytest.mark.parametrize("D,Dv,dtype,tol", [
+    (784, 784, "float32", 2e-5), (1680, 600, "bfloat16", 1.6e-2)])
+def test_flash_general_forward_streams_q_past_shared_memory(cuda, D, Dv,
+                                                            dtype, tol):
+    """Past f32 D 768 and bf16 D 1664, Q and the ring do not fit in a
+    block's shared memory together: each Q slab is staged beside its K slab
+    (the plan asks for two stages of a K and a Q slab), with the same
+    output: within 2e-5 abs of float64 in f32, one bf16 rounding in
+    bf16, the lse within 1e-3."""
+    from repro_torch.analysis.ir.launch_lint import (intercept_launches,
+                                                    query_plans)
+    from repro_torch.kernels.flash_attention import attention_lse_ref, ops
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(32)
+    B, S, H = 1, 100, 2
+    q, k = (torch.randn((B, S, H, D), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    v = torch.randn((B, S, H, Dv), generator=g, device=cuda).to(dt)
+    lse = torch.empty((B, H, S), device=cuda)
+    records = []
+    with intercept_launches(records):
+        o = ops._forward(q, k, v, True, 0, 1.0 / math.sqrt(D), lse,
+                         ops.ANY_FWD)
+    q64, k64, v64 = (t.double() for t in (q, k, v))
+    ref = attention_ref(q64, k64, v64)
+    torch.cuda.synchronize()
+    assert float((o.double() - ref).abs().max()) <= tol
+    assert float((lse.double() - attention_lse_ref(q64, k64)).abs().max()) \
+        <= 1e-3
+    (plan,) = query_plans(records[0])
+    ld = 64 + 16 // q.element_size()
+    assert plan.dyn_smem == 2 * 2 * 64 * ld * q.element_size()
+    assert plan.grid == (2 * -(-Dv // 192) * H * B, 1, 1)
+
+
+@GENERAL_SHAPES
 def test_flash_general_backward_matches_float64(cuda, B, Sq, Sk, H, KH, D, Dv,
                                                 causal, window, dtype,
                                                 offset):

@@ -1,7 +1,7 @@
 """chip_smoke's tensor-core count on synthetic `cuobjdump -sass` listings:
 mma.sync (HMMA) and wgmma (HGMMA) instructions counted apart, and the
-build phase's check that every backward product kernel issues one of them
-and every wide backward kernel issues HGMMA."""
+build phase's check that every backward product kernel and the general
+forward issue one of them and every wide backward kernel issues HGMMA."""
 import sys
 from pathlib import Path
 
@@ -32,6 +32,7 @@ SOUND = {
     "_Z20ssd_bwd_state_kernelIfEvv": (MMA,),
     "_Z19ssd_bwd_tile_kernelIfEvv": (MMA,),
     "_Z9flash_fwdIfLi72ELb1EEvv": (MMA,),
+    "_Z13flash_fwd_anyIfLb1ELb0EEvv": (MMA, MMA, PLAIN),
 }
 
 
@@ -63,6 +64,9 @@ def test_counts_hmma_and_hgmma_apart():
     ("_Z19flash_bwd_dkdv_wideILi160ELi160EEvv", (MMA,),
      "wide flash backward kernel"),
     ("_Z20ssd_bwd_state_kernelIfEvv", (PLAIN,), "SSD backward kernel"),
+    # a general flash forward without tensor-core products
+    ("_Z13flash_fwd_anyIfLb1ELb0EEvv", (PLAIN,),
+     "general flash forward kernel"),
 ])
 def test_a_kernel_without_its_instructions_fails(name, instructions,
                                                  fragment):

@@ -20,6 +20,8 @@ against on the card, at widths no earlier instantiation takes:
 Inputs are numpy draws from a seed; JAX compiles are scoped to the module.
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +46,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, route)
 from repro_torch.kernels.ssd import (general, ssd_bwd_ref, ssd_ref,  # noqa: E402
                                      ssd_scan)
+from repro_torch.kernels.flash_attention.ops import aligned16  # noqa: E402
 from repro_torch.models import forward  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 F32, BF16 = torch.float32, torch.bfloat16
 ANY = Route("flash_attention_fwd_any", None)
@@ -104,6 +110,22 @@ def test_route(dtype, D, Dv, aligned, grad, want):
 def test_route_raises(dtype, D, Dv, err):
     with pytest.raises(err):
         route(dtype, D, Dv, True, False)
+
+
+@pytest.mark.parametrize("case", chip_smoke.ANY_FLASH_CASES,
+                         ids=lambda c: c[0])
+def test_any_flash_cases_route_to_the_general_units(case):
+    """Every row of chip_smoke's any-kernels phase, at its dtype and storage
+    offset, takes the general forward, and under grad the general
+    backward: the phase times and checks those units, not a routed
+    instantiation."""
+    _, _, _, _, _, D, Dv, _, dt, offset = case
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.empty((offset + n,), dtype=dtype)[offset:]
+               for n in (D, D, Dv))
+    aligned = aligned16(D, Dv, (q, k, v))
+    assert route(dtype, D, Dv, aligned, False) == ANY
+    assert route(dtype, D, Dv, aligned, True) == ANY_GRAD
 
 
 def test_ssd_general_units_take_what_ssd_cu_does_not():

@@ -3,11 +3,12 @@
 or the forecast kernel) built from several source trees, compared on one
 CUDA card.
 
-    python3 tools/flash_fwd_ab.py [--kernel flash|flash-lse|ssd|flash-bwd|ssd-bwd|forecast] --src build/parent/src --src src [--src src --src build/parent/src]
+    python3 tools/flash_fwd_ab.py [--kernel flash|flash-lse|flash-any|ssd|flash-bwd|ssd-bwd|forecast] --src build/parent/src --src src [--src src --src build/parent/src]
 
 Builds the kernel's sources of each tree (under `repro_torch/kernels`:
 `flash_attention/csrc/flash_attention.cu`, the training forward's
-`flash_attention/csrc/flash_attention_lse.cu`, `ssd/csrc/ssd.cu`,
+`flash_attention/csrc/flash_attention_lse.cu`, the general forward's
+`flash_attention/csrc/flash_attention_any.cu`, `ssd/csrc/ssd.cu`,
 `flash_attention/csrc/flash_attention_bwd*.cu`, `ssd/csrc/ssd_bwd.cu` or
 `forecast/csrc/forecast.cu`;
 one nvcc per source of every tree, all started together, into
@@ -15,7 +16,8 @@ one nvcc per source of every tree, all started together, into
 then prints, against the first tree:
 
 - ptxas registers, spill bytes and static shared bytes of every
-  instantiation (`flash_fwd`; `ssd_cb_kernel` and `ssd_scan_kernel`;
+  instantiation (`flash_fwd`; `flash_fwd_any`; `ssd_cb_kernel` and
+  `ssd_scan_kernel`;
   `flash_bwd_*`; `ssd_bwd_*`), and those where they differ (the backward
   kernels' shared memory is dynamic: their source notes give its bytes);
 - the SASS of every instantiation the first tree has, with constant-bank
@@ -29,7 +31,12 @@ then prints, against the first tree:
   chip_smoke's ssd phase, zamba2 prefill b 4, s 512, h 80, p = n = 64 in
   f32 and on bf16 views of the conv output, b 1 on bf16 views, a ragged
   s = 500 in f32.  flash-lse: the training forward (kLse) at DiT-XL's,
-  zamba2's and tinyllama's training shapes.  flash-bwd and ssd-bwd:
+  zamba2's and tinyllama's training shapes.  flash-any: chip_smoke's
+  ANY_FLASH_CASES (pixtral-12b f32 160, the MLA f32 192 over 128, the
+  prompt encoder's 288, Gemma's 256 in bf16 and f32, odd 200 and a
+  misaligned bf16 136), each serving and with the lse, with each tree's
+  largest error of o against the plain version in float64 (and of the lse
+  against its float64 reference).  flash-bwd and ssd-bwd:
   chip_smoke's flash-bwd and ssd-bwd phases' shapes, and for flash-bwd
   the general unit's at pixtral-12b's and the MLA's training shapes in
   f32 and at a misaligned bf16 D 136 (BWD_AB_EXTRA); a row the wrapper
@@ -37,10 +44,11 @@ then prints, against the first tree:
   or `flash_attention_bwd_any`), and a tree without it sits the row out.  forecast: the serving skip tick's 4 slots x 3
   x 4096 in f32 and bf16, the video pool's 2 x 3 x 65536, and an n that
   takes the element-by-element path), whether the outputs are bitwise
-  equal across the trees, for a backward also each tree's largest error
-  against float64 autograd of the plain version (flash: max abs, or the
+  equal across the trees, for flash-any and a backward also each tree's
+  largest error against float64 (for a backward: autograd of the plain
+  version (flash: max abs, or the
   excess over one bf16 rounding where chip_smoke gates so; ssd: the
-  largest of each gradient's error over its largest value), and the
+  largest of each gradient's error over its largest value)), and the
   device ms per call:
   CUDA events around a CUDA graph of `reps` back-to-back calls, each tree
   in order and then in reverse, three rounds; a tree given twice shows the
@@ -80,6 +88,44 @@ def flash_case(torch, gen, B, Sq, Sk, H, KH, D, causal, dt):
              1.0 / math.sqrt(D)), (o,), (q, k, v))
 
 
+def flash_any_case(torch, gen, B, S, H, KH, D, Dv, causal, dt, offset,
+                   with_lse):
+    """flash_attention_fwd_any's arguments at one of ANY_FLASH_CASES (each
+    input `offset` elements into its storage), serving or with the lse, and
+    error(outs): the largest error of o against the plain version in
+    float64 and, with the lse, of the lse against its float64 reference."""
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     attention_ref)
+    dtype = getattr(torch, dt)
+
+    def rnd(shape):
+        flat = torch.randn((math.prod(shape) + offset,), generator=gen,
+                           device="cuda").to(dtype)
+        return flat[offset:].view(shape)
+    q, k, v = rnd((B, S, H, D)), rnd((B, S, KH, D)), rnd((B, S, KH, Dv))
+    o = torch.empty((B, S, H, Dv), dtype=dtype, device="cuda")
+    lse = torch.empty((B, H, S), device="cuda") if with_lse else None
+    ref = attention_ref(*(t.double() for t in (q, k, v)), causal=causal)
+    lse_ref = attention_lse_ref(q.double(), k.double(), causal=causal) \
+        if with_lse else None
+
+    def error(outs):
+        err = float((outs[0].double() - ref).abs().max())
+        if with_lse:
+            return err, float((outs[1].double() - lse_ref).abs().max())
+        return err
+    args = (*_ptrs((q, k, v, o, lse)), int(dt == "bfloat16"), B, S, S, H,
+            KH, D, Dv, int(causal), 0, 1.0 / math.sqrt(D))
+    return args, (o,) if lse is None else (o, lse), (q, k, v), error
+
+
+def any_flash_shapes():
+    """chip_smoke's ANY_FLASH_CASES, each serving and with the lse."""
+    from chip_smoke import ANY_FLASH_CASES
+    return [(f"{name}{', lse' if lse else ''}", *shape, lse)
+            for name, *shape in ANY_FLASH_CASES for lse in (False, True)]
+
+
 def ssd_case(torch, gen, b, s, h, p, n, xbc):
     from chip_smoke import ssd_inputs
     x, dt, A, B_, C_ = ins = ssd_inputs(torch, gen, b, s, h, p, n, xbc)
@@ -90,6 +136,13 @@ def ssd_case(torch, gen, b, s, h, p, n, xbc):
              C_.data_ptr(), cb.data_ptr(), y.data_ptr(), hf.data_ptr(),
              int(xbc), b, s, h, p, n, *x.stride()[:3], *B_.stride()[:2],
              *C_.stride()[:2]), (y, hf), (*ins, cb))
+
+
+def _fmt(err) -> str:
+    """An error, or a tuple of them (o and the lse), as %.3e."""
+    if isinstance(err, tuple):
+        return "(" + ", ".join(f"{e:.3e}" for e in err) + ")"
+    return f"{err:.3e}"
 
 
 def _ptrs(ts):
@@ -264,6 +317,13 @@ KERNELS = {
             ("zamba2 train bf16", 8, 128, 128, 32, 32, 80, 1, "bfloat16"),
             ("tinyllama train", 8, 128, 128, 32, 4, 64, 1, "bfloat16"),
         ]},
+    "flash-any": {
+        "cu": "flash_attention/csrc/flash_attention_any.cu",
+        "entry": "flash_attention_fwd_any",
+        "argtypes": [P] * 5 + [I] * 10 + [F],
+        "instantiation": r"flash_fwd_anyI\w+?Lb\dELb\dE",
+        "case": flash_any_case, "seed": 19, "error": True,
+        "shapes": any_flash_shapes},
     "ssd": {
         "cu": "ssd/csrc/ssd.cu",
         "entry": "ssd_fwd", "argtypes": [P] * 8 + [I] * 6 + [L] * 7,
@@ -453,6 +513,8 @@ def main() -> int:
                 alt[label, entry] = f
     backward = kernel.get("backward", False)
     shapes = kernel["shapes"]
+    if callable(shapes):
+        shapes = shapes()
     if isinstance(shapes, str):
         import chip_smoke
         shapes = getattr(chip_smoke, shapes) + kernel.get("extra_shapes", [])
@@ -468,7 +530,9 @@ def main() -> int:
                       f"{[x for x in labels if x not in row]}", flush=True)
             calls = {x: call(variants[x]) for x in row}
         else:
-            call_args, outs_of, _keep = kernel["case"](torch, gen, *shape)
+            call_args, outs_of, _keep, *error = kernel["case"](torch, gen,
+                                                               *shape)
+            error = error[0] if error else None
             calls = {x: (call_args, outs_of, ()) for x in labels}
 
         def run(label):
@@ -486,9 +550,9 @@ def main() -> int:
         check = "outputs bitwise equal " + str(all(
             torch.equal(a, b) for x in row
             for a, b in zip(outs[row[0]], outs[x])))
-        if backward:
+        if backward or kernel.get("error"):
             check += "; error against float64 " + ", ".join(
-                f"{x} {error(outs[x]):.3e}" for x in row)
+                f"{x} {_fmt(error(outs[x]))}" for x in row)
 
         def time_ms(label):
             run(label)
