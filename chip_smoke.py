@@ -5418,8 +5418,8 @@ ANY_SSD_CASES = [  # name, b, s, h, p, n, bf16 xBC views, dh_final
     ("ragged p 96 n 160, dh_final", 1, 500, 4, 96, 160, False, True),
 ]
 ANY_KERNEL_TAGS = ("flash_fwd_any", "flash_bwd_dkdv_any", "flash_bwd_dq_any",
-                   "ssd_cb_any", "ssd_scan_any", "ssd_bwd_state_any",
-                   "ssd_bwd_tile_any")
+                   "ssd_cb_any", "ssd_scan_any", "ssd_bwd_scan_any",
+                   "ssd_bwd_state_any", "ssd_bwd_tile_any")
 
 
 def any_registers_spills():
@@ -5679,12 +5679,10 @@ def phase_any_kernels(torch, F):
         f"instantiations {usage}")
     if len(usage) < 12:
         fail(f"any: ptxas reported {len(usage)} general-unit instantiations")
-    spilled = [k for k, u in usage.items()
-               if k.startswith(("flash_bwd", "flash_fwd_any"))
-               and (u[1] or u[2])]
+    spilled = [k for k, u in usage.items() if u[1] or u[2]]
     if spilled:
-        fail(f"any: the general flash forward or backward spills in "
-             f"{spilled}")
+        fail(f"any: a general unit (flash or SSD, forward or backward) "
+             f"spills in {spilled}")
 
     def row(rows, main):
         out = dict(rows[main])
@@ -7015,6 +7013,9 @@ TENSOR_CORE_CHECKS = (
     ("wide flash backward", ("flash_bwd_dkdv_wide", "flash_bwd_dq_wide"),
      ("HGMMA",)),
     ("general flash forward", ("flash_fwd_any",), ("HMMA", "HGMMA")),
+    ("general SSD forward", ("ssd_cb_any", "ssd_scan_any"), ("HMMA", "HGMMA")),
+    ("general SSD backward", ("ssd_bwd_state_any", "ssd_bwd_tile_any"),
+     ("HMMA", "HGMMA")),
 )
 
 

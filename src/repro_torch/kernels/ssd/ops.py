@@ -12,7 +12,13 @@ sums over groups) where the head dim p and the state n are at most
 `csrc/ssd_bwd_any.cu`, the same decomposition over 64-wide slabs of p and
 n, at any other p >= 1 and n >= 1 (a Mamba2 state of 128, as every
 published Mamba2 checkpoint has), or raise: there is no fallback on the
-card.  No width is a limit.  `ssd_scan.launches` and
+card.  No width is a limit.  Inside the general forward, n routes by width:
+up to `RESIDENT_N` (1024) a block keeps its rows of the state in shared
+memory and writes h_final once; a wider state walks those rows in h_final
+itself, the same kernel with the rows in device memory.  The general
+backward keeps a head group's dB and dC partials in registers up to n 128
+and, wider, adds 128-column chunks of them into its scratch.
+`ssd_scan.launches` and
 `ssd_scan_backward.launches` count calls that launched the kernels
 (plain integers), and `_build.launches` each C entry point's launches
 (`ssd_fwd_any` / `ssd_bwd_any` those that went to the general units).
@@ -33,6 +39,8 @@ dx, dB and dC come back in x's dtype, each rounded once from f32.  On the
 CPU `ssd_ref` is differentiable itself."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
@@ -40,6 +48,7 @@ from .ref import ssd_bwd_ref, ssd_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMALL = 64             # p and n up to which ssd.cu / ssd_bwd.cu run
+RESIDENT_N = 1024      # n up to which ssd_any.cu keeps h in shared memory
 TILE = 64              # tokens of a tile (the C B^T scratch is per tile)
 
 
@@ -55,6 +64,25 @@ def head_group(b: int, s: int, h: int) -> int:
     dCB run once a group, and the group's dB and dC partials go out once."""
     nt = -(-s // TILE)
     return max(1, min(8, h, nt * h * b // 256))
+
+
+@functools.lru_cache(maxsize=None)
+def any_head_group(b: int, s: int, h: int, sms: int) -> int:
+    """Heads a block of the general backward's tile kernel
+    (`csrc/ssd_bwd_any.cu`) walks.  Its blocks take an SM each (their
+    shared memory), so the group trades waves of (tiles x groups x b)
+    blocks over `sms` against heads a block: the group of least waves x
+    (group + 1), the block's own C B^T and dCB products counted as one
+    head; the smallest on a tie, at most 64.  zamba2-2.7b's (4, 512, 80) on
+    an H100's 132 SMs: 20 heads, 128 blocks in one wave."""
+    nt = -(-s // TILE)
+    return min(range(1, min(h, 64) + 1),
+               key=lambda g: -(-nt * -(-h // g) * b // sms) * (g + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name, x, dt, A, B_, C_):
@@ -164,12 +192,17 @@ def ssd_scan_backward(x, dt, A, B_, C_, dy, dh_final=None):
         raise ValueError("ssd_scan_backward: dy and dh_final must be "
                          "contiguous float32 tensors on x's device")
     dev, nt = x.device, -(-s // TILE)
-    group = head_group(b, s, h)
+    entry = "ssd_bwd_any" if general(p, n) else "ssd_bwd"
+    group = (any_head_group(b, s, h, _sms(x.get_device()))
+             if entry == "ssd_bwd_any" else head_group(b, s, h))
     groups = -(-h // group)
     f32 = dict(dtype=torch.float32, device=dev)
     hst = torch.empty((b, nt - 1, h, p, n), **f32)
     gst = torch.empty((b, nt - 1, h, p, n), **f32)
-    decay = torch.empty((b, nt, h), **f32)
+    # ssd_bwd's exp(cs_last) of each (b, tile, head); the general unit's
+    # tile scans (dt, cs, exp(cs) and w of each tile) in its place
+    decay = torch.empty((4, b, nt, h, TILE) if entry == "ssd_bwd_any"
+                        else (b, nt, h), **f32)
     dbp = torch.empty((b, s, groups, n), **f32)
     dcp = torch.empty((b, s, groups, n), **f32)
     dapart = torch.empty((b, nt, h), **f32)
@@ -178,7 +211,6 @@ def ssd_scan_backward(x, dt, A, B_, C_, dy, dh_final=None):
     dA = torch.empty((h,), **f32)
     dB = torch.empty((b, s, n), dtype=B_.dtype, device=dev)
     dC = torch.empty((b, s, n), dtype=C_.dtype, device=dev)
-    entry = "ssd_bwd_any" if general(p, n) else "ssd_bwd"
     _build.launch(entry, x.get_device(), x.data_ptr(), dt.data_ptr(),
                   A.data_ptr(), B_.data_ptr(), C_.data_ptr(), dy.data_ptr(),
                   None if dh_final is None else dh_final.data_ptr(),

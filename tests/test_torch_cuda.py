@@ -1295,6 +1295,115 @@ def test_flash_general_backward_matches_float64(cuda, B, Sq, Sk, H, KH, D, Dv,
         assert bool((got[0][:, :Sq - Sk] == 0).all())
 
 
+# the general SSD units (csrc/ssd_any.cu and ssd_bwd_any.cu): p or n above
+# 64.  offset: x, B and C views start that many elements into their storage
+GENERAL_SSD_SHAPES = pytest.mark.parametrize("b,s,h,p,n,xbc,dh,offset", [
+    (4, 512, 80, 64, 128, True, False, 0),     # zamba2-2.7b at state 128, xBC views
+    (4, 512, 80, 64, 128, False, False, 0),    # the same in f32
+    (1, 500, 4, 96, 160, False, True, 0),      # ragged p 96 / n 160 / s 500
+    (2, 200, 4, 64, 256, True, True, 0),       # n 256: 4 slabs, 2 chunks of 128
+    (1, 130, 3, 80, 72, True, False, 1),       # bf16 views one element off 16 B
+    (2, 40, 3, 72, 96, False, True, 0),        # shorter than a tile
+    (1, 100, 2, 40, 1100, False, True, 0),     # n past RESIDENT_N: h in h_final
+])
+
+
+def _general_ssd_inputs(b, s, h, p, n, xbc, dh, offset, seed):
+    """x, dt, A, B, C (bf16 views of one conv output, `offset` elements into
+    its storage, or contiguous f32), dy and dh_final (or None)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    dt = torch.nn.functional.softplus(randn(b, s, h))
+    A = -torch.exp(torch.rand((h,), generator=g, device="cuda"))
+    if xbc:
+        w = h * p
+        flat = randn(b * s * (w + 2 * n) + offset).to(torch.bfloat16)
+        buf = flat[offset:].view(b, s, w + 2 * n)
+        x, B_, C_ = buf[..., :w].view(b, s, h, p), buf[..., w:w + n], \
+            buf[..., w + n:]
+    else:
+        x, B_, C_ = randn(b, s, h, p), randn(b, s, n), randn(b, s, n)
+    return (x, dt, A, B_, C_), randn(b, s, h, p), \
+        randn(b, h, p, n) if dh else None
+
+
+@GENERAL_SSD_SHAPES
+def test_ssd_general_forward_matches_plain(cuda, b, s, h, p, n, xbc, dh,
+                                           offset):
+    """The general scan: routed there, one launch of `ssd_fwd_any` a call,
+    y and h_final within 2e-4 abs + 1e-3 rel of `ssd_chunked` in float64
+    at the longest chunk of at most 64 that divides s, bitwise on a rerun;
+    the plan launches C B^T and the scan, and neither spills."""
+    from repro_torch.analysis.ir.launch_lint import (intercept_launches,
+                                                    query_plans)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd.ops import general
+    assert general(p, n)
+    args, _, _ = _general_ssd_inputs(b, s, h, p, n, xbc, dh, offset, seed=41)
+    records = []
+    before = _build.launches.ssd_fwd_any
+    with intercept_launches(records):
+        (y, hf), (y2, hf2) = (ssd_scan(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert _build.launches.ssd_fwd_any == before + 2
+    assert [r.entry for r in records] == ["ssd_fwd_any"] * 2
+    assert torch.equal(y, y2) and torch.equal(hf, hf2)
+    chunk = max(c for c in range(1, 65) if s % c == 0)
+    yr, hr = ssd_chunked(*(a.double() for a in args), chunk)
+    for out, ref in ((y, yr), (hf, hr)):
+        assert out.shape == ref.shape and out.dtype == torch.float32
+        assert float(((out.double() - ref).abs()
+                      - 1e-3 * ref.abs()).max()) <= 2e-4
+    plans = query_plans(records[0])
+    assert [pl.kernel for pl in plans] == ["ssd_cb_any", "ssd_scan_any"]
+    assert all(pl.local_bytes == 0 and pl.active_blocks >= 1 for pl in plans)
+
+
+@GENERAL_SSD_SHAPES
+def test_ssd_general_backward_matches_float64(cuda, b, s, h, p, n, xbc, dh,
+                                              offset):
+    """The general scan's backward: one launch of `ssd_bwd_any` a call,
+    bitwise on a rerun, each gradient within 1e-4 of its largest value of
+    float64 autograd of `ssd_ref` (plus 2^-8 |ref| for the bf16 dx, dB and
+    dC); the plan launches the tile scans, the states (past one tile), the
+    tile terms and the group sums, and none spills."""
+    from repro_torch.analysis.ir.launch_lint import (intercept_launches,
+                                                    query_plans)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd import ssd_ref, ssd_scan_backward
+    args, dy, dhf = _general_ssd_inputs(b, s, h, p, n, xbc, dh, offset,
+                                        seed=42)
+    records = []
+    before = _build.launches.ssd_bwd_any
+    with intercept_launches(records):
+        got, again = (ssd_scan_backward(*args, dy, dhf) for _ in range(2))
+    torch.cuda.synchronize()
+    assert _build.launches.ssd_bwd_any == before + 2
+    assert [r.entry for r in records] == ["ssd_bwd_any"] * 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    ins = [a.detach().double().requires_grad_() for a in args]
+    y64, h64 = ssd_ref(*ins)
+    loss = (y64 * dy.double()).sum()
+    if dh:
+        loss = loss + (h64 * dhf.double()).sum()
+    ref = torch.autograd.grad(loss, ins)
+    x = args[0]
+    for a, r, want in zip(got, ref, (x.dtype, torch.float32, torch.float32,
+                                     x.dtype, x.dtype)):
+        assert a.shape == r.shape and a.dtype == want
+        tol = 1e-4 * float(r.abs().max())
+        if a.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -8 * r.abs()
+        assert bool(((a.double() - r).abs() <= tol).all())
+    plans = query_plans(records[0])
+    assert [pl.kernel for pl in plans] == (
+        ["ssd_bwd_scan_any"] + (["ssd_bwd_state_any"] if s > 64 else [])
+        + ["ssd_bwd_tile_any", "ssd_bwd_reduce_kernel"])
+    assert all(pl.local_bytes == 0 and pl.active_blocks >= 1 for pl in plans)
+
+
 @pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v2-236b"])
 def test_moe_smoke_card_matches_cpu(cuda, arch):
     """f32 SMOKE on the card against the CPU: the forward's logits and MoE

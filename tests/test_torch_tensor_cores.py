@@ -1,7 +1,8 @@
 """chip_smoke's tensor-core count on synthetic `cuobjdump -sass` listings:
 mma.sync (HMMA) and wgmma (HGMMA) instructions counted apart, and the
-build phase's check that every backward product kernel and the general
-forward issue one of them and every wide backward kernel issues HGMMA."""
+build phase's check that every backward product kernel, the general flash
+forward and the general SSD scan and backward product kernels issue one of
+them and every wide backward kernel issues HGMMA."""
 import sys
 from pathlib import Path
 
@@ -33,6 +34,12 @@ SOUND = {
     "_Z19ssd_bwd_tile_kernelIfEvv": (MMA,),
     "_Z9flash_fwdIfLi72ELb1EEvv": (MMA,),
     "_Z13flash_fwd_anyIfLb1ELb0EEvv": (MMA, MMA, PLAIN),
+    "_Z10ssd_cb_anyIfLb1EEvv": (MMA,),
+    "_Z12ssd_scan_anyIfLb1ELb1EEvv": (MMA, PLAIN),
+    "_Z17ssd_bwd_state_anyIfLb1EEvv": (MMA,),
+    "_Z16ssd_bwd_tile_anyIfLb1EEvv": (MMA, PLAIN),
+    # the general backward's tile scans: no product, in no group
+    "_Z16ssd_bwd_scan_anyEvv": (PLAIN,),
 }
 
 
@@ -67,6 +74,11 @@ def test_counts_hmma_and_hgmma_apart():
     # a general flash forward without tensor-core products
     ("_Z13flash_fwd_anyIfLb1ELb0EEvv", (PLAIN,),
      "general flash forward kernel"),
+    # a general SSD scan or backward tile kernel without them
+    ("_Z12ssd_scan_anyIfLb1ELb1EEvv", (PLAIN, PLAIN),
+     "general SSD forward kernel"),
+    ("_Z16ssd_bwd_tile_anyIfLb1EEvv", (PLAIN,),
+     "general SSD backward kernel"),
 ])
 def test_a_kernel_without_its_instructions_fails(name, instructions,
                                                  fragment):

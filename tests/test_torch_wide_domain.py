@@ -133,6 +133,42 @@ def test_ssd_general_units_take_what_ssd_cu_does_not():
     assert general(64, 128) and general(96, 64) and general(96, 160)
 
 
+@pytest.mark.parametrize("b,s,h,sms,want", [
+    (4, 512, 80, 132, 20),    # zamba2 n 128: 128 blocks, one wave
+    (1, 500, 4, 132, 1),      # the ragged p 96 row: 32 blocks
+    (8, 128, 80, 132, 10),    # zamba2's training batch: 128 blocks
+    (1, 64, 3, 132, 1),       # one tile, few heads
+    (2, 4096, 200, 132, 50),  # 512 blocks in 4 waves
+])
+def test_any_head_group_trades_waves_against_heads(b, s, h, sms, want):
+    """The general backward's head group: the least waves x (group + 1) of
+    its one-block-an-SM tile kernel, the smallest group on a tie, at most
+    64 heads."""
+    from repro_torch.kernels.ssd.ops import any_head_group
+    nt = -(-s // 64)
+
+    def cost(g):
+        return -(-nt * -(-h // g) * b // sms) * (g + 1)
+    got = any_head_group(b, s, h, sms)
+    assert got == want and 1 <= got <= min(h, 64)
+    assert all(cost(got) < cost(g) for g in range(1, got))
+    assert all(cost(got) <= cost(g) for g in range(got, min(h, 64) + 1))
+
+
+def test_ssd_general_widths_match_the_sources():
+    """ops.RESIDENT_N, the widest state the general forward keeps in shared
+    memory, and the 128 columns of n whose dB / dC partials the general
+    backward keeps in registers, as the CUDA sources state them."""
+    import re
+    from repro_torch.kernels.ssd import ops
+    csrc = Path(ops.__file__).parent / "csrc"
+    fwd = (csrc / "ssd_any.cu").read_text()
+    bwd = (csrc / "ssd_bwd_any.cu").read_text()
+    assert int(re.search(r"kMaxResidentN = (\d+);", fwd).group(1)) \
+        == ops.RESIDENT_N == 1024
+    assert int(re.search(r"constexpr int kNC = (\d+);", bwd).group(1)) == 128
+
+
 # ----------------------------------------------------------------------
 # attention_ref / attention_bwd_ref at wide f32 head dims against JAX
 # ----------------------------------------------------------------------

@@ -3,13 +3,15 @@
 or the forecast kernel) built from several source trees, compared on one
 CUDA card.
 
-    python3 tools/flash_fwd_ab.py [--kernel flash|flash-lse|flash-any|ssd|flash-bwd|ssd-bwd|forecast] --src build/parent/src --src src [--src src --src build/parent/src]
+    python3 tools/flash_fwd_ab.py [--kernel flash|flash-lse|flash-any|ssd|ssd-any|flash-bwd|ssd-bwd|ssd-bwd-any|forecast] --src build/parent/src --src src [--src src --src build/parent/src]
 
 Builds the kernel's sources of each tree (under `repro_torch/kernels`:
 `flash_attention/csrc/flash_attention.cu`, the training forward's
 `flash_attention/csrc/flash_attention_lse.cu`, the general forward's
-`flash_attention/csrc/flash_attention_any.cu`, `ssd/csrc/ssd.cu`,
-`flash_attention/csrc/flash_attention_bwd*.cu`, `ssd/csrc/ssd_bwd.cu` or
+`flash_attention/csrc/flash_attention_any.cu`, `ssd/csrc/ssd.cu`, the
+general scan's `ssd/csrc/ssd_any.cu`,
+`flash_attention/csrc/flash_attention_bwd*.cu`, `ssd/csrc/ssd_bwd.cu`, the
+general scan backward's `ssd/csrc/ssd_bwd_any.cu` or
 `forecast/csrc/forecast.cu`;
 one nvcc per source of every tree, all started together, into
 `build/flash_fwd_ab/`, each printed when it ends),
@@ -17,9 +19,10 @@ then prints, against the first tree:
 
 - ptxas registers, spill bytes and static shared bytes of every
   instantiation (`flash_fwd`; `flash_fwd_any`; `ssd_cb_kernel` and
-  `ssd_scan_kernel`;
-  `flash_bwd_*`; `ssd_bwd_*`), and those where they differ (the backward
-  kernels' shared memory is dynamic: their source notes give its bytes);
+  `ssd_scan_kernel`; `ssd_cb_any` and `ssd_scan_any`;
+  `flash_bwd_*`; `ssd_bwd_*`, with `ssd_bwd_*_any` for the general unit),
+  and those where they differ (the backward and the general SSD kernels'
+  shared memory is dynamic: their source notes give its bytes);
 - the SASS of every instantiation the first tree has, with constant-bank
   offsets masked: those whose instructions differ, with the count, and
   the instantiations only a later tree has;
@@ -30,7 +33,12 @@ then prints, against the first tree:
   cross-attention (448 queries over 1500 keys), bf16.  ssd:
   chip_smoke's ssd phase, zamba2 prefill b 4, s 512, h 80, p = n = 64 in
   f32 and on bf16 views of the conv output, b 1 on bf16 views, a ragged
-  s = 500 in f32.  flash-lse: the training forward (kLse) at DiT-XL's,
+  s = 500 in f32.  ssd-any and ssd-bwd-any: chip_smoke's ANY_SSD_CASES
+  (zamba2-2.7b's Mamba2 layer at state 128 on bf16 xBC views and in f32,
+  a ragged p 96 / n 160 / s 500 in f32 with dh_final), with each tree's
+  largest error against the plain version in float64 (the forward: its
+  largest absolute error and its worst excess over SSD_TOL's 1e-3
+  relative, held to 2e-4; the backward as ssd-bwd).  flash-lse: the training forward (kLse) at DiT-XL's,
   zamba2's and tinyllama's training shapes.  flash-any: chip_smoke's
   ANY_FLASH_CASES (pixtral-12b f32 160, the MLA f32 192 over 128, the
   prompt encoder's 288, Gemma's 256 in bf16 and f32, odd 200 and a
@@ -48,14 +56,17 @@ then prints, against the first tree:
   largest error against float64 (for a backward: autograd of the plain
   version (flash: max abs, or the
   excess over one bf16 rounding where chip_smoke gates so; ssd: the
-  largest of each gradient's error over its largest value)), and the
+  largest of each gradient's error over its largest value, and of its
+  excess over one bf16 rounding for a bf16 gradient, held to
+  SSD_BWD_TOL)), and the
   device ms per call:
   CUDA events around a CUDA graph of `reps` back-to-back calls, each tree
   in order and then in reverse, three rounds; a tree given twice shows the
   spread of one build.
 
 Each tree's backward is called through that tree's own argument list (the
-SSD backward's changed with its head groups).  Prints the card's name and
+SSD backward's changed with its head groups; the general one's with its
+tile scans and its own head groups, `ops.any_head_group`).  Prints the card's name and
 power limit.  `--src` takes a tree's `src` directory: unpack an older
 commit with `git archive <commit> | tar -x -C build/parent`.
 """
@@ -136,6 +147,27 @@ def ssd_case(torch, gen, b, s, h, p, n, xbc):
              C_.data_ptr(), cb.data_ptr(), y.data_ptr(), hf.data_ptr(),
              int(xbc), b, s, h, p, n, *x.stride()[:3], *B_.stride()[:2],
              *C_.stride()[:2]), (y, hf), (*ins, cb))
+
+
+def ssd_any_case(torch, gen, b, s, h, p, n, xbc, dh):
+    """ssd_fwd_any's arguments at one of ANY_SSD_CASES (dh_final plays no
+    part in the forward), and error(outs): the largest absolute error of y
+    and h_final against the plain version in float64 at the longest chunk
+    of at most 64 dividing s, and the worst excess over SSD_TOL's relative
+    part (within SSD_TOL's 2e-4 where it passes)."""
+    from chip_smoke import SSD_TOL
+    from repro_torch.kernels.ssd import ssd_chunked
+    args, outs, keep = ssd_case(torch, gen, b, s, h, p, n, xbc)
+    chunk = max(c for c in range(1, 65) if s % c == 0)
+    ref = ssd_chunked(*(t.double() for t in keep[:5]), chunk)
+
+    def error(got):
+        return (max(float((a.double() - r).abs().max())
+                    for a, r in zip(got, ref)),
+                max(float(((a.double() - r).abs()
+                           - SSD_TOL["rtol"] * r.abs()).max())
+                    for a, r in zip(got, ref)))
+    return args, outs, keep, error
 
 
 def _fmt(err) -> str:
@@ -219,7 +251,7 @@ def flash_lse_case(torch, gen, B, Sq, Sk, H, KH, D, causal, dt):
 def ssd_bwd_case(torch, gen, name, b, s, h, p, n, xbc, dh):
     from chip_smoke import SSD_GRADS, ssd_inputs
     from repro_torch.kernels.ssd import ssd_ref
-    from repro_torch.kernels.ssd.ops import head_group
+    from repro_torch.kernels.ssd.ops import _sms, any_head_group, head_group
     ins = ssd_inputs(torch, gen, b, s, h, p, n, xbc)
     x, dt, A, B_, C_ = ins
     dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
@@ -242,11 +274,15 @@ def ssd_bwd_case(torch, gen, name, b, s, h, p, n, xbc, dh):
                 torch.empty((b, s, n), dtype=B_.dtype, device="cuda"),
                 torch.empty((b, s, n), dtype=C_.dtype, device="cuda"))
         dx, ddt, dA, dB, dC = outs
-        if variant == "groups":      # hst, gst, decay, dbp, dcp, dapart
-            group = head_group(b, s, h)
+        if variant in ("groups", "any"):   # hst, gst, decay, dbp, dcp, dapart
+            # the general unit's own head groups, and its tile scans
+            # (4, b, tiles, h, 64) in place of exp(cs_last) (b, tiles, h)
+            group = (any_head_group(b, s, h, _sms(0)) if variant == "any"
+                     else head_group(b, s, h))
             groups = -(-h // group)
             scratch = (f32(b, nt - 1, h, p, n), f32(b, nt - 1, h, p, n),
-                       f32(b, nt, h), f32(b, s, groups, n),
+                       f32(*((4, b, nt, h, 64) if variant == "any"
+                             else (b, nt, h))), f32(b, s, groups, n),
                        f32(b, s, groups, n), f32(b, nt, h))
             args = (*_ptrs((x, dt, A, B_, C_, dy, dhf, *scratch[:3], dx,
                             ddt, *scratch[3:], dB, dC, dA)),
@@ -260,11 +296,19 @@ def ssd_bwd_case(torch, gen, name, b, s, h, p, n, xbc, dh):
         return args, outs, scratch
 
     def error(outs):
-        # grads come back in (dx, ddt, dA, dB, dC) order, as SSD_GRADS
+        # grads come back in (dx, ddt, dA, dB, dC) order, as SSD_GRADS: the
+        # largest error over the largest |grad|, and the largest excess over
+        # one bf16 rounding (2^-8 |ref|) of a bf16 gradient, likewise
         assert len(outs) == len(SSD_GRADS)
-        return max(float((a.double() - r).abs().max())
-                   / max(float(r.abs().max()), 1e-30)
-                   for a, r in zip(outs, ref))
+        rel, beyond = [], []
+        for a, r in zip(outs, ref):
+            big = max(float(r.abs().max()), 1e-30)
+            e = (a.double() - r).abs()
+            rel.append(float(e.max()) / big)
+            if a.dtype == torch.bfloat16:
+                e = e - 2.0 ** -8 * r.abs()
+            beyond.append(float(e.max()) / big)
+        return max(rel), max(beyond)
     return call, error, (*ins, dy, dhf)
 
 
@@ -279,14 +323,19 @@ def forecast_case(torch, gen, batch, m1, n, dt):
 
 
 def ssd_bwd_variant(cu: Path) -> str:
-    """The argument list of a tree's ssd_bwd: with head groups (the
-    tensor-core kernels) or per head (the earlier SIMT kernels)."""
-    return "groups" if "int group" in cu.read_text() else "heads"
+    """The argument list of a tree's ssd_bwd: per head (the earlier SIMT
+    kernels), with head groups (the tensor-core kernels), or with the
+    general unit's tile scans and head groups (`any`, from the redesign
+    of ssd_bwd_any.cu on)."""
+    text = cu.read_text()
+    if "int group" not in text:
+        return "heads"
+    return "any" if "ssd_bwd_scan_any" in text else "groups"
 
 
 def ssd_bwd_argtypes(variant):
-    return ([P] * 18 + [I] * 7 + [L] * 7 if variant == "groups"
-            else [P] * 17 + [I] * 6 + [L] * 7)
+    return ([P] * 17 + [I] * 6 + [L] * 7 if variant == "heads"
+            else [P] * 18 + [I] * 7 + [L] * 7)
 
 
 KERNELS = {
@@ -335,6 +384,12 @@ KERNELS = {
             ("b1 bf16 xBC views", 1, 512, 80, 64, 64, True),
             ("ragged 500 f32", 1, 500, 80, 64, 64, False),
         ]},
+    "ssd-any": {
+        "cu": "ssd/csrc/ssd_any.cu",
+        "entry": "ssd_fwd_any", "argtypes": [P] * 8 + [I] * 6 + [L] * 7,
+        "instantiation": r"ssd_(?:cb|scan)_anyI\w+?E(?:Lb\dE)*",
+        "case": ssd_any_case, "seed": 29, "error": True,
+        "shapes": "ANY_SSD_CASES"},
     "flash-bwd": {
         "cu": "flash_attention/csrc/flash_attention_bwd*.cu",
         "entry": "flash_attention_bwd",
@@ -353,6 +408,13 @@ KERNELS = {
         "instantiation": r"(?<=\d)ssd_bwd_[a-z]+_kernel\w*?E",
         "case": ssd_bwd_case, "seed": 3, "backward": True,
         "shapes": "SSD_BWD_CASES"},
+    "ssd-bwd-any": {
+        "cu": "ssd/csrc/ssd_bwd_any.cu",
+        "entry": "ssd_bwd_any", "argtypes": lambda cu: ssd_bwd_argtypes(
+            ssd_bwd_variant(cu)), "variant": ssd_bwd_variant,
+        "instantiation": r"(?<=\d)ssd_bwd_[a-z]+_(?:any|kernel)\w*?E(?:Lb\dE)*",
+        "case": ssd_bwd_case, "seed": 30, "backward": True,
+        "shapes": "ANY_SSD_CASES"},
     "forecast": {
         "cu": "forecast/csrc/forecast.cu",
         "entry": "forecast_fwd", "argtypes": [P] * 3 + [I] * 3 + [L, I],
